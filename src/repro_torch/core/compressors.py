@@ -25,9 +25,10 @@ import torch
 
 from repro_torch.core import selection
 from repro_torch.core.payload import Payload, PayloadMeta
-from repro_torch.core.wire import index_bits
+from repro_torch.core.wire import FLOAT_BITS, index_bits
+from repro_torch.kernels._lib import resolve_backend
+from repro_torch.kernels.randtopk import ops as tk_ops
 
-FLOAT_BITS = 32  # N in the paper
 MAX_INDEX = 2 ** 16  # uint16 wire indices
 
 
@@ -58,9 +59,13 @@ def mask_expand_rows(vals, words, d: int):
     return torch.where(mask & (pos < k), take, torch.zeros_like(take))
 
 
-def _scatter_rows(vals, idx, d: int):
-    """Dense (..., d) scatter of a sparse support (one write per index, the
-    reference's `put_along_axis`)."""
+def _scatter_rows(vals, idx, d: int, backend=None):
+    """Dense (..., d) scatter of a sparse support, backend-dispatched: the
+    `scatter_rows` kernel (duplicates sum) for CUDA tensors, else one write
+    per index, the reference's `put_along_axis`. The two agree on any
+    support with unique indices (every top-k support)."""
+    if resolve_backend(backend, vals) == "cuda":
+        return tk_ops.scatter_rows(vals, idx, d, backend="cuda")
     out = torch.zeros(vals.shape[:-1] + (d,), dtype=vals.dtype,
                       device=vals.device)
     return out.scatter(-1, idx.long(), vals)
@@ -74,27 +79,43 @@ def dequant(codes, header):
     return lo + (codes.float() + 0.5) * step
 
 
-def payload_to_dense(p: Payload, dtype=None):
+def payload_to_dense(p: Payload, dtype=None, *, backend=None, project=None):
     """Dense view (..., d) of any payload — the label-owner-side Decode,
-    dispatched on `p.meta.kind` only. The plain path: the reference's
-    `decode_rows` kernel (with its fused projection epilogue) is not ported
-    yet."""
+    dispatched on `p.meta.kind` only. `backend` follows
+    `kernels._lib.resolve_backend`: the `decode_rows` kernel for every kind
+    on CUDA leaves (dequant, scatter and mask expand in one pass), else the
+    plain two-pass path below. Dense, slice, sparse and mask rows are
+    bit-identical either way; quant kinds too, since both round each
+    operation of the dequant on its own.
+
+    `project` is an optional (d, P) cut-projection matrix: the kernel
+    multiplies the decoded f32 rows by it before the store; the plain path
+    multiplies the rows in `dtype`, as the reference's XLA path does."""
     dtype = dtype or torch.float32
     m = p.meta
+    if resolve_backend(backend, p.values) == "cuda":
+        from repro_torch.kernels.decode import ops as dec_ops
+
+        return dec_ops.decode_rows(p, dtype=dtype, project=project,
+                                   backend="cuda")
     if m.kind == "dense":
-        return p.values.to(dtype)
-    if m.kind == "slice":
-        return torch.nn.functional.pad(p.values.to(dtype), (0, m.d - m.k))
-    if m.kind == "sparse":
-        return _scatter_rows(p.values.to(dtype), p.indices, m.d)
-    if m.kind == "mask":
-        return mask_expand_rows(p.values.to(dtype), p.indices, m.d)
-    if m.kind == "quant":
-        return dequant(p.values, p.header).to(dtype)
-    if m.kind == "sparse_quant":
-        return _scatter_rows(dequant(p.values, p.header).to(dtype),
-                             p.indices, m.d)
-    raise ValueError(m.kind)
+        out = p.values.to(dtype)
+    elif m.kind == "slice":
+        out = torch.nn.functional.pad(p.values.to(dtype), (0, m.d - m.k))
+    elif m.kind == "sparse":
+        out = _scatter_rows(p.values.to(dtype), p.indices, m.d, backend)
+    elif m.kind == "mask":
+        out = mask_expand_rows(p.values.to(dtype), p.indices, m.d)
+    elif m.kind == "quant":
+        out = dequant(p.values, p.header).to(dtype)
+    elif m.kind == "sparse_quant":
+        out = _scatter_rows(dequant(p.values, p.header).to(dtype),
+                            p.indices, m.d, backend)
+    else:
+        raise ValueError(m.kind)
+    if project is not None:
+        out = (out.float() @ project.float()).to(dtype)
+    return out
 
 
 def quantize_rows(vals, bits: int, *, selected: bool = False):
@@ -131,7 +152,7 @@ class Compressor:
                        values=x.float())
 
     def decode(self, p: Payload, dtype=None):
-        return payload_to_dense(p, dtype=dtype)
+        return payload_to_dense(p, dtype=dtype, backend=self.backend)
 
     def forward(self, x, *, generator=None, training=False):
         p = self.encode(x, generator=generator, training=training)

@@ -3,16 +3,16 @@
 All functions act on the LAST axis (the instance feature axis `d`) and are
 batched over leading axes; top-k is by magnitude.
 
-`backend=` picks the CUDA kernel or its plain version
-(`kernels._lib.resolve_backend`: None/"auto", "torch" or "cuda").
+`backend=` picks the CUDA kernel or its plain version by the rule of
+`kernels._lib.resolve_backend` (None/"auto", "torch" or "cuda"), which this
+module re-exports.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._lib import resolve_backend
+from repro_torch.kernels._lib import resolve_backend  # noqa: F401
 from repro_torch.kernels.randtopk import ops as tk_ops
-from repro_torch.kernels.randtopk import ref as tk_ref
 
 
 def topk_mask(x: torch.Tensor, k: int, *, backend: str = None):
@@ -86,14 +86,13 @@ def randtopk_mask(x: torch.Tensor, k: int, alpha: float,
     """Randomized top-k selection mask, Eq. (7): exactly k elements, each
     draw a top-k element w.p. 1-alpha and a non-top-k one w.p. alpha.
 
-    The noise is drawn here from `generator` and handed to the plain
-    version as data (`kernels.randtopk.ref.randtopk_mask`); its CUDA kernel
-    is not ported yet, so every backend runs the plain version."""
+    The pick counts and the Gumbel noise are drawn here from `generator`
+    (in that order) and handed to the `randtopk_mask` kernel, or to its
+    plain version, as data (`kernels.randtopk.ops.randtopk_mask`)."""
     d = x.shape[-1]
     if k >= d:
         return torch.ones(x.shape, dtype=torch.bool, device=x.device)
-    resolve_backend(backend, x)
     m = binomial_nontop_count(generator, alpha, k, d, x.shape[:-1],
                               device=x.device)
     g = gumbel_noise(generator, x.shape, device=x.device)
-    return tk_ref.randtopk_mask(x, g, m, k)
+    return tk_ops.randtopk_mask(x, g, m, k, backend=backend)

@@ -252,6 +252,49 @@ def payload_nbytes(p: Payload) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Table-2 analytic sizes (relative to d * 32 bits), per instance.
+# ---------------------------------------------------------------------------
+
+FLOAT_BITS = 32  # N in the paper
+
+
+def table2_row(method: str, d: int, *, k: float = 0, bits: int = 0) -> dict:
+    r = index_bits(d)
+    n = FLOAT_BITS
+    if method == "size_reduction":
+        fwd = bwd = k / d
+    elif method in ("topk", "randtopk"):
+        fwd = k / d * (1 + r / n)
+        bwd = k / d
+    elif method == "randtopk_mask":
+        # k floats + one packed d-bit support mask (byte-aligned)
+        fwd = (k * n + 8 * mask_row_nbytes(d)) / (d * n)
+        bwd = k / d
+    elif method == "quant":
+        fwd = bits / n
+        bwd = 1.0
+    elif method == "l1":
+        fwd = k / d * (1 + r / n)  # k = measured nnz
+        bwd = 1.0
+    elif method == "randtopk_quant":
+        fwd = (k * (bits + r) + 2 * n) / (d * n)
+        bwd = k / d
+    elif method == "identity":
+        fwd = bwd = 1.0
+    else:
+        raise ValueError(method)
+    return {"method": method, "fwd": fwd, "bwd": bwd}
+
+
+def bytes_per_step(method: str, d: int, n_instances: int, *, k: float = 0,
+                   bits: int = 0, training: bool = True) -> float:
+    """Wire bytes for one batch step (fwd + optionally bwd)."""
+    row = table2_row(method, d, k=k, bits=bits)
+    per_inst = row["fwd"] + (row["bwd"] if training else 0.0)
+    return per_inst * d * FLOAT_BITS / 8 * n_instances
+
+
+# ---------------------------------------------------------------------------
 # Frame layer — the length-prefixed unit a streaming session sends.
 # ---------------------------------------------------------------------------
 

@@ -49,6 +49,108 @@ __device__ __forceinline__ int block_excl_prefix(bool flag, int* warp_sums,
   return before;
 }
 
+// Order-preserving unsigned key of a float: a > b as floats iff
+// float_key(a) > float_key(b). Negative floats (Gumbel scores can be) have
+// their bits flipped, non-negative ones their sign bit set; -0.0 maps to
+// the key of +0.0, since the two compare equal. Every non-NaN float maps
+// above 0, so key 0 can stand for "not in the pool". NaN is out of scope.
+__device__ __forceinline__ unsigned float_key(float f) {
+  unsigned u = __float_as_uint(f);
+  if ((u << 1) == 0u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// Shared-memory scratch of one radix select: a 256-bucket histogram, the
+// key prefix found so far, and how many keys of that prefix are still to
+// admit.
+struct RadixScratch {
+  int hist[256];
+  unsigned prefix;
+  int remaining;
+};
+
+// The EXACT `target`-th largest of keys[0, d) (1 <= target <= d), from
+// four 8-bit radix passes over the keys in shared memory: per pass a
+// shared histogram of the keys that match the prefix found so far, then
+// one warp finds the bucket that holds the target by a suffix scan.
+// Returns the kth key; `*need` is how many keys EQUAL to it belong to the
+// top `target` (the rest of the top are strictly greater). Every thread of
+// the block must call it; it ends with a barrier.
+__device__ __forceinline__ unsigned block_radix_kth(const unsigned* keys,
+                                                    int d, int target,
+                                                    RadixScratch* s,
+                                                    int* need) {
+  if (threadIdx.x == 0) {
+    s->prefix = 0u;
+    s->remaining = target;
+  }
+  unsigned prefix_mask = 0u;
+  for (int pass = 3; pass >= 0; --pass) {
+    const int shift = pass * 8;
+    for (int b = threadIdx.x; b < 256; b += blockDim.x) s->hist[b] = 0;
+    __syncthreads();
+    const unsigned prefix = s->prefix;
+    for (int i = threadIdx.x; i < d; i += blockDim.x) {
+      const unsigned key = keys[i];
+      if ((key & prefix_mask) == prefix)
+        atomicAdd(&s->hist[(key >> shift) & 255u], 1);
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      // lane l owns buckets [8l, 8l + 8); suffix = count in lanes >= l
+      const int lane = threadIdx.x;
+      const int remaining = s->remaining;
+      int local = 0;
+      for (int j = 0; j < 8; ++j) local += s->hist[lane * 8 + j];
+      int suffix = local;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int down = __shfl_down_sync(kFull, suffix, o);
+        if (lane + o < 32) suffix += down;
+      }
+      const int above = suffix - local;
+      if (above < remaining && suffix >= remaining) {   // exactly one lane
+        int cum = above;
+        for (int b = lane * 8 + 7; b >= lane * 8; --b) {
+          cum += s->hist[b];
+          if (cum >= remaining) {
+            s->prefix = prefix | (static_cast<unsigned>(b) << shift);
+            s->remaining = remaining - (cum - s->hist[b]);
+            break;
+          }
+        }
+      }
+    }
+    prefix_mask |= 255u << shift;
+    __syncthreads();
+  }
+  const unsigned kth = s->prefix;
+  *need = s->remaining;
+  __syncthreads();
+  return kth;
+}
+
+// Calls emit(i, selected) once for every i in [0, d), where `selected` is
+// key > kth, or key == kth and i among the first `need` such keys from the
+// left: exactly the top `target` of `block_radix_kth`, ties admitted in
+// index order (warp ballots + per-warp offsets). emit(i, .) runs on thread
+// i % blockDim.x. Every thread of the block must call it.
+template <class Emit>
+__device__ __forceinline__ void block_emit_selected(const unsigned* keys,
+                                                    int d, unsigned kth,
+                                                    int need, int* warp_sums,
+                                                    Emit emit) {
+  int running = 0;
+  for (int base = 0; base < d; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const unsigned key = i < d ? keys[i] : 0u;
+    const bool eq = i < d && key == kth;
+    int total;
+    const int before = block_excl_prefix(eq, warp_sums, &total);
+    if (i < d) emit(i, (key > kth) || (eq && running + before + 1 <= need));
+    running += total;
+  }
+}
+
 // Block-wide min and max (every thread gets both). `red` is 64 floats of
 // shared memory. NaN inputs are out of scope.
 __device__ __forceinline__ void block_minmax(float mn, float mx, float* red,

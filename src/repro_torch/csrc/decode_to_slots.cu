@@ -12,17 +12,15 @@
 // time for the flushes the serving loop runs — so launch latency sets the
 // pace. The design is one block per flush row, one pass:
 //   * the block reads its own slots[i] (in place of the scalar prefetch);
-//   * the dense f32 row is built in shared memory: zero it, barrier, then
-//     the sparse scatter (shared atomicAdd, so duplicate indices sum as in
-//     the Pallas accumulate; indices outside [0, d) are dropped, as no
-//     Pallas lane matches them), the dequant lo + (code + 0.5) * step, the
-//     mask expand (block prefix count of the set bits = value position),
-//     or the dense/slice copy;
+//   * the dense f32 row is built in shared memory by `repro::decode_row`
+//     (decode_row.cuh, shared with decode_rows.cu): the sparse scatter by
+//     shared atomicAdd (duplicates sum, out-of-range indices dropped), the
+//     dequant, the mask expand, or the dense/slice copy;
 //   * barrier, then a coalesced convert-and-store of the row into
 //     xbuf[slots[i]] in xbuf's dtype (bf16 on the card, round to nearest).
 // Pad rows all aim at the scratch row and carry zero leaves, so the blocks
 // racing on it write identical zero rows: a benign race, by design.
-#include "common.cuh"
+#include "decode_row.cuh"
 
 namespace {
 
@@ -38,59 +36,16 @@ decode_to_slots_kernel(void* xbuf, int is_bf16, int cap1, int d,
   __shared__ int warp_sums[33];
   const long long r = blockIdx.x;
   const int slot = slots[r];
-  const float* vals = static_cast<const float*>(values);
-  const int* codes = static_cast<const int*>(values);
-  for (int i = threadIdx.x; i < d; i += blockDim.x) rowbuf[i] = 0.f;
-  __syncthreads();
-  float lo = 0.f, step = 0.f;
-  if (kind == repro::kQuant || kind == repro::kSparseQuant) {
-    lo = header[r * 2];
-    step = header[r * 2 + 1];
-  }
-  if (kind == repro::kDense) {
-    for (int i = threadIdx.x; i < d; i += blockDim.x)
-      rowbuf[i] = vals[r * d + i];
-  } else if (kind == repro::kSlice) {
-    for (int i = threadIdx.x; i < k; i += blockDim.x)
-      rowbuf[i] = vals[r * k + i];
-  } else if (kind == repro::kQuant) {
-    for (int i = threadIdx.x; i < d; i += blockDim.x)
-      rowbuf[i] = repro::dequant(codes[r * d + i], lo, step);
-  } else if (kind == repro::kSparse || kind == repro::kSparseQuant) {
-    for (int j = threadIdx.x; j < k; j += blockDim.x) {
-      const int at = indices[r * k + j];
-      if (at < 0 || at >= d) continue;
-      const float v = kind == repro::kSparse
-                          ? vals[r * k + j]
-                          : repro::dequant(codes[r * k + j], lo, step);
-      atomicAdd(&rowbuf[at], v);
-    }
-  } else if (kind == repro::kMask) {
-    const int nw = (d + 31) >> 5;
-    const unsigned* words = reinterpret_cast<const unsigned*>(indices) +
-                            r * nw;
-    int running = 0;
-    for (int base = 0; base < d; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const bool bit = i < d && ((words[i >> 5] >> (i & 31)) & 1u);
-      int total;
-      const int pos =
-          running + repro::block_excl_prefix(bit, warp_sums, &total);
-      if (bit && pos < k) rowbuf[i] = vals[r * k + pos];
-      running += total;
-    }
-  }
-  __syncthreads();
+  repro::decode_row(rowbuf, d, r, kind, k, values, 0, indices, header,
+                    warp_sums);
   if (slot < 0 || slot >= cap1) return;
   const long long out = static_cast<long long>(slot) * d;
-  if (is_bf16) {
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(xbuf) + out;
-    for (int i = threadIdx.x; i < d; i += blockDim.x)
-      o[i] = __float2bfloat16_rn(rowbuf[i]);
-  } else {
-    float* o = static_cast<float*>(xbuf) + out;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) o[i] = rowbuf[i];
-  }
+  repro::store_row(rowbuf, d,
+                   is_bf16 ? static_cast<void*>(
+                                 static_cast<__nv_bfloat16*>(xbuf) + out)
+                           : static_cast<void*>(
+                                 static_cast<float*>(xbuf) + out),
+                   is_bf16);
 }
 
 }  // namespace

@@ -1,0 +1,42 @@
+"""Deterministic synthetic token pipeline (the reference's
+`data/pipeline.py`): `next_batch(step)` is a function of (seed, step),
+drawn from a `torch.Generator` on the batch's device, so the tokens never
+cross from the host. The numbers differ from the reference's threefry
+draws; the tests hand both packages the same numpy batch instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from repro_torch.models.config import ArchConfig
+
+
+def make_lm_batch(generator: torch.Generator, cfg: ArchConfig, batch: int,
+                  seq: int, device=None) -> Dict:
+    """Markov-ish synthetic LM data: tokens with learnable local structure
+    (each position repeats the previous token with probability 0.7)."""
+    base = torch.randint(0, cfg.vocab, (batch, seq), generator=generator,
+                         device=device, dtype=torch.int32)
+    coin = torch.rand((batch, seq), generator=generator, device=device) < 0.7
+    shifted = torch.roll(base, 1, dims=1)
+    tokens = torch.where(coin, shifted, base)
+    labels = torch.roll(tokens, -1, dims=1)
+    return {"tokens": tokens, "labels": labels}
+
+
+@dataclasses.dataclass
+class TokenPipeline:
+    cfg: ArchConfig
+    batch: int
+    seq: int
+    seed: int = 0
+    device: str = "cuda"
+
+    def next_batch(self, step: int) -> Dict:
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.seed * 1_000_003 + step)
+        return make_lm_batch(gen, self.cfg, self.batch, self.seq,
+                             device=self.device)

@@ -30,8 +30,8 @@ import subprocess
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("topk_select.cu", "encode_rows.cu", "pack_bits.cu",
-           "decode_to_slots.cu")
+SOURCES = ("topk_select.cu", "randtopk_mask.cu", "encode_rows.cu",
+           "pack_bits.cu", "decode_to_slots.cu", "decode_rows.cu")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -51,6 +51,13 @@ SIGNATURES = {
     # xbuf, xbuf_is_bf16, cap1, d, slots(i32), n, kind, k, values, indices,
     # header, stream
     "decode_to_slots": (_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P),
+    # x, x_is_bf16, gumbel(f32), m(i32), rows, d, k, mask(u8), stream
+    "randtopk_mask": (_P, _I, _P, _P, _I, _I, _I, _P, _P),
+    # values, vals_is_bf16, indices, header, rows, d, kind, k, w(f32 or
+    # null), p, scratch(f32), out, out_is_bf16, stream
+    "decode_rows": (_P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P),
+    # values, vals_is_bf16, indices(i32), rows, d, k, out, stream
+    "scatter_rows": (_P, _I, _P, _I, _I, _I, _P, _P),
 }
 
 BACKENDS = ("auto", "torch", "cuda")

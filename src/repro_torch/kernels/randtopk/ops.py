@@ -1,8 +1,11 @@
-"""Wrapper of the top-k selection kernel (`csrc/topk_select.cu`).
+"""Wrappers of the randtopk family's kernels: top-k selection
+(`csrc/topk_select.cu`), the Eq. (7) randomized mask
+(`csrc/randtopk_mask.cu`) and the sparse scatter (`scatter_rows` in
+`csrc/decode_rows.cu`).
 
-`topk_mask_threshold` takes the plain version (`ref.py`) for a tensor on
-the CPU or when `backend="torch"` asks for it; otherwise it launches the
-kernel or raises (`_lib.resolve_backend`).
+Each takes the plain version (`ref.py`) for a tensor on the CPU or when
+`backend="torch"` asks for it; otherwise it launches its kernel or raises
+(`_lib.resolve_backend`).
 """
 from __future__ import annotations
 
@@ -11,8 +14,19 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.randtopk import ref
 
-#: the widest row the kernel stages in shared memory (64 KB of f32 keys)
+#: the widest row the kernels stage in shared memory (64 KB of f32 keys)
 MAX_D = 16384
+
+
+def _check_rows(x: torch.Tensor, what: str, dtypes) -> None:
+    if x.dtype not in dtypes:
+        raise TypeError(f"{what} kernel takes {dtypes}, got {x.dtype}")
+    if x.shape[-1] > MAX_D:
+        raise ValueError(f"{what} kernel rows hold at most {MAX_D}, got "
+                         f"{x.shape[-1]}")
+
+
+_FLOATS = (torch.float32, torch.bfloat16)
 
 
 def topk_mask_threshold(x: torch.Tensor, k: int, *, backend=None):
@@ -23,10 +37,7 @@ def topk_mask_threshold(x: torch.Tensor, k: int, *, backend=None):
         raise ValueError(f"top-k needs 1 <= k <= d, got k={k}, d={d}")
     if _lib.resolve_backend(backend, x) == "torch":
         return ref.topk_mask_threshold(x, k)
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"topk kernel takes f32/bf16, got {x.dtype}")
-    if d > MAX_D:
-        raise ValueError(f"topk kernel rows hold at most {MAX_D}, got {d}")
+    _check_rows(x, "topk", _FLOATS)
     x2 = x.contiguous().view(-1, d)
     rows = x2.shape[0]
     mask = torch.empty(x2.shape, dtype=torch.bool, device=x.device)
@@ -36,3 +47,61 @@ def topk_mask_threshold(x: torch.Tensor, k: int, *, backend=None):
                     int(x.dtype == torch.bfloat16), rows, d, k,
                     mask.data_ptr(), thr.data_ptr(), _lib.stream_handle(x))
     return mask.view(x.shape), thr.view(x.shape[:-1])
+
+
+def randtopk_mask(x: torch.Tensor, gumbel: torch.Tensor, m: torch.Tensor,
+                  k: int, *, backend=None):
+    """Eq. (7) mask, exactly k per row: x (..., d) f32/bf16, gumbel (..., d)
+    i.i.d. Gumbel noise, m (..., 1) non-top-k pick counts (clipped to
+    [0, min(k, d - k)]) -> bool (..., d). The noise and counts are drawn by
+    the caller (`core.selection.randtopk_mask`) and cross as data."""
+    d = x.shape[-1]
+    if not 1 <= k <= d:
+        raise ValueError(f"randtopk needs 1 <= k <= d, got k={k}, d={d}")
+    if gumbel.shape != x.shape or m.numel() * d != x.numel():
+        raise ValueError(f"gumbel {tuple(gumbel.shape)} / m "
+                         f"{tuple(m.shape)} do not match x {tuple(x.shape)}")
+    if _lib.resolve_backend(backend, x) == "torch":
+        return ref.randtopk_mask(x, gumbel, m, k)
+    _check_rows(x, "randtopk", _FLOATS)
+    if not (gumbel.is_cuda and m.is_cuda):
+        raise ValueError("randtopk kernel needs gumbel and m on the card")
+    x2 = x.contiguous().view(-1, d)
+    g2 = gumbel.to(torch.float32).contiguous().view(-1, d)
+    m2 = m.to(torch.int32).contiguous().view(-1)
+    rows = x2.shape[0]
+    mask = torch.empty(x2.shape, dtype=torch.bool, device=x.device)
+    if rows:
+        _lib.launch("randtopk_mask", x2.data_ptr(),
+                    int(x.dtype == torch.bfloat16), g2.data_ptr(),
+                    m2.data_ptr(), rows, d, k, mask.data_ptr(),
+                    _lib.stream_handle(x))
+    return mask.view(x.shape)
+
+
+def scatter_rows(values: torch.Tensor, indices: torch.Tensor, d: int, *,
+                 backend=None):
+    """Sparse (values, indices) (..., k) -> dense (..., d) in the values'
+    dtype (f32/bf16): zeros off the support, duplicate indices summed in
+    f32, indices outside [0, d) dropped."""
+    if indices.shape != values.shape:
+        raise ValueError(f"indices {tuple(indices.shape)} do not match "
+                         f"values {tuple(values.shape)}")
+    if _lib.resolve_backend(backend, values) == "torch":
+        return ref.scatter_rows(values, indices, d)
+    _check_rows(values, "scatter_rows", _FLOATS)
+    if d > MAX_D:
+        raise ValueError(f"scatter_rows kernel rows hold at most {MAX_D}, "
+                         f"got {d}")
+    if not indices.is_cuda:
+        raise ValueError("scatter_rows kernel needs indices on the card")
+    k = values.shape[-1]
+    v2 = values.contiguous().view(-1, k)
+    i2 = indices.to(torch.int32).contiguous().view(-1, k)
+    rows = v2.shape[0]
+    out = torch.empty((rows, d), dtype=values.dtype, device=values.device)
+    if rows:
+        _lib.launch("scatter_rows", v2.data_ptr(),
+                    int(values.dtype == torch.bfloat16), i2.data_ptr(), rows,
+                    d, k, out.data_ptr(), _lib.stream_handle(values))
+    return out.view(values.shape[:-1] + (d,))

@@ -1,0 +1,63 @@
+"""Train and eval step builders shared by the trainer and `chip_smoke.py`.
+
+A step takes the parameters as a nested dict of tensors (the reference's
+tree), computes the loss and its gradients with autograd, and applies
+AdamW; it returns new parameter tensors and the moments updated in place
+(`optim.adamw`), so callers treat the old parameters and state as consumed.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.config import ArchConfig, Runtime
+from repro_torch.optim.adamw import adamw_update, tree_leaves, tree_map
+from repro_torch.split import model as split_model
+
+AUX_WEIGHT = 0.01  # MoE balance-loss weight (no dense-family aux loss)
+
+
+def loss_fn(params, cfg: ArchConfig, rt: Runtime, batch, generator):
+    logits, aux = split_model.forward(params, cfg, rt, batch,
+                                      generator=generator)
+    ce = transformer.cross_entropy(logits, batch["labels"])
+    return ce + AUX_WEIGHT * aux, (ce, aux)
+
+
+def make_train_step(cfg: ArchConfig, rt: Runtime, *, lr=3e-4,
+                    weight_decay=0.0) -> Callable:
+    """(params, opt_state, batch, generator) -> (params, opt_state,
+    metrics): one AdamW step on the split model; `generator` feeds the
+    cut's RandTopK draws."""
+
+    def step(params, opt_state, batch, generator):
+        params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        total, (ce, aux) = loss_fn(params, cfg, rt, batch, generator)
+        leaves = tree_leaves(params)
+        grads = torch.autograd.grad(total, leaves)
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), params)
+        new_params, new_opt, gnorm = adamw_update(
+            params, grads, opt_state, lr=lr, weight_decay=weight_decay)
+        metrics = {"loss": total.detach(), "ce": ce.detach(),
+                   "aux": aux.detach(), "grad_norm": gnorm}
+        return new_params, new_opt, metrics
+
+    return step
+
+
+def make_eval_step(cfg: ArchConfig, rt: Runtime) -> Callable:
+    """(params, batch) -> {"ce", "acc"} under no autograd; RandTopK runs as
+    the deterministic top-k when `rt.training` is False."""
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        logits, _ = split_model.forward(params, cfg, rt, batch)
+        ce = transformer.cross_entropy(logits, batch["labels"])
+        acc = torch.mean((torch.argmax(logits, -1) == batch["labels"]).to(
+            torch.float32))
+        return {"ce": ce, "acc": acc}
+
+    return eval_step

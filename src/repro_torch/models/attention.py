@@ -1,16 +1,17 @@
-"""GQA attention for one-token decode against a rolling KV cache.
+"""GQA attention: full-sequence (training / prefill) self-attention, and
+one-token decode against a rolling KV cache.
 
-The reference vmaps one session at a time, each with its own scalar
-position; here the sessions are a batch dimension written out, so every
-use of the position (RoPE, the ring slot `pos % size`, the KV write and the
-validity mask) takes a per-row `pos` vector.
+For decode, the reference vmaps one session at a time, each with its own
+scalar position; here the sessions are a batch dimension written out, so
+every use of the position (RoPE, the ring slot `pos % size`, the KV write
+and the validity mask) takes a per-row `pos` vector.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import common
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, Runtime
 
 
 def init_attention(generator, cfg: ArchConfig, n_layers: int, device=None):
@@ -61,6 +62,44 @@ def sdpa(q, k, v, mask, cfg: ArchConfig):
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype).float(), v.float())
     return out.reshape(B, Sq, hq, hd).to(q.dtype)
+
+
+def _causal_mask(q_pos, kv_pos, window: int):
+    """(Sq,) x (Skv,) -> (Sq, Skv) bool; window=0 means unbounded."""
+    m = kv_pos[None, :] <= q_pos[:, None]
+    if window:
+        m &= kv_pos[None, :] > q_pos[:, None] - window
+    return m
+
+
+def full_attention(p, cfg: ArchConfig, rt: Runtime, x, *, causal=True,
+                   rope=True):
+    """Training / prefill self-attention over x (B, S, d). Sequences longer
+    than `rt.attn_chunk` (and a multiple of it) are attended one query
+    chunk at a time, bounding the logits at (chunk, S)."""
+    B, S, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    pos = torch.arange(S, device=x.device)
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, hq, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, hkv, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, hkv, hd)
+    if rope:
+        q = common.apply_rope(q, pos[None], cfg.rope_theta)
+        k = common.apply_rope(k, pos[None], cfg.rope_theta)
+
+    def mask_for(q_pos):
+        if causal:
+            return _causal_mask(q_pos, pos, cfg.sliding_window)[None]
+        return torch.ones((1, q_pos.shape[0], S), dtype=torch.bool,
+                          device=x.device)
+
+    c = rt.attn_chunk
+    if S <= c or S % c != 0:
+        out = sdpa(q, k, v, mask_for(pos), cfg)
+    else:
+        out = torch.cat([sdpa(q[:, i:i + c], k, v, mask_for(pos[i:i + c]),
+                              cfg) for i in range(0, S, c)], dim=1)
+    return out.reshape(B, S, hq * hd) @ p["wo"].to(x.dtype)
 
 
 def decode_attention(p, cfg: ArchConfig, x_tok, k_cache, v_cache, pos,

@@ -1,7 +1,8 @@
-"""Architecture and cut-layer configuration dataclasses (the reference's
-field names and defaults; dtypes are named by string and resolved to
-torch). The reference's `Runtime` knobs (mesh, remat, chunking, int8 KV)
-have no reader in the port's dense decode yet, so there is no `Runtime`."""
+"""Architecture, cut-layer and runtime configuration dataclasses (the
+reference's field names and defaults; dtypes are named by string and
+resolved to torch). `Runtime` keeps only the knobs the port's full-sequence
+forward reads; the reference's mesh, chunking and int8-KV knobs have no
+reader in the port yet."""
 from __future__ import annotations
 
 import dataclasses
@@ -69,3 +70,14 @@ class ArchConfig:
     def pdtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
 
+
+
+@dataclasses.dataclass(frozen=True)
+class Runtime:
+    """Execution knobs threaded through the full-sequence forward."""
+
+    training: bool = True
+    remat: bool = True              # recompute each layer in the backward
+                                    # (torch.utils.checkpoint per layer; the
+                                    # cut boundary stays outside it)
+    attn_chunk: int = 1024          # query-chunk length for long sequences

@@ -9,6 +9,10 @@ the same operands:
     embed (padded_vocab, d), final_norm.scale (d,), unembed (d, padded_vocab)
     layers.attn.{norm.scale, wq, wk, wv, wo}   (L, ...)
     layers.mlp.{norm.scale, w_gate, w_up, w_down}   (L, ...)
+
+`parties_from_jax(np_bottom, np_top, device)` does the same for the
+tabular trainer's two parties (`split.tabular`): flat dicts of f32
+matrices and biases, `x @ w + b` in both packages.
 """
 from __future__ import annotations
 
@@ -53,3 +57,12 @@ def params_from_jax(np_params, cfg: ArchConfig, device) -> dict:
         "unembed": conv(np_params["unembed"]),
         "layers": layers,
     }
+
+
+def parties_from_jax(np_bottom, np_top, device) -> tuple:
+    """The reference's tabular `(bottom, top)` dicts (numpy leaves) -> the
+    port's, f32 on `device`."""
+    def conv(part):
+        return {k: _tensor(v, torch.float32, device) for k, v in part.items()}
+
+    return conv(np_bottom), conv(np_top)

@@ -1,17 +1,22 @@
-"""Dense decoder model: embed -> layer stack -> LM head, one-token decode.
+"""Dense decoder model: embed -> layer stack -> LM head, as a full-sequence
+forward (training / prefill) and as one-token decode.
 
 Parameters are a plain dict mirroring the reference's tree (layers stacked
 on axis 0), so `models.convert.params_from_jax` is a one-to-one map and
-every product takes the same operands as in the reference.
+every product takes the same operands as in the reference. The split-
+learning cut is a residual-stream boundary: `apply_layers(..., lo, hi)`
+runs any contiguous layer range, and `split.model.forward` composes
+bottom range -> cut codec -> top range.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common, mlp
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, Runtime
 
 
 def init_model(cfg: ArchConfig, generator: torch.Generator, device=None):
@@ -43,13 +48,61 @@ def layer_params(params, layer: int):
 
 
 def embed(params, cfg: ArchConfig, tokens):
-    """tokens (B, 1) -> (B, 1, d) in the activation dtype."""
+    """tokens (B, S) -> (B, S, d) in the activation dtype."""
     return params["embed"][tokens.long()].to(cfg.adtype())
 
 
 def lm_head(params, cfg: ArchConfig, x):
     x = common.rms_norm(x, params["final_norm"]["scale"])
     return x @ params["unembed"].to(x.dtype)
+
+
+def _dense_layer_fwd(pl, cfg: ArchConfig, rt: Runtime, x):
+    h = common.rms_norm(x, pl["attn"]["norm"]["scale"])
+    x = x + attention.full_attention(pl["attn"], cfg, rt, h)
+    return x + mlp.mlp(pl["mlp"], common.rms_norm(x, pl["mlp"]["norm"][
+        "scale"]))
+
+
+def apply_layers(params, cfg: ArchConfig, rt: Runtime, x, extras, lo: int,
+                 hi: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run layers [lo, hi) over x (B, S, d). Returns (x, aux loss); the
+    dense family has no aux loss. With `rt.remat` (and autograd on) each
+    layer is recomputed in the backward instead of keeping its
+    activations; nothing random runs inside a layer, so the recompute
+    gives the forward's numbers."""
+    if cfg.family != "dense":
+        raise ValueError(f"family {cfg.family!r} is not ported yet")
+    remat = rt.remat and torch.is_grad_enabled()
+    for layer in range(lo, hi):
+        pl = layer_params(params, layer)
+        if remat:
+            x = checkpoint(_dense_layer_fwd, pl, cfg, rt, x,
+                           use_reentrant=False)
+        else:
+            x = _dense_layer_fwd(pl, cfg, rt, x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def make_extras(params, cfg: ArchConfig, rt: Runtime, batch) -> dict:
+    """Family-specific side inputs from the batch dict (none for dense)."""
+    return {}
+
+
+def forward(params, cfg: ArchConfig, rt: Runtime, batch):
+    """Full forward (no split). Returns (logits (B, S, V), aux loss)."""
+    extras = make_extras(params, cfg, rt, batch)
+    x = embed(params, cfg, batch["tokens"])
+    x, aux = apply_layers(params, cfg, rt, x, extras, 0, cfg.n_layers)
+    return lm_head(params, cfg, x), aux
+
+
+def cross_entropy(logits, labels):
+    """Mean token cross-entropy, computed in f32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
 
 
 def init_cache(cfg: ArchConfig, rows: int, max_len: int, device=None):

@@ -1,14 +1,20 @@
-"""Port parity: the server's decode into the arena's slot rows
-(`repro_torch.split.protocol.server_decode_to_slots`, whose CPU path is the
-plain version of `csrc/decode_to_slots.cu`) against the JAX reference's
-`protocol.server_decode_to_slots`, with `backend="pallas"` (interpret mode)
-and `backend="xla"`.
+"""Port parity: the decode family against the JAX reference.
+
+* The server's decode into the arena's slot rows
+  (`repro_torch.split.protocol.server_decode_to_slots`, whose CPU path is
+  the plain version of `csrc/decode_to_slots.cu`) against the reference's
+  `protocol.server_decode_to_slots`, with `backend="pallas"` (interpret
+  mode) and `backend="xla"`. Untouched rows keep their contents; pad rows
+  all aimed at the scratch row write identical zero rows.
+* `decode_rows` and `scatter_rows` (the plain versions of
+  `csrc/decode_rows.cu`) against the reference's Pallas
+  `decode_rows_kernel` and `scatter_rows_kernel` in interpret mode,
+  projection epilogue and hostile leaves included.
 
 Both sides decode the same frame bytes. dense, slice, sparse and mask rows
 are bit-exact; the quant kinds are within 1 ulp at the largest decoded
-magnitude (the reference's FMA convention, `compressors.py:153-164`).
-Untouched rows keep their contents; pad rows all aimed at the scratch row
-write identical zero rows.
+magnitude (the reference's FMA convention, `compressors.py:153-164`);
+projected rows within rtol 1e-5 (the product sums in another order).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +25,15 @@ from repro.core import compressors as JC
 from repro.core import wire as jwire
 from repro.core.payload import Payload as JPayload
 from repro.core.payload import PayloadMeta as JMeta
+from repro.kernels.decode import kernel as jdec_kernel
+from repro.kernels.randtopk import kernel as jtk_kernel
 from repro.split import protocol as jprotocol
+from repro_torch.core import compressors as C
 from repro_torch.core import wire
 from repro_torch.core.payload import Payload, PayloadMeta, to_device
+from repro_torch.kernels.decode import ops as dec_ops
 from repro_torch.kernels.decode import ref as dec_ref
+from repro_torch.kernels.randtopk import ops as tk_ops
 from repro_torch.split import protocol
 
 KINDS = [
@@ -130,8 +141,8 @@ def test_duplicate_sparse_indices_sum_like_the_pallas_kernel():
 
 @pytest.mark.parametrize("kind,name,kw", KINDS, ids=IDS)
 def test_plain_decode_rows_matches_payload_to_dense(kind, name, kw):
-    """`decode_rows` (the plain version of the reference's unported
-    `decode_rows_kernel`) against `payload_to_dense(backend="pallas")`."""
+    """`decode_rows` (the plain version of `csrc/decode_rows.cu`) against
+    `payload_to_dense(backend="pallas")`."""
     x = np.random.RandomState(7).randn(4, 1, 33).astype(np.float32)
     jp, tp = _both(_frame_bytes(name, kw, x), n_pad=0)
     want = np.asarray(JC.payload_to_dense(jp, backend="pallas"))
@@ -140,3 +151,108 @@ def test_plain_decode_rows_matches_payload_to_dense(kind, name, kw):
     host = wire.decode_frame(_frame_bytes(name, kw, x))[0].payload
     _assert_rows(kind, want, protocol.server_decode(host).numpy())
     assert protocol.HOST_DENSIFY_COUNT.value == before + 1
+
+
+def _hostile(jp):
+    """Sparse kinds: repeat the first index of each row and push one past
+    d (both reach the decoder from a hostile frame); mask kind: extra set
+    bits past k."""
+    kind = jp.meta.kind
+    if kind in ("sparse", "sparse_quant"):
+        idx = np.array(jp.indices)
+        idx[..., 1::3] = idx[..., :1]
+        idx[..., 2] = jp.meta.d + 7
+        return jp.with_leaves(indices=idx)
+    if kind == "mask":
+        return jp.with_leaves(indices=np.array(jp.indices) | np.uint32(0x11))
+    return jp
+
+
+@pytest.mark.parametrize("hostile", [False, True], ids=["clean", "hostile"])
+@pytest.mark.parametrize("kind,name,kw", KINDS, ids=IDS)
+def test_decode_rows_plain_matches_pallas_kernel(kind, name, kw, hostile):
+    """Every kind, f32 rows, without and with the (d, P) projection
+    epilogue: dense, slice, sparse and mask rows exact, quant within 1 ulp;
+    projected rows within rtol 1e-5 (the product sums in another order).
+    Hostile leaves: duplicate indices sum, indices past d are dropped, mask
+    bits past k expand to zero, as in the Pallas kernel."""
+    x = np.random.RandomState(11).randn(5, 1, 37).astype(np.float32)
+    jp, tp = _both(_frame_bytes(name, kw, x), n_pad=0)
+    if hostile:
+        jp = _hostile(jp)
+        tp = to_device(jp, "cpu")
+    leaves = tuple(jnp.asarray(getattr(jp, n))
+                   for n in jdec_kernel.KIND_LEAVES[kind])
+    want = np.asarray(jdec_kernel.decode_rows_kernel(leaves, kind, 37,
+                                                     interpret=True))
+    got = dec_ops.decode_rows(tp)
+    assert got.dtype == torch.float32 and got.shape == (5, 1, 37)
+    _assert_rows(kind, want, got.numpy())
+    w = np.random.RandomState(12).randn(37, 9).astype(np.float32)
+    want_p = np.asarray(jdec_kernel.decode_rows_kernel(
+        leaves, kind, 37, jnp.asarray(w), interpret=True))
+    got_p = dec_ops.decode_rows(tp, project=torch.from_numpy(w))
+    assert got_p.shape == (5, 1, 9)
+    np.testing.assert_allclose(got_p.numpy(), want_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind,name,kw", [k for k in KINDS
+                                          if "quant" not in k[0]],
+                         ids=[i for i in IDS if "quant" not in i])
+def test_decode_rows_bf16_rows_match_pallas_kernel(kind, name, kw):
+    """bf16 output (the training path's activation dtype): decoded in f32,
+    rounded once, exactly as the Pallas kernel's store."""
+    x = np.random.RandomState(13).randn(3, 2, 40).astype(np.float32)
+    jp, tp = _both(_frame_bytes(name, kw, x), n_pad=0)
+    leaves = tuple(jnp.asarray(getattr(jp, n))
+                   for n in jdec_kernel.KIND_LEAVES[kind])
+    want = np.asarray(jdec_kernel.decode_rows_kernel(
+        leaves, kind, 40, dtype="bfloat16", interpret=True)).astype(
+            np.float32)
+    got = dec_ops.decode_rows(tp, dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("kind,name,kw", KINDS, ids=IDS)
+def test_payload_to_dense_with_projection_matches_reference(kind, name, kw):
+    """The plain path of `payload_to_dense(project=)` against the
+    reference's XLA path (the rows are projected in `dtype`)."""
+    x = np.random.RandomState(14).randn(4, 30).astype(np.float32)
+    jp, tp = _both(_frame_bytes(name, kw, x), n_pad=0)
+    w = np.random.RandomState(15).randn(30, 6).astype(np.float32)
+    want = np.asarray(JC.payload_to_dense(jp, backend="xla",
+                                          project=jnp.asarray(w)))
+    got = C.payload_to_dense(tp, project=torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,k,d", [((4,), 8, 50), ((2, 3), 1, 17),
+                                       ((3,), 40, 40)])
+def test_scatter_rows_plain_matches_pallas_kernel(shape, k, d, dtype):
+    """Values in f32 or bf16, output in the values' dtype; duplicates sum
+    in f32 (values are multiples of 1/8, so every order of the sum is
+    exact) — exactly the Pallas kernel's rows."""
+    rng = np.random.RandomState(k + d)
+    vals = (np.round(rng.randn(*shape, k) * 8) / 8).astype(np.float32)
+    idx = rng.randint(0, d, (*shape, k)).astype(np.uint16)
+    jv = jnp.asarray(vals, dtype)
+    want = np.asarray(jtk_kernel.scatter_rows_kernel(
+        jv, jnp.asarray(idx), d, interpret=True)).astype(np.float32)
+    tv = torch.from_numpy(vals).to(getattr(torch, dtype))
+    got = tk_ops.scatter_rows(tv, torch.from_numpy(idx.astype(np.int32)), d)
+    assert got.dtype == tv.dtype and got.shape == (*shape, d)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_scatter_rows_dispatch_of_compressors_on_unique_support():
+    """`compressors._scatter_rows` (put, one write per index) and the
+    kernel's plain version (sum) agree on a top-k support."""
+    rng = np.random.RandomState(2)
+    vals = torch.from_numpy(rng.randn(6, 5).astype(np.float32))
+    idx = torch.from_numpy(np.stack([rng.permutation(20)[:5]
+                                     for _ in range(6)]).astype(np.int32))
+    torch.testing.assert_close(C._scatter_rows(vals, idx, 20),
+                               tk_ops.scatter_rows(vals, idx, 20),
+                               rtol=0, atol=0)

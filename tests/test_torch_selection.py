@@ -2,7 +2,9 @@
 versions against the JAX reference, on numpy inputs made from a seed.
 
 Masks are exact (the XLA tie rule included); the randomized Eq. (7) mask is
-exact when both sides get the same Gumbel noise and pick counts as data.
+exact against the Pallas `randtopk_mask_kernel` (its exact-count tie rule
+and the m edges included) when both sides get the same Gumbel noise and
+pick counts as data.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -76,6 +78,58 @@ def test_randtopk_with_injected_noise_matches_pallas_kernel(seed):
     assert (got.sum(-1) == k).all()
 
 
+def _pallas_vs_plain(x, g, m, k):
+    want = np.asarray(jkernel.randtopk_mask_kernel(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(m), k, interpret=True))
+    got = tk_ops.randtopk_mask(torch.from_numpy(x), torch.from_numpy(g),
+                               torch.from_numpy(m), k)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.sum(-1) == k).all()
+    return got
+
+
+@pytest.mark.parametrize("case", ["tied_scores", "m_zero", "m_max",
+                                  "m_max_small_complement", "all_tied"])
+def test_randtopk_exact_count_rule_matches_pallas_kernel(case):
+    """The kernel's plain version is the Pallas kernel's exact-count rule:
+    scores strictly above the m-th are in, ties admitted left to right,
+    m == 0 picks none, m == min(k, d - k) empties the smaller pool. Under
+    tied scores the XLA rule (`s >= thr`) would pick more than m."""
+    rng = np.random.RandomState(4)
+    d, k, rows = 40, 8, 6
+    if case == "m_max_small_complement":
+        d, k = 12, 9
+    x = rng.randn(rows, d).astype(np.float32)
+    g = rng.gumbel(size=(rows, d)).astype(np.float32)
+    m = rng.binomial(k, 0.4, size=(rows, 1)).clip(0, min(k, d - k)).astype(
+        np.int32)
+    if case == "tied_scores":
+        g = rng.randint(0, 3, (rows, d)).astype(np.float32)
+    if case == "all_tied":
+        x = np.ones((rows, d), np.float32)
+        g = np.zeros((rows, d), np.float32)
+    if case == "m_zero":
+        m[:] = 0
+    if case.startswith("m_max"):
+        m[:] = min(k, d - k)
+    got = _pallas_vs_plain(x, g, m, k)
+    is_top = tk_ref.topk_mask_threshold(torch.from_numpy(x), k)[0]
+    np.testing.assert_array_equal((got & ~is_top).sum(-1).numpy(), m[:, 0])
+
+
+def test_randtopk_plain_clips_m_like_the_reference():
+    """Out-of-range pick counts are clipped to [0, min(k, d - k)]."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(3, 20).astype(np.float32)
+    g = rng.gumbel(size=(3, 20)).astype(np.float32)
+    wild = torch.tensor([[-3], [99], [2]])
+    got = tk_ops.randtopk_mask(torch.from_numpy(x), torch.from_numpy(g),
+                               wild, 6)
+    want = tk_ops.randtopk_mask(torch.from_numpy(x), torch.from_numpy(g),
+                                torch.tensor([[0], [6], [2]]), 6)
+    assert torch.equal(got, want) and (got.sum(-1) == 6).all()
+
+
 def test_randtopk_statistics_track_alpha():
     d, k, alpha = 64, 8, 0.3
     x = torch.from_numpy(np.random.RandomState(0).randn(1, d).astype(
@@ -134,9 +188,17 @@ def _wrapper_calls():
     x = torch.zeros(2, 8)
     p = Payload(meta=PayloadMeta("dense", d=8), values=torch.zeros(1, 8))
     slots = torch.zeros(1, dtype=torch.int32)
+    m = torch.ones((2, 1), dtype=torch.int32)
     return {
         "topk_mask_threshold": lambda b: tk_ops.topk_mask_threshold(
             x, 2, backend=b),
+        "randtopk_mask": lambda b: tk_ops.randtopk_mask(x, x, m, 2,
+                                                        backend=b),
+        "selection.randtopk_mask": lambda b: selection.randtopk_mask(
+            x, 2, 0.5, torch.Generator(), backend=b),
+        "scatter_rows": lambda b: tk_ops.scatter_rows(
+            x[:, :2], torch.zeros((2, 2), dtype=torch.int32), 8, backend=b),
+        "decode_rows": lambda b: dec_ops.decode_rows(p, backend=b),
         "encode_rows": lambda b: enc_ops.encode_rows(x, "dense", backend=b),
         "pack_bits": lambda b: enc_ops.pack_bits(
             torch.zeros(4, dtype=torch.int32), 3, backend=b),
@@ -146,10 +208,14 @@ def _wrapper_calls():
 
 
 @pytest.mark.parametrize("name", ["topk_mask_threshold", "encode_rows",
-                                  "pack_bits", "decode_rows_to_slots"])
+                                  "pack_bits", "decode_rows_to_slots",
+                                  "randtopk_mask", "selection.randtopk_mask",
+                                  "scatter_rows", "decode_rows"])
 def test_kernel_wrapper_backend_on_cpu(name):
     """Each wrapper takes its plain version for a CPU tensor under the
-    default and "torch" backends, and raises when asked for the kernel."""
+    default and "torch" backends, and raises when asked for the kernel
+    (`selection.randtopk_mask(backend="cuda")` no longer runs the plain
+    version quietly)."""
     call = _wrapper_calls()[name]
     call(None)
     call("torch")
