@@ -60,15 +60,11 @@ def mask_expand_rows(vals, words, d: int):
 
 
 def _scatter_rows(vals, idx, d: int, backend=None):
-    """Dense (..., d) scatter of a sparse support, backend-dispatched: the
-    `scatter_rows` kernel (duplicates sum) for CUDA tensors, else one write
-    per index, the reference's `put_along_axis`. The two agree on any
-    support with unique indices (every top-k support)."""
-    if resolve_backend(backend, vals) == "cuda":
-        return tk_ops.scatter_rows(vals, idx, d, backend="cuda")
-    out = torch.zeros(vals.shape[:-1] + (d,), dtype=vals.dtype,
-                      device=vals.device)
-    return out.scatter(-1, idx.long(), vals)
+    """Dense (..., d) scatter of a sparse support: the `scatter_rows` kernel
+    on the card, its plain version on the CPU. Either way duplicate indices
+    sum and indices outside [0, d) are dropped, so a hostile frame decodes
+    alike on both."""
+    return tk_ops.scatter_rows(vals, idx, d, backend=backend)
 
 
 def dequant(codes, header):

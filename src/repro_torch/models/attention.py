@@ -72,26 +72,21 @@ def _causal_mask(q_pos, kv_pos, window: int):
     return m
 
 
-def full_attention(p, cfg: ArchConfig, rt: Runtime, x, *, causal=True,
-                   rope=True):
-    """Training / prefill self-attention over x (B, S, d). Sequences longer
-    than `rt.attn_chunk` (and a multiple of it) are attended one query
-    chunk at a time, bounding the logits at (chunk, S)."""
+def full_attention(p, cfg: ArchConfig, rt: Runtime, x):
+    """Causal training / prefill self-attention with RoPE over x (B, S, d).
+    Sequences longer than `rt.attn_chunk` (and a multiple of it) are
+    attended one query chunk at a time, bounding the logits at (chunk, S)."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     pos = torch.arange(S, device=x.device)
     q = (x @ p["wq"].to(x.dtype)).reshape(B, S, hq, hd)
     k = (x @ p["wk"].to(x.dtype)).reshape(B, S, hkv, hd)
     v = (x @ p["wv"].to(x.dtype)).reshape(B, S, hkv, hd)
-    if rope:
-        q = common.apply_rope(q, pos[None], cfg.rope_theta)
-        k = common.apply_rope(k, pos[None], cfg.rope_theta)
+    q = common.apply_rope(q, pos[None], cfg.rope_theta)
+    k = common.apply_rope(k, pos[None], cfg.rope_theta)
 
     def mask_for(q_pos):
-        if causal:
-            return _causal_mask(q_pos, pos, cfg.sliding_window)[None]
-        return torch.ones((1, q_pos.shape[0], S), dtype=torch.bool,
-                          device=x.device)
+        return _causal_mask(q_pos, pos, cfg.sliding_window)[None]
 
     c = rt.attn_chunk
     if S <= c or S % c != 0:

@@ -246,13 +246,19 @@ def test_scatter_rows_plain_matches_pallas_kernel(shape, k, d, dtype):
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-def test_scatter_rows_dispatch_of_compressors_on_unique_support():
-    """`compressors._scatter_rows` (put, one write per index) and the
-    kernel's plain version (sum) agree on a top-k support."""
-    rng = np.random.RandomState(2)
-    vals = torch.from_numpy(rng.randn(6, 5).astype(np.float32))
-    idx = torch.from_numpy(np.stack([rng.permutation(20)[:5]
-                                     for _ in range(6)]).astype(np.int32))
-    torch.testing.assert_close(C._scatter_rows(vals, idx, 20),
-                               tk_ops.scatter_rows(vals, idx, 20),
-                               rtol=0, atol=0)
+@pytest.mark.parametrize("kind,name,kw", [k for k in KINDS
+                                          if k[0].startswith("sparse")],
+                         ids=["sparse", "sparse_quant"])
+def test_payload_to_dense_hostile_sparse_matches_pallas_kernel(kind, name,
+                                                               kw):
+    """The CPU path of `payload_to_dense` on a hostile sparse frame decodes
+    as the card's kernel does (the Pallas `decode_rows_kernel`): duplicate
+    indices sum, indices past d are dropped."""
+    x = np.random.RandomState(16).randn(4, 1, 29).astype(np.float32)
+    jp, _ = _both(_frame_bytes(name, kw, x), n_pad=0)
+    jp = _hostile(jp)
+    leaves = tuple(jnp.asarray(getattr(jp, n))
+                   for n in jdec_kernel.KIND_LEAVES[kind])
+    want = np.asarray(jdec_kernel.decode_rows_kernel(leaves, kind, 29,
+                                                     interpret=True))
+    _assert_rows(kind, want, C.payload_to_dense(to_device(jp, "cpu")).numpy())
