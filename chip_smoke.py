@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port (`src/repro_torch`), one card.
 
-    python3 chip_smoke.py                  # everything
-    python3 chip_smoke.py --phase kernels  # build + kernel checks only
-    python3 chip_smoke.py --phase train    # kernel checks + training
-    python3 chip_smoke.py --phase serve    # kernel checks + serving
+    python3 chip_smoke.py                     # everything
+    python3 chip_smoke.py --phase kernels     # build + kernel checks only
+    python3 chip_smoke.py --phase train       # kernel checks + training
+    python3 chip_smoke.py --phase serve       # kernel checks + serving
+    python3 chip_smoke.py --phase fedtrain    # kernel checks + fedtrain
 
 Phases, each fatal on failure:
 
-  1. build the seven CUDA kernels from `src/repro_torch/csrc` (nvcc,
-     sm_90a, one process per source);
+  1. build the nine CUDA kernels from `src/repro_torch/csrc` (nvcc,
+     sm_90a, one process per source, eight sources);
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes its path gives it (serving: one row of d 4096; training:
      1024 rows of d 4096, k 64) and at odd ones (rows not a multiple of a
@@ -17,8 +18,16 @@ Phases, each fatal on failure:
      out-of-range indices, d = 16384): masks, indices, words, scattered
      and non-quant values exact; quant headers and decoded values within
      1 ulp, quant codes exact; projected rows within 1 ulp plus 1e-5 of
-     the summed |terms|; time kernel, plain version and, where one
-     exists, the single PyTorch call that computes the same function;
+     the summed |terms|; `quantize` (no path runs it) at a training cut
+     (1024 x 4096 bf16), a serving flush (4 x 4096 bf16), odd shapes and a
+     constant row for bits 2, 4, 8: codes, lo and step exact, dequantized
+     values within 1 ulp; `flash_attention` (no path runs it) in f32 at
+     the reference tests' four configurations (atol 3e-5) and in bf16 at
+     yi-6b's width (Hq 32, Hkv 4, hd 128; B 4 S 256, B 1 S 4096, B 1 S
+     4096 with a 1024 window; atol 3e-2), and `project_qkv` + flash + wo
+     against the model's `full_attention` at yi-6b width in f32 (atol and
+     rtol 3e-4); time kernel, plain version and, where one exists, the
+     single PyTorch call that computes the same function;
   3. serve yi-6b at full width (d 4096, bf16, random weights from a seed)
      through `runtime.engine.run_streaming` with `randtopk --k 64`, the cut
      at n_layers // 2: the launch counts (zeroed just before) must show
@@ -51,15 +60,28 @@ Phases, each fatal on failure:
      bit;
   9. yi-6b SMOKE in f32: 3 training steps on the CPU (plain versions) and
      on the card (kernels) from one set of weights, batches and RandTopK
-     draws give losses within rtol 1e-5.
+     draws give losses within rtol 1e-5;
+ 10. federated split training over the wire (`fedtrain.run_fedtrain`) at
+     the tabular phase's widths, batch 128: one randtopk client for one
+     epoch gives `tabular.train`'s losses (rtol 1e-5) and final weights on
+     the card; four randtopk_mask clients with the adaptive schedule and
+     4 local steps for two epochs (78 steps), stopped at step 40 and
+     resumed from a checkpoint every 20 steps in a temporary directory,
+     equal the uninterrupted run in losses, bytes and final weights;
+     measured bytes within 5% of the analytics both ways, no host
+     densification, and the codec kernels' launches (counts zeroed just
+     before each run) show the path went through them; wall time, steps
+     per second and the busy share from a `torch.profiler` trace of a
+     rerun.
 
 Prints the card's name and power limit, a `kernels` JSON line (each
-kernel's launches on its path's randtopk run, its largest difference from
-its plain version, the CUDA-event times of kernel, plain version and
-library call at its path's shapes, and the card's bound for the same
-work), the loop's and the step's numbers, and as its last line
-{"ok": true, "device": {...}}. Exits nonzero, with no result line, when
-CUDA is unavailable or any phase fails.
+kernel's launches on its path's randtopk run, or in its check's own loop
+for the two no path runs, its largest difference from its plain version,
+the CUDA-event times of kernel, plain version and library call at its
+path's shapes, and the card's bound for the same work), the loop's and
+the step's numbers, and as its last line {"ok": true, "device": {...}}.
+Exits nonzero, with no result line, when CUDA is unavailable or any phase
+fails.
 """
 from __future__ import annotations
 
@@ -76,6 +98,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor f32 (data sheet)
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 D, K, W_IDX = 4096, 64, 12     # yi-6b cut width, top-k, index bits
 N_CLIENTS, PROMPT_LEN = 4, 4   # closed-loop sessions and prompt tokens
 GEN = 16                       # generated tokens per session, randtopk runs
@@ -107,10 +130,11 @@ def time_ms(fn, iters: int = 200, reps: int = 5) -> float:
     return statistics.median(out)
 
 
-def bound_ms(nbytes: float, ops: float):
-    """The least time the card needs: max(bytes / HBM rate, ops / f32 rate).
-    Returns (ms, "bytes" | "operations")."""
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
+    """The least time the card needs: max(bytes / HBM rate, ops / peak
+    rate), the f32 peak unless another is named. Returns (ms, "bytes" |
+    "operations")."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
 
 
@@ -520,6 +544,205 @@ def check_scatter_rows(dev, g):
                 bound_by=b[1], library_ms=lib,
                 library_call="dense.scatter_add_(-1, index, values) into a "
                              "zeroed bf16 buffer it does not zero again")
+
+
+QUANT_CASES = [((TRAIN_ROWS, D), "bfloat16"),    # a yi-6b training cut
+               ((N_CLIENTS, D), "bfloat16"),     # a serving flush
+               ((17, 96), "float32"), ((17, 96), "bfloat16"),
+               ((3, 5, 96), "float32"), ((3, 5, 96), "bfloat16")]
+
+
+def check_quant(dev, g):
+    """`quantize` against its plain version: codes, lo and step exact, the
+    dequantized values within 1 ulp. No path runs it, so its launches are
+    those of this check's own loop."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.quant import ops, ref
+
+    err = 0.0
+    _lib.reset_launch_counts()
+    for shape, dt in QUANT_CASES + [((4, 32), "constant")]:
+        x = torch.randn(shape, generator=g, device=dev)
+        if dt == "constant":
+            x = torch.full(shape, 1.5, device=dev)
+            x[1] = -3.0
+        else:
+            x = x.to(getattr(torch, dt))
+        for bits in (2, 4, 8):
+            a, b = ops.quantize(x, bits), ref.quantize(x, bits)
+            torch.cuda.synchronize()
+            for name, u, w in (("codes", a[0], b[0]), ("lo", a[2], b[2]),
+                               ("step", a[3], b[3])):
+                if u.dtype != w.dtype or not torch.equal(u, w):
+                    fail(f"quantize {name}: kernel != plain at {shape} "
+                         f"{dt} bits={bits}")
+            if a[1].dtype != x.dtype or not _tol_ok(a[1], b[1]):
+                fail(f"quantize deq beyond 1 ulp at {shape} {dt} "
+                     f"bits={bits}")
+            if torch.isnan(a[1]).any():
+                fail(f"quantize gave NaN at {shape} {dt}")
+            err = max(err, *(max_diff(u, w) for u, w in zip(a, b)))
+    launches = _lib.launch_counts()["quantize"]
+    x = torch.randn((TRAIN_ROWS, D), generator=g, device=dev).to(
+        torch.bfloat16)
+    ms = time_ms(lambda: ops.quantize(x, 4))
+    plain = time_ms(lambda: ref.quantize(x, 4), iters=50)
+    # x bf16 read; u8 codes, bf16 deq, f32 lo and step written; min, max,
+    # subtract, divide, floor, two clamps, add, multiply, add per element
+    b = bound_ms(TRAIN_ROWS * (D * (2 + 1 + 2) + 8), 10 * TRAIN_ROWS * D)
+    return dict(name="quantize", route="cuda",
+                source="src/repro_torch/csrc/quantize.cu",
+                replaces="src/repro/kernels/quant/kernel.py:34",
+                launches=launches,
+                launches_from="this check's own loop: no path runs it",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
+                bound_by=b[1], library_ms=None,
+                library_call="none: no single PyTorch call gives per-row "
+                             "min/max codes, dequantized values and "
+                             "headers (torch.quantize_per_channel takes "
+                             "the scales as inputs and rounds to nearest)")
+
+
+def _visible_pairs(S: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the mask leaves visible, per batch row and head: keys
+    up to the query (causal) or all, from the window's start."""
+    n = 0
+    for i in range(S):
+        hi = i if causal else S - 1
+        lo = max(0, i - window + 1) if window else 0
+        n += hi - lo + 1
+    return n
+
+
+FLASH_F32 = [dict(B=2, S=128, Hq=4, Hkv=2, hd=64, causal=True, window=0),
+             dict(B=1, S=256, Hq=8, Hkv=8, hd=32, causal=True, window=0),
+             dict(B=2, S=128, Hq=4, Hkv=1, hd=64, causal=False, window=0),
+             dict(B=1, S=256, Hq=4, Hkv=2, hd=64, causal=True, window=64)]
+YI = dict(Hq=32, Hkv=4, hd=128)        # yi-6b attention at full width
+FLASH_BF16 = [dict(B=4, S=256, causal=True, window=0, **YI),   # training
+              dict(B=1, S=4096, causal=True, window=0, **YI),
+              dict(B=1, S=4096, causal=True, window=1024, **YI)]
+
+
+def _flash_inputs(g, dev, c, dtype):
+    import torch
+
+    shapes = [(c["B"], c["S"], h, c["hd"]) for h in (c["Hq"], c["Hkv"],
+                                                      c["Hkv"])]
+    return [torch.randn(sh, generator=g, device=dev).to(dtype)
+            for sh in shapes]
+
+
+def _sdpa_call(q, k, v, c):
+    """The library yardstick: one `scaled_dot_product_attention` call on
+    (B, H, S, hd) views, grouped heads by `enable_gqa` where this PyTorch
+    has it, else K and V repeated beforehand (outside the timed call)."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    S = q.shape[1]
+    mask = None
+    if c["window"]:
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - c["window"])
+    kw = dict(attn_mask=mask, is_causal=c["causal"] and mask is None)
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
+        return (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **kw)), "enable_gqa=True"
+    except TypeError:
+        rep = q.shape[2] // k.shape[2]
+        kr, vr = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
+        return (lambda: F.scaled_dot_product_attention(qt, kr, vr, **kw)), \
+            "K and V repeated per q head"
+
+
+def check_flash(dev, g):
+    """`flash_attention` against its plain version: f32 at the reference
+    tests' four configurations (atol 3e-5), bf16 at yi-6b's full width
+    (atol 3e-2); then against the model's attention at yi-6b full width
+    in f32 (atol/rtol 3e-4). No path runs it, so its launches are those of
+    this check's own loop. Times at each bf16 shape: kernel, plain version
+    and one `scaled_dot_product_attention` call."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flashattn import ops, ref
+    from repro_torch.models import attention as A
+    from repro_torch.models.config import Runtime
+
+    err = 0.0
+    _lib.reset_launch_counts()
+    for c, dt, atol in ([(c, torch.float32, 3e-5) for c in FLASH_F32]
+                        + [(c, torch.bfloat16, 3e-2) for c in FLASH_BF16]):
+        q, k, v = _flash_inputs(g, dev, c, dt)
+        kw = dict(causal=c["causal"], window=c["window"])
+        a = ops.flash_attention(q, k, v, bq=64, bk=64, **kw)
+        b = ref.attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        e = max_diff(a.float(), b.float())
+        if a.dtype != dt or a.shape != q.shape or not e <= atol:
+            fail(f"flash kernel != plain at {c} {dt}: max |diff| {e}")
+        err = max(err, e)
+        print(f"  flash {dt} {c}: max |kernel - plain| {e} (atol {atol})")
+        del b
+    # against the model: yi-6b full width, one layer, B 2, S 256, f32
+    cfg = configs.get("yi-6b").with_(n_layers=1, param_dtype="float32",
+                                     dtype="float32")
+    p = {n: w[0] for n, w in A.init_attention(
+        torch.Generator(device=dev).manual_seed(5), cfg, 1,
+        device=dev).items() if n != "norm"}
+    x = torch.randn((2, 256, cfg.d_model), generator=g, device=dev)
+    y_model = A.full_attention(p, cfg, Runtime(), x)
+    q, k, v = A.project_qkv(p, cfg, x, torch.arange(256, device=dev)[None])
+    y_flash = ops.flash_attention(q, k, v).reshape(2, 256, -1) @ p["wo"]
+    torch.cuda.synchronize()
+    tol = 3e-4 + 3e-4 * y_model.abs()
+    if not bool(((y_flash - y_model).abs() <= tol).all()):
+        fail(f"flash + project_qkv != full_attention at yi-6b width: max "
+             f"|diff| {max_diff(y_flash, y_model)}")
+    print(f"  flash + project_qkv vs full_attention, yi-6b width, B 2, "
+          f"S 256, f32: max |diff| {max_diff(y_flash, y_model)} "
+          f"(atol/rtol 3e-4)")
+    launches = _lib.launch_counts()["flash_attention"]
+    rec = None
+    for c in FLASH_BF16:
+        q, k, v = _flash_inputs(g, dev, c, torch.bfloat16)
+        kw = dict(causal=c["causal"], window=c["window"])
+        big = c["S"] > 1024
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                     iters=3 if big else 50, reps=3)
+        plain = time_ms(lambda: ref.attention(q, k, v, **kw),
+                        iters=1 if big else 10, reps=3)
+        lib_fn, how = _sdpa_call(q, k, v, c)
+        lib = time_ms(lib_fn, iters=10 if big else 100, reps=3)
+        pairs = _visible_pairs(c["S"], c["causal"], c["window"])
+        n = c["B"] * c["S"] * (c["Hq"] * 2 + c["Hkv"] * 2) * c["hd"]
+        b = bound_ms(2 * n, 4 * c["B"] * c["Hq"] * c["hd"] * pairs,
+                     BF16_TENSOR_OPS_PER_S)
+        print(f"  flash bf16 B {c['B']} S {c['S']} window {c['window']}: "
+              f"kernel {ms} ms, plain {plain} ms, sdpa ({how}) {lib} ms, "
+              f"bound {b[0]} ms ({b[1]}, bf16 tensor peak)")
+        if rec is None:                 # the training shape goes in the line
+            rec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0],
+                       bound_by=b[1], how=how)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flashattn/kernel.py:67",
+                launches=launches,
+                launches_from="this check's own loop: no path runs it",
+                max_abs_err=err, ms=rec["ms"], plain_ms=rec["plain_ms"],
+                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                bound_peak="bf16 dense tensor 989 TFLOP/s",
+                library_ms=rec["library_ms"],
+                library_call="torch.nn.functional.scaled_dot_product_"
+                             f"attention ({rec['how']}), B 4 S 256 causal "
+                             "bf16 at yi-6b width, as the other times")
 
 
 # ---------------------------------------------------------------------------
@@ -1054,12 +1277,162 @@ def smoke_train_cpu_vs_card(dev, n_steps=3, rtol=1e-5):
           f"{losses['cuda']} vs CPU {losses['cpu']} (rtol {rtol})")
 
 
+# the codec kernels of a fedtrain step: up, the Eq. (7) mask, the encode
+# and (for packed index streams) the bit-pack; at the label owner the
+# decode; down, for sparse kinds, the scatter onto the support
+FED_KERNELS = {"randtopk": ("randtopk_mask", "encode_rows", "pack_bits",
+                            "decode_rows", "scatter_rows"),
+               "randtopk_mask": ("randtopk_mask", "encode_rows",
+                                 "decode_rows")}
+FED_EPOCHS_N4, FED_CKPT_EVERY, FED_STOP = 2, 20, 40
+
+
+def _fed_bytes_ok(res, what):
+    for direction in ("up", "down"):
+        got = res[f"payload_bytes_{direction}"]
+        want = res[f"analytic_bytes_{direction}"]
+        if not abs(got - want) <= 0.05 * want:
+            fail(f"fedtrain {what}: {got} B {direction} measured, {want} "
+                 f"analytic")
+
+
+def _fed_same(a, b, what):
+    """Two fedtrain results: the same losses from step `b`'s first on,
+    bytes, final k and final weights, bit for bit."""
+    import torch
+
+    start = b["losses"][0][0][0] if b["losses"][0] else 0
+    for cid in range(a["n_clients"]):
+        if b["losses"][cid] != [x for x in a["losses"][cid]
+                                if x[0] >= start]:
+            fail(f"fedtrain {what}: client {cid} losses differ")
+    for key in ("payload_bytes_up", "payload_bytes_down", "header_bytes",
+                "final_k"):
+        if a[key] != b[key]:
+            fail(f"fedtrain {what}: {key} {a[key]} vs {b[key]}")
+    off = [n for x, y in zip(a["bottoms"] + [a["top"]],
+                             b["bottoms"] + [b["top"]])
+           for n in x if not torch.equal(x[n], y[n])]
+    if off:
+        fail(f"fedtrain {what}: final weights differ in {off}")
+
+
+def fedtrain_phase(dev):
+    """Federated split training over the wire on the card, at the tabular
+    phase's paper widths: (a) one client with randtopk against
+    `tabular.train` on the card; (b) four clients with randtopk_mask, the
+    adaptive schedule and 4 local steps, stopped at step 40 and resumed
+    from a checkpoint, against the uninterrupted run."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.data.synthetic import ManyClassDataset
+    from repro_torch.fedtrain import AsyncPolicy, ScheduleSpec, run_fedtrain
+    from repro_torch.kernels import _lib
+    from repro_torch.split import protocol, tabular
+
+    ds = ManyClassDataset()
+    spec = tabular.SplitSpec(method="randtopk")
+    densify0 = protocol.HOST_DENSIFY_COUNT.value
+    tab = tabular.train(spec, ds, epochs=1, batch=128, seed=0,
+                        record_every=1, device="cuda")
+    _lib.reset_launch_counts()
+    fed = run_fedtrain(spec, ds, n_clients=1, epochs=1, batch=128, seed=0,
+                       device="cuda")
+    counts = _lib.launch_counts()
+    tl = [t[2] for t in tab["trace"]]
+    fl = [x for _, x in fed["losses"][0]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(fl, tl))
+    if len(fl) != len(tl) or not rel <= 1e-5:
+        fail(f"fedtrain N=1 losses differ from tabular.train (max rel "
+             f"{rel})")
+    off = [n for part, mine in (("bottom", fed["bottoms"][0]),
+                                ("top", fed["top"]))
+           for n in mine if not torch.equal(mine[n], tab[part][n])]
+    if off:
+        fail(f"fedtrain N=1 final weights differ from tabular.train: {off}")
+    _fed_bytes_ok(fed, "N=1")
+    missing = [n for n in FED_KERNELS["randtopk"] if not counts[n]]
+    if missing:
+        fail(f"fedtrain N=1 randtopk path never launched {missing}")
+    print(f"fedtrain N=1 randtopk ({fed['steps']} steps, batch 128): losses "
+          f"equal tabular.train's on the card (max rel diff {rel}), final "
+          f"weights identical; {fed['payload_bytes_up']} B up / "
+          f"{fed['payload_bytes_down']} B down measured vs "
+          f"{fed['analytic_bytes_up']:.0f} / "
+          f"{fed['analytic_bytes_down']:.0f} analytic; wall "
+          f"{fed['wall_s']:.3f} s, {fed['steps'] / fed['wall_s']:.1f} "
+          f"steps/s; launches {counts}")
+    _, dev_ms, wall_ms, _ = traced(lambda: run_fedtrain(
+        spec, ds, n_clients=1, epochs=1, batch=128, seed=0, device="cuda"))
+    if dev_ms is None:
+        print("fedtrain N=1 busy share: not measured (no device time)")
+    else:
+        print(f"fedtrain N=1 under torch.profiler: device {dev_ms} ms of "
+              f"{wall_ms} ms wall, card busy {dev_ms / wall_ms * 100:.2f}%")
+
+    spec4 = tabular.SplitSpec(method="randtopk_mask")
+    kw = dict(n_clients=4, epochs=FED_EPOCHS_N4, batch=128, seed=0,
+              schedule=ScheduleSpec(k=spec4.k, d=spec4.cut_dim,
+                                    anneal_steps=8,
+                                    k0=min(spec4.cut_dim, 2 * spec4.k),
+                                    k_min=max(1, spec4.k // 2)),
+              policy=AsyncPolicy(local_steps=4, warmup_sync=8),
+              max_wait=5.0, device="cuda")
+    _lib.reset_launch_counts()
+    full = run_fedtrain(spec4, ds, **kw)
+    counts4 = _lib.launch_counts()
+    _fed_bytes_ok(full, "N=4")
+    missing = [n for n in FED_KERNELS["randtopk_mask"] if not counts4[n]]
+    if missing:
+        fail(f"fedtrain N=4 randtopk_mask path never launched {missing}")
+    ckpt = tempfile.mkdtemp(prefix="fedtrain_ckpt_")
+    try:
+        killed = run_fedtrain(spec4, ds, ckpt_dir=ckpt,
+                              ckpt_every=FED_CKPT_EVERY,
+                              stop_after_steps=FED_STOP, **kw)
+        resumed = run_fedtrain(spec4, ds, ckpt_dir=ckpt,
+                               ckpt_every=FED_CKPT_EVERY, **kw)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if killed["steps"] != FED_STOP or \
+            resumed["losses"][0][0][0] != FED_STOP:
+        fail(f"fedtrain N=4: killed at {killed['steps']}, resumed at "
+             f"{resumed['losses'][0][:1]}")
+    _fed_same(full, resumed, "N=4 resumed vs uninterrupted")
+    syncs = [len(x) for x in full["losses"]]
+    print(f"fedtrain N=4 randtopk_mask, adaptive schedule, 4 local steps "
+          f"({full['steps']} steps, {syncs} sync steps, final k "
+          f"{full['final_k']}): stopped at {FED_STOP} and resumed from the "
+          f"checkpoint = the uninterrupted run (losses, bytes, weights); "
+          f"{full['payload_bytes_up']} B up / {full['payload_bytes_down']} "
+          f"B down measured vs {full['analytic_bytes_up']:.0f} / "
+          f"{full['analytic_bytes_down']:.0f} analytic; mean test acc "
+          f"{full['mean_test_acc']}; wall {full['wall_s']:.3f} s, "
+          f"{4 * full['steps'] / full['wall_s']:.1f} client steps/s; "
+          f"launches {counts4}")
+    again, dev_ms, wall_ms, _ = traced(lambda: run_fedtrain(spec4, ds,
+                                                            **kw))
+    _fed_same(full, again, "N=4 traced rerun vs first run")
+    if dev_ms is None:
+        print("fedtrain N=4 busy share: not measured (no device time)")
+    else:
+        print(f"fedtrain N=4 under torch.profiler: device {dev_ms} ms of "
+              f"{wall_ms} ms wall, card busy {dev_ms / wall_ms * 100:.2f}%"
+              f"; the rerun trained the same weights")
+    if protocol.HOST_DENSIFY_COUNT.value != densify0:
+        fail("fedtrain densified a payload on the host")
+    print("fedtrain: HOST_DENSIFY_COUNT unchanged (0 host densifications)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "kernels", "serve", "train"),
+    ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
+                                        "fedtrain"),
                     default="all",
                     help="kernels: build + kernel checks only; serve / "
-                         "train: the checks and one path")
+                         "train / fedtrain: the checks and one path")
     ap.add_argument("--layers", type=int, default=32,
                     help="serving depth of yi-6b (width is never cut)")
     args = ap.parse_args(argv)
@@ -1090,19 +1463,27 @@ def main(argv=None) -> int:
             print("  " + line.strip())
 
     g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
     records = [check_topk(dev, g), check_encode(dev, g), check_pack(dev, g),
                check_decode(dev, g), check_randtopk(dev, g),
                check_decode_rows(dev, g), check_scatter_rows(dev, g)]
-    print("kernel checks: all seven kernels agree with their plain versions "
-          "(masks, indices, words, packed bits, quant codes, scattered and "
-          "non-quant decoded values exact; quant headers and decoded "
-          "values within 1 ulp; projected rows within 1 ulp plus 1e-5 of "
-          "the summed |terms|)")
+    own = [check_quant(dev, g), check_flash(dev, g)]
+    print("kernel checks: all nine kernels agree with their plain versions "
+          "(masks, indices, words, packed bits, quant codes, lo and step, "
+          "scattered and non-quant decoded values exact; quant headers and "
+          "dequantized values within 1 ulp; projected rows within 1 ulp "
+          "plus 1e-5 of the summed |terms|; flash within 3e-5 in f32 and "
+          f"3e-2 in bf16) in {time.perf_counter() - t0:.1f} s")
 
     # each kernel's launches are read from the run of the path it serves:
     # the four codec kernels of serving from the serving randtopk run, the
-    # three of training from the training randtopk run
+    # three of training from the training randtopk run; quantize and
+    # flash_attention, which no path runs, from their checks' own loops
     launches = {r["name"]: 0 for r in records}
+    for r in records:
+        r["launches_from"] = (
+            "serving randtopk run" if r["name"] in PATH_KERNELS["randtopk"]
+            else "training randtopk run")
     if args.phase in ("all", "serve"):
         t0 = time.perf_counter()
         counts = serve_phase(dev, args.layers)
@@ -1117,13 +1498,18 @@ def main(argv=None) -> int:
         tabular_phase(dev)
         smoke_train_cpu_vs_card(dev)
         print(f"training phases: {time.perf_counter() - t0:.1f} s")
+    if args.phase in ("all", "fedtrain"):
+        t0 = time.perf_counter()
+        fedtrain_phase(dev)
+        print(f"fedtrain phase: {time.perf_counter() - t0:.1f} s")
 
     for r in records:
         r["launches"] = launches[r["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_from", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in records]}))
+                                  for r in records + own]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

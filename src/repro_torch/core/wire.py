@@ -422,6 +422,12 @@ def encode_payload_frame_from_bytes(session: int, seq: int, m: PayloadMeta,
                   _meta_subheader(m, tuple(batch_shape)) + body)
 
 
+def grad_frame_header_nbytes(p: Payload) -> int:
+    """Framing bytes of `encode_grad_frame(p)`: the payload-frame header
+    plus the f32 loss the training reply carries."""
+    return payload_frame_header_nbytes(p) + _GRAD_TAIL.size
+
+
 def encode_grad_frame(session: int, seq: int, p: Payload,
                       loss: float = 0.0) -> bytes:
     """Frame a backward cut-gradient payload (training direction).

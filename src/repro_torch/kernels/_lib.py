@@ -31,7 +31,8 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("topk_select.cu", "randtopk_mask.cu", "encode_rows.cu",
-           "pack_bits.cu", "decode_to_slots.cu", "decode_rows.cu")
+           "pack_bits.cu", "decode_to_slots.cu", "decode_rows.cu",
+           "quantize.cu", "flash_attention.cu")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -39,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C signatures (argtypes) of the exported launchers; each returns the
 #: `cudaGetLastError()` of its launch as an int
 SIGNATURES = {
@@ -58,6 +60,12 @@ SIGNATURES = {
     "decode_rows": (_P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P),
     # values, vals_is_bf16, indices(i32), rows, d, k, out, stream
     "scatter_rows": (_P, _I, _P, _I, _I, _I, _P, _P),
+    # x, x_is_bf16, rows, d, bits, code(u8), deq, lo(f32), step(f32), stream
+    "quantize": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # q, k, v, is_bf16, B, S, Hq, Hkv, hd, bq, bk, causal, window, scale,
+    # out, stream
+    "flash_attention": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _F, _P, _P),
 }
 
 BACKENDS = ("auto", "torch", "cuda")

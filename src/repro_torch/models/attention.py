@@ -72,18 +72,27 @@ def _causal_mask(q_pos, kv_pos, window: int):
     return m
 
 
+def project_qkv(p, cfg: ArchConfig, x, positions):
+    """q (B, S, Hq, hd), k and v (B, S, Hkv, hd) of x (B, S, d) at
+    `positions` (B or 1, S), RoPE applied to q and k: exactly the operands
+    `full_attention` attends with (the reference's `_project_qkv`)."""
+    B, S, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, hq, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, hkv, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, hkv, hd)
+    q = common.apply_rope(q, positions, cfg.rope_theta)
+    k = common.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
 def full_attention(p, cfg: ArchConfig, rt: Runtime, x):
     """Causal training / prefill self-attention with RoPE over x (B, S, d).
     Sequences longer than `rt.attn_chunk` (and a multiple of it) are
     attended one query chunk at a time, bounding the logits at (chunk, S)."""
     B, S, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     pos = torch.arange(S, device=x.device)
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, hq, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, hkv, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, hkv, hd)
-    q = common.apply_rope(q, pos[None], cfg.rope_theta)
-    k = common.apply_rope(k, pos[None], cfg.rope_theta)
+    q, k, v = project_qkv(p, cfg, x, pos[None])
 
     def mask_for(q_pos):
         return _causal_mask(q_pos, pos, cfg.sliding_window)[None]
@@ -94,7 +103,7 @@ def full_attention(p, cfg: ArchConfig, rt: Runtime, x):
     else:
         out = torch.cat([sdpa(q[:, i:i + c], k, v, mask_for(pos[i:i + c]),
                               cfg) for i in range(0, S, c)], dim=1)
-    return out.reshape(B, S, hq * hd) @ p["wo"].to(x.dtype)
+    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
 
 
 def decode_attention(p, cfg: ArchConfig, x_tok, k_cache, v_cache, pos,

@@ -16,9 +16,12 @@ slot arena (`runtime.arena.SlotArena`):
     a mixed-meta flush decodes per meta, then runs the top step once.
 
 Token replies stream back as frames; per-session byte accounting comes
-from the real frame sizes. Malformed frames are answered with an error
-frame and the connection is retired. LRU eviction/readmission, tracing and
-the metrics registry of the reference server are not ported yet.
+from the real frame sizes. The connection plumbing (reader threads, the
+error frame and retired connection for a malformed frame, the session
+registry, the queue-close lifecycle) is `FrameServerBase`, which the
+training server (`fedtrain.server.TrainingServer`) shares. LRU
+eviction/readmission, tracing and the metrics registry of the reference
+server are not ported yet.
 """
 from __future__ import annotations
 
@@ -38,63 +41,33 @@ from repro_torch.runtime.batching import BatchingQueue
 from repro_torch.runtime.session import Session
 
 
-class StreamingServer:
-    """Top-model serving engine over framed byte channels.
+class FrameServerBase:
+    """Connection plumbing shared by the serving and training servers: one
+    reader thread per attached channel, an `error` frame and a retired
+    connection for a malformed frame (never a dead thread), a session
+    registry, and the queue-close lifecycle.
 
-    `top_step` is an arena step (`steps.make_arena_top_step`); `capacity`
-    bounds concurrently-resident sessions (the engine sets it to the client
-    count). `backend` picks the decode kernel ("auto"/None) or its plain
-    version ("torch")."""
+    Subclasses call `_init_connections` from `__init__`, implement
+    `_new_session(sid, endpoint)` (called under the lock), and set
+    `direction` (the label protocol violations are reported under)."""
 
     direction = "serving"
 
-    def __init__(self, params, top_step: Callable, make_cache: Callable,
-                 *, device, max_batch: int = 8, max_wait: float = 0.01,
-                 dtype=torch.float32, capacity: Optional[int] = None,
-                 x_shape=None, backend: Optional[str] = None,
-                 admit_timeout: float = 5.0):
-        self.params = params
-        self.device = torch.device(device)
-        self.top_step = top_step
-        self._fused_step = steps.make_fused_decode_step(top_step,
-                                                        backend=backend)
-        self.dtype = dtype
-        self.backend = backend
-        self.batch_sizes: List[int] = []    # flush fill history
-        self.stage_s = {"decode": 0.0, "step": 0.0, "reply": 0.0}
-        self.queue = BatchingQueue(max_batch, max_wait)
+    def _init_connections(self, queue: BatchingQueue) -> None:
+        self.queue = queue
         self.sessions: Dict[int, Session] = {}
         self._lock = threading.Lock()
+        # admissions waiting for an arena slot wait here; notified on
+        # session close and after every flush
         self._slot_cv = threading.Condition(self._lock)
         self._readers: List[threading.Thread] = []
         self._open_readers = 0
         self.errors: List[BaseException] = []   # reader-thread failures
         self.faults_detected = 0
         self.expected_sessions = 0          # set by the engine
-        self.arena: Optional[SlotArena] = None
-        self._make_cache = make_cache
-        self._capacity = capacity or max_batch
-        self.admit_timeout = admit_timeout
-        if x_shape is not None:
-            self.arena = SlotArena(make_cache, self._capacity, x_shape,
-                                   dtype, self.device)
-        # FIFO free deque: O(1) admission, freed slots cycle to the back
-        self._free_slots: Deque[int] = collections.deque(
-            range(self._capacity))
-        self._resets: List[int] = []        # slots to reset, serve loop
-        # flush-size buckets: powers of two up to max_batch, plus max_batch
-        self._buckets = sorted(
-            {1 << i for i in range(max_batch.bit_length())
-             if (1 << i) <= max_batch} | {max_batch})
-        self._staging: Dict = {}            # (meta, bucket, leaf) -> np buf
-        self.host_bytes = {"staged": 0, "wire": 0}
 
-    def _ensure_arena(self, d: int) -> None:
-        if self.arena is None:
-            self.arena = SlotArena(self._make_cache, self._capacity,
-                                   (1, 1, d), self.dtype, self.device)
-
-    # -- connections -----------------------------------------------------------
+    def _new_session(self, sid: int, endpoint) -> Session:
+        raise NotImplementedError
 
     def attach(self, endpoint) -> threading.Thread:
         """Register a client channel and start its frame-reader thread."""
@@ -107,7 +80,8 @@ class StreamingServer:
         return t
 
     def shutdown(self) -> None:
-        """Close the admission queue; the serve loop drains, then exits."""
+        """Close the admission queue; the processing loop drains, then
+        exits."""
         self.queue.close()
 
     def _reject(self, endpoint, sid_seen, exc: wire.WireError) -> None:
@@ -170,12 +144,62 @@ class StreamingServer:
         with self._lock:
             sess = self.sessions.get(sid)
             if sess is None:
-                sess = Session(id=sid, slot=self._assign_slot_locked(sid),
-                               endpoint=endpoint)
+                sess = self._new_session(sid, endpoint)
                 self.sessions[sid] = sess
             else:
                 sess.endpoint = endpoint
             return sess
+
+
+class StreamingServer(FrameServerBase):
+    """Top-model serving engine over framed byte channels.
+
+    `top_step` is an arena step (`steps.make_arena_top_step`); `capacity`
+    bounds concurrently-resident sessions (the engine sets it to the client
+    count). `backend` picks the decode kernel ("auto"/None) or its plain
+    version ("torch")."""
+
+    def __init__(self, params, top_step: Callable, make_cache: Callable,
+                 *, device, max_batch: int = 8, max_wait: float = 0.01,
+                 dtype=torch.float32, capacity: Optional[int] = None,
+                 x_shape=None, backend: Optional[str] = None,
+                 admit_timeout: float = 5.0):
+        self.params = params
+        self.device = torch.device(device)
+        self.top_step = top_step
+        self._fused_step = steps.make_fused_decode_step(top_step,
+                                                        backend=backend)
+        self.dtype = dtype
+        self.backend = backend
+        self.batch_sizes: List[int] = []    # flush fill history
+        self.stage_s = {"decode": 0.0, "step": 0.0, "reply": 0.0}
+        self._init_connections(BatchingQueue(max_batch, max_wait))
+        self.arena: Optional[SlotArena] = None
+        self._make_cache = make_cache
+        self._capacity = capacity or max_batch
+        self.admit_timeout = admit_timeout
+        if x_shape is not None:
+            self.arena = SlotArena(make_cache, self._capacity, x_shape,
+                                   dtype, self.device)
+        # FIFO free deque: O(1) admission, freed slots cycle to the back
+        self._free_slots: Deque[int] = collections.deque(
+            range(self._capacity))
+        self._resets: List[int] = []        # slots to reset, serve loop
+        # flush-size buckets: powers of two up to max_batch, plus max_batch
+        self._buckets = sorted(
+            {1 << i for i in range(max_batch.bit_length())
+             if (1 << i) <= max_batch} | {max_batch})
+        self._staging: Dict = {}            # (meta, bucket, leaf) -> np buf
+        self.host_bytes = {"staged": 0, "wire": 0}
+
+    def _ensure_arena(self, d: int) -> None:
+        if self.arena is None:
+            self.arena = SlotArena(self._make_cache, self._capacity,
+                                   (1, 1, d), self.dtype, self.device)
+
+    def _new_session(self, sid: int, endpoint) -> Session:
+        return Session(id=sid, slot=self._assign_slot_locked(sid),
+                       endpoint=endpoint)
 
     def _assign_slot_locked(self, sid: int) -> int:
         """Take a free slot, else reclaim a closed session's, else wait on

@@ -8,8 +8,7 @@ fixed per-frame cost the analytic rows do not model). Benchmarks compare
 `payload_bytes_up / frames_up` against `core.wire` analytic predictions.
 
 The port's copy of the reference's `runtime/session.py`, without the
-training-direction, eviction and retransmission state, which are not
-ported yet.
+eviction and retransmission state, which are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,8 +24,10 @@ class SessionStats:
     frames_up: int = 0          # payload frames sent client -> server
     payload_bytes_up: int = 0   # codec bitstream bytes only
     header_bytes_up: int = 0    # framing overhead (length prefix + headers)
-    frames_down: int = 0        # token frames server -> client
+    frames_down: int = 0        # token/grad frames server -> client
     bytes_down: int = 0         # total down-direction frame bytes
+    payload_bytes_down: int = 0  # grad-frame codec bitstream bytes (training)
+    header_bytes_down: int = 0   # grad-frame framing bytes (training)
     tokens_out: int = 0         # tokens the client kept (generated, not prompt)
     faults_detected: int = 0    # typed WireErrors caught on this connection
     duplicates: int = 0         # replayed frames deduplicated by seq
@@ -39,6 +40,16 @@ class SessionStats:
     def count_down(self, nbytes: int) -> None:
         self.frames_down += 1
         self.bytes_down += nbytes
+
+    def count_down_frame(self, header_nbytes: int,
+                         payload_nbytes: int) -> None:
+        """A down-direction frame with the payload/framing split: the
+        training grad frames, whose payload bytes the Table-2 bwd column
+        models (serving token replies keep the aggregate `count_down`)."""
+        self.frames_down += 1
+        self.header_bytes_down += header_nbytes
+        self.payload_bytes_down += payload_nbytes
+        self.bytes_down += header_nbytes + payload_nbytes
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -65,3 +76,4 @@ class Session:
     # (re-processing would double-advance the KV cache)
     last_seq: int = -1
     last_reply: Any = None
+    last_reply_header: int = 0          # framing bytes of `last_reply`

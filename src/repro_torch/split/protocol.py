@@ -261,13 +261,14 @@ def server_grad_encode(p: Payload, g) -> Payload:
     return Payload(meta=meta, values=gw.detach().float().cpu().numpy())
 
 
-def client_grad_decode(gp: Payload, *, fwd_kind: str, indices=None, d: int):
+def client_grad_decode(gp: Payload, *, fwd_kind: str, indices=None, d: int,
+                       device="cpu"):
     """Feature-owner backward half: the dense (..., d) cut gradient from a
     received grad payload, routed onto the support of the forward payload
     the client sent (scatter for sparse kinds, expand for mask, pad for
-    slice, identity for dense/quant)."""
-    gw = gp.values if torch.is_tensor(gp.values) else torch.from_numpy(
-        np.array(gp.values, np.float32))
+    slice, identity for dense/quant), built on `device` (on the card the
+    sparse scatter is the `scatter_rows` kernel)."""
+    gw = device_leaf(gp.values, "values", device)
     idx = None if indices is None else device_leaf(indices, "indices",
-                                                   gw.device)
+                                                   device)
     return _grad_from_wire(fwd_kind, gw, idx, d)
