@@ -9,8 +9,8 @@
 
 Phases, each fatal on failure:
 
-  1. build the nine CUDA kernels from `src/repro_torch/csrc` (nvcc,
-     sm_90a, one process per source, eight sources);
+  1. build the port's CUDA kernels from `src/repro_torch/csrc` (nvcc,
+     sm_90a, one process per source, eight sources, ten launchers);
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes its path gives it (serving: one row of d 4096; training:
      1024 rows of d 4096, k 64) and at odd ones (rows not a multiple of a
@@ -21,13 +21,18 @@ Phases, each fatal on failure:
      the summed |terms|; `quantize` (no path runs it) at a training cut
      (1024 x 4096 bf16), a serving flush (4 x 4096 bf16), odd shapes and a
      constant row for bits 2, 4, 8: codes, lo and step exact, dequantized
-     values within 1 ulp; `flash_attention` (no path runs it) in f32 at
-     the reference tests' four configurations (atol 3e-5) and in bf16 at
-     yi-6b's width (Hq 32, Hkv 4, hd 128; B 4 S 256, B 1 S 4096, B 1 S
-     4096 with a 1024 window; atol 3e-2), and `project_qkv` + flash + wo
-     against the model's `full_attention` at yi-6b width in f32 (atol and
-     rtol 3e-4); time kernel, plain version and, where one exists, the
-     single PyTorch call that computes the same function;
+     values within 1 ulp; flash attention (no path runs it): the f32 SIMT
+     kernel at the reference tests' four configurations (atol 3e-5), the
+     bf16 tensor-core kernel at the same four, at S 32 (below its 128-row
+     tile) and at yi-6b's width (Hq 32, Hkv 4, hd 128; B 4 S 256, B 1 S
+     4096, B 1 S 4096 with a 1024 window; atol 3e-2), and `project_qkv` +
+     flash + wo against the model's `full_attention` at yi-6b width in f32
+     (atol and rtol 3e-4); time kernel, plain version and, where one
+     exists, the single PyTorch call that computes the same function; for
+     flash also the kernel's own device time per launch from a profiler
+     trace and its TFLOP/s, for scatter_rows where its wrapper's time goes
+     (device time per launch, host time per call, and the same for
+     `scatter_add_`);
   3. serve yi-6b at full width (d 4096, bf16, random weights from a seed)
      through `runtime.engine.run_streaming` with `randtopk --k 64`, the cut
      at n_layers // 2: the launch counts (zeroed just before) must show
@@ -128,6 +133,46 @@ def time_ms(fn, iters: int = 200, reps: int = 5) -> float:
         e.synchronize()
         out.append(s.elapsed_time(e) / iters)
     return statistics.median(out)
+
+
+def device_ms(fn, match=None, n: int = 20):
+    """Device time per call of `fn` from a `torch.profiler` trace of `n`
+    calls after a warm-up: the summed time of the device kernels whose name
+    holds `match` (every kernel when None) over `n`, and their names; the
+    time is None when the trace holds no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+          and (match is None or match in e.key)]
+    total = sum(e.self_device_time_total for e in ev) / 1e3
+    return (total / n if total > 0 else None), sorted({e.key for e in ev})
+
+
+def host_us(fn, n: int = 1000) -> float:
+    """Host microseconds per call of `fn` over `n` calls with no
+    synchronize, the card idle at the start (what the caller's thread
+    pays to enqueue the work)."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -508,6 +553,7 @@ def check_decode_rows(dev, g):
 
 def check_scatter_rows(dev, g):
     import torch
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.randtopk import ops, ref
 
     err = 0.0
@@ -537,6 +583,27 @@ def check_scatter_rows(dev, g):
     plain = time_ms(lambda: ref.scatter_rows(vals, idx, D), iters=50)
     lib = time_ms(lambda: dense.scatter_add_(-1, idx64, vals))
     b = bound_ms(TRAIN_ROWS * (K * 2 + K * 4 + D * 2), TRAIN_ROWS * (D + K))
+    # where the wrapper's time goes: the kernel's own device time from a
+    # profiler trace, the host's time per call enqueueing it, and of that
+    # the output's allocation and the bare launch (ctypes call, kernel
+    # launch, count) with fixed arguments
+    dev_ms, names = device_ms(lambda: ops.scatter_rows(vals, idx, D),
+                              "scatter_rows_kernel")
+    lib_dev, lib_names = device_ms(
+        lambda: dense.scatter_add_(-1, idx64, vals))
+    out = vals.new_empty((TRAIN_ROWS, D))
+    args = (vals.data_ptr(), 1, idx.data_ptr(), TRAIN_ROWS, D, K,
+            out.data_ptr(), _lib.stream_handle(vals))
+    print(f"  scatter_rows (1024 x 4096 bf16, k 64): wrapper {ms} ms "
+          f"(CUDA events), kernel device {dev_ms} ms per launch {names}, "
+          f"host {host_us(lambda: ops.scatter_rows(vals, idx, D))} us per "
+          f"call, of which output allocation "
+          f"{host_us(lambda: vals.new_empty((TRAIN_ROWS, D)))} us and bare "
+          f"launch {host_us(lambda: _lib.launch('scatter_rows', *args))} "
+          f"us; scatter_add_ wrapper {lib} ms, device {lib_dev} ms "
+          f"{lib_names}, host "
+          f"{host_us(lambda: dense.scatter_add_(-1, idx64, vals))} us per "
+          f"call; bound {b[0]} ms ({b[1]})")
     return dict(name="scatter_rows", route="cuda",
                 source="src/repro_torch/csrc/decode_rows.cu",
                 replaces="src/repro/kernels/randtopk/kernel.py:199",
@@ -620,6 +687,7 @@ FLASH_F32 = [dict(B=2, S=128, Hq=4, Hkv=2, hd=64, causal=True, window=0),
              dict(B=2, S=128, Hq=4, Hkv=1, hd=64, causal=False, window=0),
              dict(B=1, S=256, Hq=4, Hkv=2, hd=64, causal=True, window=64)]
 YI = dict(Hq=32, Hkv=4, hd=128)        # yi-6b attention at full width
+FLASH_SHORT = dict(B=2, S=32, Hq=4, Hkv=2, hd=64, causal=True, window=0)
 FLASH_BF16 = [dict(B=4, S=256, causal=True, window=0, **YI),   # training
               dict(B=1, S=4096, causal=True, window=0, **YI),
               dict(B=1, S=4096, causal=True, window=1024, **YI)]
@@ -661,12 +729,17 @@ def _sdpa_call(q, k, v, c):
 
 
 def check_flash(dev, g):
-    """`flash_attention` against its plain version: f32 at the reference
-    tests' four configurations (atol 3e-5), bf16 at yi-6b's full width
-    (atol 3e-2); then against the model's attention at yi-6b full width
-    in f32 (atol/rtol 3e-4). No path runs it, so its launches are those of
-    this check's own loop. Times at each bf16 shape: kernel, plain version
-    and one `scaled_dot_product_attention` call."""
+    """Both flash kernels against their plain version: the f32 (SIMT)
+    kernel at the reference tests' four configurations (atol 3e-5); the
+    bf16 (tensor-core) kernel at the same four, at S 32 (below its 128-row
+    tile, the ragged edge) and at yi-6b's full width (atol 3e-2); then
+    project_qkv + the f32 kernel + wo against the model's attention at
+    yi-6b full width (atol/rtol 3e-4). No path runs them, so their launches
+    are those of this check's own loop. Times at each bf16 shape: kernel
+    (wrapper, CUDA events, and its own device time per launch from a
+    profiler trace, with the TFLOP/s on the visible pairs), plain version
+    and one `scaled_dot_product_attention` call; the f32 kernel's at
+    yi-6b's training shape in f32. Returns the two kernels' records."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels import _lib
@@ -674,19 +747,21 @@ def check_flash(dev, g):
     from repro_torch.models import attention as A
     from repro_torch.models.config import Runtime
 
-    err = 0.0
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     _lib.reset_launch_counts()
     for c, dt, atol in ([(c, torch.float32, 3e-5) for c in FLASH_F32]
-                        + [(c, torch.bfloat16, 3e-2) for c in FLASH_BF16]):
+                        + [(c, torch.bfloat16, 3e-2)
+                           for c in FLASH_F32 + [FLASH_SHORT] + FLASH_BF16]):
         q, k, v = _flash_inputs(g, dev, c, dt)
         kw = dict(causal=c["causal"], window=c["window"])
-        a = ops.flash_attention(q, k, v, bq=64, bk=64, **kw)
+        bt = min(64, c["S"])
+        a = ops.flash_attention(q, k, v, bq=bt, bk=bt, **kw)
         b = ref.attention(q, k, v, **kw)
         torch.cuda.synchronize()
         e = max_diff(a.float(), b.float())
         if a.dtype != dt or a.shape != q.shape or not e <= atol:
             fail(f"flash kernel != plain at {c} {dt}: max |diff| {e}")
-        err = max(err, e)
+        err[dt] = max(err[dt], e)
         print(f"  flash {dt} {c}: max |kernel - plain| {e} (atol {atol})")
         del b
     # against the model: yi-6b full width, one layer, B 2, S 256, f32
@@ -707,10 +782,11 @@ def check_flash(dev, g):
     print(f"  flash + project_qkv vs full_attention, yi-6b width, B 2, "
           f"S 256, f32: max |diff| {max_diff(y_flash, y_model)} "
           f"(atol/rtol 3e-4)")
-    launches = _lib.launch_counts()["flash_attention"]
-    rec = None
-    for c in FLASH_BF16:
-        q, k, v = _flash_inputs(g, dev, c, torch.bfloat16)
+    launches = _lib.launch_counts()
+    recs = {}
+    for c, dt in [(c, torch.bfloat16) for c in FLASH_BF16] + \
+            [(FLASH_BF16[0], torch.float32)]:
+        q, k, v = _flash_inputs(g, dev, c, dt)
         kw = dict(causal=c["causal"], window=c["window"])
         big = c["S"] > 1024
         ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw),
@@ -721,28 +797,37 @@ def check_flash(dev, g):
         lib = time_ms(lib_fn, iters=10 if big else 100, reps=3)
         pairs = _visible_pairs(c["S"], c["causal"], c["window"])
         n = c["B"] * c["S"] * (c["Hq"] * 2 + c["Hkv"] * 2) * c["hd"]
-        b = bound_ms(2 * n, 4 * c["B"] * c["Hq"] * c["hd"] * pairs,
-                     BF16_TENSOR_OPS_PER_S)
-        print(f"  flash bf16 B {c['B']} S {c['S']} window {c['window']}: "
-              f"kernel {ms} ms, plain {plain} ms, sdpa ({how}) {lib} ms, "
-              f"bound {b[0]} ms ({b[1]}, bf16 tensor peak)")
-        if rec is None:                 # the training shape goes in the line
-            rec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b[0],
-                       bound_by=b[1], how=how)
-        del q, k, v
-        torch.cuda.empty_cache()
-    return dict(name="flash_attention", route="cuda",
+        flops = 4 * c["B"] * c["Hq"] * c["hd"] * pairs
+        bf16 = dt == torch.bfloat16
+        peak = BF16_TENSOR_OPS_PER_S if bf16 else FP32_OPS_PER_S
+        b = bound_ms(n * (2 if bf16 else 4), flops, peak)
+        dev_ms, names = device_ms(
+            lambda: ops.flash_attention(q, k, v, **kw), "flash",
+            n=3 if big else 20)
+        tflops = flops / (dev_ms * 1e-3) / 1e12 if dev_ms else None
+        print(f"  flash {dt} B {c['B']} S {c['S']} window {c['window']}: "
+              f"kernel {ms} ms (CUDA events, wrapper), device {dev_ms} ms "
+              f"per launch {names} = {tflops} TFLOP/s, wrapper "
+              f"{flops / (ms * 1e-3) / 1e12} TFLOP/s; plain {plain} ms, "
+              f"sdpa ({how}) {lib} ms; bound {b[0]} ms ({b[1]}, "
+              f"{'bf16 tensor' if bf16 else 'f32'} peak, {flops} "
+              f"visible-pair FLOP)")
+        name = "flash_attention" if bf16 else "flash_attention_simt"
+        if name not in recs:            # the training shape goes in the line
+            recs[name] = dict(
+                name=name, route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flashattn/kernel.py:67",
-                launches=launches,
+                launches=launches[name],
                 launches_from="this check's own loop: no path runs it",
-                max_abs_err=err, ms=rec["ms"], plain_ms=rec["plain_ms"],
-                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-                bound_peak="bf16 dense tensor 989 TFLOP/s",
-                library_ms=rec["library_ms"],
+                max_abs_err=err[dt], ms=ms, plain_ms=plain, bound_ms=b[0],
+                bound_by=b[1], library_ms=lib, device_ms=dev_ms,
                 library_call="torch.nn.functional.scaled_dot_product_"
-                             f"attention ({rec['how']}), B 4 S 256 causal "
-                             "bf16 at yi-6b width, as the other times")
+                             f"attention ({how}), B 4 S 256 causal {dt} "
+                             "at yi-6b width, as the other times")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return [recs["flash_attention"], recs["flash_attention_simt"]]
 
 
 # ---------------------------------------------------------------------------
@@ -1153,9 +1238,9 @@ def train_phase(dev):
         for name, ms, count in kernels[:14]:
             print(f"    {ms / 3:9.3f} ms {count / 3:6.0f}x  {name[:110]}")
         ours = {n: sum(ms for k, ms, _ in kernels if n in k) / 3
-                for n in ("randtopk_mask_kernel", "decode_rows_kernel")}
-        print(f"  the codec kernels per step: {ours} (decode_rows_kernel "
-              f"covers decode_rows and scatter_rows)")
+                for n in ("randtopk_mask_kernel", "decode_rows_kernel",
+                          "scatter_rows_kernel")}
+        print(f"  the codec kernels per step: {ours}")
 
     for comp in ("randtopk_mask", "quant", "size_reduction"):
         other = steps.make_train_step(_train_cfg(comp), rt)
@@ -1467,8 +1552,8 @@ def main(argv=None) -> int:
     records = [check_topk(dev, g), check_encode(dev, g), check_pack(dev, g),
                check_decode(dev, g), check_randtopk(dev, g),
                check_decode_rows(dev, g), check_scatter_rows(dev, g)]
-    own = [check_quant(dev, g), check_flash(dev, g)]
-    print("kernel checks: all nine kernels agree with their plain versions "
+    own = [check_quant(dev, g), *check_flash(dev, g)]
+    print("kernel checks: all ten kernels agree with their plain versions "
           "(masks, indices, words, packed bits, quant codes, lo and step, "
           "scattered and non-quant decoded values exact; quant headers and "
           "dequantized values within 1 ulp; projected rows within 1 ulp "
@@ -1478,7 +1563,7 @@ def main(argv=None) -> int:
     # each kernel's launches are read from the run of the path it serves:
     # the four codec kernels of serving from the serving randtopk run, the
     # three of training from the training randtopk run; quantize and
-    # flash_attention, which no path runs, from their checks' own loops
+    # the two flash kernels, which no path runs, from their checks' own loops
     launches = {r["name"]: 0 for r in records}
     for r in records:
         r["launches_from"] = (

@@ -9,6 +9,19 @@
 
 namespace repro {
 
+// Zero n floats of shared memory from `buf`: 16-byte stores where `buf`
+// is 16-byte aligned, the rest one float at a time.
+__device__ __forceinline__ void zero_shared(float* buf, int n) {
+  int head = 0;
+  if ((reinterpret_cast<uintptr_t>(buf) & 15) == 0) {
+    float4* b4 = reinterpret_cast<float4*>(buf);
+    for (int i = threadIdx.x; i < n / 4; i += blockDim.x)
+      b4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    head = n / 4 * 4;
+  }
+  for (int i = head + threadIdx.x; i < n; i += blockDim.x) buf[i] = 0.f;
+}
+
 // Builds the dense f32 row r of a payload of `kind` in `row` (d floats of
 // shared memory): zero it, barrier, then
 //   dense / slice     copy the d (or k) values;
@@ -32,7 +45,7 @@ __device__ __forceinline__ void decode_row(float* row, int d, long long r,
                                            const float* header,
                                            int* warp_sums) {
   const int* codes = static_cast<const int*>(values);
-  for (int i = threadIdx.x; i < d; i += blockDim.x) row[i] = 0.f;
+  zero_shared(row, d);
   __syncthreads();
   float lo = 0.f, step = 0.f;
   if (kind == kQuant || kind == kSparseQuant) {
@@ -74,18 +87,68 @@ __device__ __forceinline__ void decode_row(float* row, int d, long long r,
   __syncthreads();
 }
 
+__device__ __forceinline__ void store_one(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store_one(__nv_bfloat16* o, float v) {
+  *o = __float2bfloat16_rn(v);
+}
+
+// Store n floats of shared memory `src` to `out` (T = float, or bf16
+// rounded to nearest), coalesced: 16-byte stores of 4 floats or 8 bf16
+// from the first 16-byte boundary of `out`, single elements before it and
+// after the last whole vector. Every element is converted exactly as a
+// single store would, so the result does not depend on the alignment.
+template <typename T>
+__device__ __forceinline__ void store_flat(const float* src, int n, T* out) {
+  constexpr int V = 16 / sizeof(T);
+  const int mis = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(out) / sizeof(T)) % V);
+  const int head = min(n, mis ? V - mis : 0);
+  const int nv = (n - head) / V;
+  for (int i = threadIdx.x; i < head; i += blockDim.x)
+    store_one(out + i, src[i]);
+  const bool src4 = ((reinterpret_cast<uintptr_t>(src + head) & 15) == 0);
+  for (int c = threadIdx.x; c < nv; c += blockDim.x) {
+    const int i = head + c * V;
+    float f[V];
+    if (src4) {
+#pragma unroll
+      for (int j = 0; j < V; j += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(src + i + j);
+        f[j] = x.x; f[j + 1] = x.y; f[j + 2] = x.z; f[j + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) f[j] = src[i + j];
+    }
+    uint4 w;
+    if constexpr (V == 4) {
+      w = make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                     __float_as_uint(f[2]), __float_as_uint(f[3]));
+    } else {
+      unsigned u[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat162 h =
+            __halves2bfloat162(__float2bfloat16_rn(f[2 * j]),
+                               __float2bfloat16_rn(f[2 * j + 1]));
+        u[j] = *reinterpret_cast<const unsigned*>(&h);
+      }
+      w = make_uint4(u[0], u[1], u[2], u[3]);
+    }
+    *reinterpret_cast<uint4*>(out + i) = w;
+  }
+  for (int i = head + nv * V + threadIdx.x; i < n; i += blockDim.x)
+    store_one(out + i, src[i]);
+}
+
 // Store `row` (d floats of shared memory) to `out` (d elements of f32, or
-// bf16 rounded to nearest when `out_bf16`), coalesced.
+// bf16 rounded to nearest when `out_bf16`), coalesced (`store_flat`).
 __device__ __forceinline__ void store_row(const float* row, int d, void* out,
                                           int out_bf16) {
-  if (out_bf16) {
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-    for (int i = threadIdx.x; i < d; i += blockDim.x)
-      o[i] = __float2bfloat16_rn(row[i]);
-  } else {
-    float* o = static_cast<float*>(out);
-    for (int i = threadIdx.x; i < d; i += blockDim.x) o[i] = row[i];
-  }
+  if (out_bf16)
+    store_flat(row, d, static_cast<__nv_bfloat16*>(out));
+  else
+    store_flat(row, d, static_cast<float*>(out));
 }
 
 }  // namespace repro

@@ -21,6 +21,13 @@
 //   * one block per row; the row is built in f32 in shared memory by
 //     `repro::decode_row` (decode_row.cuh, shared with decode_to_slots.cu);
 //   * barrier, then one convert-and-store pass into the output dtype.
+// The bare scatter (`scatter_rows`) has its own kernel: a block takes
+// several consecutive rows at once (32 KB of f32 rows in shared memory: 2
+// rows at d = 4096, so 512 blocks of 256 threads for 1024 rows), zeroes
+// them with 16-byte stores, barrier, adds the block's rows * k values at
+// their indices with shared atomics, barrier, and stores the rows as one
+// contiguous run of 16-byte vectors (8 bf16 or 4 f32); the whole block
+// waits on two barriers, not two per row.
 // With a projection, the decoded f32 rows go to a scratch buffer and a
 // second kernel multiplies them by w: a plain shared-memory tiled f32
 // product (64 x 64 output tile per block of 256 threads, 4 x 4 outputs per
@@ -50,6 +57,53 @@ decode_rows_kernel(int d, int kind, int k, const void* values, int vals_bf16,
                             : static_cast<void*>(
                                   static_cast<float*>(out) + r * d),
                    out_bf16);
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Rows [blockIdx.x * R, + R) of the sparse scatter, in T (float or bf16).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_kernel(int rows, int d, int k, int R, const T* values,
+                    const int* indices, T* out) {
+  extern __shared__ float4 scatter_buf[];                 // R * d floats
+  float* buf = reinterpret_cast<float*>(scatter_buf);
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  const int nr = static_cast<int>(min(static_cast<long long>(R),
+                                      rows - row0));
+  repro::zero_shared(buf, nr * d);
+  __syncthreads();
+  const int* idx = indices + row0 * k;
+  const T* val = values + row0 * k;
+  for (int j = threadIdx.x; j < nr * k; j += kThreads) {
+    const int at = idx[j];
+    if (at >= 0 && at < d) atomicAdd(&buf[(j / k) * d + at], to_f(val[j]));
+  }
+  __syncthreads();
+  repro::store_flat(buf, nr * d, out + row0 * d);
+}
+
+constexpr int kScatterFloats = 8192;          // 32 KB of rows per block
+
+template <typename T>
+int launch_scatter(const void* values, const int* idx, int rows, int d,
+                   int k, void* out, cudaStream_t s) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaFuncSetAttribute(scatter_rows_kernel<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kMaxD * static_cast<int>(sizeof(float)));
+    attr_set = true;
+  }
+  const int R = max(1, min(8, kScatterFloats / d));
+  scatter_rows_kernel<<<(rows + R - 1) / R, kThreads,
+                        static_cast<size_t>(R) * d * sizeof(float), s>>>(
+      rows, d, k, R, static_cast<const T*>(values), idx,
+      static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out (M, N) = a (M, K) @ w (K, N), all f32 in, f32 accumulate, stored in
@@ -152,10 +206,10 @@ extern "C" int decode_rows(const void* values, int vals_bf16,
 extern "C" int scatter_rows(const void* values, int vals_bf16,
                             const void* indices, int rows, int d, int k,
                             void* out, void* stream) {
-  set_smem_attr();
-  decode_rows_kernel<<<rows, kThreads, d * sizeof(float),
-                       static_cast<cudaStream_t>(stream)>>>(
-      d, repro::kSparse, k, values, vals_bf16,
-      static_cast<const int*>(indices), nullptr, out, vals_bf16);
-  return static_cast<int>(cudaGetLastError());
+  if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* idx = static_cast<const int*>(indices);
+  return vals_bf16 ? launch_scatter<__nv_bfloat16>(values, idx, rows, d, k,
+                                                   out, s)
+                   : launch_scatter<float>(values, idx, rows, d, k, out, s);
 }

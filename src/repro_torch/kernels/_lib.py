@@ -8,8 +8,16 @@ of the checkout (listed in `.gitignore`); the hash covers the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 
 Each kernel wrapper adds one to its launch count where it launches, and
-nowhere else (`count_launch`), so a run can show that its main path went
+nowhere else (`launch`), so a run can show that its main path went
 through the kernels.
+
+The launch path is the one all wrappers share, so it is kept short: the
+first launch builds and loads the library under `_LOCK` and resolves every
+launcher once into `_FNS`, a table of ctypes function objects; later
+launches take no lock, look the function up in that table, call it, and
+count the launch with `next()` on the name's `itertools.count`, one C call
+that the GIL does not split, so concurrent launches from several threads
+are each counted exactly once without a second lock.
 
 Every wrapper takes `backend=` and resolves it with `resolve_backend`, the
 counterpart of the reference's `selection._resolve_backend`:
@@ -23,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import pathlib
 import shutil
@@ -62,10 +71,13 @@ SIGNATURES = {
     "scatter_rows": (_P, _I, _P, _I, _I, _I, _P, _P),
     # x, x_is_bf16, rows, d, bits, code(u8), deq, lo(f32), step(f32), stream
     "quantize": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # q, k, v (bf16), B, S, Hq, Hkv, hd, causal, window, scale_log2, out,
+    # stream
+    "flash_attention": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _P),
     # q, k, v, is_bf16, B, S, Hq, Hkv, hd, bq, bk, causal, window, scale,
     # out, stream
-    "flash_attention": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _P, _P),
+    "flash_attention_simt": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _F, _P, _P),
 }
 
 BACKENDS = ("auto", "torch", "cuda")
@@ -85,26 +97,25 @@ def resolve_backend(backend, t) -> str:
 
 _LOCK = threading.Lock()
 _LIB = None
+_FNS: dict = {}
 LAST_BUILD_LOG = ""
 
-_COUNT_LOCK = threading.Lock()
-_LAUNCHES = {name: 0 for name in SIGNATURES}
+_LAUNCHES = {name: itertools.count() for name in SIGNATURES}
 
 
-def count_launch(name: str) -> None:
-    with _COUNT_LOCK:
-        _LAUNCHES[name] += 1
+def _count_of(counter) -> int:
+    """The next value of an `itertools.count`, without advancing it."""
+    return int(repr(counter)[len("count("):-1])
 
 
 def launch_counts() -> dict:
-    with _COUNT_LOCK:
-        return dict(_LAUNCHES)
+    return {name: _count_of(c) for name, c in _LAUNCHES.items()}
 
 
 def reset_launch_counts() -> None:
-    with _COUNT_LOCK:
-        for name in _LAUNCHES:
-            _LAUNCHES[name] = 0
+    """Zero every count; call it while no other thread launches."""
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = itertools.count()
 
 
 def _nvcc() -> str:
@@ -154,16 +165,22 @@ def _build() -> pathlib.Path:
     return lib_path
 
 
+def _load() -> ctypes.CDLL:
+    return ctypes.CDLL(str(_build()))
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call), its launchers
+    resolved into `_FNS`."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(_build()))
+            lib = _load()
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
+                _FNS[name] = fn
             _LIB = lib
         return _LIB
 
@@ -171,14 +188,22 @@ def library() -> ctypes.CDLL:
 def launch(name: str, *args) -> None:
     """Call one exported launcher on the current stream's handle (the last
     argument), raise on a nonzero `cudaGetLastError()`, count the launch."""
-    err = getattr(library(), name)(*args)
+    fn = _FNS.get(name)
+    if fn is None:
+        library()
+        fn = _FNS[name]
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
-    count_launch(name)
+    next(_LAUNCHES[name])
 
 
 def stream_handle(t) -> int:
+    """The raw handle of the current CUDA stream of `t`'s device, read as
+    PyTorch's own Triton launcher reads it
+    (`torch._C._cuda_getCurrentRawStream`), without building a
+    `torch.cuda.Stream` object."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

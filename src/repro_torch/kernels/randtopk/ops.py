@@ -83,25 +83,37 @@ def scatter_rows(values: torch.Tensor, indices: torch.Tensor, d: int, *,
                  backend=None):
     """Sparse (values, indices) (..., k) -> dense (..., d) in the values'
     dtype (f32/bf16): zeros off the support, duplicate indices summed in
-    f32, indices outside [0, d) dropped."""
-    if indices.shape != values.shape:
+    f32, indices outside [0, d) dropped.
+
+    The kernel's launch path runs once per training step's backward, and
+    its host time is most of the call: the checks read each attribute
+    once, and the conversions and views that would be no-ops (2-D,
+    contiguous, int32 indices) are skipped."""
+    shape = values.shape
+    if indices.shape != shape:
         raise ValueError(f"indices {tuple(indices.shape)} do not match "
-                         f"values {tuple(values.shape)}")
+                         f"values {tuple(shape)}")
     if _lib.resolve_backend(backend, values) == "torch":
         return ref.scatter_rows(values, indices, d)
-    _check_rows(values, "scatter_rows", _FLOATS)
-    if d > MAX_D:
+    dtype = values.dtype
+    if dtype not in _FLOATS:
+        raise TypeError(f"scatter_rows kernel takes {_FLOATS}, got {dtype}")
+    k = shape[-1]
+    if k > MAX_D or d > MAX_D:
         raise ValueError(f"scatter_rows kernel rows hold at most {MAX_D}, "
-                         f"got {d}")
+                         f"got k = {k}, d = {d}")
     if not indices.is_cuda:
         raise ValueError("scatter_rows kernel needs indices on the card")
-    k = values.shape[-1]
-    v2 = values.contiguous().view(-1, k)
-    i2 = indices.to(torch.int32).contiguous().view(-1, k)
+    flat = len(shape) == 2
+    v2 = values if flat and values.is_contiguous() else \
+        values.contiguous().view(-1, k)
+    i2 = indices if flat and indices.dtype == torch.int32 and \
+        indices.is_contiguous() else \
+        indices.to(torch.int32).contiguous().view(-1, k)
     rows = v2.shape[0]
-    out = torch.empty((rows, d), dtype=values.dtype, device=values.device)
+    out = v2.new_empty((rows, d))
     if rows:
         _lib.launch("scatter_rows", v2.data_ptr(),
-                    int(values.dtype == torch.bfloat16), i2.data_ptr(), rows,
-                    d, k, out.data_ptr(), _lib.stream_handle(values))
-    return out.view(values.shape[:-1] + (d,))
+                    int(dtype == torch.bfloat16), i2.data_ptr(), rows, d, k,
+                    out.data_ptr(), _lib.stream_handle(v2))
+    return out if flat else out.view(shape[:-1] + (d,))
