@@ -10,7 +10,7 @@
 Phases, each fatal on failure:
 
   1. build the port's CUDA kernels from `src/repro_torch/csrc` (nvcc,
-     sm_90a, one process per source, eight sources, ten launchers);
+     sm_90a, one process per source, eight sources, eleven launchers);
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes its path gives it (serving: one row of d 4096; training:
      1024 rows of d 4096, k 64) and at odd ones (rows not a multiple of a
@@ -30,9 +30,12 @@ Phases, each fatal on failure:
      (atol and rtol 3e-4); time kernel, plain version and, where one
      exists, the single PyTorch call that computes the same function; for
      flash also the kernel's own device time per launch from a profiler
-     trace and its TFLOP/s, for scatter_rows where its wrapper's time goes
-     (device time per launch, host time per call, and the same for
-     `scatter_add_`);
+     trace and its TFLOP/s; for encode_rows (the serving row, the fedtrain
+     client's batch), decode_rows (the training cut, a fedtrain frame) and
+     scatter_rows where the wrapper's time goes (device time per launch,
+     host time per call, of it the allocation and the bare launch), with
+     `scatter_add_` in place and out of place and a zero fill of the
+     output beside decode_rows;
   3. serve yi-6b at full width (d 4096, bf16, random weights from a seed)
      through `runtime.engine.run_streaming` with `randtopk --k 64`, the cut
      at n_layers // 2: the launch counts (zeroed just before) must show
@@ -175,6 +178,25 @@ def host_us(fn, n: int = 1000) -> float:
     return t / n * 1e6
 
 
+def split_probe(label, wrapper, kernel, alloc, launch, bound):
+    """Where a wrapper's time goes at one shape: its CUDA-event ms, the
+    device ms per launch of the kernels whose name holds `kernel` (from a
+    profiler trace), the host us per call, and of that the output
+    allocation (`alloc`) and the bare launch with fixed arguments
+    (`launch`: ctypes call, kernel launch, count). Prints one line and
+    returns the numbers."""
+    ms = time_ms(wrapper)
+    dev, names = device_ms(wrapper, kernel)
+    rec = dict(shape=label, ms=ms, device_ms=dev, host_us=host_us(wrapper),
+               alloc_us=host_us(alloc), launch_us=host_us(launch),
+               bound_ms=bound[0], bound_by=bound[1])
+    print(f"  {label}: wrapper {ms} ms (CUDA events), kernel device {dev} "
+          f"ms per launch {names}, host {rec['host_us']} us per call, of "
+          f"which output allocation {rec['alloc_us']} us and bare launch "
+          f"{rec['launch_us']} us; bound {bound[0]} ms ({bound[1]})")
+    return rec
+
+
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """The least time the card needs: max(bytes / HBM rate, ops / peak
     rate), the f32 peak unless another is named. Returns (ms, "bytes" |
@@ -270,6 +292,7 @@ def _encode_case(x, kind, k, bits):
 
 def check_encode(dev, g):
     import torch
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.encode import ops, ref
     from repro_torch.kernels.randtopk import ref as tref
 
@@ -282,16 +305,42 @@ def check_encode(dev, g):
             err = max(err, _encode_case(xo, kind, kk, bits))
         err = max(err, _encode_case(torch.zeros((3, 70), device=dev), kind,
                                     min(k, 70), bits))
-    x = torch.randn((1, D), generator=g, device=dev).to(torch.bfloat16)
-    mask = tref.topk_mask_threshold(x, K)[0]
-    ms = time_ms(lambda: ops.encode_rows(x, "sparse", k=K, mask=mask))
-    plain = time_ms(lambda: ref.encode_rows(x, "sparse", K, 0, mask))
-    b = bound_ms(D * 2 + D + K * 8, 2 * D)
+    # where the wrapper's time goes, at the serving client's row and the
+    # fedtrain client's batch (sparse: a top-k mask, values and indices)
+    print("encode_rows, sparse, host/device split (no library call "
+          "computes the same function):")
+    probes = []
+    for label, x, k in (
+            ("serving 1 x 4096 bf16 k 64",
+             torch.randn((1, D), generator=g, device=dev).to(torch.bfloat16),
+             K),
+            ("fedtrain 128 x 128 f32 k 3",
+             torch.randn((128, 128), generator=g, device=dev), 3)):
+        mask = tref.topk_mask_threshold(x, k)[0]
+        rows, d = x.shape
+        plan = ops.encode_plan("sparse", x.shape, x.dtype, k, 0)
+        p0 = ops.launch_encode(plan, x, mask)
+        args = (x.data_ptr(), plan.x_bf16, mask.data_ptr(), rows, d,
+                plan.kind_id, k, 0, p0.values.data_ptr(),
+                p0.indices.data_ptr(), 0, _lib.stream_handle(x))
+        probes.append(split_probe(
+            label, lambda: ops.encode_rows(x, "sparse", k=k, mask=mask),
+            "encode_rows",
+            lambda: [x.new_empty(shape, dtype=dt)
+                     for shape, dt in plan.leaves],
+            lambda: _lib.launch("encode_rows", *args),
+            bound_ms(rows * (d * x.element_size() + d + k * 8), 2 * rows * d)))
+        probes[-1]["plain_ms"] = time_ms(
+            lambda: ref.encode_rows(x, "sparse", k, 0, mask))
+        print(f"    plain {probes[-1]['plain_ms']} ms")
     return dict(name="encode_rows", route="cuda",
                 source="src/repro_torch/csrc/encode_rows.cu",
                 replaces="src/repro/kernels/encode/kernel.py:160",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
-                bound_by=b[1], library_ms=None)
+                max_abs_err=err, ms=probes[0]["ms"],
+                plain_ms=probes[0]["plain_ms"],
+                bound_ms=probes[0]["bound_ms"],
+                bound_by=probes[0]["bound_by"],
+                library_ms=None)
 
 
 def check_pack(dev, g):
@@ -496,6 +545,8 @@ def _rows_payload(dev, g, kind, k, bits, n, d, hostile=False):
 
 def check_decode_rows(dev, g):
     import torch
+    from repro_torch.core.payload import KINDS
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.decode import ops, ref
 
     err = 0.0
@@ -535,18 +586,65 @@ def check_decode_rows(dev, g):
                         fail(f"decode_rows {kind} project {p_out}: kernel "
                              f"!= plain at d={d} {dt}")
                     err = max(err, max_diff(a, b))
+    # where the wrapper's time goes, at the yi-6b training cut and at one
+    # fedtrain flush frame; beside it two yardsticks: in-place
+    # `scatter_add_` into a zeroed buffer it does not zero again, and
+    # out-of-place `zeros.scatter_add`, which returns a fresh buffer as the
+    # decode must
+    print("decode_rows, sparse, host/device split:")
+    probes = []
+    for label, n, d, k, dt in (
+            ("training 1024 x 4096 k 64 -> bf16", TRAIN_ROWS, D, K,
+             torch.bfloat16),
+            ("fedtrain 128 x 128 k 3 -> f32", 128, 128, 3, torch.float32)):
+        p = _rows_payload(dev, g, "sparse", k, 0, n, d)
+        out = torch.empty((n, d), dtype=dt, device=dev)
+        args = (p.values.data_ptr(), 0, p.indices.data_ptr(), 0, n, d,
+                KINDS.index("sparse"), k, out.data_ptr(),
+                int(dt == torch.bfloat16), _lib.stream_handle(out))
+        probes.append(split_probe(
+            label, lambda: ops.decode_rows(p, dtype=dt), "decode_rows",
+            lambda: p.values.new_empty((n, d), dtype=dt),
+            lambda: _lib.launch("decode_rows", *args),
+            bound_ms(n * (k * 8 + d * out.element_size()), n * (d + k))))
+        rec = probes[-1]
+        zeros = torch.zeros((n, d), dtype=dt, device=dev)
+        dense = zeros.clone()
+        idx, vals = p.indices.long(), p.values.to(dt)
+        rec["plain_ms"] = time_ms(lambda: ref.decode_rows(p, dt), iters=50)
+        rec["library_ms"] = time_ms(lambda: dense.scatter_add_(-1, idx, vals))
+        rec["library_fresh_ms"] = time_ms(
+            lambda: zeros.scatter_add(-1, idx, vals))
+        lib_dev, _ = device_ms(lambda: dense.scatter_add_(-1, idx, vals))
+        fresh_dev, _ = device_ms(lambda: zeros.scatter_add(-1, idx, vals))
+        # what the card takes to write the output alone: a zero fill
+        fill_dev, _ = device_ms(lambda: out.zero_())
+        print(f"    plain {rec['plain_ms']} ms; in-place scatter_add_ "
+              f"{rec['library_ms']} ms (device {lib_dev}); out-of-place "
+              f"zeros.scatter_add {rec['library_fresh_ms']} ms (device "
+              f"{fresh_dev}); a zero fill of the output, device "
+              f"{fill_dev} ms")
+    # the projection epilogue (no path passes `project=`) at the training
+    # cut with a square (4096, 4096) f32 matrix: f32 SIMT operations bound
     p = _rows_payload(dev, g, "sparse", K, 0, TRAIN_ROWS, D)
-    dense = torch.zeros((TRAIN_ROWS, D), dtype=torch.bfloat16, device=dev)
-    idx, vals = p.indices.long(), p.values.to(torch.bfloat16)
-    ms = time_ms(lambda: ops.decode_rows(p, dtype=torch.bfloat16))
-    plain = time_ms(lambda: ref.decode_rows(p, torch.bfloat16), iters=50)
-    lib = time_ms(lambda: dense.scatter_add_(-1, idx, vals))
-    b = bound_ms(TRAIN_ROWS * (K * 8 + D * 2), TRAIN_ROWS * (D + K))
+    w = torch.randn((D, D), generator=g, device=dev) / D ** 0.5
+    pb = bound_ms(TRAIN_ROWS * (K * 8 + D * 4 + D * 2) + D * D * 4,
+                  2 * TRAIN_ROWS * D * D)
+    proj_ms = time_ms(lambda: ops.decode_rows(p, dtype=torch.bfloat16,
+                                              project=w), iters=20)
+    proj_dev, _ = device_ms(lambda: ops.decode_rows(
+        p, dtype=torch.bfloat16, project=w), "project_rows")
+    print(f"  decode_rows with project= (1024 x 4096 k 64 times a 4096 x "
+          f"4096 f32 matrix -> bf16): wrapper {proj_ms} ms, product device "
+          f"{proj_dev} ms ({2 * TRAIN_ROWS * D * D / proj_ms / 1e9} TFLOP/s "
+          f"through the wrapper); bound {pb[0]} ms ({pb[1]}, f32 peak)")
+    b = probes[0]
     return dict(name="decode_rows", route="cuda",
                 source="src/repro_torch/csrc/decode_rows.cu",
                 replaces="src/repro/kernels/decode/kernel.py:181",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
-                bound_by=b[1], library_ms=lib,
+                max_abs_err=err, ms=b["ms"], plain_ms=b["plain_ms"],
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                library_ms=b["library_ms"],
                 library_call="dense.scatter_add_(-1, index, values) into a "
                              "zeroed bf16 buffer it does not zero again")
 
@@ -557,8 +655,11 @@ def check_scatter_rows(dev, g):
     from repro_torch.kernels.randtopk import ops, ref
 
     err = 0.0
+    # (2, 16384, 16384): a thread's 64 values, as many as its duplicate
+    # record holds; (5, 9000, 70): k > d, more than that
     for n, k, d in ((TRAIN_ROWS, K, D), (37, 1, 1000), (37, 999, 1000),
-                    (5, 64, 4097), (3, 64, 16384)):
+                    (5, 64, 4097), (3, 64, 16384), (2, 16384, 16384),
+                    (5, 9000, 70)):
         for dt in (torch.float32, torch.bfloat16):
             vals = (torch.round(torch.randn((n, k), generator=g,
                                             device=dev) * 8) / 8).to(dt)
@@ -588,7 +689,7 @@ def check_scatter_rows(dev, g):
     # the output's allocation and the bare launch (ctypes call, kernel
     # launch, count) with fixed arguments
     dev_ms, names = device_ms(lambda: ops.scatter_rows(vals, idx, D),
-                              "scatter_rows_kernel")
+                              "decode_rows_scatter_kernel")
     lib_dev, lib_names = device_ms(
         lambda: dense.scatter_add_(-1, idx64, vals))
     out = vals.new_empty((TRAIN_ROWS, D))
@@ -1237,10 +1338,15 @@ def train_phase(dev):
         print("  device ms per step by kernel, longest first:")
         for name, ms, count in kernels[:14]:
             print(f"    {ms / 3:9.3f} ms {count / 3:6.0f}x  {name[:110]}")
-        ours = {n: sum(ms for k, ms, _ in kernels if n in k) / 3
-                for n in ("randtopk_mask_kernel", "decode_rows_kernel",
-                          "scatter_rows_kernel")}
-        print(f"  the codec kernels per step: {ours}")
+        # decode_rows (forward) and scatter_rows (backward) both launch
+        # decode_rows_scatter_kernel: two launches a step under one name
+        ours = {n: (sum(ms for k, ms, _ in kernels if n in k) / 3,
+                    sum(c for k, _, c in kernels if n in k) / 3)
+                for n in ("randtopk_mask_kernel",
+                          "decode_rows_scatter_kernel")}
+        print(f"  the codec kernels per step, (device ms, launches): {ours} "
+              f"(decode_rows_scatter_kernel runs decode_rows and "
+              f"scatter_rows)")
 
     for comp in ("randtopk_mask", "quant", "size_reduction"):
         other = steps.make_train_step(_train_cfg(comp), rt)

@@ -49,6 +49,41 @@ __device__ __forceinline__ int block_excl_prefix(bool flag, int* warp_sums,
   return before;
 }
 
+// Block-wide exclusive prefix sum of `v` in thread order: a warp
+// __shfl_up_sync scan, then one scan of the per-warp totals by warp 0.
+// Every thread of the block must call it (blockDim.x a multiple of 32,
+// <= 1024). `warp_sums` is 33 ints of shared memory; the block total lands
+// in `*total`. Ends with a barrier, so `warp_sums` is free again on return.
+__device__ __forceinline__ int block_excl_sum(int v, int* warp_sums,
+                                              int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += up;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < n_warps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += up;
+    }
+    if (lane < n_warps) warp_sums[lane] = w;       // inclusive per warp
+    if (lane == 31) warp_sums[32] = w;             // block total
+  }
+  __syncthreads();
+  const int before = (warp ? warp_sums[warp - 1] : 0) + incl - v;
+  *total = warp_sums[32];
+  __syncthreads();
+  return before;
+}
+
 // Order-preserving unsigned key of a float: a > b as floats iff
 // float_key(a) > float_key(b). Negative floats (Gumbel scores can be) have
 // their bits flipped, non-negative ones their sign bit set; -0.0 maps to

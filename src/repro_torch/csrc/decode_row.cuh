@@ -1,8 +1,14 @@
-// The per-kind payload row decode shared by `decode_rows.cu` and
-// `decode_to_slots.cu` (header only): the `_decode_block` of
-// src/repro/kernels/decode/kernel.py:124 with its `_scatter_block` :61,
-// `_dequant_block` :54 and `_mask_expand_block` :108, as one pass of a
-// block over one row held in shared memory.
+// Shared-memory row helpers of the decode family (header only):
+//   * `decode_row`, the per-kind payload row decode of
+//     `decode_to_slots.cu`: the `_decode_block` of
+//     src/repro/kernels/decode/kernel.py:124 with its `_scatter_block` :61,
+//     `_dequant_block` :54 and `_mask_expand_block` :108, as one pass of a
+//     block over one row held in shared memory;
+//   * `zero_shared` and `store_row`, with which `decode_to_slots.cu` zeroes
+//     its shared row and stores it to device memory as 16-byte vectors
+//     (`store_flat`), every element converted exactly as a single store
+//     would; `decode_rows.cu` shares `zero_shared` (its k > d path),
+//     `store_one` and `pack_bf16x8`.
 #pragma once
 
 #include "common.cuh"
@@ -92,6 +98,20 @@ __device__ __forceinline__ void store_one(__nv_bfloat16* o, float v) {
   *o = __float2bfloat16_rn(v);
 }
 
+// 8 floats rounded to nearest bf16, packed in order into one 16-byte
+// vector.
+__device__ __forceinline__ uint4 pack_bf16x8(const float* f) {
+  unsigned u[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 h =
+        __halves2bfloat162(__float2bfloat16_rn(f[2 * j]),
+                           __float2bfloat16_rn(f[2 * j + 1]));
+    u[j] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
 // Store n floats of shared memory `src` to `out` (T = float, or bf16
 // rounded to nearest), coalesced: 16-byte stores of 4 floats or 8 bf16
 // from the first 16-byte boundary of `out`, single elements before it and
@@ -120,22 +140,12 @@ __device__ __forceinline__ void store_flat(const float* src, int n, T* out) {
 #pragma unroll
       for (int j = 0; j < V; ++j) f[j] = src[i + j];
     }
-    uint4 w;
-    if constexpr (V == 4) {
-      w = make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+    if constexpr (V == 4)
+      *reinterpret_cast<uint4*>(out + i) =
+          make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-    } else {
-      unsigned u[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const __nv_bfloat162 h =
-            __halves2bfloat162(__float2bfloat16_rn(f[2 * j]),
-                               __float2bfloat16_rn(f[2 * j + 1]));
-        u[j] = *reinterpret_cast<const unsigned*>(&h);
-      }
-      w = make_uint4(u[0], u[1], u[2], u[3]);
-    }
-    *reinterpret_cast<uint4*>(out + i) = w;
+    else
+      *reinterpret_cast<uint4*>(out + i) = pack_bf16x8(f);
   }
   for (int i = head + nv * V + threadIdx.x; i < n; i += blockDim.x)
     store_one(out + i, src[i]);

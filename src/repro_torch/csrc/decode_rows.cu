@@ -9,25 +9,49 @@
 //   * `scatter_rows_kernel` (src/repro/kernels/randtopk/kernel.py:199, body
 //     `_scatter_rows_kernel` :100): (values, indices) -> dense rows in the
 //     values' dtype, duplicates summed in f32 — the sparse branch of the
-//     decode without the projection, launched here as `scatter_rows`.
+//     decode without the projection, launched here as `scatter_rows`, which
+//     runs the sparse decode's kernel with the values' dtype as the output's.
 // The Pallas kernels place each of the k support values by a k-step
 // compare-and-select over the whole row because the TPU has no scatter;
-// here a block builds its row in shared memory with atomicAdd.
+// here a block places them in shared memory.
 //
 // What bounds it on an H100: at the training shapes (1024 rows of d = 4096,
 // k = 64, bf16 out) a sparse decode reads 512 KB of leaves and writes 8 MB
-// of rows, 2.6 us of HBM time: the store of the dense rows dominates, so
-// the design writes each output element exactly once, coalesced:
-//   * one block per row; the row is built in f32 in shared memory by
-//     `repro::decode_row` (decode_row.cuh, shared with decode_to_slots.cu);
-//   * barrier, then one convert-and-store pass into the output dtype.
-// The bare scatter (`scatter_rows`) has its own kernel: a block takes
-// several consecutive rows at once (32 KB of f32 rows in shared memory: 2
-// rows at d = 4096, so 512 blocks of 256 threads for 1024 rows), zeroes
-// them with 16-byte stores, barrier, adds the block's rows * k values at
-// their indices with shared atomics, barrier, and stores the rows as one
-// contiguous run of 16-byte vectors (8 bf16 or 4 f32); the whole block
-// waits on two barriers, not two per row.
+// of rows, 2.66 us at 3.35 TB/s: the store of the dense rows is the bound.
+// Every block of the launch is resident at once, so whatever a block does
+// before its stores (the leaf loads' latency, zeroing, barriers) adds to
+// the store time instead of hiding under it. The design writes each
+// output element exactly once, as 16-byte vectors, and keeps the work
+// before the stores small:
+//   * dense, slice and quant need no scatter (`decode_rows_flat_kernel`):
+//     no shared memory and no barrier; each thread takes 8 consecutive
+//     elements of the flat (rows, d) output, converts or dequantizes them
+//     in registers from 16-byte loads of the values or codes (the slice's
+//     k-wide rows element by element), and stores them as one 16-byte bf16
+//     vector or two f32 ones. Dequantization is `repro::dequant`, each
+//     operation rounded on its own, as the plain version;
+//   * sparse, sparse_quant and mask (`decode_rows_scatter_kernel`) place
+//     their values in f32 in shared memory, at most 16 KB of rows per
+//     block (one row at d = 4096, so 1024 blocks), and mark each placed
+//     position in a bitmap. Only marked positions are ever written in
+//     shared memory, so nothing is zeroed but the bitmap (512 bytes per
+//     row of 4096), and the store (`store_hits`) reads the bitmap and
+//     writes zeros where no bit is set: the 32 KB zeroing and read-back of
+//     a dense shared row per block are gone. Sparse kinds: the first
+//     value to mark a position (a shared atomicOr on the bitmap) stores
+//     0 + v there, and only duplicates are added, with shared atomics,
+//     after a barrier that a block without duplicates skips (duplicates
+//     sum in f32; indices outside [0, d) are dropped, as no Pallas lane
+//     matches them); each thread's first index
+//     and value are loaded before the bitmap is zeroed, so their latency
+//     overlaps it. A thread records its duplicates in 64 bits, which holds
+//     while k <= d; a block with more values than that (k > d, which the
+//     wire never sends) zeroes its rows and adds every value. Mask: a block
+//     scan of the words'
+//     popcounts (`block_excl_sum`) gives each set bit its value slot; set
+//     bits past k stay unmarked, so 0. A block's rows go out as one run,
+//     16-byte vectors from the first 16-byte boundary (a row that starts
+//     off one, as at d = 70, stores its head element by element).
 // With a projection, the decoded f32 rows go to a scratch buffer and a
 // second kernel multiplies them by w: a plain shared-memory tiled f32
 // product (64 x 64 output tile per block of 256 threads, 4 x 4 outputs per
@@ -40,69 +64,312 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxD = 16384;
+constexpr int kHitFloats = 4096;              // decode: 16 KB of rows
+constexpr int kMaxRows = 8;                   // rows per block, at most
+constexpr int kVec = 8;                       // elements per flat vector
+constexpr long long kMaxFlatBlocks = 8192;    // grid-stride beyond this
 constexpr int kBM = 64, kBN = 64, kBK = 16;   // projection tiles
 
-__global__ void __launch_bounds__(kThreads)
-decode_rows_kernel(int d, int kind, int k, const void* values, int vals_bf16,
-                   const int* indices, const float* header, void* out,
-                   int out_bf16) {
-  extern __shared__ float rowbuf[];             // d
-  __shared__ int warp_sums[33];
-  const long long r = blockIdx.x;
-  repro::decode_row(rowbuf, d, r, kind, k, values, vals_bf16, indices,
-                    header, warp_sums);
-  repro::store_row(rowbuf, d,
-                   out_bf16 ? static_cast<void*>(
-                                  static_cast<__nv_bfloat16*>(out) + r * d)
-                            : static_cast<void*>(
-                                  static_cast<float*>(out) + r * d),
-                   out_bf16);
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ void store_vec(float* o, const float* f) {
+  float4* p = reinterpret_cast<float4*>(o);
+  p[0] = make_float4(f[0], f[1], f[2], f[3]);
+  p[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* o, const float* f) {
+  *reinterpret_cast<uint4*>(o) = repro::pack_bf16x8(f);
 }
 
-// Rows [blockIdx.x * R, + R) of the sparse scatter, in T (float or bf16).
+// Dense, slice and quant rows: element e of the flat (rows, d) output from
+// its own leaf element. With `vec` (out and, for dense and quant, the
+// values or codes start 16-byte aligned), 8 consecutive elements per
+// thread per step, from 16-byte loads, stored as 16-byte vectors; one
+// element at a time for the tail past the last whole vector, and for
+// everything without `vec`.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-scatter_rows_kernel(int rows, int d, int k, int R, const T* values,
-                    const int* indices, T* out) {
-  extern __shared__ float4 scatter_buf[];                 // R * d floats
-  float* buf = reinterpret_cast<float*>(scatter_buf);
+decode_rows_flat_kernel(long long total, int d, int kind, int k,
+                        const void* values, int vals_bf16,
+                        const float* header, T* out, int vec) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long t0 =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int* codes = static_cast<const int*>(values);
+  const long long nvec = vec ? total / kVec : 0;
+  for (long long q = t0; q < nvec; q += stride) {
+    const long long e = q * kVec;
+    float f[kVec];
+    if (kind == repro::kDense) {
+      if (vals_bf16) {
+        const uint4 u = *reinterpret_cast<const uint4*>(
+            static_cast<const __nv_bfloat16*>(values) + e);
+        const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          f[2 * j] = __uint_as_float(w[j] << 16);
+          f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+        }
+      } else {
+        const float4* p = reinterpret_cast<const float4*>(
+            static_cast<const float*>(values) + e);
+        const float4 a = p[0], b = p[1];
+        f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+        f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+      }
+    } else {
+      long long r = e / d;
+      int c = static_cast<int>(e - r * d);
+      if (kind == repro::kQuant) {
+        const int4* p = reinterpret_cast<const int4*>(codes + e);
+        const int4 a = p[0], b = p[1];
+        const int cv[kVec] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+        float lo = header[r * 2], step = header[r * 2 + 1];
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          if (c == d) {                         // the next row begins
+            c = 0;
+            ++r;
+            lo = header[r * 2];
+            step = header[r * 2 + 1];
+          }
+          f[j] = repro::dequant(cv[j], lo, step);
+          ++c;
+        }
+      } else {                                  // slice
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          if (c == d) {
+            c = 0;
+            ++r;
+          }
+          f[j] = c < k ? repro::load_f(values, vals_bf16, r * k + c) : 0.f;
+          ++c;
+        }
+      }
+    }
+    store_vec(out + e, f);
+  }
+  for (long long e = nvec * kVec + t0; e < total; e += stride) {
+    const long long r = e / d;
+    const int c = static_cast<int>(e - r * d);
+    float v;
+    if (kind == repro::kDense)
+      v = repro::load_f(values, vals_bf16, e);
+    else if (kind == repro::kQuant)
+      v = repro::dequant(codes[e], header[r * 2], header[r * 2 + 1]);
+    else
+      v = c < k ? repro::load_f(values, vals_bf16, r * k + c) : 0.f;
+    repro::store_one(out + e, v);
+  }
+}
+
+// Value j of the block's sparse leaf run (rows from row0, k per row): the
+// value itself, or the dequantized code of sparse_quant.
+__device__ __forceinline__ float sparse_value(int kind, const void* values,
+                                              int vals_bf16,
+                                              const float* header,
+                                              long long row0, int k, int j) {
+  const long long at = row0 * k + j;
+  if (kind == repro::kSparse) return repro::load_f(values, vals_bf16, at);
+  const long long r = row0 + j / k;
+  return repro::dequant(static_cast<const int*>(values)[at], header[r * 2],
+                        header[r * 2 + 1]);
+}
+
+// Bits [i, i + V) of the bitmap `bm` (V <= 32), bit q of the result for
+// element i + q. Reads bm[i / 32 + 1] when the run crosses a word.
+template <int V>
+__device__ __forceinline__ unsigned hit_bits(const unsigned* bm, int i) {
+  const int sh = i & 31;
+  unsigned b = bm[i >> 5] >> sh;
+  if (sh + V > 32) b |= bm[(i >> 5) + 1] << (32 - sh);
+  return V == 32 ? b : b & ((1u << V) - 1u);
+}
+
+// Store n elements of a block's rows to `out` (T = float, or bf16 rounded
+// to nearest): element i is `vals[i]` where bit i of `bm` is set, else 0.
+// Runs of 8 elements (one 16-byte bf16 vector or two f32 ones) from the
+// first 16-byte boundary of `out`, single elements before it and after the
+// last whole run; `vals` is read only at set bits, so it needs no zeroing.
+template <typename T>
+__device__ __forceinline__ void store_hits(const float* vals,
+                                           const unsigned* bm, int n,
+                                           T* out) {
+  constexpr int V = kVec;
+  constexpr int A = 16 / sizeof(T);               // elements per 16 bytes
+  const int mis = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(out) / sizeof(T)) % A);
+  const int head = min(n, mis ? A - mis : 0);
+  const int nv = (n - head) / V;
+  for (int i = threadIdx.x; i < head; i += blockDim.x)
+    repro::store_one(out + i, hit_bits<1>(bm, i) ? vals[i] : 0.f);
+  for (int c = threadIdx.x; c < nv; c += blockDim.x) {
+    const int i = head + c * V;
+    const unsigned bits = hit_bits<V>(bm, i);
+    float f[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) f[q] = (bits >> q) & 1u ? vals[i + q] : 0.f;
+    store_vec(out + i, f);
+  }
+  for (int i = head + nv * V + threadIdx.x; i < n; i += blockDim.x)
+    repro::store_one(out + i, hit_bits<1>(bm, i) ? vals[i] : 0.f);
+}
+
+// Sparse, sparse_quant and mask rows [blockIdx.x * R, + R): the values
+// land in f32 in shared memory (R * d floats) and a bitmap marks where;
+// only the marked positions are ever written in shared memory, and the
+// store writes every output element once (`store_hits`).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_rows_scatter_kernel(int rows, int d, int kind, int k, int R,
+                           const void* values, int vals_bf16,
+                           const int* indices, const float* header, T* out) {
+  extern __shared__ float4 rows_buf[];
+  float* buf = reinterpret_cast<float*>(rows_buf);
+  __shared__ unsigned bm[kMaxD / 32 + 1];
+  __shared__ int warp_sums[33];
+  __shared__ int row_first[kMaxRows];   // scan value at each row's 1st word
+  __shared__ int any_dup;               // a sparse index repeats in a row
   const long long row0 = static_cast<long long>(blockIdx.x) * R;
   const int nr = static_cast<int>(min(static_cast<long long>(R),
                                       rows - row0));
-  repro::zero_shared(buf, nr * d);
-  __syncthreads();
-  const int* idx = indices + row0 * k;
-  const T* val = values + row0 * k;
-  for (int j = threadIdx.x; j < nr * k; j += kThreads) {
-    const int at = idx[j];
-    if (at >= 0 && at < d) atomicAdd(&buf[(j / k) * d + at], to_f(val[j]));
+  const int n = nr * d;
+  if (kind == repro::kMask) {
+    const int nw = (d + 31) >> 5;
+    const int n_words = nr * nw;
+    const unsigned* words =
+        reinterpret_cast<const unsigned*>(indices) + row0 * nw;
+    const unsigned tail = (d & 31) ? (1u << (d & 31)) - 1u : ~0u;
+    const unsigned first = threadIdx.x < n_words ? words[threadIdx.x] : 0u;
+    for (int w = threadIdx.x; w <= (n >> 5); w += blockDim.x) bm[w] = 0u;
+    // the scan's barriers order the zeroing before the first atomicOr
+    int running = 0;
+    for (int base = 0; base < n_words; base += blockDim.x) {
+      const int w = base + threadIdx.x;
+      unsigned word = base == 0 ? first : (w < n_words ? words[w] : 0u);
+      const int r = w / nw, c = w - r * nw;
+      if (c == nw - 1) word &= tail;            // lanes >= d do not count
+      int total;
+      const int before = running + repro::block_excl_sum(__popc(word),
+                                                         warp_sums, &total);
+      if (w < n_words && c == 0) row_first[r] = before;
+      __syncthreads();
+      if (w < n_words) {
+        int slot = before - row_first[r];       // value slot of 1st set bit
+        const long long vrow = (row0 + r) * k;
+        while (word != 0u) {
+          const int b = __ffs(word) - 1;
+          word &= word - 1u;
+          if (slot < k) {
+            const int at = r * d + c * 32 + b;
+            buf[at] = repro::load_f(values, vals_bf16, vrow + slot);
+            atomicOr(&bm[at >> 5], 1u << (at & 31));
+          }
+          ++slot;
+        }
+      }
+      running += total;
+    }
+  } else {
+    const int n_vals = nr * k;
+    const int* idx = indices + row0 * k;
+    if (n_vals > 64 * static_cast<int>(blockDim.x)) {
+      // more values a thread than `dups` has bits (k > d): every position
+      // marked, the rows zeroed, and every value added
+      repro::zero_shared(buf, n);
+      for (int w = threadIdx.x; w <= (n >> 5); w += blockDim.x) bm[w] = ~0u;
+      __syncthreads();
+      for (int j = threadIdx.x; j < n_vals; j += blockDim.x) {
+        const int at = idx[j];
+        if (at >= 0 && at < d)
+          atomicAdd(&buf[(j / k) * d + at],
+                    sparse_value(kind, values, vals_bf16, header, row0, k, j));
+      }
+      __syncthreads();
+      store_hits(buf, bm, n, out + row0 * d);
+      return;
+    }
+    // each thread's first value and index stay in registers from before
+    // the zeroing on; the first value to reach a position stores 0 + v
+    // (what an add into a zeroed row gives, -0 included), and the rest at
+    // that position (duplicates) are added after a barrier. A thread takes
+    // at most 64 values here, one bit each in `dups`.
+    int at0 = -1;
+    float v0 = 0.f;
+    if (threadIdx.x < n_vals) {
+      at0 = idx[threadIdx.x];
+      v0 = sparse_value(kind, values, vals_bf16, header, row0, k,
+                        threadIdx.x);
+    }
+    for (int w = threadIdx.x; w <= (n >> 5); w += blockDim.x) bm[w] = 0u;
+    if (threadIdx.x == 0) any_dup = 0;
+    __syncthreads();
+    unsigned long long dups = 0ull;
+    int it = 0;
+    for (int j = threadIdx.x; j < n_vals; j += blockDim.x, ++it) {
+      const int at = it == 0 ? at0 : idx[j];
+      if (at < 0 || at >= d) continue;          // dropped, as no lane matches
+      const int pos = (j / k) * d + at;
+      const unsigned bit = 1u << (pos & 31);
+      if (atomicOr(&bm[pos >> 5], bit) & bit)
+        dups |= 1ull << it;
+      else
+        buf[pos] = __fadd_rn(0.f, it == 0 ? v0
+                                          : sparse_value(kind, values,
+                                                         vals_bf16, header,
+                                                         row0, k, j));
+    }
+    if (dups != 0ull) any_dup = 1;
+    __syncthreads();
+    if (!any_dup) {                 // the common case: no index repeats
+      store_hits(buf, bm, n, out + row0 * d);
+      return;
+    }
+    for (; dups != 0ull; dups &= dups - 1ull) {
+      const int i = __ffsll(static_cast<long long>(dups)) - 1;
+      const int j = threadIdx.x + i * blockDim.x;
+      atomicAdd(&buf[(j / k) * d + (i == 0 ? at0 : idx[j])],
+                i == 0 ? v0 : sparse_value(kind, values, vals_bf16, header,
+                                           row0, k, j));
+    }
   }
   __syncthreads();
-  repro::store_flat(buf, nr * d, out + row0 * d);
+  store_hits(buf, bm, n, out + row0 * d);
 }
 
-constexpr int kScatterFloats = 8192;          // 32 KB of rows per block
-
 template <typename T>
-int launch_scatter(const void* values, const int* idx, int rows, int d,
-                   int k, void* out, cudaStream_t s) {
+int launch_decode(const void* values, int vals_bf16, const void* indices,
+                  const void* header, int rows, int d, int kind, int k,
+                  T* out, cudaStream_t s) {
+  const float* hdr = static_cast<const float*>(header);
+  if (kind == repro::kDense || kind == repro::kSlice ||
+      kind == repro::kQuant) {
+    const long long total = static_cast<long long>(rows) * d;
+    const int vec = aligned16(out) &&
+                    (kind == repro::kSlice || aligned16(values));
+    const long long work = vec ? (total + kVec - 1) / kVec : total;
+    const long long blocks =
+        min((work + kThreads - 1) / kThreads, kMaxFlatBlocks);
+    decode_rows_flat_kernel<T><<<static_cast<int>(blocks), kThreads, 0, s>>>(
+        total, d, kind, k, values, vals_bf16, hdr, out, vec);
+    return static_cast<int>(cudaGetLastError());
+  }
   static bool attr_set = false;
   if (!attr_set) {
-    cudaFuncSetAttribute(scatter_rows_kernel<T>,
+    cudaFuncSetAttribute(decode_rows_scatter_kernel<T>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kMaxD * static_cast<int>(sizeof(float)));
     attr_set = true;
   }
-  const int R = max(1, min(8, kScatterFloats / d));
-  scatter_rows_kernel<<<(rows + R - 1) / R, kThreads,
-                        static_cast<size_t>(R) * d * sizeof(float), s>>>(
-      rows, d, k, R, static_cast<const T*>(values), idx,
-      static_cast<T*>(out));
+  const int R = max(1, min(kMaxRows, kHitFloats / d));
+  decode_rows_scatter_kernel<T><<<(rows + R - 1) / R, kThreads,
+                                  static_cast<size_t>(R) * d * sizeof(float),
+                                  s>>>(
+      rows, d, kind, k, R, values, vals_bf16,
+      static_cast<const int*>(indices), hdr, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -160,38 +427,39 @@ project_rows_kernel(const float* a, const float* w, void* out, int out_bf16,
   }
 }
 
-void set_smem_attr() {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaFuncSetAttribute(decode_rows_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kMaxD * static_cast<int>(sizeof(float)));
-    attr_set = true;
-  }
-}
-
 }  // namespace
 
 // Leaves of the kind, leading dim rows: values f32 or bf16 (`vals_bf16`;
 // dense/slice/sparse/mask) or int32 codes (quant kinds), indices int32
 // (sparse kinds) or u32 mask words, header (rows, 2) f32 (quant kinds).
-// Without w (null): out (rows, d) in f32 or bf16 (`out_bf16`). With w
-// (d, p) f32: the f32 rows go to `scratch` (rows, d) and out is (rows, p).
-// Requires d <= 16384. Returns cudaGetLastError() after the launches.
+// out: (rows, d) in f32 or bf16 (`out_bf16`). Requires 1 <= d <= 16384.
+// Returns cudaGetLastError() after the launch.
 extern "C" int decode_rows(const void* values, int vals_bf16,
                            const void* indices, const void* header, int rows,
-                           int d, int kind, int k, const void* w, int p,
-                           void* scratch, void* out, int out_bf16,
+                           int d, int kind, int k, void* out, int out_bf16,
                            void* stream) {
-  set_smem_attr();
+  if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool project = w != nullptr;
-  decode_rows_kernel<<<rows, kThreads, d * sizeof(float), s>>>(
-      d, kind, k, values, vals_bf16, static_cast<const int*>(indices),
-      static_cast<const float*>(header), project ? scratch : out,
-      project ? 0 : out_bf16);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !project) return static_cast<int>(err);
+  return out_bf16 ? launch_decode(values, vals_bf16, indices, header, rows,
+                                  d, kind, k,
+                                  static_cast<__nv_bfloat16*>(out), s)
+                  : launch_decode(values, vals_bf16, indices, header, rows,
+                                  d, kind, k, static_cast<float*>(out), s);
+}
+
+// `decode_rows` with the cut-projection epilogue: the f32 rows go to
+// `scratch` (rows, d), then out (rows, p) = scratch @ w, w (d, p) f32, in
+// f32 or bf16 (`out_bf16`).
+extern "C" int decode_rows_project(const void* values, int vals_bf16,
+                                   const void* indices, const void* header,
+                                   int rows, int d, int kind, int k,
+                                   const void* w, int p, void* scratch,
+                                   void* out, int out_bf16, void* stream) {
+  if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_decode(values, vals_bf16, indices, header, rows, d,
+                                kind, k, static_cast<float*>(scratch), s);
+  if (err != 0) return err;
   const dim3 grid((p + kBN - 1) / kBN, (rows + kBM - 1) / kBM);
   project_rows_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const float*>(scratch), static_cast<const float*>(w), out,
@@ -201,15 +469,11 @@ extern "C" int decode_rows(const void* values, int vals_bf16,
 
 // values: (rows, k) f32 or bf16 (`vals_bf16`); indices: (rows, k) int32;
 // out: (rows, d) in the values' dtype, zeros off the support, duplicate
-// indices summed in f32, indices outside [0, d) dropped. Requires
-// d <= 16384.
+// indices summed in f32, indices outside [0, d) dropped: the sparse decode
+// without a header. Requires d <= 16384.
 extern "C" int scatter_rows(const void* values, int vals_bf16,
                             const void* indices, int rows, int d, int k,
                             void* out, void* stream) {
-  if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* idx = static_cast<const int*>(indices);
-  return vals_bf16 ? launch_scatter<__nv_bfloat16>(values, idx, rows, d, k,
-                                                   out, s)
-                   : launch_scatter<float>(values, idx, rows, d, k, out, s);
+  return decode_rows(values, vals_bf16, indices, nullptr, rows, d,
+                     repro::kSparse, k, out, vals_bf16, stream);
 }

@@ -64,9 +64,13 @@ SIGNATURES = {
     "decode_to_slots": (_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P),
     # x, x_is_bf16, gumbel(f32), m(i32), rows, d, k, mask(u8), stream
     "randtopk_mask": (_P, _I, _P, _P, _I, _I, _I, _P, _P),
-    # values, vals_is_bf16, indices, header, rows, d, kind, k, w(f32 or
-    # null), p, scratch(f32), out, out_is_bf16, stream
-    "decode_rows": (_P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P),
+    # values, vals_is_bf16, indices, header, rows, d, kind, k, out,
+    # out_is_bf16, stream
+    "decode_rows": (_P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P),
+    # values, vals_is_bf16, indices, header, rows, d, kind, k, w(f32), p,
+    # scratch(f32), out, out_is_bf16, stream
+    "decode_rows_project": (_P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P,
+                            _I, _P),
     # values, vals_is_bf16, indices(i32), rows, d, k, out, stream
     "scatter_rows": (_P, _I, _P, _I, _I, _I, _P, _P),
     # x, x_is_bf16, rows, d, bits, code(u8), deq, lo(f32), step(f32), stream

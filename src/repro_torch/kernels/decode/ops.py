@@ -3,8 +3,18 @@
 payload, and `decode_rows_to_slots` (`csrc/decode_to_slots.cu`), the
 serving arena's decode -> xbuf seam. Each takes the plain version
 (`ref.py`) for tensors on the CPU or when `backend="torch"` asks for it;
-otherwise it launches its kernel or raises (`_lib.resolve_backend`)."""
+otherwise it launches its kernel or raises (`_lib.resolve_backend`).
+
+`decode_rows` runs once per training step and once per fedtrain frame, so
+its host path is kept short: the checks of a key (payload meta, leaf
+shapes and dtypes, output dtype) run once, in `rows_plan`, and a call then
+converts only a leaf that is not already in the kernel's dtype and
+layout, allocates the output once and launches."""
 from __future__ import annotations
+
+import math
+from functools import lru_cache
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -13,15 +23,81 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.decode import ref
 
 MAX_D = 16384
+_FLOAT_VALUES = (torch.float32, torch.bfloat16)
 
 
-def _leaf_widths(p: Payload):
-    m = p.meta
+def _leaf_widths(m):
+    """Last-axis width of each leaf of a payload with meta `m`, in
+    KIND_LEAVES order."""
     nw = (m.d + 31) // 32
     return {
         "dense": (m.d,), "slice": (m.k,), "sparse": (m.k, m.k),
         "quant": (m.d, 2), "sparse_quant": (m.k, m.k, 2), "mask": (m.k, nw),
     }[m.kind]
+
+
+class RowsPlan(NamedTuple):
+    """What `decode_rows` needs of one key besides the tensors: the output
+    shape and the launch scalars, which leaves the kernel reads, and the
+    dtype each leaf must be converted to (None for all when none must)."""
+
+    out_shape: tuple
+    rows: int
+    d: int
+    k: int
+    kind_id: int
+    vals_bf16: int
+    out_bf16: int
+    uses_indices: bool
+    uses_header: bool
+    convert: Optional[tuple]    # (values, indices, header): dtype or None
+
+
+def _sig(t):
+    return None if t is None else (t.shape, t.dtype)
+
+
+@lru_cache(maxsize=1024)
+def rows_plan(meta, dtype, values, indices, header) -> RowsPlan:
+    """Check one decode key and lay out its launch; raises on what the
+    kernel does not take. `values`, `indices` and `header` are each leaf's
+    (shape, dtype), or None where the payload has no such leaf."""
+    kind, d = meta.kind, meta.d
+    if dtype not in _FLOAT_VALUES:
+        raise TypeError(f"decode kernel writes f32/bf16 rows, got {dtype}")
+    if d > MAX_D:
+        raise ValueError(f"decode kernel rows hold at most {MAX_D}, got {d}")
+    sigs = dict(values=values, indices=indices, header=header)
+    names = KIND_LEAVES[kind]
+    if any(sigs[name] is None for name in names):
+        raise ValueError(f"{kind} payload needs leaves {names}")
+    lead = tuple(values[0][:-1])
+    n = math.prod(lead)
+    quant = kind in ("quant", "sparse_quant")
+    convert = dict(values=None, indices=None, header=None)
+    for name, w in zip(names, _leaf_widths(meta)):
+        shape, dt = sigs[name]
+        if math.prod(shape) != n * w:
+            raise ValueError(f"{kind} {name} of shape {tuple(shape)} is not "
+                             f"a ({n}, {w}) block")
+        if name == "values" and not quant:
+            if not dt.is_floating_point:
+                raise TypeError(f"{kind} values must be floating, got {dt}")
+            want = dt if dt in _FLOAT_VALUES else torch.float32
+        elif name == "header":
+            want = torch.float32
+        else:
+            if dt.is_floating_point:
+                raise TypeError(f"{kind} {name} must be integer, got {dt}")
+            want = torch.int32
+        if dt != want:
+            convert[name] = want
+    conv = tuple(convert.values())
+    vals_dt = convert["values"] or values[1]
+    return RowsPlan(lead + (d,), n, d, meta.k, KINDS.index(kind),
+                    int(vals_dt == torch.bfloat16),
+                    int(dtype == torch.bfloat16), "indices" in names,
+                    "header" in names, conv if any(conv) else None)
 
 
 def decode_rows(p: Payload, *, dtype=None, project=None, backend=None):
@@ -30,57 +106,60 @@ def decode_rows(p: Payload, *, dtype=None, project=None, backend=None):
     With `project`, a (d, P) matrix, the f32 rows times it: (..., P) in
     `dtype`, the reference's fused cut-projection epilogue."""
     dtype = dtype or torch.float32
-    kind, d = p.meta.kind, p.meta.d
-    if _lib.resolve_backend(backend, p.values) == "torch":
+    v, i, h = p.values, p.indices, p.header
+    if _lib.resolve_backend(backend, v) == "torch":
         return ref.decode_rows(p, dtype, project)
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"decode kernel writes f32/bf16 rows, got {dtype}")
-    if d > MAX_D:
-        raise ValueError(f"decode kernel rows hold at most {MAX_D}, got {d}")
-    lead = tuple(p.values.shape[:-1])
-    n = p.values.numel() // max(1, p.values.shape[-1])
-    flat = []
-    for name, leaf, w in zip(KIND_LEAVES[kind],
-                             [getattr(p, nm) for nm in KIND_LEAVES[kind]],
-                             _leaf_widths(p)):
-        if not leaf.is_cuda or leaf.numel() != n * w:
-            raise ValueError(f"{kind} {name} of shape {tuple(leaf.shape)} "
-                             f"is not a CUDA ({n}, {w}) block")
-        if name == "values" and leaf.dtype in (torch.float32,
-                                               torch.bfloat16):
-            flat.append(leaf.contiguous())
-        elif leaf.is_floating_point():
-            flat.append(leaf.to(torch.float32).contiguous())
-        else:
-            flat.append(leaf.to(torch.int32).contiguous())
-    vals = flat[0]
-    idx = flat[1] if kind in ("sparse", "sparse_quant", "mask") else None
-    hdr = flat[-1] if kind in ("quant", "sparse_quant") else None
-    if kind in ("quant", "sparse_quant") and vals.is_floating_point():
-        raise TypeError(f"{kind} values must be integer codes")
-    w = scratch = None
-    p_out = d
-    if project is not None:
-        if project.dim() != 2 or project.shape[0] != d \
-                or not project.is_cuda:
-            raise ValueError(f"project must be a CUDA ({d}, P) matrix, got "
-                             f"{tuple(project.shape)}")
-        w = project.to(torch.float32).contiguous()
-        p_out = w.shape[1]
-        scratch = torch.empty((n, d), dtype=torch.float32,
-                              device=vals.device)
-    out = torch.empty((n, p_out), dtype=dtype, device=vals.device)
-    if n:
-        _lib.launch("decode_rows", vals.data_ptr(),
-                    int(vals.dtype == torch.bfloat16),
-                    0 if idx is None else idx.data_ptr(),
-                    0 if hdr is None else hdr.data_ptr(), n, d,
-                    KINDS.index(kind), p.meta.k,
-                    0 if w is None else w.data_ptr(), p_out,
-                    0 if scratch is None else scratch.data_ptr(),
-                    out.data_ptr(), int(dtype == torch.bfloat16),
-                    _lib.stream_handle(vals))
-    return out.view(lead + (p_out,))
+    if (i is not None and not i.is_cuda) or (h is not None
+                                             and not h.is_cuda):
+        raise ValueError("decode kernel: payload leaves must all be CUDA "
+                         "tensors")
+    plan = rows_plan(p.meta, dtype, _sig(v), _sig(i), _sig(h))
+    return launch_rows(plan, v, i, h, dtype, project)
+
+
+def _contiguous(t):
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def launch_rows(plan: RowsPlan, values, indices, header, dtype,
+                project: Optional[torch.Tensor] = None):
+    """Allocate the output of a checked key (`rows_plan`) and launch
+    `decode_rows` (`decode_rows_project` with a projection) on its leaves,
+    converting only a leaf that is not in the kernel's dtype and layout.
+    The leaves' device is not checked here."""
+    if plan.convert is not None:
+        values, indices, header = (
+            t if c is None else t.to(c)
+            for t, c in zip((values, indices, header), plan.convert))
+    values = _contiguous(values)
+    idx_ptr = hdr_ptr = 0
+    if plan.uses_indices:
+        idx_ptr = _contiguous(indices).data_ptr()
+    if plan.uses_header:
+        hdr_ptr = _contiguous(header).data_ptr()
+    d = plan.d
+    if project is None:
+        out = values.new_empty(plan.out_shape, dtype=dtype)
+        if plan.rows:
+            _lib.launch("decode_rows", values.data_ptr(), plan.vals_bf16,
+                        idx_ptr, hdr_ptr, plan.rows, d, plan.kind_id, plan.k,
+                        out.data_ptr(), plan.out_bf16,
+                        _lib.stream_handle(values))
+        return out
+    if project.dim() != 2 or project.shape[0] != d \
+            or project.device != values.device:
+        raise ValueError(f"project must be a ({d}, P) matrix on the "
+                         f"leaves' device, got {tuple(project.shape)}")
+    w = _contiguous(project.to(torch.float32))
+    p_out = w.shape[1]
+    scratch = values.new_empty((plan.rows, d), dtype=torch.float32)
+    out = values.new_empty(plan.out_shape[:-1] + (p_out,), dtype=dtype)
+    if plan.rows:
+        _lib.launch("decode_rows_project", values.data_ptr(), plan.vals_bf16,
+                    idx_ptr, hdr_ptr, plan.rows, d, plan.kind_id, plan.k,
+                    w.data_ptr(), p_out, scratch.data_ptr(), out.data_ptr(),
+                    plan.out_bf16, _lib.stream_handle(values))
+    return out
 
 
 def decode_rows_to_slots(xbuf: torch.Tensor, p: Payload, slots, *,
@@ -104,7 +183,7 @@ def decode_rows_to_slots(xbuf: torch.Tensor, p: Payload, slots, *,
             and slots.is_contiguous() and slots.dim() == 1):
         raise TypeError("slots must be a contiguous int32 CUDA vector")
     flat = []
-    for leaf, w in zip(leaves, _leaf_widths(p)):
+    for leaf, w in zip(leaves, _leaf_widths(p.meta)):
         if not (leaf.is_cuda and leaf.is_contiguous()
                 and leaf.numel() == n * w):
             raise ValueError(f"{kind} leaf of shape {tuple(leaf.shape)} is "

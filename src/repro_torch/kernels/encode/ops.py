@@ -12,10 +12,17 @@
 A wrapper takes its plain version (`ref.py`) for a tensor on the CPU or
 when `backend="torch"` asks for it; otherwise it launches the kernel or
 raises (`_lib.resolve_backend`).
+
+`encode_rows` runs once per served token, so its host path is kept
+short: the checks and the output layout of a key (kind, x's shape and
+dtype, k, bits) are resolved once, in `encode_plan`, and a call then
+allocates the leaves and launches.
 """
 from __future__ import annotations
 
+import math
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,6 +35,11 @@ from repro_torch.kernels.encode import ref
 MAX_D = 16384
 #: payload kinds whose encode needs the selection mask
 MASK_KINDS = ("sparse", "sparse_quant", "mask")
+
+
+def _meta(kind: str, d: int, k: int, bits: int) -> PayloadMeta:
+    return PayloadMeta(kind, d=d, k=k if kind != "quant" else 0,
+                       bits=bits if kind in ("quant", "sparse_quant") else 0)
 
 
 def _out_descr(kind: str, d: int, k: int):
@@ -43,45 +55,79 @@ def _out_descr(kind: str, d: int, k: int):
     }[kind]
 
 
+class EncodePlan(NamedTuple):
+    """What `encode_rows` needs of one key besides the tensors."""
+
+    meta: PayloadMeta
+    names: tuple            # leaf field names, KIND_LEAVES order
+    leaves: tuple           # (shape, dtype) of each output leaf
+    pad: tuple              # zeros for the kernel outputs the kind lacks
+    rows: int
+    kind_id: int
+    x_bf16: int
+    masked: bool
+
+
+@lru_cache(maxsize=1024)
+def encode_plan(kind: str, shape, dtype, k: int, bits: int) -> EncodePlan:
+    """Check one encode key (kind, x's shape and dtype, k, bits) and lay
+    out its outputs; raises on what the kernel does not take."""
+    d = shape[-1]
+    meta = _meta(kind, d, k, bits)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"encode kernel takes f32/bf16, got {dtype}")
+    if not 1 <= d <= MAX_D or (kind in MASK_KINDS + ("slice",)
+                               and not 1 <= k <= d):
+        raise ValueError(f"encode {kind}: bad d={d} / k={k}")
+    if kind in ("quant", "sparse_quant") and not 1 <= bits <= 8:
+        raise ValueError(f"encode {kind}: bits={bits} not in 1..8")
+    lead = tuple(shape[:-1])
+    leaves = tuple((lead + (w,), dt) for w, dt in _out_descr(kind, d, k))
+    return EncodePlan(meta, KIND_LEAVES[kind], leaves,
+                      (0,) * (3 - len(leaves)), math.prod(lead),
+                      KINDS.index(kind), int(dtype == torch.bfloat16),
+                      kind in MASK_KINDS)
+
+
 def encode_rows(x, kind: str, *, k: int = 0, bits: int = 0, mask=None,
                 backend=None) -> Payload:
     """Fused one-pass encode of activation rows to a device Payload; values
     come back in ascending-index order, matching `Compressor.encode`."""
-    d = x.shape[-1]
-    meta = PayloadMeta(kind, d=d, k=k if kind != "quant" else 0,
-                       bits=bits if kind in ("quant", "sparse_quant") else 0)
     if _lib.resolve_backend(backend, x) == "torch":
         outs = ref.encode_rows(x, kind, k, bits, mask)
-    else:
-        outs = _launch_encode(x, kind, k, bits, mask)
-    return Payload(meta=meta, **dict(zip(KIND_LEAVES[kind], outs)))
+        return Payload(meta=_meta(kind, x.shape[-1], k, bits),
+                       **dict(zip(KIND_LEAVES[kind], outs)))
+    plan = encode_plan(kind, x.shape, x.dtype, k, bits)
+    if plan.masked and (mask is None or not mask.is_cuda):
+        raise ValueError(f"{kind} encode needs a CUDA mask of x's shape")
+    return launch_encode(plan, x, mask)
 
 
-def _launch_encode(x, kind: str, k: int, bits: int, mask):
-    d = x.shape[-1]
-    lead = x.shape[:-1]
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"encode kernel takes f32/bf16, got {x.dtype}")
-    if d > MAX_D or (kind in MASK_KINDS + ("slice",) and not 1 <= k <= d):
-        raise ValueError(f"encode {kind}: bad d={d} / k={k}")
-    if kind in ("quant", "sparse_quant") and not 1 <= bits <= 8:
-        raise ValueError(f"encode {kind}: bits={bits} not in 1..8")
-    x2 = x.contiguous().view(-1, d)
-    rows = x2.shape[0]
+def launch_encode(plan: EncodePlan, x, mask) -> Payload:
+    """Allocate the outputs of a checked key (`encode_plan`), one
+    `new_empty` per leaf (faster on the card's host than views carved from
+    one buffer), and launch `encode_rows`. The tensors' device is not
+    checked here."""
+    if not x.is_contiguous():
+        x = x.contiguous()
     m_ptr = 0
-    if kind in MASK_KINDS:
-        if mask is None or mask.shape != x.shape or not mask.is_cuda:
-            raise ValueError(f"{kind} encode needs a CUDA mask of x's shape")
-        m2 = (mask if mask.dtype == torch.bool else mask != 0).contiguous()
-        m_ptr = m2.data_ptr()
-    outs = [torch.empty((rows, w), dtype=dt, device=x.device)
-            for w, dt in _out_descr(kind, d, k)]
-    ptrs = [o.data_ptr() for o in outs] + [0] * (3 - len(outs))
-    if rows:
-        _lib.launch("encode_rows", x2.data_ptr(),
-                    int(x.dtype == torch.bfloat16), m_ptr, rows, d,
-                    KINDS.index(kind), k, bits, *ptrs, _lib.stream_handle(x))
-    return tuple(o.view(lead + (o.shape[-1],)) for o in outs)
+    if plan.masked:
+        if mask is None or mask.shape != x.shape:
+            raise ValueError(f"{plan.meta.kind} encode needs a mask of x's "
+                             f"shape")
+        if mask.dtype != torch.bool and mask.dtype != torch.uint8:
+            mask = mask != 0
+        if not mask.is_contiguous():
+            mask = mask.contiguous()
+        m_ptr = mask.data_ptr()
+    outs = [x.new_empty(shape, dtype=dt) for shape, dt in plan.leaves]
+    if plan.rows:
+        m = plan.meta
+        _lib.launch("encode_rows", x.data_ptr(), plan.x_bf16, m_ptr,
+                    plan.rows, m.d, plan.kind_id, m.k, m.bits,
+                    *[o.data_ptr() for o in outs], *plan.pad,
+                    _lib.stream_handle(x))
+    return Payload(plan.meta, **dict(zip(plan.names, outs)))
 
 
 def pack_bits(vals, width: int, *, backend=None):
