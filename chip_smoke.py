@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch + CUDA port (`src/repro_torch`), one card.
 
     python3 chip_smoke.py                     # everything
-    python3 chip_smoke.py --phase kernels     # build + kernel checks only
+    python3 chip_smoke.py --phase kernels     # build, kernel checks, probes
     python3 chip_smoke.py --phase train       # kernel checks + training
     python3 chip_smoke.py --phase serve       # kernel checks + serving
     python3 chip_smoke.py --phase fedtrain    # kernel checks + fedtrain
@@ -10,13 +10,20 @@
 Phases, each fatal on failure:
 
   1. build the port's CUDA kernels from `src/repro_torch/csrc` (nvcc,
-     sm_90a, one process per source, eight sources, eleven launchers);
+     sm_90a, one process per source, eight sources, twelve launchers);
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes its path gives it (serving: one row of d 4096; training:
-     1024 rows of d 4096, k 64) and at odd ones (rows not a multiple of a
+     1024 rows of d 4096, k 64; the standalone top-k: the tabular
+     evaluation's 4000 and 20000 rows of 128 f32, k 3) and at odd ones (rows not a multiple of a
      block, d not a multiple of 32, k in {1, 64, d-1}, ties, duplicate and
      out-of-range indices, d = 16384): masks, indices, words, scattered
-     and non-quant values exact; quant headers and decoded values within
+     and non-quant values exact; the fused client codec
+     (`encode_sections`) byte for byte, leaves and wire sections, with the
+     support selected in the launch and given as a mask, for every kind at
+     the serving row, the fedtrain batch (128 x 128 f32 k 3, whose rows
+     share packed words), 16384-wide and odd rows, on random rows, ties,
+     zeros, signed zeros and rows of few magnitudes; quant headers of
+     `encode_rows` and decoded values within
      1 ulp, quant codes exact; projected rows within 1 ulp plus 1e-5 of
      the summed |terms|; `quantize` (no path runs it) at a training cut
      (1024 x 4096 bf16), a serving flush (4 x 4096 bf16), odd shapes and a
@@ -30,16 +37,26 @@ Phases, each fatal on failure:
      (atol and rtol 3e-4); time kernel, plain version and, where one
      exists, the single PyTorch call that computes the same function; for
      flash also the kernel's own device time per launch from a profiler
-     trace and its TFLOP/s; for encode_rows (the serving row, the fedtrain
-     client's batch), decode_rows (the training cut, a fedtrain frame) and
-     scatter_rows where the wrapper's time goes (device time per launch,
-     host time per call, of it the allocation and the bare launch), with
-     `scatter_add_` in place and out of place and a zero fill of the
-     output beside decode_rows;
+     trace and its TFLOP/s; for decode_rows (the training cut, a fedtrain
+     frame) and scatter_rows where the wrapper's time goes (device time
+     per launch, host time per call, of it the allocation and the bare
+     launch), with `scatter_add_` in place and out of place and a zero
+     fill of the output beside decode_rows; then the codec probes
+     (`probe_kernels`, `probe_fused`, `codec_token_ms`): the same split
+     for topk_mask_threshold (serving row, tabular batch, the tabular
+     evaluation, 1024 x 4096), pack_bits (serving row, fedtrain batch),
+     encode_rows (serving row, fedtrain batch) and the fused encode,
+     randtopk_mask's device time (training cut, tabular batch),
+     scatter_rows beside a fresh `zeros.scatter_add`, and the serving
+     client's whole codec per token (host clock around
+     `client_encode_device` + `sections_to_bytes`) with its launches;
   3. serve yi-6b at full width (d 4096, bf16, random weights from a seed)
      through `runtime.engine.run_streaming` with `randtopk --k 64`, the cut
      at n_layers // 2: the launch counts (zeroed just before) must show
-     every kernel ran, no host densification, measured payload bytes per
+     every kernel ran, the fused encode once per client token (and once
+     for the engine's warm-up step) and no top-k, encode_rows or
+     bit-pack launch beside it, no host densification, measured payload
+     bytes per
      token = `comp.fwd_bits(d) / 8`, and the tokens must equal a second run
      with the plain versions forced (`backend="torch"`); tokens/s of two
      untraced runs, and the card's busy share from a `torch.profiler` trace
@@ -47,7 +64,8 @@ Phases, each fatal on failure:
   4. the client and server steps timed alone, with their kernel time from
      a `torch.profiler` trace of calls made alone;
   5. the same path with the identity, quant and randtopk_mask compressors,
-     so every encode and decode kind reaches a kernel;
+     so every encode and decode kind reaches a kernel, each token's codec
+     again one fused launch;
   6. yi-6b SMOKE in f32: the card's tokens equal the port's CPU run;
   7. train yi-6b at full width, depth cut to 8 layers (cut at 4), batch 4
      x seq 256, randtopk k 64, AdamW: the first step's forward gives the
@@ -78,13 +96,15 @@ Phases, each fatal on failure:
      equal the uninterrupted run in losses, bytes and final weights;
      measured bytes within 5% of the analytics both ways, no host
      densification, and the codec kernels' launches (counts zeroed just
-     before each run) show the path went through them; wall time, steps
+     before each run) show the path went through them, two a client step
+     for one randtopk client (the Eq. (7) mask and the fused encode); wall
+     time, steps
      per second and the busy share from a `torch.profiler` trace of a
      rerun.
 
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, or in its check's own loop
-for the two no path runs, its largest difference from its plain version,
+for the five no path runs, its largest difference from its plain version,
 the CUDA-event times of kernel, plain version and library call at its
 path's shapes, and the card's bound for the same work), the loop's and
 the step's numbers, and as its last line {"ok": true, "device": {...}}.
@@ -225,14 +245,36 @@ def ulp(t):
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def _tabular_eval_shape():
+    """The shapes a path gives the standalone top-k: the tabular trainer's
+    evaluation, the whole test set's and then the train set's cut rows at
+    once (`n_test` and `n_train` rows of `cut_dim` f32, k of
+    `SplitSpec`)."""
+    from repro_torch.data.synthetic import ManyClassDataset
+    from repro_torch.split.tabular import SplitSpec
+
+    spec = SplitSpec()
+    return (ManyClassDataset.n_test, ManyClassDataset.n_train, spec.cut_dim,
+            spec.k)
+
+
 def check_topk(dev, g):
+    """The standalone top-k against its plain version, exact, at the
+    tabular evaluation's shapes (its only path), the serving row, odd
+    shapes and 16384-wide rows, each on random rows, ties (halves), zeros
+    and negatives; timed at the test set's rows."""
     import torch
     from repro_torch.kernels.randtopk import ops, ref
 
-    cases = [((1, D), torch.bfloat16, K), ((37, 1000), torch.float32, 1),
+    rows, rows_train, d_tab, k_tab = _tabular_eval_shape()
+    cases = [((rows, d_tab), torch.float32, k_tab),
+             ((rows_train, d_tab), torch.float32, k_tab),
+             ((128, d_tab), torch.float32, k_tab),
+             ((1, D), torch.bfloat16, K), ((37, 1000), torch.float32, 1),
              ((37, 1000), torch.float32, 64), ((37, 1000), torch.float32,
                                                999),
-             ((3, 16384), torch.bfloat16, K), ((5, 4097), torch.float32, 64)]
+             ((3, 16384), torch.bfloat16, K), ((5, 4097), torch.float32, 64),
+             ((9, 70), torch.float32, 3), ((9, 512), torch.bfloat16, 64)]
     err = 0.0
     for shape, dt, k in cases:
         x = torch.randn(shape, generator=g, device=dev).to(dt)
@@ -246,12 +288,19 @@ def check_topk(dev, g):
             if not bool((mk.sum(-1) == k).all()):
                 fail(f"topk kernel selected != {k} at {shape}")
             err = max(err, max_diff(mk, mp), max_diff(tk, tp))
-    x = torch.randn((1, D), generator=g, device=dev).to(torch.bfloat16)
-    mag = x.abs().float()
-    ms = time_ms(lambda: ops.topk_mask_threshold(x, K))
-    plain = time_ms(lambda: ref.topk_mask_threshold(x, K))
-    lib = time_ms(lambda: torch.topk(mag, K, dim=-1))
-    b = bound_ms(D * 2 + D * 1 + 4, 5 * D)   # 4 radix passes + emit
+    x = torch.randn((rows, d_tab), generator=g, device=dev)
+    mag = x.abs()
+    ms = time_ms(lambda: ops.topk_mask_threshold(x, k_tab))
+    plain = time_ms(lambda: ref.topk_mask_threshold(x, k_tab))
+    lib = time_ms(lambda: torch.topk(mag, k_tab, dim=-1))
+    # radix passes, rank, store
+    b = bound_ms(rows * (d_tab * 4 + d_tab + 4), 5 * rows * d_tab)
+    print(f"  topk_mask_threshold: {len(cases) * 4} cases equal to the "
+          f"plain version (mask and threshold), the tabular evaluation's "
+          f"{rows} and {rows_train} x {d_tab} f32 k {k_tab} among them; "
+          f"timed at the first: "
+          f"kernel {ms} ms, plain {plain} ms, torch.topk {lib} ms, bound "
+          f"{b[0]} ms")
     return dict(name="topk_mask_threshold", route="cuda",
                 source="src/repro_torch/csrc/topk_select.cu",
                 replaces="src/repro/kernels/randtopk/kernel.py:133",
@@ -291,12 +340,16 @@ def _encode_case(x, kind, k, bits):
 
 
 def check_encode(dev, g):
+    """`encode_rows` (mask given, no sections) against its plain version.
+    No path runs it since the client's codec is the fused encode, so its
+    launches are those of this check's own loop."""
     import torch
     from repro_torch.kernels import _lib
     from repro_torch.kernels.encode import ops, ref
     from repro_torch.kernels.randtopk import ref as tref
 
     err = 0.0
+    _lib.reset_launch_counts()
     for kind, k, bits in KIND_CASES:
         x = torch.randn((1, D), generator=g, device=dev).to(torch.bfloat16)
         err = max(err, _encode_case(x, kind, k, bits))
@@ -305,49 +358,153 @@ def check_encode(dev, g):
             err = max(err, _encode_case(xo, kind, kk, bits))
         err = max(err, _encode_case(torch.zeros((3, 70), device=dev), kind,
                                     min(k, 70), bits))
-    # where the wrapper's time goes, at the serving client's row and the
-    # fedtrain client's batch (sparse: a top-k mask, values and indices)
-    print("encode_rows, sparse, host/device split (no library call "
-          "computes the same function):")
-    probes = []
-    for label, x, k in (
-            ("serving 1 x 4096 bf16 k 64",
-             torch.randn((1, D), generator=g, device=dev).to(torch.bfloat16),
-             K),
-            ("fedtrain 128 x 128 f32 k 3",
-             torch.randn((128, 128), generator=g, device=dev), 3)):
-        mask = tref.topk_mask_threshold(x, k)[0]
-        rows, d = x.shape
-        plan = ops.encode_plan("sparse", x.shape, x.dtype, k, 0)
-        p0 = ops.launch_encode(plan, x, mask)
-        args = (x.data_ptr(), plan.x_bf16, mask.data_ptr(), rows, d,
-                plan.kind_id, k, 0, p0.values.data_ptr(),
-                p0.indices.data_ptr(), 0, _lib.stream_handle(x))
-        probes.append(split_probe(
-            label, lambda: ops.encode_rows(x, "sparse", k=k, mask=mask),
-            "encode_rows",
-            lambda: [x.new_empty(shape, dtype=dt)
-                     for shape, dt in plan.leaves],
-            lambda: _lib.launch("encode_rows", *args),
-            bound_ms(rows * (d * x.element_size() + d + k * 8), 2 * rows * d)))
-        probes[-1]["plain_ms"] = time_ms(
-            lambda: ref.encode_rows(x, "sparse", k, 0, mask))
-        print(f"    plain {probes[-1]['plain_ms']} ms")
+    launches = _lib.launch_counts()["encode_rows"]
+    # its times at the serving row (sparse: a top-k mask, values and
+    # indices); `probe_kernels` splits them into host and device
+    x = torch.randn((1, D), generator=g, device=dev).to(torch.bfloat16)
+    mask = tref.topk_mask_threshold(x, K)[0]
+    ms = time_ms(lambda: ops.encode_rows(x, "sparse", k=K, mask=mask))
+    plain = time_ms(lambda: ref.encode_rows(x, "sparse", K, 0, mask))
+    b = bound_ms(D * 2 + D + K * 8, 2 * D)
     return dict(name="encode_rows", route="cuda",
                 source="src/repro_torch/csrc/encode_rows.cu",
                 replaces="src/repro/kernels/encode/kernel.py:160",
-                max_abs_err=err, ms=probes[0]["ms"],
-                plain_ms=probes[0]["plain_ms"],
-                bound_ms=probes[0]["bound_ms"],
-                bound_by=probes[0]["bound_by"],
-                library_ms=None)
+                launches=launches,
+                launches_from="this check's own loop: no path runs it (the "
+                              "client's codec is encode_sections)",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
+                bound_by=b[1], library_ms=None)
+
+
+def _hostile_rows(x, g):
+    """The rows a selection can trip on, from one random batch: ties at
+    the kth (values rounded to halves), all zeros, -0.0 beside +0.0, and
+    many equal magnitudes (a handful of values, signs mixed)."""
+    import torch
+
+    few = torch.tensor([0.5, -0.5, 1.0, -1.0, 2.0], device=x.device)
+    pick = torch.randint(0, 5, x.shape, generator=g, device=x.device)
+    return [("random", x), ("halves", torch.round(x * 2) / 2),
+            ("zeros", torch.zeros_like(x)),
+            ("signed zeros", torch.where(x < 0, -0.0, 0.0).to(x.dtype)),
+            ("few magnitudes", few[pick].to(x.dtype))]
+
+
+SECTION_CASES = [((1, D), "bfloat16"),          # the serving client's row
+                 ((128, 128), "float32"),       # fedtrain: rows share words
+                 ((3, 16384), "bfloat16"), ((3, 16384), "float32"),
+                 ((37, 1000), "float32"), ((5, 4097), "float32"),
+                 ((9, 70), "bfloat16"), ((9, 512), "bfloat16"),
+                 ((6, 200), "float32")]
+
+
+def check_encode_sections(dev, g):
+    """The fused client codec against `ref.encode_sections`, byte for byte:
+    every leaf and every wire section equal, in both modes (`select`: the
+    kernel's own top-k; `mask=`: a Eq. (7) mask drawn by the plain
+    version, and a top-k one), for every kind at the serving row, the
+    fedtrain batch (128 x 128 f32 k 3: 21 index bits a row, so rows share
+    packed words), 16384-wide rows and odd widths, on the hostile rows of
+    `_hostile_rows`. Then its times at the serving row (sparse, select)."""
+    import torch
+    from repro_torch.core import selection
+    from repro_torch.core.payload import KIND_LEAVES
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.encode import ops, ref
+    from repro_torch.kernels.randtopk import ref as tref
+
+    err, n = 0.0, 0
+    for shape, dt in SECTION_CASES:
+        x0 = torch.randn(shape, generator=g, device=dev).to(
+            getattr(torch, dt))
+        rows, d = shape
+        ks = sorted({min(k, d) for k in (1, 3, K)} | {d})
+        for label, x in _hostile_rows(x0, g):
+            for kind, bits_list in (("sparse", (0,)), ("mask", (0,)),
+                                    ("sparse_quant", (3, 4, 8)),
+                                    ("quant", (3, 4, 8)), ("dense", (0,)),
+                                    ("slice", (0,))):
+                for k in (ks if kind != "quant" and kind != "dense"
+                          else (0,)):
+                    for bits in bits_list:
+                        modes = [("", False, None)]
+                        if kind in ops.MASK_KINDS:
+                            gum = selection.gumbel_noise(g, shape,
+                                                         device=dev)
+                            m = torch.randint(0, k + 1, (rows, 1),
+                                              generator=g, device=dev)
+                            modes = [
+                                ("select", True, None),
+                                ("top-k mask", False,
+                                 tref.topk_mask_threshold(x, k)[0]),
+                                ("Eq. 7 mask", False,
+                                 tref.randtopk_mask(x, gum, m, k))]
+                        for mode, select, mask in modes:
+                            p, secs = ops.encode_sections(
+                                x, kind, k=k, bits=bits, mask=mask,
+                                select=select)
+                            leaves, want = ref.encode_sections(
+                                x, kind, k, bits, mask, select)
+                            torch.cuda.synchronize()
+                            got = [getattr(p, nm) for nm in KIND_LEAVES[kind]]
+                            for a, b in list(zip(got, leaves)) + \
+                                    list(zip(secs, want)):
+                                if a.shape != b.shape or a.dtype != b.dtype \
+                                        or not torch.equal(
+                                            a.contiguous().view(-1).view(
+                                                torch.uint8),
+                                            b.contiguous().view(-1).view(
+                                                torch.uint8)):
+                                    fail(f"encode_sections {kind} {mode} "
+                                         f"!= plain at {shape} {dt} k={k} "
+                                         f"bits={bits} rows {label}")
+                                err = max(err, max_diff(a, b))
+                            n += 1
+    print(f"  encode_sections: {n} cases, leaves and wire sections equal "
+          f"to ref.encode_sections byte for byte (select and mask= modes; "
+          f"shapes {[s for s, _ in SECTION_CASES]}; rows random, ties, "
+          f"zeros, signed zeros, few magnitudes)")
+    x = torch.randn((1, D), generator=g, device=dev).to(torch.bfloat16)
+    ms = time_ms(lambda: ops.encode_sections(x, "sparse", k=K, select=True))
+    plain = time_ms(lambda: ref.encode_sections(x, "sparse", K, 0,
+                                                select=True))
+    b = sections_bound(D, 2, "sparse", K, 0)
+    return dict(name="encode_sections", route="cuda",
+                source="src/repro_torch/csrc/encode_rows.cu",
+                replaces="src/repro/kernels/encode/kernel.py:160",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
+                bound_by=b[1], library_ms=None,
+                library_call="none: no PyTorch call selects, gathers and "
+                             "bit-packs a row")
+
+
+def sections_bound(d, x_bytes, kind, k, bits, rows=1, masked=False):
+    """The fused encode's bound: x read once (and a mask byte per element
+    where one is given), the leaves and sections written
+    once; the operations of two radix passes, the scan and the gather per
+    element (select) or one per element, f32 peak."""
+    import math
+
+    r = math.ceil(math.log2(d)) if d > 1 else 1
+    per = {"sparse": k * 4 + k * 4 + math.ceil(k * r / 8),
+           "quant": d * 4 + 8 + math.ceil(d * bits / 8),
+           "sparse_quant": k * 8 + 8 + math.ceil(k * (r + bits) / 8),
+           "mask": k * 4 + 4 * math.ceil(d / 32),
+           "dense": d * 4, "slice": k * 4}[kind]
+    return bound_ms(rows * (d * x_bytes + (d if masked else 0) + per),
+                    4 * rows * d)
 
 
 def check_pack(dev, g):
+    """`pack_bits` against its plain version at every width. No path runs
+    it since the fused encode packs its own streams, so its launches are
+    those of this check's own loop."""
     import torch
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.encode import ops, ref
 
     err = 0.0
+    _lib.reset_launch_counts()
     for w in range(1, 33):
         for n in (1, K, 1000, 4097):
             hi = 2 ** w
@@ -362,6 +519,7 @@ def check_pack(dev, g):
             if not torch.equal(a, b):
                 fail(f"pack_bits kernel != plain at width {w}, n {n}")
             err = max(err, max_diff(a, b))
+    launches = _lib.launch_counts()["pack_bits"]
     idx = torch.randint(0, D, (K,), generator=g, device=dev,
                         dtype=torch.int32)
     ms = time_ms(lambda: ops.pack_bits(idx, W_IDX))
@@ -370,6 +528,9 @@ def check_pack(dev, g):
     return dict(name="pack_bits", route="cuda",
                 source="src/repro_torch/csrc/pack_bits.cu",
                 replaces="src/repro/kernels/encode/kernel.py:236",
+                launches=launches,
+                launches_from="this check's own loop: no path runs it (the "
+                              "fused encode packs its own streams)",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
                 bound_by=b[1], library_ms=None)
 
@@ -472,7 +633,9 @@ def check_randtopk(dev, g):
              ((37, 1000), torch.float32, 64), ((37, 1000), torch.float32,
                                                500),
              ((37, 1000), torch.float32, 999), ((3, 16384), torch.bfloat16, K),
-             ((5, 4097), torch.float32, 64)]
+             ((5, 4097), torch.float32, 64),
+             ((128, 128), torch.float32, 3),       # the tabular trainer's
+             ((9, 70), torch.float32, 3), ((9, 512), torch.bfloat16, 64)]
     err = 0.0
     for shape, dt, k in cases:
         x = torch.randn(shape, generator=g, device=dev).to(dt)
@@ -932,17 +1095,222 @@ def check_flash(dev, g):
 
 
 # ---------------------------------------------------------------------------
+# codec probes: where the serving codec's time goes, kernel by kernel
+# ---------------------------------------------------------------------------
+
+CODEC_TOKENS = 300              # client_encode_device calls timed per kind
+
+
+def codec_token_ms(dev, g, names=("randtopk", "quant", "randtopk_mask")):
+    """The serving client's whole codec per token: host clock around
+    `client_encode_device` + `sections_to_bytes` (its `.cpu()` pulls
+    synchronize) at one row of yi-6b's cut (1 x 1 x 4096 bf16, k 64,
+    4-bit quant), median over CODEC_TOKENS calls after a warm-up; with the
+    kernel launches one call makes."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.encode import ops as enc_ops
+    from repro_torch.models.config import SplitConfig
+    from repro_torch.split import protocol
+
+    out = {}
+    x = torch.randn((1, 1, D), generator=g, device=dev).to(torch.bfloat16)
+    for name in names:
+        comp = protocol.make_cut_compressor(SplitConfig(
+            cut_layer=1, compressor=name, k=K))
+
+        def token():
+            p, sections = protocol.client_encode_device(comp, x)
+            return enc_ops.sections_to_bytes(p.meta, p.batch_shape, sections)
+
+        for _ in range(20):
+            token()
+        _lib.reset_launch_counts()
+        token()
+        per_call = {n: c for n, c in _lib.launch_counts().items() if c}
+        times = []
+        for _ in range(CODEC_TOKENS):
+            t0 = time.perf_counter()
+            token()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = dict(ms=statistics.median(times), launches=per_call)
+        print(f"  codec per token, {name}: client_encode_device + "
+              f"sections_to_bytes {out[name]['ms']} ms (host clock, median "
+              f"of {CODEC_TOKENS}, ends in the .cpu() pull); launches per "
+              f"token {per_call}")
+    return out
+
+
+def probe_kernels(dev, g):
+    """Host/device split of the codec's kernels at the shapes the paths
+    give them (wrapper ms by CUDA events, device ms per launch from a
+    profiler trace, host us per call with its allocation and bare launch):
+    the standalone top-k, pack_bits and encode_rows, randtopk_mask's device
+    time, and scatter_rows beside a fresh `zeros.scatter_add`."""
+    import torch
+    from repro_torch.core import selection
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.encode import ops as enc_ops
+    from repro_torch.kernels.randtopk import ops as tk_ops
+    from repro_torch.kernels.randtopk import ref as tk_ref
+
+    out = {}
+    rows_eval, _, d_tab, k_tab = _tabular_eval_shape()
+    print("topk_mask_threshold, host/device split:")
+    for label, rows, d, dt, k in (
+            ("serving 1 x 4096 bf16 k 64", 1, D, torch.bfloat16, K),
+            ("tabular 128 x 128 f32 k 3", 128, d_tab, torch.float32, k_tab),
+            (f"tabular evaluation {rows_eval} x {d_tab} f32 k {k_tab}",
+             rows_eval, d_tab, torch.float32, k_tab),
+            ("1024 x 4096 bf16 k 64", TRAIN_ROWS, D, torch.bfloat16, K)):
+        x = torch.randn((rows, d), generator=g, device=dev).to(dt)
+        mask = torch.empty((rows, d), dtype=torch.bool, device=dev)
+        thr = torch.empty((rows,), dtype=torch.float32, device=dev)
+        args = (x.data_ptr(), int(dt == torch.bfloat16), rows, d, k,
+                mask.data_ptr(), thr.data_ptr(), _lib.stream_handle(x))
+        out["topk " + label] = split_probe(
+            label, lambda: tk_ops.topk_mask_threshold(x, k),
+            "topk_select_kernel",
+            lambda: (torch.empty((rows, d), dtype=torch.bool, device=dev),
+                     torch.empty((rows,), dtype=torch.float32,
+                                 device=dev)),
+            lambda: _lib.launch("topk_mask_threshold", *args),
+            bound_ms(rows * (d * x.element_size() + d + 4), 5 * rows * d))
+    print("pack_bits, host/device split:")
+    for label, n, width in (
+            ("serving 64 x 12-bit indices", K, W_IDX),
+            ("fedtrain 128 x 3 x 7-bit indices", 128 * k_tab, 7)):
+        idx = torch.randint(0, 1 << width, (n,), generator=g, device=dev,
+                            dtype=torch.int32)
+        n_words = (n + 31) // 32 * width
+        words = torch.empty((n_words,), dtype=torch.int32, device=dev)
+        args = (idx.data_ptr(), n, width, words.data_ptr(),
+                _lib.stream_handle(idx))
+        out["pack_bits " + label] = split_probe(
+            label, lambda: enc_ops.pack_bits(idx, width), "pack_bits_kernel",
+            lambda: torch.empty((n_words,), dtype=torch.int32, device=dev),
+            lambda: _lib.launch("pack_bits", *args),
+            bound_ms(n * 4 + n_words * 4, n * 4))
+    print("encode_rows (sparse, mask given), host/device split (no "
+          "library call computes the same function):")
+    for label, rows, d, dt, k in (
+            ("serving 1 x 4096 bf16 k 64", 1, D, torch.bfloat16, K),
+            ("fedtrain 128 x 128 f32 k 3", 128, d_tab, torch.float32,
+             k_tab)):
+        x = torch.randn((rows, d), generator=g, device=dev).to(dt)
+        mask = tk_ref.topk_mask_threshold(x, k)[0]
+        plan = enc_ops.encode_plan("sparse", x.shape, x.dtype, k, 0)
+        p0 = enc_ops.launch_encode(plan, x, mask)
+        args = (x.data_ptr(), plan.x_bf16, mask.data_ptr(), rows, d,
+                plan.kind_id, k, 0, p0.values.data_ptr(),
+                p0.indices.data_ptr(), 0, _lib.stream_handle(x))
+        out["encode_rows " + label] = split_probe(
+            label, lambda: enc_ops.encode_rows(x, "sparse", k=k, mask=mask),
+            "encode_rows",
+            lambda: [x.new_empty(s, dtype=t) for s, t in plan.leaves],
+            lambda: _lib.launch("encode_rows", *args),
+            bound_ms(rows * (d * x.element_size() + d + k * 8),
+                     2 * rows * d))
+    print("randtopk_mask, device time:")
+    for label, rows, d, dt, k in (
+            ("training cut 1024 x 4096 bf16 k 64", TRAIN_ROWS, D,
+             torch.bfloat16, K),
+            ("tabular 128 x 128 f32 k 3", 128, d_tab, torch.float32,
+             k_tab)):
+        x = torch.randn((rows, d), generator=g, device=dev).to(dt)
+        gum = selection.gumbel_noise(g, x.shape, device=dev)
+        m = selection.binomial_nontop_count(g, 0.1, k, d, (rows,),
+                                            device=dev)
+        dev_ms, names = device_ms(
+            lambda: tk_ops.randtopk_mask(x, gum, m, k),
+            "randtopk_mask_kernel")
+        out["randtopk_mask " + label] = dev_ms
+        print(f"  {label}: device {dev_ms} ms per launch {names}")
+    print("scatter_rows beside a fresh zeros.scatter_add (1024 x 4096 bf16, "
+          "k 64):")
+    vals = torch.randn((TRAIN_ROWS, K), generator=g, device=dev).to(
+        torch.bfloat16)
+    idx = torch.sort(torch.randperm(D, generator=g, device=dev)[:K]).values
+    idx = idx.expand(TRAIN_ROWS, K).to(torch.int32).contiguous()
+    idx64 = idx.long()
+    zeros = torch.zeros((TRAIN_ROWS, D), dtype=torch.bfloat16, device=dev)
+    rec = dict(ms=time_ms(lambda: tk_ops.scatter_rows(vals, idx, D)),
+               device_ms=device_ms(lambda: tk_ops.scatter_rows(vals, idx, D),
+                                   "decode_rows_scatter_kernel")[0],
+               fresh_ms=time_ms(lambda: zeros.scatter_add(-1, idx64, vals)),
+               fresh_device_ms=device_ms(
+                   lambda: zeros.scatter_add(-1, idx64, vals))[0])
+    out["scatter_rows"] = rec
+    print(f"  scatter_rows wrapper {rec['ms']} ms, device "
+          f"{rec['device_ms']} ms; zeros.scatter_add(-1, idx, vals) "
+          f"{rec['fresh_ms']} ms, device {rec['fresh_device_ms']} ms")
+    return out
+
+
+def probe_fused(dev, g):
+    """The same host/device split for the fused client codec
+    (`encode_sections`) at the serving row (select; quant) and the
+    fedtrain batch (mask given)."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.encode import ops as enc_ops
+    from repro_torch.kernels.randtopk import ref as tk_ref
+
+    out = {}
+    print("encode_sections (the fused client codec), host/device split:")
+    for label, shape, dt, kind, k, bits, select in (
+            ("serving randtopk 1 x 4096 bf16 k 64, select", (1, D),
+             torch.bfloat16, "sparse", K, 0, True),
+            ("serving quant 1 x 4096 bf16 4-bit", (1, D),
+             torch.bfloat16, "quant", 0, 4, False),
+            ("fedtrain randtopk 128 x 128 f32 k 3, mask given",
+             (128, 128), torch.float32, "sparse", 3, 0, False)):
+        x = torch.randn(shape, generator=g, device=dev).to(dt)
+        mask = None if select or not k else \
+            tk_ref.topk_mask_threshold(x, k)[0]
+        plan = enc_ops.sections_plan(kind, x.shape, x.dtype, k, bits,
+                                     select)
+        bufs = enc_ops.sections_alloc(plan, x)
+        args = enc_ops.sections_args(
+            plan, x, 0 if mask is None else mask.data_ptr(), bufs)
+        out["encode_sections " + label] = split_probe(
+            label, lambda: enc_ops.encode_sections(
+                x, kind, k=k, bits=bits, mask=mask, select=select),
+            "encode_rows",
+            lambda: enc_ops.sections_alloc(plan, x),
+            lambda: _lib.launch("encode_sections", *args),
+            sections_bound(shape[1], x.element_size(), kind, k, bits,
+                           rows=shape[0], masked=mask is not None))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 3-6: the serving path
 # ---------------------------------------------------------------------------
 
+# every served token's codec is one launch of the fused encode
 PATH_KERNELS = {
-    "randtopk": ("topk_mask_threshold", "encode_rows", "pack_bits",
-                 "decode_to_slots"),
-    "identity": ("encode_rows", "decode_to_slots"),
-    "quant": ("encode_rows", "pack_bits", "decode_to_slots"),
-    "randtopk_mask": ("topk_mask_threshold", "encode_rows",
-                      "decode_to_slots"),
+    "randtopk": ("encode_sections", "decode_to_slots"),
+    "identity": ("encode_sections", "decode_to_slots"),
+    "quant": ("encode_sections", "decode_to_slots"),
+    "randtopk_mask": ("encode_sections", "decode_to_slots"),
 }
+# what the fused encode does in its launch: none of these may run
+NOT_ON_SERVING_PATH = ("topk_mask_threshold", "encode_rows", "pack_bits")
+
+
+def _one_launch_per_token(res, counts, compressor):
+    """The serve's counts show the fused encode once per client token (and
+    once per compressor for the engine's warm-up step) and none of the
+    kernels it replaced."""
+    frames = sum(s["frames_up"] for s in res["client_stats"])
+    want = frames + len(set(res["compressor_objs"]))
+    if counts["encode_sections"] != want:
+        fail(f"{compressor}: {counts['encode_sections']} fused encode "
+             f"launches for {frames} client tokens and a warm-up step")
+    extra = {n: counts[n] for n in NOT_ON_SERVING_PATH if counts[n]}
+    if extra:
+        fail(f"{compressor}: the serving codec launched {extra}")
 
 
 def serve(cfg, params, compressor, *, gen, backend=None, trace=False):
@@ -1081,6 +1449,7 @@ def serve_phase(dev, layers):
     missing = [n for n in PATH_KERNELS["randtopk"] if counts[n] == 0]
     if missing:
         fail(f"randtopk path never launched {missing}")
+    _one_launch_per_token(res, counts, "randtopk")
     print(f"randtopk: {res['tokens'].size} tokens in {res['wall_s']} s, "
           f"{res['flushes']} flushes, {nb:.0f} payload B/token, "
           f"launches {counts}")
@@ -1128,6 +1497,7 @@ def serve_phase(dev, layers):
         missing = [n for n in PATH_KERNELS[comp] if c[n] == 0]
         if missing:
             fail(f"{comp} path never launched {missing}")
+        _one_launch_per_token(r, c, comp)
         print(f"{comp}: {r['tokens_per_s']} tokens/s, {nb:.0f} "
               f"payload B/token, launches {c}")
     del params
@@ -1369,7 +1739,8 @@ def train_phase(dev):
 
 def tabular_phase(dev):
     """The paper's two-party tabular trainer (Table 3's setting) for one
-    epoch with randtopk, kernels against the plain versions on the card."""
+    epoch with randtopk, kernels against the plain versions on the card.
+    Returns the kernel run's launch counts."""
     import torch
     from repro_torch.data.synthetic import ManyClassDataset
     from repro_torch.kernels import _lib
@@ -1404,6 +1775,8 @@ def tabular_phase(dev):
     if kern["test_acc"] != plain["test_acc"]:
         fail(f"tabular test accuracy {kern['test_acc']} with kernels, "
              f"{plain['test_acc']} with the plain versions")
+    if not kern["launches"]["topk_mask_threshold"]:
+        fail("tabular randtopk never launched its evaluation's top-k")
     print(f"tabular randtopk (in 64, hidden 256, cut 128, 100 classes, "
           f"k={kern['k']}, batch 128, 1 epoch = {kern['steps']} steps): "
           f"final loss {kern['final_loss']} and every trained tensor "
@@ -1413,6 +1786,7 @@ def tabular_phase(dev):
           f"{kern['train_bytes']:.0f} Table 2; wall {kern['wall_s']:.2f} s "
           f"kernels, {plain['wall_s']:.2f} s plain; launches "
           f"{kern['launches']}")
+    return kern["launches"]
 
 
 def smoke_train_cpu_vs_card(dev, n_steps=3, rtol=1e-5):
@@ -1468,12 +1842,12 @@ def smoke_train_cpu_vs_card(dev, n_steps=3, rtol=1e-5):
           f"{losses['cuda']} vs CPU {losses['cpu']} (rtol {rtol})")
 
 
-# the codec kernels of a fedtrain step: up, the Eq. (7) mask, the encode
-# and (for packed index streams) the bit-pack; at the label owner the
+# the codec kernels of a fedtrain step: up, the Eq. (7) mask and the
+# fused encode (gather and bit-pack in one launch); at the label owner the
 # decode; down, for sparse kinds, the scatter onto the support
-FED_KERNELS = {"randtopk": ("randtopk_mask", "encode_rows", "pack_bits",
+FED_KERNELS = {"randtopk": ("randtopk_mask", "encode_sections",
                             "decode_rows", "scatter_rows"),
-               "randtopk_mask": ("randtopk_mask", "encode_rows",
+               "randtopk_mask": ("randtopk_mask", "encode_sections",
                                  "decode_rows")}
 FED_EPOCHS_N4, FED_CKPT_EVERY, FED_STOP = 2, 20, 40
 
@@ -1547,6 +1921,10 @@ def fedtrain_phase(dev):
     missing = [n for n in FED_KERNELS["randtopk"] if not counts[n]]
     if missing:
         fail(f"fedtrain N=1 randtopk path never launched {missing}")
+    # two codec launches a client step: the Eq. (7) mask and the encode
+    if not counts["randtopk_mask"] == counts["encode_sections"] == \
+            fed["steps"] or counts["pack_bits"] or counts["encode_rows"]:
+        fail(f"fedtrain N=1: launches {counts} for {fed['steps']} steps")
     print(f"fedtrain N=1 randtopk ({fed['steps']} steps, batch 128): losses "
           f"equal tabular.train's on the card (max rel diff {rel}), final "
           f"weights identical; {fed['payload_bytes_up']} B up / "
@@ -1622,8 +2000,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
                                         "fedtrain"),
                     default="all",
-                    help="kernels: build + kernel checks only; serve / "
-                         "train / fedtrain: the checks and one path")
+                    help="kernels: build + kernel checks + codec probes; "
+                         "serve / train / fedtrain: the checks, probes "
+                         "and one path")
     ap.add_argument("--layers", type=int, default=32,
                     help="serving depth of yi-6b (width is never cut)")
     args = ap.parse_args(argv)
@@ -1655,25 +2034,37 @@ def main(argv=None) -> int:
 
     g = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
-    records = [check_topk(dev, g), check_encode(dev, g), check_pack(dev, g),
+    records = [check_topk(dev, g), check_encode_sections(dev, g),
                check_decode(dev, g), check_randtopk(dev, g),
                check_decode_rows(dev, g), check_scatter_rows(dev, g)]
-    own = [check_quant(dev, g), *check_flash(dev, g)]
-    print("kernel checks: all ten kernels agree with their plain versions "
-          "(masks, indices, words, packed bits, quant codes, lo and step, "
-          "scattered and non-quant decoded values exact; quant headers and "
-          "dequantized values within 1 ulp; projected rows within 1 ulp "
-          "plus 1e-5 of the summed |terms|; flash within 3e-5 in f32 and "
-          f"3e-2 in bf16) in {time.perf_counter() - t0:.1f} s")
+    own = [check_encode(dev, g), check_pack(dev, g), check_quant(dev, g),
+           *check_flash(dev, g)]
+    print("kernel checks: all twelve kernels agree with their plain "
+          "versions (masks, indices, words, packed bits and the fused "
+          "encode's wire sections byte for byte, quant codes, lo and step, "
+          "scattered and non-quant decoded values exact; encode_rows' quant "
+          "headers and dequantized values within 1 ulp; projected rows "
+          "within 1 ulp plus 1e-5 of the summed |terms|; flash within 3e-5 "
+          f"in f32 and 3e-2 in bf16) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    probe_kernels(dev, g)
+    probe_fused(dev, g)
+    print("the serving client's codec per token:")
+    codec_token_ms(dev, g)
+    print(f"codec probes: {time.perf_counter() - t0:.1f} s")
 
     # each kernel's launches are read from the run of the path it serves:
-    # the four codec kernels of serving from the serving randtopk run, the
-    # three of training from the training randtopk run; quantize and
-    # the two flash kernels, which no path runs, from their checks' own loops
+    # the two codec kernels of serving from the serving randtopk run, the
+    # three of training from the training randtopk run, the top-k from the
+    # tabular trainer's (its evaluation); encode_rows, pack_bits, quantize
+    # and the two flash kernels, which no path runs, from their checks'
+    # own loops
     launches = {r["name"]: 0 for r in records}
     for r in records:
         r["launches_from"] = (
             "serving randtopk run" if r["name"] in PATH_KERNELS["randtopk"]
+            else "tabular trainer's randtopk run (its evaluation)"
+            if r["name"] == "topk_mask_threshold"
             else "training randtopk run")
     if args.phase in ("all", "serve"):
         t0 = time.perf_counter()
@@ -1686,7 +2077,8 @@ def main(argv=None) -> int:
         counts = train_phase(dev)
         for n in TRAIN_PATH_KERNELS["randtopk"]:
             launches[n] = counts[n]
-        tabular_phase(dev)
+        launches["topk_mask_threshold"] = \
+            tabular_phase(dev)["topk_mask_threshold"]
         smoke_train_cpu_vs_card(dev)
         print(f"training phases: {time.perf_counter() - t0:.1f} s")
     if args.phase in ("all", "fedtrain"):

@@ -122,6 +122,9 @@ def quantize_rows(vals, bits: int, *, selected: bool = False):
     degenerate step becomes 1.0 via `step <= 0`); `selected=True` is
     RandTopKQuant's range over the selected values (`hi > lo` guard)."""
     lo = vals.min(dim=-1, keepdim=True).values
+    # XLA's min orders -0.0 below +0.0; torch's may return either zero
+    lo = torch.where((lo == 0) & torch.signbit(vals).any(-1, keepdim=True),
+                     torch.full_like(lo, -0.0), lo)
     hi = vals.max(dim=-1, keepdim=True).values
     n_bins = 2 ** bits
     one = torch.ones_like(lo)
@@ -206,6 +209,11 @@ class TopK(Compressor):
     def _mask(self, x, generator, training):
         return selection.topk_mask(x, self.k, backend=self.backend)
 
+    def _mask_is_topk(self, training) -> bool:
+        """Whether `_mask` is the plain top-k by |x| (no draws), which the
+        fused encode kernel can select itself."""
+        return True
+
     def _support(self, x, generator, training):
         """int32 indices of the selected support, ascending-index order
         (the canonical wire order the encode kernel shares), and the mask."""
@@ -252,6 +260,9 @@ class RandTopK(TopK):
                              "torch.Generator")
         return selection.randtopk_mask(x, self.k, self.alpha, generator,
                                        backend=self.backend)
+
+    def _mask_is_topk(self, training) -> bool:
+        return not training
 
 
 @dataclasses.dataclass(frozen=True)

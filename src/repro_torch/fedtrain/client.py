@@ -3,9 +3,10 @@
 One `TrainingClient` owns a shard of the training features, its bottom
 model and its optimizer. Each sync step it runs the bottom forward, adds
 the error-feedback residual (optional), encodes the cut activation on its
-device (`protocol.client_encode_device`: the selection, encode and
-bit-pack kernels on the card, `comp.encode` and the plain packer on the
-CPU; the same bytes either way), frames it as `core.wire` bytes, blocks
+device (`protocol.client_encode_device`: on the card a randomized mask's
+kernel, then one fused launch for the selection, encode and bit-pack;
+`comp.encode` and the plain packer on the CPU; the same bytes either
+way), frames it as `core.wire` bytes, blocks
 for the server's `grad` frame, decodes the compressed cut gradient onto
 the forward support (`protocol.client_grad_decode`, the `scatter_rows`
 kernel on the card for sparse kinds) and pulls it through the bottom

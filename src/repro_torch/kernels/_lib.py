@@ -57,6 +57,10 @@ SIGNATURES = {
     "topk_mask_threshold": (_P, _I, _I, _I, _I, _P, _P, _P),
     # x, x_is_bf16, mask(u8), rows, d, kind, k, bits, out0, out1, out2, stream
     "encode_rows": (_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # x, x_is_bf16, mask(u8), rows, d, kind, k, bits, select, out0, out1,
+    # out2, idx_words, code_words, stream
+    "encode_sections": (_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                        _P, _P),
     # vals(i32), n, width, out(i32 words), stream
     "pack_bits": (_P, ctypes.c_longlong, _I, _P, _P),
     # xbuf, xbuf_is_bf16, cap1, d, slots(i32), n, kind, k, values, indices,

@@ -1,7 +1,10 @@
 """Wrappers of the encode kernels and the device wire path.
 
+  * `encode_sections` — the serving client's whole codec in one launch
+    (`csrc/encode_rows.cu`): activation rows [+ selection mask, or the
+    rows' own top-k] -> a device `Payload` and its packed wire sections.
   * `encode_rows` — activation rows [+ selection mask] -> a device
-    `Payload` in one kernel launch (`csrc/encode_rows.cu`), every kind.
+    `Payload` in one kernel launch (the same kernel), every kind.
   * `pack_bits` — flat ints -> u32 words (as int32) whose first
     ceil(n * width / 8) bytes equal `core.wire._pack_bits`
     (`csrc/pack_bits.cu`).
@@ -13,10 +16,11 @@ A wrapper takes its plain version (`ref.py`) for a tensor on the CPU or
 when `backend="torch"` asks for it; otherwise it launches the kernel or
 raises (`_lib.resolve_backend`).
 
-`encode_rows` runs once per served token, so its host path is kept
+`encode_sections` runs once per served token, so its host path is kept
 short: the checks and the output layout of a key (kind, x's shape and
-dtype, k, bits) are resolved once, in `encode_plan`, and a call then
-allocates the leaves and launches.
+dtype, k, bits, select) are resolved once, in `sections_plan` (for
+`encode_rows`, `encode_plan`), and a call then allocates the buffers and
+launches.
 """
 from __future__ import annotations
 
@@ -149,38 +153,163 @@ def pack_bits(vals, width: int, *, backend=None):
     return out
 
 
-def _f32_words(a):
-    """f32 leaf -> its u32 bit pattern as int32, flattened."""
-    return a.float().contiguous().view(torch.int32).reshape(-1)
-
-
 def pack_payload(p: Payload, *, backend=None):
     """Assemble `wire.encode_payload(p)`'s bitstream on the device as int32
-    word sections. Sections split exactly where a bit-packed stream ends on
-    a non-word byte boundary (so each section's wire bytes are a prefix of
-    its own bytes): sparse_quant is two sections, mask two (the second
-    stays (n, W) for the host's per-row byte cut), the others one."""
+    word sections (`ref.payload_sections`), each packed stream by the
+    `pack_bits` kernel or its plain version per `backend`."""
     m = p.meta
-    kind, d = m.kind, m.d
+    leaves = {name: getattr(p, name) for name in KIND_LEAVES[m.kind]}
+    return ref.payload_sections(
+        m.kind, m.d, m.bits, leaves,
+        pack=lambda v, w: pack_bits(v, w, backend=backend))
+
+
+def _words(count: int, width: int) -> int:
+    """int32 words of `count` values packed at `width` bits (`pack_bits`)."""
+    return (count + 31) // 32 * width
+
+
+class SectionsPlan(NamedTuple):
+    """What `encode_sections` needs of one key besides the tensors: the
+    buffers to allocate, and where each leaf, section and kernel output
+    lies in them."""
+
+    meta: PayloadMeta
+    rows: int
+    kind_id: int
+    x_bf16: int
+    select: int
+    masked: bool            # a mask tensor comes in
+    bufs: tuple             # (shape, dtype) of each buffer
+    leaves: tuple           # (name, buf, None | (shape, stride)): the
+                            # buffer itself, or an f32 view of its prefix
+    sections: tuple         # (buf, None | shape): the buffer or a view
+    outs: tuple             # (buf, byte offset) or None: out0, out1, out2,
+                            # idx_words, code_words
+
+
+def _strides(shape) -> tuple:
+    return tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+
+@lru_cache(maxsize=1024)
+def sections_plan(kind: str, shape, dtype, k: int, bits: int,
+                  select: bool) -> SectionsPlan:
+    """Check one fused-encode key and lay out its buffers. The sections are
+    `ref.payload_sections`' (int32, 1-D; the mask words (n, W)); a leaf
+    that is a prefix of a section (sparse values, quant headers, mask and
+    dense values) is an f32 view of it, so the launch writes it once. A
+    leaf or section that is a buffer of its own is allocated in its shape,
+    so a call makes as few views as it can (each costs the host a few
+    us)."""
+    ep = encode_plan(kind, shape, dtype, k, bits)
+    if select and kind not in MASK_KINDS:
+        raise ValueError(f"encode {kind}: select= takes a mask kind")
+    m, n, lead = ep.meta, ep.rows, tuple(shape[:-1])
+    d, i32 = m.d, torch.int32
+    r = wire.index_bits(d)
+    nk = n * k
+
+    def flat(numel):
+        return ((numel,), i32)
+
+    def prefix(name, buf, width):
+        s = lead + (width,)
+        return (name, buf, (s, _strides(s)))
+
     if kind in ("dense", "slice"):
-        return (_f32_words(p.values),)
-    if kind == "sparse":
-        return (torch.cat([_f32_words(p.values),
-                           pack_bits(p.indices, wire.index_bits(d),
-                                     backend=backend)]),)
-    if kind == "quant":
-        return (torch.cat([_f32_words(p.header),
-                           pack_bits(p.values, m.bits, backend=backend)]),)
+        w = d if kind == "dense" else k
+        bufs = (flat(n * w),)
+        leaves = (prefix("values", 0, w),)
+        outs = ((0, 0), None, None, None, None)
+    elif kind == "sparse":
+        bufs = (flat(nk + _words(nk, r)), (lead + (k,), i32))
+        leaves = (prefix("values", 0, k), ("indices", 1, None))
+        outs = ((0, 0), (1, 0), None, (0, 4 * nk), None)
+    elif kind == "quant":
+        bufs = (flat(2 * n + _words(n * d, bits)), (lead + (d,), i32))
+        leaves = (("values", 1, None), prefix("header", 0, 2))
+        outs = ((1, 0), (0, 0), None, None, (0, 8 * n))
+    elif kind == "sparse_quant":
+        bufs = (flat(2 * n + _words(nk, r)), flat(_words(nk, bits)),
+                (lead + (k,), i32), (lead + (k,), i32))
+        leaves = (("values", 2, None), ("indices", 3, None),
+                  prefix("header", 0, 2))
+        outs = ((2, 0), (3, 0), (0, 0), (0, 8 * n), (1, 0))
+    else:                                                   # mask
+        nw = wire.mask_words(d)
+        bufs = (flat(nk), (lead + (nw,), i32))
+        leaves = (prefix("values", 0, k), ("indices", 1, None))
+        outs = ((0, 0), (1, 0), None, None, None)
+    sections = ((0, None),)
     if kind == "sparse_quant":
-        return (torch.cat([_f32_words(p.header),
-                           pack_bits(p.indices, wire.index_bits(d),
-                                     backend=backend)]),
-                pack_bits(p.values, m.bits, backend=backend))
-    if kind == "mask":
-        n = int(np.prod(p.batch_shape, dtype=np.int64))
-        return (_f32_words(p.values),
-                p.indices.reshape(n, wire.mask_words(d)))
-    raise ValueError(kind)
+        sections = ((0, None), (1, None))
+    elif kind == "mask":
+        words = (n, wire.mask_words(d))
+        sections = ((0, None), (1, None if lead == words[:1] else words))
+    return SectionsPlan(m, n, ep.kind_id, ep.x_bf16, int(select),
+                        ep.masked and not select, bufs, leaves, sections,
+                        outs)
+
+
+def sections_alloc(plan: SectionsPlan, x):
+    """The buffers of a checked key, one `new_empty` each."""
+    return [x.new_empty(shape, dtype=dt) for shape, dt in plan.bufs]
+
+
+def sections_args(plan: SectionsPlan, x, m_ptr: int, bufs) -> tuple:
+    """The `encode_sections` launch arguments for allocated buffers."""
+    base = [b.data_ptr() for b in bufs]
+    outs = [0 if o is None else base[o[0]] + o[1] for o in plan.outs]
+    m = plan.meta
+    return (x.data_ptr(), plan.x_bf16, m_ptr, plan.rows, m.d, plan.kind_id,
+            m.k, m.bits, plan.select, *outs, _lib.stream_handle(x))
+
+
+def launch_sections(plan: SectionsPlan, x, mask):
+    """Allocate the buffers of a checked key (`sections_plan`) and launch
+    `encode_sections`: one launch for the leaves and the wire sections.
+    Returns (Payload, sections). The tensors' device is not checked
+    here."""
+    if not x.is_contiguous():
+        x = x.contiguous()
+    m_ptr = 0
+    if plan.masked:
+        if mask is None or mask.shape != x.shape:
+            raise ValueError(f"{plan.meta.kind} encode needs a mask of x's "
+                             f"shape")
+        if mask.dtype != torch.bool and mask.dtype != torch.uint8:
+            mask = mask != 0
+        if not mask.is_contiguous():
+            mask = mask.contiguous()
+        m_ptr = mask.data_ptr()
+    bufs = sections_alloc(plan, x)
+    if plan.rows:
+        _lib.launch("encode_sections", *sections_args(plan, x, m_ptr, bufs))
+    leaves = {name: bufs[b] if view is None else
+              bufs[b].view(torch.float32).as_strided(*view)
+              for name, b, view in plan.leaves}
+    sections = tuple(bufs[b] if shape is None else bufs[b].view(shape)
+                     for b, shape in plan.sections)
+    return Payload(plan.meta, **leaves), sections
+
+
+def encode_sections(x, kind: str, *, k: int = 0, bits: int = 0, mask=None,
+                    select: bool = False, backend=None):
+    """The serving client's whole codec in one launch: activation rows ->
+    (device Payload, its packed int32 wire sections), byte-identical to
+    `pack_payload(encode_rows(...))`. The support of a mask kind is `mask`
+    or, with `select`, the row's own top-k by |x| (the kernel selects it:
+    no mask reaches device memory)."""
+    if _lib.resolve_backend(backend, x) == "torch":
+        leaves, sections = ref.encode_sections(x, kind, k, bits, mask,
+                                               select)
+        return (Payload(meta=_meta(kind, x.shape[-1], k, bits),
+                        **dict(zip(KIND_LEAVES[kind], leaves))), sections)
+    plan = sections_plan(kind, x.shape, x.dtype, k, bits, bool(select))
+    if plan.masked and (mask is None or mask.device != x.device):
+        raise ValueError(f"{kind} encode needs a mask on x's device")
+    return launch_sections(plan, x, mask)
 
 
 def section_nbytes(meta: PayloadMeta, batch_shape):

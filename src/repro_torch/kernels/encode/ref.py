@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the encode family: what `csrc/encode_rows.cu`
-and `csrc/pack_bits.cu` compute. The CPU tests run them; `chip_smoke.py`
+(`encode_rows`, and the fused client codec `encode_sections`) and
+`csrc/pack_bits.cu` compute. The CPU tests run them; `chip_smoke.py`
 holds the kernels against them on the card.
 
 Outputs are in the device dtypes of `core.payload`: f32 values, int32
@@ -7,10 +8,15 @@ codes, int32 indices, int32 words holding the u32 bit pattern.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.core import wire
 from repro_torch.core.compressors import quantize_rows
+from repro_torch.core.payload import KIND_LEAVES
 from repro_torch.core.selection import pack_mask_words
+from repro_torch.kernels.randtopk.ref import topk_mask_threshold
 
 
 def u32_to_i32(t: torch.Tensor) -> torch.Tensor:
@@ -74,3 +80,49 @@ def pack_bits(vals, width: int):
         if off and off + width > 32:
             cols[:, j + 1] |= v[:, i] >> (32 - off)
     return u32_to_i32(cols.reshape(groups * width))
+
+
+def f32_words(a):
+    """f32 leaf -> its u32 bit pattern as int32, flattened."""
+    return a.float().contiguous().view(torch.int32).reshape(-1)
+
+
+def payload_sections(kind: str, d: int, bits: int, leaves: dict,
+                     pack=pack_bits):
+    """`wire.encode_payload`'s bitstream of a payload's leaves as int32 word
+    sections, the bit-packing done by `pack` (`pack_bits` or a wrapper of
+    its kernel). Sections split exactly where a bit-packed stream ends on a
+    non-word byte boundary (so each section's wire bytes are a prefix of
+    its own bytes): sparse_quant is two sections, mask two (the second
+    stays (n, W) for the host's per-row byte cut), the others one."""
+    if kind in ("dense", "slice"):
+        return (f32_words(leaves["values"]),)
+    if kind == "sparse":
+        return (torch.cat([f32_words(leaves["values"]),
+                           pack(leaves["indices"], wire.index_bits(d))]),)
+    if kind == "quant":
+        return (torch.cat([f32_words(leaves["header"]),
+                           pack(leaves["values"], bits)]),)
+    if kind == "sparse_quant":
+        return (torch.cat([f32_words(leaves["header"]),
+                           pack(leaves["indices"], wire.index_bits(d))]),
+                pack(leaves["values"], bits))
+    if kind == "mask":
+        words = leaves["indices"]
+        n = math.prod(words.shape[:-1])
+        return (f32_words(leaves["values"]),
+                words.reshape(n, wire.mask_words(d)))
+    raise ValueError(kind)
+
+
+def encode_sections(x, kind: str, k: int = 0, bits: int = 0, mask=None,
+                    select: bool = False):
+    """The serving client's whole codec: (..., d) activation -> (the payload
+    kind's leaves, its wire sections), as the fused `encode_sections` launch
+    computes them. The support is `mask`, or with `select` the row's own
+    top-k by |x| under the XLA tie rule (`topk_mask_threshold`)."""
+    if select:
+        mask = topk_mask_threshold(x, k)[0]
+    leaves = encode_rows(x, kind, k, bits, mask)
+    return leaves, payload_sections(kind, x.shape[-1], bits,
+                                    dict(zip(KIND_LEAVES[kind], leaves)))

@@ -5,9 +5,15 @@
 
 Each takes the plain version (`ref.py`) for a tensor on the CPU or when
 `backend="torch"` asks for it; otherwise it launches its kernel or raises
-(`_lib.resolve_backend`).
+(`_lib.resolve_backend`). The top-k wrapper's checks run once per key
+(`topk_plan`). The serving client's top-k runs inside the fused encode
+instead (`encode.ops.encode_sections`, `select=True`).
 """
 from __future__ import annotations
+
+import math
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -29,24 +35,46 @@ def _check_rows(x: torch.Tensor, what: str, dtypes) -> None:
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
+class TopkPlan(NamedTuple):
+    """What `topk_mask_threshold` needs of one key besides the tensor."""
+
+    rows: int
+    d: int
+    x_bf16: int
+
+
+@lru_cache(maxsize=1024)
+def topk_plan(shape, dtype, k: int) -> TopkPlan:
+    """Check one top-k key (x's shape and dtype, k) once; raises on what
+    the kernel does not take."""
+    d = shape[-1]
+    if not 1 <= k <= d:
+        raise ValueError(f"top-k needs 1 <= k <= d, got k={k}, d={d}")
+    if dtype not in _FLOATS:
+        raise TypeError(f"topk kernel takes {_FLOATS}, got {dtype}")
+    if d > MAX_D:
+        raise ValueError(f"topk kernel rows hold at most {MAX_D}, got {d}")
+    return TopkPlan(math.prod(shape[:-1]), d, int(dtype == torch.bfloat16))
+
+
 def topk_mask_threshold(x: torch.Tensor, k: int, *, backend=None):
     """x (..., d) f32/bf16 -> (mask bool (..., d), thr f32 (...,)): exactly
     k largest |x| per row under the XLA tie rule, and the kth |x|."""
-    d = x.shape[-1]
-    if not 1 <= k <= d:
-        raise ValueError(f"top-k needs 1 <= k <= d, got k={k}, d={d}")
     if _lib.resolve_backend(backend, x) == "torch":
+        d = x.shape[-1]
+        if not 1 <= k <= d:
+            raise ValueError(f"top-k needs 1 <= k <= d, got k={k}, d={d}")
         return ref.topk_mask_threshold(x, k)
-    _check_rows(x, "topk", _FLOATS)
-    x2 = x.contiguous().view(-1, d)
-    rows = x2.shape[0]
-    mask = torch.empty(x2.shape, dtype=torch.bool, device=x.device)
-    thr = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    if rows:
-        _lib.launch("topk_mask_threshold", x2.data_ptr(),
-                    int(x.dtype == torch.bfloat16), rows, d, k,
-                    mask.data_ptr(), thr.data_ptr(), _lib.stream_handle(x))
-    return mask.view(x.shape), thr.view(x.shape[:-1])
+    plan = topk_plan(x.shape, x.dtype, k)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    mask = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    thr = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    if plan.rows:
+        _lib.launch("topk_mask_threshold", x.data_ptr(), plan.x_bf16,
+                    plan.rows, plan.d, k, mask.data_ptr(), thr.data_ptr(),
+                    _lib.stream_handle(x))
+    return mask, thr
 
 
 def randtopk_mask(x: torch.Tensor, gumbel: torch.Tensor, m: torch.Tensor,
@@ -64,8 +92,8 @@ def randtopk_mask(x: torch.Tensor, gumbel: torch.Tensor, m: torch.Tensor,
     if _lib.resolve_backend(backend, x) == "torch":
         return ref.randtopk_mask(x, gumbel, m, k)
     _check_rows(x, "randtopk", _FLOATS)
-    if not (gumbel.is_cuda and m.is_cuda):
-        raise ValueError("randtopk kernel needs gumbel and m on the card")
+    if gumbel.device != x.device or m.device != x.device:
+        raise ValueError("randtopk kernel needs gumbel and m on x's device")
     x2 = x.contiguous().view(-1, d)
     g2 = gumbel.to(torch.float32).contiguous().view(-1, d)
     m2 = m.to(torch.int32).contiguous().view(-1)

@@ -4,8 +4,9 @@ The decode caches are stacked per layer and the cut splits the layer axis:
 the client (feature owner) writes layers [0, cut), the server (label owner)
 layers [cut, L) — each party touches only its own range, in place.
 
-  * bottom step (client): embed -> layers [0, cut) -> device encode + bit
-    pack (`split.protocol.client_encode_device`).
+  * bottom step (client): embed -> layers [0, cut) -> the device codec,
+    one fused launch of selection, encode and bit-pack on the card
+    (`split.protocol.client_encode_device`).
   * arena top step (server): the cut rows of `xbuf` -> layers [cut, L) ->
     LM head -> greedy token, over the WHOLE arena with fixed shapes (rows
     are independent, so a row's numbers do not depend on which other rows

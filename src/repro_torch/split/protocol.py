@@ -18,9 +18,9 @@ Training:
 Serving:
 
   * `client_encode_device` — the feature owner's half: cut activation ->
-    device Payload + the packed wire sections (one encode kernel, one
-    bit-pack kernel per packed stream), so the host only pulls the packed
-    buffers and frames them.
+    device Payload + the packed wire sections in one launch of the fused
+    encode kernel (selection, gather, quantize and bit-pack), so the host
+    only pulls the packed buffers and frames them.
   * `server_decode_to_slots` — the label owner's half on the serving hot
     path: a stacked flush payload decoded straight into the arena's
     cut-activation rows on the device.
@@ -196,21 +196,26 @@ def client_encode_device(comp: compressors.Compressor, x, *, generator=None,
                                              p.batch_shape, body)
 
     When the backend resolves to the CUDA kernels, every kind (dense too,
-    for the identity compressor) runs the fused encode kernel: selection
-    mask -> gather -> quantize -> mask words in one launch, then the
-    bit-pack kernel. Otherwise `comp.encode` feeds the plain packer. Bytes
-    are identical on every path."""
+    for the identity compressor) runs in ONE launch of the fused encode
+    kernel (`enc_ops.encode_sections`): the selection where the mask is a
+    plain top-k (TopK; RandTopK at inference), gather, quantize, mask
+    words and the bit-packed sections together. A randomized mask
+    (RandTopK in training) is drawn first by its own kernel. Otherwise
+    `comp.encode` feeds the plain packer. Bytes are identical on every
+    path."""
     kind = comp.wire_kind
     plain_dense = kind == "dense" and type(comp) is not compressors.Compressor
     if resolve_backend(comp.backend, x) == "cuda" and not plain_dense:
         d = x.shape[-1]
         k = min(getattr(comp, "k", 0) or 0, d)
+        masked = kind in enc_ops.MASK_KINDS
+        select = masked and comp._mask_is_topk(training)
         mask = (comp._mask(x, generator, training)
-                if kind in enc_ops.MASK_KINDS else None)
-        p = enc_ops.encode_rows(x, kind, k=k, bits=getattr(comp, "bits", 0),
-                                mask=mask)
-    else:
-        p = comp.encode(x, generator=generator, training=training)
+                if masked and not select else None)
+        return enc_ops.encode_sections(x, kind, k=k,
+                                       bits=getattr(comp, "bits", 0),
+                                       mask=mask, select=select)
+    p = comp.encode(x, generator=generator, training=training)
     return p, enc_ops.pack_payload(p, backend=comp.backend)
 
 
