@@ -6,11 +6,13 @@
     python3 chip_smoke.py --phase train       # kernel checks + training
     python3 chip_smoke.py --phase serve       # kernel checks + serving
     python3 chip_smoke.py --phase fedtrain    # kernel checks + fedtrain
+    python3 chip_smoke.py --phase probe       # build + `probe_kernels`
+    python3 chip_smoke.py --phase ab --parent DIR   # probes, P C C P
 
 Phases, each fatal on failure:
 
   1. build the port's CUDA kernels from `src/repro_torch/csrc` (nvcc,
-     sm_90a, one process per source, eight sources, twelve launchers);
+     sm_90a, one process per source, seven sources, twelve launchers);
   2. hold each kernel against its plain PyTorch version on the card, at
      the shapes its path gives it (serving: one row of d 4096; training:
      1024 rows of d 4096, k 64; the standalone top-k: the tabular
@@ -25,9 +27,14 @@ Phases, each fatal on failure:
      zeros, signed zeros and rows of few magnitudes; quant headers of
      `encode_rows` and decoded values within
      1 ulp, quant codes exact; projected rows within 1 ulp plus 1e-5 of
-     the summed |terms|; `quantize` (no path runs it) at a training cut
-     (1024 x 4096 bf16), a serving flush (4 x 4096 bf16), odd shapes and a
-     constant row for bits 2, 4, 8: codes, lo and step exact, dequantized
+     the summed |terms|; the serve's flush decode (`decode_to_slots`)
+     for every kind at a 4-row bf16 flush with a pad row on the scratch
+     slot, slots out of order, two pad rows on one slot, slots outside
+     the buffer (skipped), d 16384 and odd widths, duplicate and
+     out-of-range sparse indices; `quantize` (no path runs it) at a
+     training cut (1024 x 4096 bf16), a serving flush (4 x 4096 bf16), odd
+     shapes, a constant row and rows of signed zeros (d 4, 1001, 4096) for
+     bits 2, 4, 8: codes exact, lo and step equal as u32, dequantized
      values within 1 ulp; flash attention (no path runs it): the f32 SIMT
      kernel at the reference tests' four configurations (atol 3e-5), the
      bf16 tensor-core kernel at the same four, at S 32 (below its 128-row
@@ -46,8 +53,10 @@ Phases, each fatal on failure:
      for topk_mask_threshold (serving row, tabular batch, the tabular
      evaluation, 1024 x 4096), pack_bits (serving row, fedtrain batch),
      encode_rows (serving row, fedtrain batch) and the fused encode,
-     randtopk_mask's device time (training cut, tabular batch),
-     scatter_rows beside a fresh `zeros.scatter_add`, and the serving
+     randtopk_mask (training cut, tabular batch), decode_to_slots at
+     each serve kind's 4-row flush, quantize (1024 x 4096 and 4 x 4096
+     bf16, 4 bits), scatter_rows beside a fresh `zeros.scatter_add`, and
+     the serving
      client's whole codec per token (host clock around
      `client_encode_device` + `sections_to_bytes`) with its launches;
   3. serve yi-6b at full width (d 4096, bf16, random weights from a seed)
@@ -55,7 +64,9 @@ Phases, each fatal on failure:
      at n_layers // 2: the launch counts (zeroed just before) must show
      every kernel ran, the fused encode once per client token (and once
      for the engine's warm-up step) and no top-k, encode_rows or
-     bit-pack launch beside it, no host densification, measured payload
+     bit-pack launch beside it, the flush decode once per flush (and
+     twice per flush bucket in the warm-up), no host densification,
+     measured payload
      bytes per
      token = `comp.fwd_bits(d) / 8`, and the tokens must equal a second run
      with the plain versions forced (`backend="torch"`); tokens/s of two
@@ -200,16 +211,19 @@ def host_us(fn, n: int = 1000) -> float:
 
 def split_probe(label, wrapper, kernel, alloc, launch, bound):
     """Where a wrapper's time goes at one shape: its CUDA-event ms, the
-    device ms per launch of the kernels whose name holds `kernel` (from a
-    profiler trace), the host us per call, and of that the output
-    allocation (`alloc`) and the bare launch with fixed arguments
+    device ms per launch of the kernels whose name holds `kernel` (every
+    kernel of the call when None; from a profiler trace), the host us per
+    call, and of that the output allocation (`alloc`, None for a wrapper
+    that allocates nothing) and the bare launch with fixed arguments
     (`launch`: ctypes call, kernel launch, count). Prints one line and
     returns the numbers."""
     ms = time_ms(wrapper)
     dev, names = device_ms(wrapper, kernel)
-    rec = dict(shape=label, ms=ms, device_ms=dev, host_us=host_us(wrapper),
-               alloc_us=host_us(alloc), launch_us=host_us(launch),
-               bound_ms=bound[0], bound_by=bound[1])
+    rec = dict(shape=label, ms=ms, device_ms=dev, kernels=names,
+               host_us=host_us(wrapper),
+               alloc_us=None if alloc is None else host_us(alloc),
+               launch_us=host_us(launch), bound_ms=bound[0],
+               bound_by=bound[1])
     print(f"  {label}: wrapper {ms} ms (CUDA events), kernel device {dev} "
           f"ms per launch {names}, host {rec['host_us']} us per call, of "
           f"which output allocation {rec['alloc_us']} us and bare launch "
@@ -552,36 +566,91 @@ def _flush_payload(dev, g, kind, k, bits, n, d, n_real):
     return Payload(meta=meta, **dict(zip(KIND_LEAVES[kind], leaves)))
 
 
-def check_decode(dev, g):
+# the serve's four compressors and the payload kinds they send
+SERVE_KINDS = (("randtopk", "sparse", K, 0), ("identity", "dense", 0, 0),
+               ("quant", "quant", 0, 4), ("randtopk_mask", "mask", K, 0))
+
+
+def _decode_to_slots_case(dev, g, p, slots, cap, dt):
+    """The kernel and the plain version on one flush, each into a copy of
+    one random xbuf (cap + 1, 1, 1, d) in `dt`; a row aimed outside
+    [0, cap] goes to the kernel alone (which skips it; the plain version's
+    index would wrap or raise). Returns (kernel's xbuf, plain's)."""
     import torch
     from repro_torch.core.payload import KIND_LEAVES
     from repro_torch.kernels.decode import ops, ref
 
-    err = 0.0
+    kind, d = p.meta.kind, p.meta.d
+    base = torch.randn((cap + 1, 1, 1, d), generator=g, device=dev).to(dt)
+    xa, xb = base.clone(), base.clone()
+    ops.decode_rows_to_slots(xa, p, slots)
+    keep = (slots >= 0) & (slots <= cap)
+    leaves = [getattr(p, nm)[keep] for nm in KIND_LEAVES[kind]]
+    ref.decode_to_slots(xb, leaves, slots[keep], kind, d)
+    torch.cuda.synchronize()
+    return xa, xb
+
+
+def _decode_cases(kind, k):
+    """(label, d, dtype, rows, real rows, slots, k, hostile) of one kind;
+    the scratch slot is 6, pad rows (zero leaves) follow the real ones."""
+    import torch
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("serve flush, one pad row", D, bf, 4, 3, [0, 1, 2, 6], k, False),
+        ("slots out of order", D, bf, 4, 4, [3, 0, 5, 1], k, False),
+        ("two pad rows on the scratch slot", D, bf, 4, 2, [4, 2, 6, 6], k,
+         False),
+        ("slots outside [0, cap1) skipped", D, bf, 4, 4, [0, 9, 2, -1], k,
+         False),
+        ("d 16384", 16384, bf, 4, 3, [1, 0, 2, 6], k, False),
+        ("d 1000, f32", 1000, f32, 8, 5, [5, 3, 1, 0, 2, 6, 6, 6],
+         min(k, 999), False),
+        ("d 1000, k 999", 1000, f32, 3, 3, [2, 0, 1], 999 if k else 0,
+         False),
+        ("d 70, f32", 70, f32, 8, 6, [5, 4, 3, 2, 1, 0, 6, 6], k, False)]
+    if kind in ("sparse", "sparse_quant", "mask"):
+        cases.append(("duplicate and out-of-range indices", D, bf, 4, 3,
+                      [2, 0, 1, 6], k, True))
+    return cases
+
+
+def check_decode(dev, g):
+    """`decode_rows_to_slots` (the serve's flush decode) against its plain
+    version: every kind at the serve's 4-row bf16 flush with a pad row on
+    the scratch slot, slots out of order, two pad rows on one slot, slots
+    outside the buffer, d 16384 and odd widths, and duplicate and
+    out-of-range sparse indices (mask words with bits past k): non-quant
+    kinds exact, quant kinds within 1 ulp, and whether they were exact."""
+    import torch
+    from repro_torch.kernels.decode import ops, ref
+
+    err, n_cases, quant_exact = 0.0, 0, True
     for kind, k, bits in KIND_CASES:
-        for d, dt, n, n_real, kk in ((D, torch.bfloat16, 4, 3, k),
-                                     (1000, torch.float32, 8, 5,
-                                      min(k, 999) or 0),
-                                     (1000, torch.float32, 3, 3,
-                                      999 if k else 0)):
-            cap = 6
-            p = _flush_payload(dev, g, kind, kk, bits, n, d, n_real)
-            slots = torch.tensor(list(range(n_real)) + [cap] * (n - n_real),
-                                 dtype=torch.int32, device=dev)
-            base = torch.randn((cap + 1, 1, 1, d), generator=g,
-                               device=dev).to(dt)
-            xa, xb = base.clone(), base.clone()
-            ops.decode_rows_to_slots(xa, p, slots)
-            leaves = [getattr(p, nm) for nm in KIND_LEAVES[kind]]
-            ref.decode_to_slots(xb, leaves, slots, kind, d)
-            torch.cuda.synchronize()
+        for label, d, dt, n, n_real, sl, kk, hostile in _decode_cases(kind,
+                                                                       k):
+            if hostile:
+                p = _rows_payload(dev, g, kind, kk, bits, n, d, hostile=True)
+                for leaf in (p.values, p.indices, p.header):
+                    if leaf is not None:
+                        leaf[n_real:] = 0
+            else:
+                p = _flush_payload(dev, g, kind, kk, bits, n, d, n_real)
+            slots = torch.tensor(sl, dtype=torch.int32, device=dev)
+            xa, xb = _decode_to_slots_case(dev, g, p, slots, 6, dt)
             if kind in ("quant", "sparse_quant"):
                 if not bool(((xa.float() - xb.float()).abs()
                              <= ulp(xb)).all()):
-                    fail(f"decode {kind} beyond 1 ulp at d={d}")
+                    fail(f"decode {kind} beyond 1 ulp: {label}")
+                quant_exact = quant_exact and torch.equal(xa, xb)
             elif not torch.equal(xa, xb):
-                fail(f"decode {kind}: kernel != plain at d={d} n={n}")
+                fail(f"decode {kind}: kernel != plain: {label}")
             err = max(err, max_diff(xa, xb))
+            n_cases += 1
+    print(f"decode_to_slots: {n_cases} flushes equal the plain version "
+          f"(non-quant kinds exact; quant kinds "
+          f"{'exact' if quant_exact else 'within 1 ulp, not all exact'})")
     n = 4
     p = _flush_payload(dev, g, "sparse", K, 0, n, D, 3)
     slots = torch.tensor([0, 1, 2, n], dtype=torch.int32, device=dev)
@@ -597,7 +666,7 @@ def check_decode(dev, g):
     lib = time_ms(lambda: x2.index_put_((rows, cols), vals))
     b = bound_ms(n * K * 8 + n * 4 + n * D * 2, n * (D + K))
     return dict(name="decode_to_slots", route="cuda",
-                source="src/repro_torch/csrc/decode_to_slots.cu",
+                source="src/repro_torch/csrc/decode_rows.cu",
                 replaces="src/repro/kernels/decode/kernel.py:224",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b[0],
                 bound_by=b[1], library_ms=lib,
@@ -883,45 +952,88 @@ QUANT_CASES = [((TRAIN_ROWS, D), "bfloat16"),    # a yi-6b training cut
                ((3, 5, 96), "float32"), ((3, 5, 96), "bfloat16")]
 
 
+def _signed_zero_rows(dev, g, rows, d):
+    """Rows whose least value is a zero, with -0.0 in places: non-negative
+    random rows with about one element in eight set to +0.0 or -0.0, the
+    first row all +0.0 but a -0.0 at the end, the second all +0.0, the
+    third all -0.0 (at d 4: the rows XLA's min and `fminf` disagree on)."""
+    import torch
+
+    x = torch.randn((rows, d), generator=g, device=dev).abs()
+    at = torch.rand((rows, d), generator=g, device=dev)
+    x = torch.where(at < 1 / 16, torch.zeros_like(x), x)
+    x = torch.where(at > 15 / 16, torch.full_like(x, -0.0), x)
+    x[0] = 0.0
+    x[0, -1] = -0.0
+    x[1] = 0.0
+    x[2] = -0.0
+    if d == 4:
+        x[3] = torch.tensor([0.0, -0.0, 1.0, 2.0], device=dev)
+        x[4] = torch.tensor([0.0, 0.0, -0.0, -0.0], device=dev)
+        x[5] = torch.tensor([-0.0, 0.0, 1.0, 2.0], device=dev)
+    return x
+
+
+def _same_bits(a, b) -> bool:
+    """f32 tensors equal as u32 patterns (-0.0 != +0.0)."""
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype == torch.float32 \
+        and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def check_quant(dev, g):
-    """`quantize` against its plain version: codes, lo and step exact, the
-    dequantized values within 1 ulp. No path runs it, so its launches are
-    those of this check's own loop."""
+    """`quantize` against its plain version: codes exact, lo and step equal
+    as u32 (so a -0.0 lo is held to its sign), the dequantized values
+    within 1 ulp (and whether they were exact), on random rows, a constant
+    row, and rows of signed zeros at d 4, an odd d (1001) and 4096. No
+    path runs it, so its launches are those of this check's own loop."""
     import torch
     from repro_torch.kernels import _lib
     from repro_torch.kernels.quant import ops, ref
 
-    err = 0.0
+    err, deq_exact = 0.0, True
     _lib.reset_launch_counts()
-    for shape, dt in QUANT_CASES + [((4, 32), "constant")]:
-        x = torch.randn(shape, generator=g, device=dev)
+    cases = QUANT_CASES + [((4, 32), "constant")] + [
+        ((rows, d), "zeros " + dt) for rows, d in ((6, 4), (7, 1001),
+                                                   (4, D))
+        for dt in ("float32", "bfloat16")]
+    for shape, dt in cases:
         if dt == "constant":
             x = torch.full(shape, 1.5, device=dev)
             x[1] = -3.0
+        elif dt.startswith("zeros"):
+            x = _signed_zero_rows(dev, g, *shape).to(getattr(torch,
+                                                             dt[6:]))
         else:
-            x = x.to(getattr(torch, dt))
+            x = torch.randn(shape, generator=g, device=dev).to(
+                getattr(torch, dt))
         for bits in (2, 4, 8):
             a, b = ops.quantize(x, bits), ref.quantize(x, bits)
             torch.cuda.synchronize()
-            for name, u, w in (("codes", a[0], b[0]), ("lo", a[2], b[2]),
-                               ("step", a[3], b[3])):
-                if u.dtype != w.dtype or not torch.equal(u, w):
-                    fail(f"quantize {name}: kernel != plain at {shape} "
-                         f"{dt} bits={bits}")
+            if a[0].dtype != b[0].dtype or not torch.equal(a[0], b[0]):
+                fail(f"quantize codes: kernel != plain at {shape} {dt} "
+                     f"bits={bits}")
+            for name, u, w in (("lo", a[2], b[2]), ("step", a[3], b[3])):
+                if not _same_bits(u, w):
+                    fail(f"quantize {name}: kernel != plain as u32 at "
+                         f"{shape} {dt} bits={bits}")
             if a[1].dtype != x.dtype or not _tol_ok(a[1], b[1]):
                 fail(f"quantize deq beyond 1 ulp at {shape} {dt} "
                      f"bits={bits}")
             if torch.isnan(a[1]).any():
                 fail(f"quantize gave NaN at {shape} {dt}")
+            deq_exact = deq_exact and torch.equal(a[1], b[1])
             err = max(err, *(max_diff(u, w) for u, w in zip(a, b)))
     launches = _lib.launch_counts()["quantize"]
+    print(f"quantize: {len(cases) * 3} cases, codes exact, lo and step "
+          f"equal as u32 (signed-zero rows included), dequantized values "
+          f"{'exact' if deq_exact else 'within 1 ulp, not all exact'}")
     x = torch.randn((TRAIN_ROWS, D), generator=g, device=dev).to(
         torch.bfloat16)
     ms = time_ms(lambda: ops.quantize(x, 4))
     plain = time_ms(lambda: ref.quantize(x, 4), iters=50)
-    # x bf16 read; u8 codes, bf16 deq, f32 lo and step written; min, max,
-    # subtract, divide, floor, two clamps, add, multiply, add per element
-    b = bound_ms(TRAIN_ROWS * (D * (2 + 1 + 2) + 8), 10 * TRAIN_ROWS * D)
+    b = quant_bound(TRAIN_ROWS, D, 2)
     return dict(name="quantize", route="cuda",
                 source="src/repro_torch/csrc/quantize.cu",
                 replaces="src/repro/kernels/quant/kernel.py:34",
@@ -933,6 +1045,13 @@ def check_quant(dev, g):
                              "min/max codes, dequantized values and "
                              "headers (torch.quantize_per_channel takes "
                              "the scales as inputs and rounds to nearest)")
+
+
+def quant_bound(rows, d, x_bytes):
+    """`quantize`'s bound: x read; u8 codes, values in x's dtype, f32 lo
+    and step written; min, max, subtract, divide, floor, two clamps, add,
+    multiply, add per element."""
+    return bound_ms(rows * (d * (x_bytes + 1 + x_bytes) + 8), 10 * rows * d)
 
 
 def _visible_pairs(S: int, causal: bool, window: int) -> int:
@@ -1145,8 +1264,9 @@ def probe_kernels(dev, g):
     """Host/device split of the codec's kernels at the shapes the paths
     give them (wrapper ms by CUDA events, device ms per launch from a
     profiler trace, host us per call with its allocation and bare launch):
-    the standalone top-k, pack_bits and encode_rows, randtopk_mask's device
-    time, and scatter_rows beside a fresh `zeros.scatter_add`."""
+    the standalone top-k, pack_bits, encode_rows and randtopk_mask,
+    scatter_rows beside a fresh `zeros.scatter_add`, and the serve's
+    flush decode and quantize (`probe_slots_quant`)."""
     import torch
     from repro_torch.core import selection
     from repro_torch.kernels import _lib
@@ -1211,7 +1331,8 @@ def probe_kernels(dev, g):
             lambda: _lib.launch("encode_rows", *args),
             bound_ms(rows * (d * x.element_size() + d + k * 8),
                      2 * rows * d))
-    print("randtopk_mask, device time:")
+    print("randtopk_mask, host/device split (no library call draws an "
+          "Eq. 7 mask):")
     for label, rows, d, dt, k in (
             ("training cut 1024 x 4096 bf16 k 64", TRAIN_ROWS, D,
              torch.bfloat16, K),
@@ -1221,11 +1342,19 @@ def probe_kernels(dev, g):
         gum = selection.gumbel_noise(g, x.shape, device=dev)
         m = selection.binomial_nontop_count(g, 0.1, k, d, (rows,),
                                             device=dev)
-        dev_ms, names = device_ms(
-            lambda: tk_ops.randtopk_mask(x, gum, m, k),
-            "randtopk_mask_kernel")
-        out["randtopk_mask " + label] = dev_ms
-        print(f"  {label}: device {dev_ms} ms per launch {names}")
+        m32 = m.to(torch.int32).contiguous()
+        mask = torch.empty((rows, d), dtype=torch.bool, device=dev)
+        args = (x.data_ptr(), int(dt == torch.bfloat16), gum.data_ptr(),
+                m32.data_ptr(), rows, d, k, mask.data_ptr(),
+                _lib.stream_handle(x))
+        out["randtopk_mask " + label] = split_probe(
+            label, lambda: tk_ops.randtopk_mask(x, gum, m, k),
+            "randtopk_mask_kernel",
+            lambda: torch.empty((rows, d), dtype=torch.bool, device=dev),
+            lambda: _lib.launch("randtopk_mask", *args),
+            bound_ms(rows * (d * x.element_size() + d * 4 + 4 + d),
+                     15 * rows * d))
+    out.update(probe_slots_quant(dev, g))
     print("scatter_rows beside a fresh zeros.scatter_add (1024 x 4096 bf16, "
           "k 64):")
     vals = torch.randn((TRAIN_ROWS, K), generator=g, device=dev).to(
@@ -1244,6 +1373,73 @@ def probe_kernels(dev, g):
     print(f"  scatter_rows wrapper {rec['ms']} ms, device "
           f"{rec['device_ms']} ms; zeros.scatter_add(-1, idx, vals) "
           f"{rec['fresh_ms']} ms, device {rec['fresh_device_ms']} ms")
+    return out
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def probe_slots_quant(dev, g):
+    """The host/device split of `decode_to_slots` at each serve kind's
+    4-row bf16 flush (d 4096, one pad row on the scratch slot; the serve's
+    arena of N_CLIENTS slots) and of `quantize` at a training cut and a
+    serving flush (bf16, 4 bits). Uses only the wrappers and the C
+    launchers, so a parent tree's package can be probed the same way."""
+    import torch
+    from repro_torch.core.payload import KINDS
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.decode import ops as dec_ops
+    from repro_torch.kernels.quant import ops as q_ops
+
+    out = {}
+    n, cap1 = 4, N_CLIENTS + 1
+    print(f"decode_to_slots, host/device split ({n}-row flush of 4096 into "
+          f"a ({cap1}, 1, 1, 4096) bf16 xbuf, one pad row on the scratch "
+          f"slot; the wrapper allocates nothing):")
+    slots = torch.tensor([0, 1, 2, cap1 - 1], dtype=torch.int32, device=dev)
+    xbuf = torch.zeros((cap1, 1, 1, D), dtype=torch.bfloat16, device=dev)
+
+    def flush(label, p):
+        args = (xbuf.data_ptr(), 1, cap1, D, slots.data_ptr(), n,
+                KINDS.index(p.meta.kind), p.meta.k, p.values.data_ptr(),
+                0 if p.indices is None else p.indices.data_ptr(),
+                0 if p.header is None else p.header.data_ptr(),
+                _lib.stream_handle(xbuf))
+        out["decode_to_slots " + label] = split_probe(
+            label, lambda: dec_ops.decode_rows_to_slots(xbuf, p, slots),
+            None, None, lambda: _lib.launch("decode_to_slots", *args),
+            bound_ms(_nbytes(p.values, p.indices, p.header, slots)
+                     + n * D * 2, n * D))
+
+    for comp, kind, k, bits in SERVE_KINDS:
+        flush(f"{comp} ({kind}) flush",
+              _flush_payload(dev, g, kind, k, bits, n, D, n - 1))
+    # a pad row's k zero values all sit at index 0; the same row with
+    # nonzero values takes the scatter kernel's duplicate path (a second
+    # barrier and k - 1 shared atomics on one address)
+    p = _flush_payload(dev, g, "sparse", K, 0, n, D, n)
+    p.indices[-1] = 0
+    flush("randtopk (sparse) flush, last row k nonzero values at index 0",
+          p)
+    print("quantize, host/device split (no library call computes the same "
+          "function):")
+    for label, rows in (("training cut 1024 x 4096 bf16 4-bit", TRAIN_ROWS),
+                        ("serving flush 4 x 4096 bf16 4-bit", N_CLIENTS)):
+        x = torch.randn((rows, D), generator=g, device=dev).to(
+            torch.bfloat16)
+        code, deq, lo, step = q_ops.quantize(x, 4)
+        args = (x.data_ptr(), 1, rows, D, 4, code.data_ptr(),
+                deq.data_ptr(), lo.data_ptr(), step.data_ptr(),
+                _lib.stream_handle(x))
+        out["quantize " + label] = split_probe(
+            label, lambda: q_ops.quantize(x, 4), None,
+            lambda: (x.new_empty(x.shape, dtype=torch.uint8),
+                     x.new_empty(x.shape),
+                     x.new_empty((rows,), dtype=torch.float32),
+                     x.new_empty((rows,), dtype=torch.float32)),
+            lambda: _lib.launch("quantize", *args),
+            quant_bound(rows, D, 2))
     return out
 
 
@@ -1302,15 +1498,24 @@ NOT_ON_SERVING_PATH = ("topk_mask_threshold", "encode_rows", "pack_bits")
 def _one_launch_per_token(res, counts, compressor):
     """The serve's counts show the fused encode once per client token (and
     once per compressor for the engine's warm-up step) and none of the
-    kernels it replaced."""
+    kernels it replaced, and the flush decode once per flush (and twice
+    per flush bucket in the server's warm-up: its decode, then its fused
+    step's)."""
     frames = sum(s["frames_up"] for s in res["client_stats"])
-    want = frames + len(set(res["compressor_objs"]))
+    n_comps = len(set(res["compressor_objs"]))
+    want = frames + n_comps
     if counts["encode_sections"] != want:
         fail(f"{compressor}: {counts['encode_sections']} fused encode "
              f"launches for {frames} client tokens and a warm-up step")
     extra = {n: counts[n] for n in NOT_ON_SERVING_PATH if counts[n]}
     if extra:
         fail(f"{compressor}: the serving codec launched {extra}")
+    mb = res["max_batch"]
+    buckets = len({1 << i for i in range(mb.bit_length())} | {mb})
+    warm = 2 * buckets * n_comps
+    if counts["decode_to_slots"] != res["flushes"] + warm:
+        fail(f"{compressor}: {counts['decode_to_slots']} flush decodes for "
+             f"{res['flushes']} flushes and {warm} warm-up decodes")
 
 
 def serve(cfg, params, compressor, *, gen, backend=None, trace=False):
@@ -1998,14 +2203,21 @@ def fedtrain_phase(dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
-                                        "fedtrain"),
+                                        "fedtrain", "probe", "ab"),
                     default="all",
                     help="kernels: build + kernel checks + codec probes; "
                          "serve / train / fedtrain: the checks, probes "
-                         "and one path")
+                         "and one path; probe: build + `probe_kernels` "
+                         "alone; ab: `probe` in turns on a parent tree's "
+                         "package and this one (--parent)")
     ap.add_argument("--layers", type=int, default=32,
                     help="serving depth of yi-6b (width is never cut)")
+    ap.add_argument("--src", help="import repro_torch from this directory "
+                                  "(a parent tree's src/) for --phase probe")
+    ap.add_argument("--parent", help="the parent tree's root for --phase ab")
     args = ap.parse_args(argv)
+    if args.src:
+        sys.path.insert(0, os.path.abspath(args.src))
 
     import torch
 
@@ -2032,7 +2244,14 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
+    if args.phase == "ab":
+        ab_phase(args.parent, card)
+        return _ok()
     g = torch.Generator(device=dev).manual_seed(0)
+    if args.phase == "probe":
+        print(f"repro_torch from {os.path.dirname(_lib.CSRC)}")
+        print(json.dumps({"probe": probe_kernels(dev, g)}))
+        return _ok()
     t0 = time.perf_counter()
     records = [check_topk(dev, g), check_encode_sections(dev, g),
                check_decode(dev, g), check_randtopk(dev, g),
@@ -2093,10 +2312,58 @@ def main(argv=None) -> int:
             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in records + own]}))
+    return _ok()
+
+
+def _ok() -> int:
+    import torch
+
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+AB_TURNS = "PCCP"
+
+
+def ab_phase(parent, card):
+    """`--phase probe` in fresh processes, in turns P, C, C, P on this
+    card: P imports the parent tree's package (`parent`/src, built there),
+    C this tree's, and both are driven by this file's probes. Prints each
+    turn's output, then one line per probe with the four turns' wrapper
+    ms, device ms and host us (allocation, bare launch)."""
+    if not parent or not os.path.isdir(os.path.join(parent, "src")):
+        fail("--phase ab needs --parent, a tree with src/repro_torch")
+    turns = []
+    for i, who in enumerate(AB_TURNS):
+        src = os.path.join(os.path.abspath(parent) if who == "P" else ROOT,
+                           "src")
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--phase", "probe", "--src", src],
+                             capture_output=True, text=True, timeout=1200)
+        print(f"=== turn {i + 1}: {who} ({src}), rc {run.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s")
+        print(run.stdout)
+        if run.returncode != 0:
+            print(run.stderr[-4000:])
+            fail(f"turn {i + 1} ({who}) failed")
+        line = next(ln for ln in run.stdout.splitlines()
+                    if ln.startswith('{"probe"'))
+        turns.append((who, json.loads(line)["probe"]))
+    names = " / ".join(f"{w}{i + 1}" for i, (w, _) in enumerate(turns))
+    print(f"A/B summary, turns {names}, {card}:")
+    for key in turns[0][1]:
+        recs = [t.get(key) or {} for _, t in turns]
+
+        def col(name, scale=1.0):
+            return " / ".join("-" if r.get(name) is None
+                              else f"{r[name] * scale:.5g}" for r in recs)
+        print(f"  {key}: wrapper ms {col('ms')}; device us "
+              f"{col('device_ms', 1e3)}; host us {col('host_us')} "
+              f"(alloc {col('alloc_us')}, launch {col('launch_us')}); "
+              f"bound us {col('bound_ms', 1e3)}")
 
 
 def _to(tree, dev):

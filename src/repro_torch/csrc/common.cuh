@@ -19,6 +19,25 @@ __device__ __forceinline__ float load_f(const void* x, int is_bf16,
                  : static_cast<const float*>(x)[i];
 }
 
+__device__ __forceinline__ void store_one(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store_one(__nv_bfloat16* o, float v) {
+  *o = __float2bfloat16_rn(v);
+}
+
+// Two floats rounded to nearest bf16, a in the low half of the word.
+__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h =
+      __halves2bfloat162(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// 8 floats rounded to nearest bf16, packed in order into one 16-byte
+// vector.
+__device__ __forceinline__ uint4 pack_bf16x8(const float* f) {
+  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                    pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+}
+
 // Block-wide exclusive prefix count of `flag` in thread order, from warp
 // ballots and popcounts plus one scan over the per-warp totals. Every
 // thread of the block must call it (blockDim.x a multiple of 32, <= 1024).
@@ -216,6 +235,20 @@ __device__ __forceinline__ unsigned order_key(float f) {
 
 __device__ __forceinline__ float order_val(unsigned key) {
   return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// Fold the `order_key`s of a run's `valid` lanes into a min and a max.
+template <int R>
+__device__ __forceinline__ void run_minmax(const float* v, unsigned valid,
+                                           unsigned& mn, unsigned& mx) {
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    if ((valid >> j) & 1u) {
+      const unsigned o = order_key(v[j]);
+      mn = min(mn, o);
+      mx = max(mx, o);
+    }
+  }
 }
 
 // Team-wide min and max of `order_key`s (every thread gets both, as

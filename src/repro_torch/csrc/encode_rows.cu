@@ -69,21 +69,6 @@ struct EncodeArgs {
   unsigned* code_words;       // the packed code stream, or null
 };
 
-// The min and max `order_key` of a run's `valid` lanes.
-template <int R>
-__device__ __forceinline__ void run_minmax(const repro::Run<R>& r,
-                                           unsigned valid, unsigned& mn,
-                                           unsigned& mx) {
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    if ((valid >> j) & 1u) {
-      const unsigned o = repro::order_key(r.v[j]);
-      mn = min(mn, o);
-      mx = max(mx, o);
-    }
-  }
-}
-
 // Codes of a run into codes[c0, c0 + R) below d: one 16-byte store per
 // 4 codes when `vec` (then codes + c0 is 16-byte aligned).
 template <int R>
@@ -145,7 +130,7 @@ __device__ __forceinline__ void encode_row(const EncodeArgs a,
 
   if (a.kind == repro::kQuant) {
     unsigned mn = ~0u, mx = 0u;
-    run_minmax(r, valid, mn, mx);
+    repro::run_minmax<R>(r.v, valid, mn, mx);
     float lo, hi;
     repro::team_minmax(mn, mx, t, &lo, &hi);
     float step = __fdiv_rn(__fsub_rn(hi, lo), n_bins);

@@ -40,8 +40,8 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("topk_select.cu", "randtopk_mask.cu", "encode_rows.cu",
-           "pack_bits.cu", "decode_to_slots.cu", "decode_rows.cu",
-           "quantize.cu", "flash_attention.cu")
+           "pack_bits.cu", "decode_rows.cu", "quantize.cu",
+           "flash_attention.cu")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,15 +1,18 @@
-"""Wrappers of the decode family's kernels: `decode_rows`
-(`csrc/decode_rows.cu`), the dense (optionally projected) rows of any
-payload, and `decode_rows_to_slots` (`csrc/decode_to_slots.cu`), the
-serving arena's decode -> xbuf seam. Each takes the plain version
-(`ref.py`) for tensors on the CPU or when `backend="torch"` asks for it;
-otherwise it launches its kernel or raises (`_lib.resolve_backend`).
+"""Wrappers of the decode family's kernels (`csrc/decode_rows.cu`):
+`decode_rows`, the dense (optionally projected) rows of any payload, and
+`decode_rows_to_slots` (its `decode_to_slots` launcher), the serving
+arena's decode -> xbuf seam. Each takes the plain version (`ref.py`) for
+tensors on the CPU or when `backend="torch"` asks for it; otherwise it
+launches its kernel or raises (`_lib.resolve_backend`).
 
-`decode_rows` runs once per training step and once per fedtrain frame, so
-its host path is kept short: the checks of a key (payload meta, leaf
-shapes and dtypes, output dtype) run once, in `rows_plan`, and a call then
-converts only a leaf that is not already in the kernel's dtype and
-layout, allocates the output once and launches."""
+`decode_rows` runs once per training step and once per fedtrain frame,
+`decode_rows_to_slots` once per server flush, so their host paths are
+kept short: the checks of a key run once, in `rows_plan` (payload meta,
+leaf shapes and dtypes, output dtype) and `slots_plan` (the same, with
+xbuf's and the slot vector's signatures, devices and layouts), and a call
+then does one cache lookup and launches; `decode_rows` converts only a
+leaf that is not already in the kernel's dtype and layout and allocates
+its output."""
 from __future__ import annotations
 
 import math
@@ -162,44 +165,89 @@ def launch_rows(plan: RowsPlan, values, indices, header, dtype,
     return out
 
 
+class SlotsPlan(NamedTuple):
+    """The launch scalars of one `decode_rows_to_slots` key, and which
+    leaves the kernel reads."""
+
+    is_bf16: int
+    cap1: int
+    d: int
+    n: int
+    kind_id: int
+    k: int
+    uses_indices: bool
+    uses_header: bool
+
+
+def _slot_sig(t):
+    """What `slots_plan` checks of a tensor: shape, dtype, on the card,
+    contiguous (None for a missing leaf)."""
+    if t is None:
+        return None
+    return t.shape, t.dtype, t.is_cuda, t.is_contiguous()
+
+
+@lru_cache(maxsize=1024)
+def slots_plan(meta, xbuf, slots, values, indices=None,
+               header=None) -> SlotsPlan:
+    """Check one `decode_rows_to_slots` key and lay out its launch; raises
+    on what the kernel does not take. Each argument after `meta` is a
+    tensor's `_slot_sig`, None where the payload has no such leaf."""
+    kind, d = meta.kind, meta.d
+    shape, dtype, on_card, contiguous = xbuf
+    if dtype not in _FLOAT_VALUES:
+        raise TypeError(f"decode kernel writes f32/bf16 xbuf, got {dtype}")
+    if not (on_card and contiguous) or shape[-1] != d or d > MAX_D:
+        raise ValueError(f"xbuf must be a contiguous CUDA (..., {d}) "
+                         f"tensor, d <= {MAX_D}")
+    s_shape, s_dtype, s_card, s_contiguous = slots
+    if not (s_card and s_dtype == torch.int32 and s_contiguous
+            and len(s_shape) == 1):
+        raise TypeError("slots must be a contiguous int32 CUDA vector")
+    n = s_shape[0]
+    names = KIND_LEAVES[kind]
+    sigs = dict(values=values, indices=indices, header=header)
+    if any(sigs[name] is None for name in names):
+        raise ValueError(f"{kind} payload needs leaves {names}")
+    codes = kind in ("quant", "sparse_quant")
+    for name, w in zip(names, _leaf_widths(meta)):
+        l_shape, l_dtype, l_card, l_contiguous = sigs[name]
+        if not (l_card and l_contiguous and math.prod(l_shape) == n * w):
+            raise ValueError(f"{kind} {name} of shape {tuple(l_shape)} is "
+                             f"not a contiguous CUDA ({n}, {w}) block")
+        want = torch.int32 if name == "indices" or (
+            name == "values" and codes) else torch.float32
+        if l_dtype != want:
+            raise TypeError(f"{kind} {name} dtype {l_dtype}, want {want}")
+    return SlotsPlan(int(dtype == torch.bfloat16), math.prod(shape) // d, d,
+                     n, KINDS.index(kind), meta.k, "indices" in names,
+                     "header" in names)
+
+
 def decode_rows_to_slots(xbuf: torch.Tensor, p: Payload, slots, *,
                          backend=None):
     """Decode a stacked flush payload (leading dim n = flush rows) straight
     into `xbuf[slots]`, IN PLACE (the reference donates xbuf through the
     kernel; here the kernel writes the rows of the live buffer). xbuf is
     (C + 1, ..., d); untouched rows keep their contents. Returns xbuf."""
-    kind, d = p.meta.kind, p.meta.d
-    leaves = [getattr(p, n) for n in KIND_LEAVES[kind]]
+    kind = p.meta.kind
     if _lib.resolve_backend(backend, xbuf) == "torch":
-        return ref.decode_to_slots(xbuf, leaves, slots, kind, d)
-    if xbuf.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"decode kernel writes f32/bf16 xbuf, got "
-                        f"{xbuf.dtype}")
-    if not xbuf.is_contiguous() or xbuf.shape[-1] != d or d > MAX_D:
-        raise ValueError(f"xbuf must be contiguous (..., {d}), d <= {MAX_D}")
-    cap1 = xbuf.numel() // d
-    n = slots.shape[0]
-    if not (slots.is_cuda and slots.dtype == torch.int32
-            and slots.is_contiguous() and slots.dim() == 1):
-        raise TypeError("slots must be a contiguous int32 CUDA vector")
-    flat = []
-    for leaf, w in zip(leaves, _leaf_widths(p.meta)):
-        if not (leaf.is_cuda and leaf.is_contiguous()
-                and leaf.numel() == n * w):
-            raise ValueError(f"{kind} leaf of shape {tuple(leaf.shape)} is "
-                             f"not a contiguous CUDA ({n}, {w}) block")
-        want = torch.float32 if leaf.is_floating_point() else torch.int32
-        if leaf.dtype != want:
-            raise TypeError(f"{kind} leaf dtype {leaf.dtype}, want {want}")
-        flat.append(leaf)
-    vals = flat[0]
-    idx = flat[1] if kind in ("sparse", "sparse_quant", "mask") else None
-    hdr = flat[-1] if kind in ("quant", "sparse_quant") else None
-    if n:
-        _lib.launch("decode_to_slots", xbuf.data_ptr(),
-                    int(xbuf.dtype == torch.bfloat16), cap1, d,
-                    slots.data_ptr(), n, KINDS.index(kind), p.meta.k,
-                    vals.data_ptr(), 0 if idx is None else idx.data_ptr(),
-                    0 if hdr is None else hdr.data_ptr(),
-                    _lib.stream_handle(xbuf))
+        leaves = [getattr(p, n) for n in KIND_LEAVES[kind]]
+        return ref.decode_to_slots(xbuf, leaves, slots, kind, p.meta.d)
+    v, i, h = p.values, p.indices, p.header
+    sig = _slot_sig
+    plan = slots_plan(p.meta, sig(xbuf), sig(slots), sig(v), sig(i), sig(h))
+    launch_slots(plan, xbuf, slots, v, i, h)
     return xbuf
+
+
+def launch_slots(plan: SlotsPlan, xbuf, slots, values, indices, header):
+    """Launch `decode_to_slots` for a checked key (`slots_plan`); nothing
+    of the tensors is checked here."""
+    if plan.n:
+        _lib.launch("decode_to_slots", xbuf.data_ptr(), plan.is_bf16,
+                    plan.cap1, plan.d, slots.data_ptr(), plan.n,
+                    plan.kind_id, plan.k, values.data_ptr(),
+                    indices.data_ptr() if plan.uses_indices else 0,
+                    header.data_ptr() if plan.uses_header else 0,
+                    _lib.stream_handle(xbuf))

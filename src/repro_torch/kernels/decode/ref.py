@@ -1,11 +1,11 @@
 """Plain PyTorch versions of the decode family.
 
-`decode_to_slots` is what `csrc/decode_to_slots.cu` computes and
-`decode_rows` what `csrc/decode_rows.cu` computes (the reference's
-`decode_rows_kernel`, projection epilogue included); the CPU tests run
-them and `chip_smoke.py` holds the kernels against them on the card. Both
-sum duplicate sparse indices and drop indices outside [0, d), as the
-Pallas compare-and-select does.
+`decode_to_slots` and `decode_rows` are what the launchers of the same
+names in `csrc/decode_rows.cu` compute (the reference's
+`decode_to_slots_kernel` and `decode_rows_kernel`, projection epilogue
+included); the CPU tests run them and `chip_smoke.py` holds the kernels
+against them on the card. Both sum duplicate sparse indices and drop
+indices outside [0, d), as the Pallas compare-and-select does.
 """
 from __future__ import annotations
 

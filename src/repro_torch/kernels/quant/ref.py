@@ -14,9 +14,12 @@ def quantize(x: torch.Tensor, bits: int = 8):
     Per row: lo = min, hi = max, step = (hi - lo) / 2**bits (1.0 when not
     positive), code = clip(floor((x - lo) / step), 0, 2**bits - 1),
     dequantized = lo + (code + 0.5) * step; each operation rounded on its
-    own."""
+    own. A row whose min is a zero and that holds a -0.0 gets lo = -0.0,
+    as XLA's min orders -0.0 below +0.0 (torch's may return either)."""
     xf = x.float()
     lo = xf.min(dim=-1, keepdim=True).values
+    lo = torch.where((lo == 0) & torch.signbit(xf).any(-1, keepdim=True),
+                     torch.full_like(lo, -0.0), lo)
     hi = xf.max(dim=-1, keepdim=True).values
     n_bins = 2 ** bits
     step = (hi - lo) / n_bins

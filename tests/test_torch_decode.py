@@ -2,7 +2,8 @@
 
 * The server's decode into the arena's slot rows
   (`repro_torch.split.protocol.server_decode_to_slots`, whose CPU path is
-  the plain version of `csrc/decode_to_slots.cu`) against the reference's
+  the plain version of the `decode_to_slots` launcher of
+  `csrc/decode_rows.cu`) against the reference's
   `protocol.server_decode_to_slots`, with `backend="pallas"` (interpret
   mode) and `backend="xla"`. Untouched rows keep their contents; pad rows
   all aimed at the scratch row write identical zero rows.

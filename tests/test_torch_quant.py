@@ -81,6 +81,52 @@ def test_quantize_constant_rows_give_unit_step_and_no_nan(dtype):
            (code, deq, lo, step), dtype == "bf16")
 
 
+def _signed_zero_rows(case):
+    """Rows whose least value is a zero, with -0.0 in places; `listed`
+    holds a row with -0.0 after +0.0, one of zeros only with -0.0 last,
+    one with -0.0 first, an all-(+0.0) row, an all-(-0.0) row and one
+    with a negative min; `wide` is 96-wide rows of non-negative values
+    with zeros of both signs scattered in."""
+    if case == "listed":
+        return np.array([[0.0, -0.0, 1.0, 2.0], [0.0, 0.0, -0.0, -0.0],
+                         [-0.0, 0.0, 1.0, 2.0], [0.0, 0.0, 0.0, 0.0],
+                         [-0.0, -0.0, -0.0, -0.0], [0.0, -0.0, -1.0, 2.0]],
+                        np.float32)
+    g = np.random.RandomState(7)
+    x = np.abs(g.randn(6, 96)).astype(np.float32)
+    for r in range(6):
+        at = g.choice(96, size=1 + r, replace=False)
+        x[r, at] = 0.0
+        x[r, at[r % len(at):]] *= -1.0          # some of them -0.0
+    x[0, :] = 0.0
+    x[0, 95] = -0.0
+    return x
+
+
+def _u32(a) -> np.ndarray:
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("case", ["listed", "wide"])
+def test_quantize_signed_zero_lo_matches_reference_bits(case, bits, dtype):
+    """XLA's min orders -0.0 below +0.0, so a row whose min is a zero and
+    that holds a -0.0 reports lo = -0.0: `ref.quantize` and `ops.quantize`
+    (CPU) give the reference kernel's lo and step bit for bit, and its
+    codes."""
+    jdt, tdt = DTYPES[dtype]
+    x = _signed_zero_rows(case)
+    want = jkernel.quantize(jnp.asarray(x, jdt), bits)
+    tx = torch.from_numpy(x).to(tdt)
+    for got in (ref.quantize(tx, bits), ops.quantize(tx, bits)):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(_u32(got[2].numpy()), _u32(want[2]))
+        np.testing.assert_array_equal(_u32(got[3].numpy()), _u32(want[3]))
+        _check(want, got, dtype == "bf16")
+    assert _u32(want[2])[0] == 0x80000000        # the listed rows' first
+
+
 def test_quantize_dequantize_is_the_deq_output():
     x = torch.from_numpy(_x((6, 40), seed=3))
     np.testing.assert_array_equal(ops.quantize_dequantize(x, 4).numpy(),

@@ -1,7 +1,8 @@
-"""The host side of the `encode_rows` and `decode_rows` wrappers, on the
-CPU with a fake library in place of the built kernels: the checks that
-run once per key (`encode_plan`, `rows_plan`) raise where the kernels
-cannot take an input; the outputs a launch allocates have the plain
+"""The host side of the `encode_rows`, `decode_rows`,
+`decode_rows_to_slots` and `quantize` wrappers, on the CPU with a fake
+library in place of the built kernels: the checks that run once per key
+(`encode_plan`, `rows_plan`, `slots_plan`, `quant_plan`) raise where the
+kernels cannot take an input; the outputs a launch allocates have the plain
 version's shapes and dtypes, do not overlap and start 16-byte aligned;
 and a launch hands the kernel the pointers and scalars its C signature
 (`_lib.SIGNATURES`) expects."""
@@ -17,6 +18,8 @@ from repro_torch.kernels.decode import ops as dec_ops
 from repro_torch.kernels.decode import ref as dec_ref
 from repro_torch.kernels.encode import ops as enc_ops
 from repro_torch.kernels.encode import ref as enc_ref
+from repro_torch.kernels.quant import ops as q_ops
+from repro_torch.kernels.quant import ref as q_ref
 from repro_torch.kernels.randtopk import ref as tk_ref
 
 STREAM = 0xC0FFEE
@@ -266,3 +269,173 @@ def test_decode_plan_raises(case):
     p, dtype, err = list(_bad_payloads())[case]
     with pytest.raises(err):
         _rows_plan(p, dtype)
+
+
+# decode_rows_to_slots: the serving flush's decode into the arena's xbuf
+
+def _on_card(t):
+    """`decode.ops._slot_sig` of `t` as if it lay on the card."""
+    if t is None:
+        return None
+    return t.shape, t.dtype, True, t.is_contiguous()
+
+
+def _flush(kind, d, n=4, cap=6, dtype=torch.bfloat16):
+    """A flush payload of n rows (leading dims (n, 1, 1)), its slot vector
+    (the last row a pad row on the scratch slot cap) and the arena's xbuf
+    (cap + 1, 1, 1, d)."""
+    p = _payload(kind, (n, 1, 1), d)
+    slots = torch.tensor(list(range(n - 1)) + [cap], dtype=torch.int32)
+    xbuf = torch.zeros((cap + 1, 1, 1, d), dtype=dtype)
+    return p, slots, xbuf
+
+
+def _leaf_sigs(p, sig=_on_card):
+    return tuple(None if t is None else sig(t)
+                 for t in (p.values, p.indices, p.header))
+
+
+def _slots_plan(p, slots, xbuf):
+    return dec_ops.slots_plan(p.meta, _on_card(xbuf), _on_card(slots),
+                              *_leaf_sigs(p))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", (70, 4096, 16384))
+@pytest.mark.parametrize("kind", list(KIND_LEAVES))
+def test_slots_launch_passes_signature_args(fake, kind, d, dtype):
+    p, slots, xbuf = _flush(kind, d, dtype=dtype)
+    plan = _slots_plan(p, slots, xbuf)
+    dec_ops.launch_slots(plan, xbuf, slots, p.values, p.indices, p.header)
+    (args,) = fake.decode_to_slots.calls
+    _assert_signature("decode_to_slots", args)
+    idx = p.indices.data_ptr() if kind in ("sparse", "sparse_quant",
+                                           "mask") else 0
+    hdr = p.header.data_ptr() if kind in QUANT else 0
+    assert args == (xbuf.data_ptr(), int(dtype == torch.bfloat16), 7, d,
+                    slots.data_ptr(), 4, KINDS.index(kind), p.meta.k,
+                    p.values.data_ptr(), idx, hdr, STREAM)
+    assert _lib.launch_counts()["decode_to_slots"] == 1
+
+
+def test_slots_launch_skips_an_empty_flush(fake):
+    p, slots, xbuf = _flush("sparse", 1000, n=1)
+    p = p.with_leaves(values=p.values[:0], indices=p.indices[:0])
+    plan = _slots_plan(p, slots[:0], xbuf)
+    assert plan.n == 0
+    dec_ops.launch_slots(plan, xbuf, slots[:0], p.values, p.indices, None)
+    assert not fake.decode_to_slots.calls
+    assert _lib.launch_counts()["decode_to_slots"] == 0
+
+
+def test_slots_plan_is_resolved_once_per_key(fake, monkeypatch):
+    """A second flush of one key is one cache hit and the launch."""
+    p, slots, xbuf = _flush("sparse", 4096)
+    assert _slots_plan(p, slots, xbuf) is _slots_plan(p, slots, xbuf)
+    monkeypatch.setattr(dec_ops, "_slot_sig", _on_card)
+    monkeypatch.setattr(_lib, "resolve_backend", lambda b, t: "cuda")
+    dec_ops.decode_rows_to_slots(xbuf, p, slots)
+    before = dec_ops.slots_plan.cache_info()
+    assert dec_ops.decode_rows_to_slots(xbuf, p, slots) is xbuf
+    after = dec_ops.slots_plan.cache_info()
+    assert (after.hits, after.misses) == (before.hits + 1, before.misses)
+    assert len(fake.decode_to_slots.calls) == 2
+
+
+def _bad_flushes():
+    p, slots, xbuf = _flush("sparse", 1000)
+    q, _, _ = _flush("quant", 1000)
+    off = lambda t: (t.shape, t.dtype, False, t.is_contiguous())  # noqa
+    ok = _on_card
+    big = PayloadMeta("sparse", d=16385, k=64)
+    wide = torch.zeros((7, 16385))
+    yield (p.meta, ok(xbuf), ok(slots),
+           (ok(p.values), ok(p.indices[:, :, :, :-1]), None), ValueError)
+    yield (p.meta, ok(xbuf), ok(slots),
+           (ok(p.values[:3]), ok(p.indices), None), ValueError)
+    yield (p.meta, ok(xbuf), ok(slots),
+           (ok(p.values.double()), ok(p.indices), None), TypeError)
+    yield (p.meta, ok(xbuf), ok(slots),
+           (ok(p.values), ok(p.indices.long()), None), TypeError)
+    yield (q.meta, ok(xbuf), ok(slots),
+           (ok(q.values.float()), None, ok(q.header)), TypeError)
+    yield (q.meta, ok(xbuf), ok(slots),
+           (ok(q.values), None, ok(q.header.double())), TypeError)
+    yield (q.meta, ok(xbuf), ok(slots), (ok(q.values), None, None),
+           ValueError)
+    yield (big, ok(wide), ok(slots),
+           (ok(p.values), ok(p.indices), None), ValueError)
+    yield (p.meta, ok(xbuf.half()), ok(slots), _leaf_sigs(p), TypeError)
+    yield (p.meta, ok(xbuf[:, :, :, :500]), ok(slots), _leaf_sigs(p),
+           ValueError)
+    yield (p.meta, ok(xbuf.transpose(0, 3)), ok(slots), _leaf_sigs(p),
+           ValueError)
+    yield (p.meta, off(xbuf), ok(slots), _leaf_sigs(p), ValueError)
+    yield (p.meta, ok(xbuf), ok(slots.long()), _leaf_sigs(p), TypeError)
+    yield (p.meta, ok(xbuf), off(slots), _leaf_sigs(p), TypeError)
+    yield (p.meta, ok(xbuf), ok(slots[None]), _leaf_sigs(p), TypeError)
+    yield (p.meta, ok(xbuf), ok(slots),
+           (off(p.values), off(p.indices), None), ValueError)
+
+
+@pytest.mark.parametrize("case", range(16))
+def test_slots_plan_raises(case):
+    """A wrong leaf shape, dtype or count, a d above MAX_D, an xbuf or
+    slot vector of the wrong dtype, shape or layout, and a tensor off the
+    card."""
+    meta, xbuf, slots, leaves, err = list(_bad_flushes())[case]
+    with pytest.raises(err):
+        dec_ops.slots_plan(meta, xbuf, slots, *leaves)
+
+
+# quantize
+
+QUANT_SHAPES = [(4, 64), (3, 5, 96), (1, 70), (2, 16384), (0, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", QUANT_SHAPES)
+def test_quant_launch_passes_signature_args(fake, shape, dtype):
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        shape).astype(np.float32)).to(dtype)
+    plan = q_ops.quant_plan(x.shape, x.dtype, 4)
+    out = q_ops.launch_quant(plan, x)
+    for a, b in zip(out, q_ref.quantize(x, 4)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert a.is_contiguous()
+    rows = int(np.prod(shape[:-1]))
+    if not rows:
+        assert not fake.quantize.calls
+        return
+    (args,) = fake.quantize.calls
+    _assert_signature("quantize", args)
+    assert args == (x.data_ptr(), int(dtype == torch.bfloat16), rows,
+                    shape[-1], 4, *(t.data_ptr() for t in out), STREAM)
+    assert _lib.launch_counts()["quantize"] == 1
+
+
+def test_quant_launch_makes_a_strided_x_contiguous(fake):
+    x = torch.randn(64, 6).t()
+    plan = q_ops.quant_plan(x.shape, x.dtype, 8)
+    q_ops.launch_quant(plan, x)
+    (args,) = fake.quantize.calls
+    assert args[0] != x.data_ptr() and args[2:5] == (6, 64, 8)
+
+
+def test_quant_plan_is_resolved_once_per_key():
+    key = (torch.Size((1024, 4096)), torch.bfloat16, 4)
+    assert q_ops.quant_plan(*key) is q_ops.quant_plan(*key)
+
+
+@pytest.mark.parametrize("shape, dtype, bits, err", [
+    ((2, 64), torch.float32, 0, ValueError),
+    ((2, 64), torch.float32, 9, ValueError),
+    ((2, 64), torch.float16, 4, TypeError),
+    ((2, 64), torch.int32, 4, TypeError),
+    ((2, 0), torch.float32, 4, ValueError),
+    ((1, 16385), torch.bfloat16, 4, ValueError),
+    ((), torch.float32, 4, ValueError),
+])
+def test_quant_plan_raises(shape, dtype, bits, err):
+    with pytest.raises(err):
+        q_ops.quant_plan(torch.Size(shape), dtype, bits)
