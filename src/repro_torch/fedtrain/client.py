@@ -27,12 +27,12 @@ and then every sync step's RandTopK draws, the draw chain of
 `split.tabular.train`, so one client reproduces that trainer exactly.
 
 The port's copy of the reference's `fedtrain/client.py` on a clean wire:
-the stop-and-wait loop is `runtime.arq.ArqClientMixin` without
-retransmission or reconnect, and the tracer spans and registry counters
-are not ported yet. All trainer state (params, optimizer moments, the
-generator's state, EF residual, stale gradient, schedule state, byte
-counters) round-trips through `state()` / `load_state` for
-`checkpoint.store`.
+the stop-and-wait loop is `runtime.arq.ArqClientMixin` with retransmission
+off (`retry_timeout = None`) and no reconnect path, and the tracer spans
+and registry counters are not ported yet. All trainer state (params,
+optimizer moments, the generator's state, EF residual, stale gradient,
+schedule state, byte counters) round-trips through `state()` /
+`load_state` for `checkpoint.store`.
 """
 from __future__ import annotations
 
@@ -64,6 +64,9 @@ class TrainingClient(ArqClientMixin):
     the bottom model trains."""
 
     _reply_kind = wire.FRAME_GRAD
+    retry_timeout = None                # clean wire: one blocking wait
+    max_retries = 0
+    reconnect = None
 
     def __init__(self, cid: int, spec: tabular.SplitSpec, x_shard: np.ndarray,
                  batch_ids: List[np.ndarray], endpoint, *, seed: int,
@@ -186,7 +189,7 @@ class TrainingClient(ArqClientMixin):
                     else comp.fwd_bits(d))
         self.analytic_up += fwd_bits / 8 * xb.shape[0]
 
-        reply = self._await_reply(step)
+        reply = self._await_reply(step, fb, hb)
         self.analytic_down += comp.bwd_bits(d) / 8 * xb.shape[0]
 
         g_cut = protocol.client_grad_decode(

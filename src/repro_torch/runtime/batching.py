@@ -7,16 +7,32 @@ after the first pending item of the batch arrived. This is the standard
 continuous-batching admission policy; the tradeoff knob is latency
 (`max_wait`) against step efficiency (`max_batch` fill).
 
-The port's copy of the reference's `runtime/batching.py`, on wall time;
-its admission-control bound and virtual-clock hooks serve the open-loop
-load generator, which is not ported yet.
+Two serving-scale extensions:
+
+  * admission control — `max_depth` bounds the pending backlog; a `put`
+    that would exceed it raises `QueueFull` so the caller can reject the
+    request instead of letting queueing delay grow without bound (an
+    open-loop arrival process at rate > service capacity otherwise builds
+    an unbounded queue and every session's latency diverges);
+  * time injection — all deadline arithmetic goes through a
+    `testing.clock.Clock`, so the identical flush policy runs under real
+    threads (`SYSTEM_CLOCK`, the default — behavior unchanged) or under a
+    `VirtualClock` event loop (`runtime.loadgen`), where `next_flush_at`
+    tells the loop exactly when the policy wants its next flush.
+
+The port's copy of the reference's `runtime/batching.py`.
 """
 from __future__ import annotations
 
 import collections
 import threading
-import time
 from typing import Any, List, Optional
+
+from repro_torch.testing.clock import Clock, SYSTEM_CLOCK
+
+
+class QueueFull(RuntimeError):
+    """Admission-control rejection: the queue is at `max_depth`."""
 
 
 class BatchingQueue:
@@ -32,14 +48,20 @@ class BatchingQueue:
         ragged final batch of a draining session mix is returned short).
       * `max_batch` items pending: flush immediately.
 
-    `close()` wakes any waiter; once closed and drained, `get_batch`
-    returns `[]` forever and `drained` is True.
+    `max_depth` (optional) bounds the backlog: `put` raises `QueueFull`
+    instead of exceeding it. `close()` wakes any waiter; once closed and
+    drained, `get_batch` returns `[]` forever and `drained` is True.
     """
 
-    def __init__(self, max_batch: int = 8, max_wait: float = 0.01):
+    def __init__(self, max_batch: int = 8, max_wait: float = 0.01,
+                 max_depth: Optional[int] = None,
+                 clock: Clock = SYSTEM_CLOCK):
         assert max_batch >= 1 and max_wait >= 0
+        assert max_depth is None or max_depth >= max_batch
         self.max_batch = max_batch
         self.max_wait = max_wait
+        self.max_depth = max_depth
+        self.clock = clock
         self._items: collections.deque = collections.deque()
         self._cv = threading.Condition()
         self._closed = False
@@ -48,7 +70,11 @@ class BatchingQueue:
         with self._cv:
             if self._closed:
                 raise RuntimeError("put() on closed BatchingQueue")
-            self._items.append((time.monotonic(), item))
+            if (self.max_depth is not None
+                    and len(self._items) >= self.max_depth):
+                raise QueueFull(
+                    f"BatchingQueue at max_depth={self.max_depth}")
+            self._items.append((self.clock.monotonic(), item))
             # wake the consumer only when its behavior can change: the
             # first pending item (starts the max_wait deadline) and the
             # fill-completing item (flush now). Intermediate puts would
@@ -73,23 +99,36 @@ class BatchingQueue:
         with self._cv:
             return len(self._items)
 
+    def next_flush_at(self) -> Optional[float]:
+        """When the flush policy next wants `get_batch` called: None if
+        nothing is pending, "now" if a full batch is already waiting, else
+        the first pending item's max_wait deadline. A virtual-clock event
+        loop schedules its flush event here and `get_batch(idle_timeout=0)`
+        then returns the batch without ever waiting."""
+        with self._cv:
+            if not self._items:
+                return None
+            if len(self._items) >= self.max_batch:
+                return self.clock.monotonic()
+            return self._items[0][0] + self.max_wait
+
     def get_batch(self, idle_timeout: Optional[float] = None) -> List[Any]:
         idle = self.max_wait if idle_timeout is None else idle_timeout
         with self._cv:
-            deadline = time.monotonic() + idle
+            deadline = self.clock.monotonic() + idle
             while not self._items and not self._closed:
-                remaining = deadline - time.monotonic()
+                remaining = deadline - self.clock.monotonic()
                 if remaining <= 0:
                     return []
-                self._cv.wait(remaining)
+                self.clock.cv_wait(self._cv, remaining)
             if not self._items:
                 return []                       # closed and drained
             # flush max_wait after the FIRST pending item arrived
             deadline = self._items[0][0] + self.max_wait
             while len(self._items) < self.max_batch and not self._closed:
-                remaining = deadline - time.monotonic()
+                remaining = deadline - self.clock.monotonic()
                 if remaining <= 0:
                     break
-                self._cv.wait(remaining)
+                self.clock.cv_wait(self._cv, remaining)
             n = min(self.max_batch, len(self._items))
             return [self._items.popleft()[1] for _ in range(n)]

@@ -22,6 +22,8 @@ from repro_torch.core import compressors
 from repro_torch.core.payload import to_host
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
+from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime import steps
 from repro_torch.runtime.client import StreamingClient
 from repro_torch.runtime.server import StreamingServer
@@ -60,7 +62,10 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
                   max_batch: Optional[int] = None, max_wait: float = 0.01,
                   compressor_mix=None, seed: int = 0, params=None,
                   prompts=None, device=None,
-                  capacity: Optional[int] = None) -> dict:
+                  capacity: Optional[int] = None, wrap_endpoint=None,
+                  retry_timeout: Optional[float] = None,
+                  max_retries: int = 16, tracer=None,
+                  device_encode: bool = True) -> dict:
     """Serve `n_clients` concurrent sessions of `prompt_len + gen` tokens.
 
     `params` are the port's weights (e.g. `models.convert.params_from_jax`)
@@ -70,9 +75,21 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
     clients' compressors follow `cfg.split.backend` (None = the CUDA
     kernels on the card, "torch" = their plain versions).
 
+    `capacity` caps concurrently-resident sessions (default `n_clients`,
+    so eviction never triggers); below `n_clients` it exercises the LRU
+    evict-to-host / re-admission path. `wrap_endpoint(cid, endpoint) ->
+    endpoint` intercepts every client-side connection, initial and
+    reconnect (`testing.faults.FaultInjector` runs the stack under seeded
+    chaos through it); `retry_timeout` turns on stop-and-wait
+    retransmission (None: one blocking wait per reply). `tracer` (an
+    `obs.trace.Tracer`, default off) records the frame lifecycle.
+    `device_encode=False` frames each payload with the host codec
+    (`steps.make_bottom_step`) instead of the device sections.
+
     Returns the generated tokens `(n_clients, gen)`, per-session client
-    and server stats, the compressors, the flush fill history and
-    wall-clock throughput.
+    and server stats, the compressors, the flush fill history, wall-clock
+    throughput, `fault_counters` (all zero on a clean wire) and a
+    `metrics` snapshot of the run's own `MetricsRegistry`.
     """
     dev = resolve_device(device)
     cut = (cfg.split.cut_layer if cfg.split and cfg.split.cut_layer > 0
@@ -90,26 +107,38 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
             0, cfg.vocab, (n_clients, prompt_len))
     prompts = np.asarray(prompts, np.int32).reshape(n_clients, prompt_len)
 
-    bottom_steps = {c: steps.make_bottom_step_device(cfg, cut, c)
-                    for c in dict.fromkeys(comps)}
+    make_bottom = (steps.make_bottom_step_device if device_encode
+                   else steps.make_bottom_step)
+    bottom_steps = {c: make_bottom(cfg, cut, c) for c in dict.fromkeys(comps)}
 
     def make_cache(rows=1):
         return transformer.init_cache(cfg, rows, max_len, device=dev)
 
+    tracer = tracer if tracer is not None else NULL_TRACER
+    registry = MetricsRegistry()        # per run, isolated
     server = StreamingServer(params, steps.make_arena_top_step(cfg, cut),
                              make_cache, device=dev, max_batch=max_batch,
                              max_wait=max_wait, dtype=cfg.adtype(),
                              capacity=capacity or n_clients,
-                             x_shape=(1, 1, cfg.d_model), backend=backend)
+                             x_shape=(1, 1, cfg.d_model), backend=backend,
+                             tracer=tracer, registry=registry)
     server.expected_sessions = n_clients
+
+    def _connect(cid: int):
+        """A fresh channel onto session `cid` with its server reader
+        attached, the client half optionally wrapped — the initial
+        connection and the reconnect path."""
+        cep, sep = channel_pair()
+        server.attach(sep)
+        return wrap_endpoint(cid, cep) if wrap_endpoint else cep
 
     clients: List[StreamingClient] = []
     for cid in range(n_clients):
-        cep, sep = channel_pair()
-        server.attach(sep)
-        clients.append(StreamingClient(cid, params, make_cache(),
-                                       bottom_steps[comps[cid]], cep,
-                                       prompts[cid], gen))
+        clients.append(StreamingClient(
+            cid, params, make_cache(), bottom_steps[comps[cid]],
+            _connect(cid), prompts[cid], gen, retry_timeout=retry_timeout,
+            max_retries=max_retries, reconnect=lambda cid=cid: _connect(cid),
+            tracer=tracer, registry=registry, device_encode=device_encode))
 
     # warm every hot-loop path before the serving clock starts: one bottom
     # step per compressor (on a throwaway cache), then the server's decode
@@ -117,8 +146,8 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
     tok0 = np.zeros((1, 1), np.int32)
     examples = []
     for step in bottom_steps.values():
-        p, _ = step(params, make_cache(), tok0)
-        examples.append(to_host(p))
+        out = step(params, make_cache(), tok0)
+        examples.append(to_host(out[0] if device_encode else out))
     server.warm(examples)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -131,6 +160,7 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
         t.start()
     for t in threads:
         t.join(timeout=600)
+    # guaranteed stop even if a CLOSE frame was lost to injected faults
     server.shutdown()
     serve_thread.join(timeout=60)
     wall = time.perf_counter() - t0
@@ -153,6 +183,8 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
         "compressors": [c.name for c in comps],
         "compressor_objs": comps,
         "batch_sizes": server.batch_sizes,
+        "fault_counters": fault_summary(server, clients),
+        "metrics": registry.snapshot(),
         "stage_s": dict(server.stage_s),
         "host_bytes": dict(server.host_bytes),
         "flushes": len(server.batch_sizes),
@@ -164,3 +196,19 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
         "cut_layer": cut,
         "device": str(dev),
     }
+
+
+def fault_summary(server, clients) -> dict:
+    """Recovery counters of both parties: all zero on a clean wire; under
+    injected chaos, the measured recovery record."""
+    out = {"server_faults_detected": server.faults_detected,
+           "client_faults_detected": 0, "duplicates": 0, "replays": 0,
+           "reconnects": 0}
+    for c in clients:
+        out["client_faults_detected"] += c.stats.faults_detected
+        out["replays"] += c.stats.replays
+        out["reconnects"] += c.stats.reconnects
+        out["duplicates"] += c.stats.duplicates
+    for sess in server.sessions.values():
+        out["duplicates"] += sess.stats.duplicates
+    return out

@@ -7,8 +7,7 @@ compressed sizes describe) and framing bytes (length prefix + headers, a
 fixed per-frame cost the analytic rows do not model). Benchmarks compare
 `payload_bytes_up / frames_up` against `core.wire` analytic predictions.
 
-The port's copy of the reference's `runtime/session.py`, without the
-eviction and retransmission state, which are not ported yet.
+The port's copy of the reference's `runtime/session.py`.
 """
 from __future__ import annotations
 
@@ -29,8 +28,21 @@ class SessionStats:
     payload_bytes_down: int = 0  # grad-frame codec bitstream bytes (training)
     header_bytes_down: int = 0   # grad-frame framing bytes (training)
     tokens_out: int = 0         # tokens the client kept (generated, not prompt)
+    # fault counters — all zero on a clean wire; under injected chaos they
+    # are the measured recovery record (engine.run_streaming aggregates
+    # them)
     faults_detected: int = 0    # typed WireErrors caught on this connection
     duplicates: int = 0         # replayed frames deduplicated by seq
+    replays: int = 0            # retransmissions sent after timeout/error
+    reconnects: int = 0         # fresh connections opened to resume
+
+    @property
+    def bytes_up(self) -> int:
+        return self.payload_bytes_up + self.header_bytes_up
+
+    @property
+    def payload_bytes_per_frame(self) -> float:
+        return self.payload_bytes_up / max(1, self.frames_up)
 
     def count_up(self, header_nbytes: int, payload_nbytes: int) -> None:
         self.frames_up += 1
@@ -61,9 +73,10 @@ class Session:
 
     `slot` indexes the server's device-resident `runtime.arena.SlotArena`:
     the session's KV cache and position live in row `slot` of the arena's
-    stacked tensors for the session's whole life (assigned at admission,
-    reset only when the slot is reclaimed after close). -1 means a slot
-    already reclaimed.
+    stacked tensors while the session is resident (assigned at admission,
+    surviving reconnects, reset when the slot is reclaimed after close).
+    -1 means no device row: a training session, a reclaimed slot, or an
+    evicted session whose row is on the host.
     """
 
     id: int
@@ -71,6 +84,16 @@ class Session:
     endpoint: Any = None                # server->client reply half
     stats: SessionStats = dataclasses.field(default_factory=SessionStats)
     closed: bool = False
+    # slot-lifecycle state: `pending` counts frames enqueued but not yet
+    # processed — a session is only LRU-evictable at pending == 0, so an
+    # in-flight frame never loses its device row; `last_active` is the
+    # serve-clock time of admission / last processed frame (the LRU key);
+    # `host_state` holds the evicted KV row on the host (None while
+    # resident; the server's _EVICTING sentinel between the eviction
+    # decision and the serve loop's fetch)
+    pending: int = 0
+    last_active: float = 0.0
+    host_state: Any = None
     # stop-and-wait state: the highest seq processed and its cached reply
     # bytes, so a replayed frame is re-acked instead of re-processed
     # (re-processing would double-advance the KV cache)

@@ -6,7 +6,9 @@ layers [cut, L) — each party touches only its own range, in place.
 
   * bottom step (client): embed -> layers [0, cut) -> the device codec,
     one fused launch of selection, encode and bit-pack on the card
-    (`split.protocol.client_encode_device`).
+    (`split.protocol.client_encode_device`); or, with the host codec
+    (`make_bottom_step`), the payload pulled to the host for
+    `wire.encode_payload_frame`.
   * arena top step (server): the cut rows of `xbuf` -> layers [cut, L) ->
     LM head -> greedy token, over the WHOLE arena with fixed shapes (rows
     are independent, so a row's numbers do not depend on which other rows
@@ -47,6 +49,18 @@ def make_bottom_step_device(cfg: ArchConfig, cut: int,
     def bottom_step(params, cache, token):
         x = bottom_hidden(params, cfg, cut, cache, token)
         return protocol.client_encode_device(comp, x, training=False)
+
+    return bottom_step
+
+
+def make_bottom_step(cfg: ArchConfig, cut: int,
+                     comp: compressors.Compressor) -> Callable:
+    """(params, cache, token (1,1) i32) -> the host Payload (numpy leaves
+    in the wire dtypes) for the host codec. Inference-mode encode."""
+
+    def bottom_step(params, cache, token):
+        x = bottom_hidden(params, cfg, cut, cache, token)
+        return protocol.client_encode(comp, x, training=False)
 
     return bottom_step
 

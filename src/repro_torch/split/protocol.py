@@ -29,6 +29,7 @@ Serving:
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import numpy as np
@@ -41,6 +42,7 @@ from repro_torch.kernels._lib import resolve_backend
 from repro_torch.kernels.decode import ops as dec_ops
 from repro_torch.kernels.encode import ops as enc_ops
 from repro_torch.models.config import ArchConfig, Runtime, SplitConfig
+from repro_torch.obs.registry import DEFAULT_REGISTRY
 
 
 def make_cut_compressor(sc: SplitConfig) -> compressors.Compressor:
@@ -159,21 +161,68 @@ def measured_payload_bytes(cfg: ArchConfig, batch: int, seq: int,
 
 
 class HostDensifyCounter:
-    """Locked count of host-side dense materializations (`server_decode`).
-    Read and written from reader threads, the serve loop and test threads."""
+    """Registry-backed count of host-side dense materializations
+    (`server_decode`). Read and written from reader threads, the serve
+    loop and test threads.
+
+    The count lives in the process-wide registry
+    (`obs.registry.DEFAULT_REGISTRY`, metric `host_densify_total`), so it
+    shows up in registry snapshots next to every other runtime metric.
+    That metric stays monotonic; `reset()` (returns the prior count) and
+    `watch()` are offsets on top of it:
+
+        with protocol.HOST_DENSIFY_COUNT.watch() as w:
+            run_streaming(...)
+        assert w.delta == 0
+
+    `int(...)` and equality against ints read the count."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._n = 0
+        self._counter = DEFAULT_REGISTRY.counter("host_densify_total")
+        self._offset = 0
 
     @property
     def value(self) -> int:
         with self._lock:
-            return self._n
+            return int(self._counter.value) - self._offset
 
     def increment(self) -> None:
+        self._counter.inc()
+
+    def reset(self) -> int:
         with self._lock:
-            self._n += 1
+            total = int(self._counter.value)
+            prior, self._offset = total - self._offset, total
+            return prior
+
+    @contextlib.contextmanager
+    def watch(self):
+        yield _Watch(self)
+
+    def __int__(self) -> int:
+        return self.value
+
+    def __eq__(self, other) -> bool:
+        try:
+            return self.value == int(other)
+        except (TypeError, ValueError):
+            return NotImplemented
+
+    def __repr__(self) -> str:
+        return f"HostDensifyCounter({self.value})"
+
+
+class _Watch:
+    """`HostDensifyCounter.watch()`'s handle: `delta` since entry."""
+
+    def __init__(self, counter: HostDensifyCounter):
+        self._counter = counter
+        self.start = counter.value
+
+    @property
+    def delta(self) -> int:
+        return self._counter.value - self.start
 
 
 HOST_DENSIFY_COUNT = HostDensifyCounter()
