@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase serve       # kernel checks + serving
     python3 chip_smoke.py --phase fedtrain    # kernel checks + fedtrain
     python3 chip_smoke.py --phase loadgen     # kernel checks + open loop
+    python3 chip_smoke.py --phase families    # kernel checks + 5 models
     python3 chip_smoke.py --phase probe       # build + `probe_kernels`
     python3 chip_smoke.py --phase ab --parent DIR   # probes, P C C P
     python3 chip_smoke.py --phase predict     # CPU: phase 11's reports
@@ -16,8 +17,9 @@ Phases, each fatal on failure:
   1. build the port's CUDA kernels from `src/repro_torch/csrc` (nvcc,
      sm_90a, one process per source, seven sources, twelve launchers);
   2. hold each kernel against its plain PyTorch version on the card, at
-     the shapes its path gives it (serving: one row of d 4096; training:
-     1024 rows of d 4096, k 64; the standalone top-k: the tabular
+     the shapes its path gives it (serving: one row of d 4096, 1024 and
+     3072, and 1- and 2-row flushes at d 1024 and 3072; training: 1024
+     rows of d 4096 and 1024, k 64; the standalone top-k: the tabular
      evaluation's 4000 and 20000 rows of 128 f32, k 3) and at odd ones (rows not a multiple of a
      block, d not a multiple of 32, k in {1, 64, d-1}, ties, duplicate and
      out-of-range indices, d = 16384): masks, indices, words, scattered
@@ -130,11 +132,28 @@ Phases, each fatal on failure:
      switches > 0 with the 4-bit rung reached, one fused encode per
      served token and one flush decode per (flush, meta) group; (d) a
      traced closed-loop `launch/serve --trace`: spans nest, each span's
-     count and median host ms.
+     count and median host ms;
+ 12. the qk-norm dense and mixture-of-experts families at full width
+     (`--phase families`), random bf16 weights from a seed: serve
+     granite-moe-1b-a400m (24 layers, d 1024), qwen3-8b (36, qk-norm),
+     granite-3-8b (40), phi3-mini-3.8b (32, d 3072) and
+     qwen3-moe-235b-a22b (depth cut from 94 to 4 layers to fit the card),
+     each with the cut at n_layers // 2, through `run_streaming` with 2
+     clients x (4 + 8) tokens, randtopk k 64, with the kernels and with
+     the plain versions: equal tokens below the vocabulary, payload bytes
+     per token = `fwd_bits(d) / 8`, one fused encode per served token
+     and one flush decode per flush group, no host densification; tokens/s,
+     init time and peak memory of each; then train granite-moe-1b-a400m
+     FULL (cut 12, batch 4 x seq 256, randtopk k 64 alpha 0.1): two plain
+     first steps equal each other and the kernels' first step bit for
+     bit (loss, aux, grad norm, updated parameters), aux > 0, the pairs
+     dropped at capacity in the first forward, 3 steps through the
+     kernels with their median ms and peak memory.
 
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, for the serve's two kernels
-plus the loadgen phase's kernel runs, or in its check's own loop for the
+plus the loadgen phase's kernel runs, plus the families phase's serves
+and training, or in its check's own loop for the
 five no path runs, its largest difference from its plain version,
 the CUDA-event times of kernel, plain version and library call at its
 path's shapes, and the card's bound for the same work), the loop's and
@@ -429,6 +448,8 @@ def _hostile_rows(x, g):
 
 
 SECTION_CASES = [((1, D), "bfloat16"),          # the serving client's row
+                 ((1, 1024), "bfloat16"),       # ... granite-moe's (10 bits)
+                 ((1, 3072), "bfloat16"),       # ... phi3's (12 bits)
                  ((128, 128), "float32"),       # fedtrain: rows share words
                  ((3, 16384), "bfloat16"), ((3, 16384), "float32"),
                  ((37, 1000), "float32"), ((5, 4097), "float32"),
@@ -440,7 +461,8 @@ def check_encode_sections(dev, g):
     """The fused client codec against `ref.encode_sections`, byte for byte:
     every leaf and every wire section equal, in both modes (`select`: the
     kernel's own top-k; `mask=`: a Eq. (7) mask drawn by the plain
-    version, and a top-k one), for every kind at the serving row, the
+    version, and a top-k one), for every kind at the serving rows (d 4096,
+    1024 and 3072), the
     fedtrain batch (128 x 128 f32 k 3: 21 index bits a row, so rows share
     packed words), 16384-wide rows and odd widths, on the hostile rows of
     `_hostile_rows`. Then its times at the serving row (sparse, select)."""
@@ -636,6 +658,14 @@ def _decode_cases(kind, k):
          False),
         ("d 70, f32", 70, f32, 8, 6, [5, 4, 3, 2, 1, 0, 6, 6], k, False)]
     cases = [c + (6,) for c in cases]
+    # the families phase's 2-client flushes (buckets of 1 and 2 rows into
+    # a 3-row buffer) at granite-moe's and phi3's widths
+    for d in (1024, 3072):
+        cases += [(f"d {d} flush, 2 rows", d, bf, 2, 2, [1, 0], k, False,
+                   2),
+                  (f"d {d} flush, 1 row", d, bf, 1, 1, [1], k, False, 2),
+                  (f"d {d} flush, one pad row", d, bf, 2, 1, [0, 2], k,
+                   False, 2)]
     # the loadgen's flush buckets (1, 2, 4, 8 rows) into a 17-row buffer
     cases += [
         ("loadgen flush, 1 row", D, bf, 1, 1, [11], k, False, 16),
@@ -654,7 +684,8 @@ def check_decode(dev, g):
     """`decode_rows_to_slots` (the serve's flush decode) against its plain
     version: every kind, and sparse_quant on every QoS rung, at the serve's
     4-row bf16 flush with a pad row on the scratch slot, the loadgen's 1-,
-    2-, 4- and 8-row flushes into 17 rows, slots out of order, two pad rows
+    2-, 4- and 8-row flushes into 17 rows, the families phase's 1- and
+    2-row flushes at d 1024 and 3072, slots out of order, two pad rows
     on one slot, slots outside the buffer, d 16384 and odd widths, and
     duplicate and out-of-range sparse indices (mask words with bits past
     k): every kind exact (both dequantize as lo + (code + 0.5) * step,
@@ -705,7 +736,8 @@ def check_decode(dev, g):
                              "k values only, the row is not zeroed")
 
 
-TRAIN_ROWS = 1024               # yi-6b training step: batch 4 x seq 256
+TRAIN_ROWS = 1024               # a training step: batch 4 x seq 256
+D_MOE = 1024                    # granite-moe-1b-a400m's width
 
 
 def _tol_ok(a, b, slack=None) -> bool:
@@ -728,8 +760,9 @@ def check_randtopk(dev, g):
     from repro_torch.kernels.randtopk import ops, ref
     from repro_torch.core import selection
 
-    cases = [((TRAIN_ROWS, D), torch.bfloat16, K), ((37, 1000), torch.float32,
-                                                   1),
+    cases = [((TRAIN_ROWS, D), torch.bfloat16, K),
+             ((TRAIN_ROWS, D_MOE), torch.bfloat16, K),
+             ((37, 1000), torch.float32, 1),
              ((37, 1000), torch.float32, 64), ((37, 1000), torch.float32,
                                                500),
              ((37, 1000), torch.float32, 999), ((3, 16384), torch.bfloat16, K),
@@ -815,6 +848,7 @@ def check_decode_rows(dev, g):
     err = 0.0
     for kind, k, bits in KIND_CASES:
         for n, d, kk, hostile in ((TRAIN_ROWS, D, k, False),
+                                  (TRAIN_ROWS, D_MOE, k, False),
                                   (37, 1000, min(k, 999), False),
                                   (5, 1000, 999 if k else 0, False),
                                   (37, 1000, min(k, 999), True),
@@ -920,7 +954,8 @@ def check_scatter_rows(dev, g):
     err = 0.0
     # (2, 16384, 16384): a thread's 64 values, as many as its duplicate
     # record holds; (5, 9000, 70): k > d, more than that
-    for n, k, d in ((TRAIN_ROWS, K, D), (37, 1, 1000), (37, 999, 1000),
+    for n, k, d in ((TRAIN_ROWS, K, D), (TRAIN_ROWS, K, D_MOE),
+                    (37, 1, 1000), (37, 999, 1000),
                     (5, 64, 4097), (3, 64, 16384), (2, 16384, 16384),
                     (5, 9000, 70)):
         for dt in (torch.float32, torch.bfloat16):
@@ -1555,9 +1590,11 @@ def _one_launch_per_token(res, counts, compressor):
              f"{res['flushes']} flushes and {warm} warm-up decodes")
 
 
-def serve(cfg, params, compressor, *, gen, backend=None, trace=False):
-    """One closed-loop run of N_CLIENTS sessions; returns (result, launch
-    counts of the run, analytic payload bytes per token). With `trace` the
+def serve(cfg, params, compressor, *, gen, backend=None, trace=False,
+          n_clients=N_CLIENTS, prompt_len=PROMPT_LEN):
+    """One closed-loop run of `n_clients` sessions of `prompt_len` + `gen`
+    tokens, the cut at n_layers // 2; returns (result, launch counts of
+    the run, analytic payload bytes per token). With `trace` the
     call runs under `torch.profiler`, and the result also holds the trace's
     device ms (`device_ms`) and the wall ms of the whole call, warm-up
     included (`call_ms`)."""
@@ -1572,14 +1609,14 @@ def serve(cfg, params, compressor, *, gen, backend=None, trace=False):
     densify0 = protocol.HOST_DENSIFY_COUNT.value
     _lib.reset_launch_counts()
     res, dev_ms, call_ms, _ = traced(lambda: engine.run_streaming(
-        scfg, n_clients=N_CLIENTS, prompt_len=PROMPT_LEN, gen=gen,
+        scfg, n_clients=n_clients, prompt_len=prompt_len, gen=gen,
         params=params, device="cuda"), enabled=trace)
     res.update(device_ms=dev_ms, call_ms=call_ms)
     counts = _lib.launch_counts()
     if protocol.HOST_DENSIFY_COUNT.value != densify0:
         fail(f"{compressor}: host densification on the serving path")
     toks = res["tokens"]
-    if toks.shape != (N_CLIENTS, gen) or toks.min() < 0 \
+    if toks.shape != (n_clients, gen) or toks.min() < 0 \
             or toks.max() >= cfg.vocab:
         fail(f"{compressor}: tokens {toks.shape} out of shape/range")
     comp = res["compressor_objs"][0]
@@ -1780,10 +1817,10 @@ TRAIN_PATH_KERNELS = {
 
 
 def _train_cfg(compressor, backend=None, layers=TRAIN_LAYERS,
-               cut=TRAIN_CUT, smoke=False, k=K):
+               cut=TRAIN_CUT, smoke=False, k=K, arch="yi-6b"):
     from repro_torch.launch import train as train_cli
 
-    return train_cli.build("yi-6b", smoke=smoke, layers=layers,
+    return train_cli.build(arch, smoke=smoke, layers=layers,
                            split=compressor, k=k, cut=cut, backend=backend)
 
 
@@ -1811,27 +1848,29 @@ def _cut_probe(params, cfg, batch, seed, dev):
     return p.indices, view, ce
 
 
-def _same_first_step(params, m, p_plain, m_plain):
+def _same_first_step(params, m, p_plain, m_plain,
+                     what="kernels vs plain versions"):
     """The first training step with the kernels against the same step with
-    the plain versions: the backward runs `scatter_rows` on the wire
-    gradient, so the gradient norm and every updated parameter (the layers
-    below the cut and the embedding included) must be bit-identical."""
+    the plain versions (or two runs of one, as `what` says): the backward
+    runs `scatter_rows` on the wire gradient, so the gradient norm, the
+    balance loss and every updated parameter (the layers below the cut and
+    the embedding included) must be bit-identical."""
     import torch
     from repro_torch.optim.adamw import tree_leaves
 
-    for key in ("loss", "grad_norm"):
+    for key in ("loss", "aux", "grad_norm"):
         if not torch.equal(m[key], m_plain[key]):
-            fail(f"first step {key} {float(m[key])} with kernels, "
-                 f"{float(m_plain[key])} with the plain versions")
+            fail(f"first step {key} {float(m[key])} != "
+                 f"{float(m_plain[key])} ({what})")
     names = _leaf_names(params)
     off = [(n, float((a.float() - b.float()).abs().max()))
            for n, a, b in zip(names, tree_leaves(params),
                               tree_leaves(p_plain)) if not torch.equal(a, b)]
     if off:
-        fail(f"first step updated parameters differ from the plain "
-             f"versions' (leaf, max |diff|): {off}")
-    print(f"first step, kernels vs plain versions: identical loss "
-          f"({float(m['loss'])}), grad norm ({float(m['grad_norm'])}) and "
+        fail(f"first step updated parameters differ ({what}; leaf, max "
+             f"|diff|): {off}")
+    print(f"first step, {what}: identical loss ({float(m['loss'])}), aux "
+          f"({float(m['aux'])}), grad norm ({float(m['grad_norm'])}) and "
           f"{len(names)} updated parameter tensors")
 
 
@@ -2495,14 +2534,204 @@ def loadgen_phase(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the qk-norm dense and mixture-of-experts families
+# ---------------------------------------------------------------------------
+
+# (arch, depth): full width; qwen3-moe's 94 layers (some 450 GB in bf16)
+# cut to 4, cut at 2, to fit one card
+FAMILY_SERVES = (("granite-moe-1b-a400m", None), ("qwen3-8b", None),
+                 ("granite-3-8b", None), ("phi3-mini-3.8b", None),
+                 ("qwen3-moe-235b-a22b", 4))
+FAM_CLIENTS, FAM_PROMPT, FAM_GEN = 2, 4, 8
+FAM_TRAIN = "granite-moe-1b-a400m"         # full: 24 layers, cut at 12
+FAM_TRAIN_STEPS = 3
+
+
+def _moe_drops(params, cfg, batch, seed, dev):
+    """(token, expert) pairs dropped at capacity, summed over the moe
+    layers, in the forward of the first step (its RandTopK draws, the plain
+    versions, no autograd): `models.moe.route` wrapped to count them."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.config import Runtime
+    from repro_torch.split import model as split_model
+
+    route, dropped = moe.route, []
+
+    def counting(probs, k, capacity):
+        r = route(probs, k, capacity)
+        n_slots = probs.shape[0] * probs.shape[2] * capacity
+        dropped.append((r.slot == n_slots).sum())
+        return r
+
+    moe.route = counting
+    try:
+        with torch.no_grad():
+            split_model.forward(params, cfg, Runtime(training=True), batch,
+                                generator=torch.Generator(
+                                    device=dev).manual_seed(seed))
+    finally:
+        moe.route = route
+    return int(sum(dropped)), len(dropped)
+
+
+def families_phase(dev, card):
+    """Phase 12: serve each of the five qk-norm dense and moe models at
+    full width through `run_streaming` (2 clients x (4 + 8) tokens,
+    randtopk k 64, bf16, random weights from a seed), with the kernels and
+    then the plain versions: equal tokens below the vocabulary, payload
+    bytes per token = `fwd_bits(d) / 8`, one fused encode per served token
+    and one flush decode per flush group, no host densification. Then
+    train granite-moe-1b-a400m FULL (24 layers, cut 12, batch 4 x seq 256,
+    randtopk k 64 alpha 0.1): two plain first steps equal each other and
+    the kernels' first step bit for bit (loss, aux, grad norm, every
+    updated parameter), aux > 0, 3 steps through the kernels. Returns the
+    kernels' launches of the serves and the training run."""
+    import collections
+    import gc
+    import math
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import steps
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.config import Runtime
+    from repro_torch.optim.adamw import adamw_init
+
+    def held_gib():
+        """Free what earlier runs left to the cyclic collector; reset the
+        peak. Returns the GiB still allocated, which the peaks below
+        exclude, so each is that model's own."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return torch.cuda.memory_allocated(dev) / 2**30
+
+    def peak_gib(base):
+        return torch.cuda.max_memory_allocated(dev) / 2**30 - base
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    print(f"families phase: {FAM_CLIENTS} clients x ({FAM_PROMPT} prompt + "
+          f"{FAM_GEN} gen) tokens, randtopk k={K}, bf16; {card}")
+    for arch, layers in FAMILY_SERVES:
+        cfg = configs.get(arch)
+        if layers:
+            cfg = cfg.with_(n_layers=layers)
+        base = held_gib()
+        t0 = time.perf_counter()
+        params = transformer.init_model(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        kw = dict(gen=FAM_GEN, n_clients=FAM_CLIENTS, prompt_len=FAM_PROMPT)
+        res, counts, nb = serve(cfg, params, "randtopk", **kw)
+        _one_launch_per_token(res, counts, f"{arch} randtopk")
+        plain, pcounts, _ = serve(cfg, params, "randtopk", backend="torch",
+                                  **kw)
+        if any(pcounts.values()):
+            fail(f"{arch}: plain-version run launched kernels {pcounts}")
+        if not (plain["tokens"] == res["tokens"]).all():
+            fail(f"{arch}: tokens differ between kernels and plain versions")
+        total.update(counts)
+        peak = peak_gib(base)
+        print(f"  {arch}: {cfg.n_layers} layers (cut at "
+              f"{cfg.n_layers // 2}), d_model {cfg.d_model}, "
+              f"{cfg.family}; kernel tokens = plain tokens "
+              f"({res['tokens'].tolist()}); {nb} payload B/token "
+              f"(fwd_bits(d) / 8); encode_sections "
+              f"{counts['encode_sections']}, decode_to_slots "
+              f"{counts['decode_to_slots']} launches ({res['flushes']} "
+              f"flushes); {res['tokens_per_s']} tokens/s kernels, "
+              f"{plain['tokens_per_s']} plain; init {init_s:.2f} s; peak "
+              f"{peak:.2f} GiB (above the {base:.2f} GiB held before it)")
+        del params
+        torch.cuda.empty_cache()
+
+    cfg = _train_cfg("randtopk", layers=None, cut=0, arch=FAM_TRAIN)
+    plain_cfg = _train_cfg("randtopk", "torch", layers=None, cut=0,
+                           arch=FAM_TRAIN)
+    rt = Runtime(training=True)
+    base = held_gib()
+    params = transformer.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    batches = [pipe.next_batch(i) for i in range(FAM_TRAIN_STEPS)]
+    print(f"training {FAM_TRAIN}: {cfg.n_layers} layers (cut at "
+          f"{cfg.split.cut_layer}), d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.topk_experts}, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, randtopk k={K} "
+          f"alpha={cfg.split.alpha}, AdamW, remat={rt.remat}")
+    plain_step = steps.make_train_step(plain_cfg, rt)
+    _lib.reset_launch_counts()
+    runs = []
+    for _ in range(2):
+        p1, _, m1 = plain_step(params, adamw_init(params), batches[0],
+                               torch.Generator(device=dev).manual_seed(1))
+        runs.append((p1, m1))
+    torch.cuda.synchronize()
+    if any(_lib.launch_counts().values()):
+        fail(f"plain-version step launched {_lib.launch_counts()}")
+    (p_plain, m_plain), (p_again, m_again) = runs
+    del runs, p1
+    _same_first_step(p_plain, m_plain, p_again, m_again,
+                     "two runs of the plain versions")
+    del p_again
+    drops, n_moe = _moe_drops(params, plain_cfg, batches[0], 1, dev)
+    step = steps.make_train_step(cfg, rt)
+    opt = adamw_init(params)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    times, losses, auxes = [], [], []
+    for i in range(FAM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[i], gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        auxes.append(float(m["aux"]))
+        if i == 0:
+            _same_first_step(params, m, p_plain, m_plain)
+            del p_plain
+    counts = _lib.launch_counts()
+    peak = peak_gib(base)
+    missing = [n for n in TRAIN_PATH_KERNELS["randtopk"] if counts[n] == 0]
+    if missing:
+        fail(f"{FAM_TRAIN} training never launched {missing}")
+    if not all(math.isfinite(v) for v in losses + auxes):
+        fail(f"{FAM_TRAIN} losses not finite: {losses}, aux {auxes}")
+    if not all(a > 0 for a in auxes):
+        fail(f"{FAM_TRAIN} balance loss not positive: {auxes}")
+    total.update(counts)
+    T = TRAIN_BATCH * TRAIN_SEQ
+    cap = moe._capacity(T, cfg, rt.moe_capacity)
+    print(f"  {FAM_TRAIN} training: losses {losses}, aux {auxes}; "
+          f"launches {counts}; {drops} (token, expert) pairs dropped at "
+          f"capacity {cap} of {T} tokens x {cfg.topk_experts} experts x "
+          f"{n_moe} layers in the first step's forward; step ms "
+          f"{[round(t, 2) for t in times]}, median of steps 2-"
+          f"{FAM_TRAIN_STEPS} {statistics.median(times[1:]):.2f} ms; peak "
+          f"{peak:.2f} GiB (the plain runs' two first steps included; "
+          f"above the {base:.2f} GiB held before it); {card}")
+    del params, opt
+    torch.cuda.empty_cache()
+    print(f"families phase wall: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
-                                        "fedtrain", "loadgen", "probe",
-                                        "ab", "predict"),
+                                        "fedtrain", "loadgen", "families",
+                                        "probe", "ab", "predict"),
                     default="all",
                     help="kernels: build + kernel checks + codec probes; "
-                         "serve / train / fedtrain / loadgen: the checks, "
+                         "serve / train / fedtrain / loadgen / families: "
+                         "the checks, "
                          "probes and one path; probe: build + `probe_kernels` "
                          "alone; ab: `probe` in turns on a parent tree's "
                          "package and this one (--parent); predict: the "
@@ -2575,32 +2804,33 @@ def main(argv=None) -> int:
     codec_token_ms(dev, g)
     print(f"codec probes: {time.perf_counter() - t0:.1f} s")
 
-    # each kernel's launches are read from the run of the path it serves:
+    # each kernel's launches are read from the runs of the paths it serves:
     # the two codec kernels of serving from the serving randtopk run, the
     # three of training from the training randtopk run, the top-k from the
-    # tabular trainer's (its evaluation); encode_rows, pack_bits, quantize
-    # and the two flash kernels, which no path runs, from their checks'
-    # own loops
+    # tabular trainer's (its evaluation), plus the loadgen's and the
+    # families phase's kernel runs; encode_rows, pack_bits, quantize and
+    # the two flash kernels, which no path runs, from their checks' own
+    # loops
     launches = {r["name"]: 0 for r in records}
-    for r in records:
-        r["launches_from"] = (
-            "serving randtopk run" if r["name"] in PATH_KERNELS["randtopk"]
-            else "tabular trainer's randtopk run (its evaluation)"
-            if r["name"] == "topk_mask_threshold"
-            else "training randtopk run")
+    sources = {r["name"]: [] for r in records}
+
+    def add(name, n, source):
+        launches[name] += n
+        sources[name].append(source)
+
     if args.phase in ("all", "serve"):
         t0 = time.perf_counter()
         counts = serve_phase(dev, args.layers)
         for n in PATH_KERNELS["randtopk"]:
-            launches[n] = counts[n]
+            add(n, counts[n], "serving randtopk run")
         print(f"serving phases: {time.perf_counter() - t0:.1f} s")
     if args.phase in ("all", "train"):
         t0 = time.perf_counter()
         counts = train_phase(dev)
         for n in TRAIN_PATH_KERNELS["randtopk"]:
-            launches[n] = counts[n]
-        launches["topk_mask_threshold"] = \
-            tabular_phase(dev)["topk_mask_threshold"]
+            add(n, counts[n], "training randtopk run")
+        add("topk_mask_threshold", tabular_phase(dev)["topk_mask_threshold"],
+            "tabular trainer's randtopk run (its evaluation)")
         smoke_train_cpu_vs_card(dev)
         print(f"training phases: {time.perf_counter() - t0:.1f} s")
     if args.phase in ("all", "fedtrain"):
@@ -2609,15 +2839,18 @@ def main(argv=None) -> int:
         print(f"fedtrain phase: {time.perf_counter() - t0:.1f} s")
     if args.phase in ("all", "loadgen"):
         for n, c in loadgen_phase(dev, card).items():
-            launches[n] += c
-        for r in records:
-            if r["name"] in PATH_KERNELS["randtopk"]:
-                r["launches_from"] = (
-                    "serving randtopk run + " if args.phase == "all"
-                    else "") + "the loadgen phase's two kernel runs"
+            add(n, c, "the loadgen phase's two kernel runs")
+    if args.phase in ("all", "families"):
+        counts = families_phase(dev, card)
+        for n in launches:
+            if counts[n]:
+                add(n, counts[n], "the families phase's kernel serves and "
+                                  "granite-moe training")
 
     for r in records:
         r["launches"] = launches[r["name"]]
+        r["launches_from"] = " + ".join(sources[r["name"]]) or \
+            "no path run in this invocation"
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_from", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

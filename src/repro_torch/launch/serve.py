@@ -13,6 +13,17 @@ Table-2 analytic prediction. Runs on the card unless `--device cpu`:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
         --smoke --device cpu --clients 2 --gen 4 --split quant
 
+    python -m repro_torch.launch.serve --arch qwen3-8b --clients 2 \
+        --prompt-len 4 --gen 8 --split randtopk --k 64
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-1b-a400m --smoke --device cpu --clients 2 \
+        --gen 6 --split topk --k 8
+
+`--arch` takes the dense (yi-6b, qwen3-8b, granite-3-8b, phi3-mini-3.8b)
+and mixture-of-experts (granite-moe-1b-a400m, qwen3-moe-235b-a22b)
+configurations.
+
 Weights are random, drawn from `--seed`. `--trace OUT.json` records the
 frame lifecycle (Chrome-trace JSON, loadable in https://ui.perfetto.dev).
 

@@ -16,7 +16,7 @@ from repro_torch.models.config import ArchConfig, Runtime
 from repro_torch.optim.adamw import adamw_update, tree_leaves, tree_map
 from repro_torch.split import model as split_model
 
-AUX_WEIGHT = 0.01  # MoE balance-loss weight (no dense-family aux loss)
+AUX_WEIGHT = 0.01  # MoE balance-loss weight (the dense family has none)
 
 
 def loss_fn(params, cfg: ArchConfig, rt: Runtime, batch, generator):

@@ -6,10 +6,18 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
         --device cpu --steps 5 --split randtopk --k 16
 
+    python -m repro_torch.launch.train --arch qwen3-8b --layers 4 \
+        --steps 10 --batch 4 --seq 256 --split randtopk --k 64
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch granite-moe-1b-a400m --smoke --device cpu --steps 5 \
+        --split randtopk --k 16
+
 Runs a real training loop: synthetic token batches drawn on the device,
 the split model with the cut-layer codec at `--cut` (default n_layers // 2),
-AdamW. Weights are random, drawn from `--seed`. The reference's `--mesh`
-and `--ckpt-dir` are not ported.
+AdamW; a mixture-of-experts model adds its balance loss (weight
+`launch.steps.AUX_WEIGHT`). Weights are random, drawn from `--seed`. The
+reference's `--mesh` and `--ckpt-dir` are not ported.
 """
 from __future__ import annotations
 
@@ -97,7 +105,7 @@ def main(argv=None):
         if step % args.log_every == 0 or step == args.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             print(f"step {step:5d} loss={m['loss']:.4f} ce={m['ce']:.4f} "
-                  f"gnorm={m['grad_norm']:.2f} "
+                  f"aux={m['aux']:.4f} gnorm={m['grad_norm']:.2f} "
                   f"({time.perf_counter() - t0:.1f}s)")
     if dev.type == "cuda":
         print(f"peak device memory: "

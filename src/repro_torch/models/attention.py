@@ -1,5 +1,6 @@
 """GQA attention: full-sequence (training / prefill) self-attention, and
-one-token decode against a rolling KV cache.
+one-token decode against a rolling KV cache; with `cfg.qk_norm`, q and k
+are RMS-normed over head_dim after the projection and before RoPE.
 
 For decode, the reference vmaps one session at a time, each with its own
 scalar position; here the sessions are a batch dimension written out, so
@@ -24,13 +25,17 @@ def init_attention(generator, cfg: ArchConfig, n_layers: int, device=None):
         return common.normal_init(generator, (L,) + shape, dt, scale,
                                   device=device)
 
-    return {
+    p = {
         "norm": {"scale": torch.ones((L, d), dtype=dt, device=device)},
         "wq": w((d, hq * hd)),
         "wk": w((d, hkv * hd)),
         "wv": w((d, hkv * hd)),
         "wo": w((hq * hd, d), 0.02 / max(1, cfg.n_layers) ** 0.5),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": torch.ones((L, hd), dtype=dt, device=device)}
+        p["k_norm"] = {"scale": torch.ones((L, hd), dtype=dt, device=device)}
+    return p
 
 
 def init_kv_cache(cfg: ArchConfig, rows: int, n_layers: int, max_len: int,
@@ -74,13 +79,17 @@ def _causal_mask(q_pos, kv_pos, window: int):
 
 def project_qkv(p, cfg: ArchConfig, x, positions):
     """q (B, S, Hq, hd), k and v (B, S, Hkv, hd) of x (B, S, d) at
-    `positions` (B or 1, S), RoPE applied to q and k: exactly the operands
-    `full_attention` attends with (the reference's `_project_qkv`)."""
+    `positions` (B or 1, S), qk-normed (`cfg.qk_norm`) and with RoPE
+    applied to q and k: exactly the operands `full_attention` attends with,
+    and the decode's new token (the reference's `_project_qkv`)."""
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p["wq"].to(x.dtype)).reshape(B, S, hq, hd)
     k = (x @ p["wk"].to(x.dtype)).reshape(B, S, hkv, hd)
     v = (x @ p["wv"].to(x.dtype)).reshape(B, S, hkv, hd)
+    if cfg.qk_norm:
+        q = common.rms_norm(q, p["q_norm"]["scale"])
+        k = common.rms_norm(k, p["k_norm"]["scale"])
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -117,13 +126,9 @@ def decode_attention(p, cfg: ArchConfig, x_tok, k_cache, v_cache, pos,
     attend over their old cache; their outputs are discarded by the caller.
     Returns y (B, 1, d)."""
     B = x_tok.shape[0]
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hq, hd = cfg.n_heads, cfg.hd
     size = k_cache.shape[1]
-    q = (x_tok @ p["wq"].to(x_tok.dtype)).reshape(B, 1, hq, hd)
-    k_new = (x_tok @ p["wk"].to(x_tok.dtype)).reshape(B, 1, hkv, hd)
-    v_new = (x_tok @ p["wv"].to(x_tok.dtype)).reshape(B, 1, hkv, hd)
-    q = common.apply_rope(q, pos[:, None], cfg.rope_theta)
-    k_new = common.apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    q, k_new, v_new = project_qkv(p, cfg, x_tok, pos[:, None])
     slot = pos % size
     if rows is None:
         rows = torch.arange(B, device=pos.device)

@@ -1,8 +1,9 @@
 """Architecture, cut-layer and runtime configuration dataclasses (the
 reference's field names and defaults; dtypes are named by string and
-resolved to torch). `Runtime` keeps only the knobs the port's full-sequence
-forward reads; the reference's mesh, chunking and int8-KV knobs have no
-reader in the port yet."""
+resolved to torch). `ArchConfig` holds the fields of the families the port
+runs (dense, with or without qk-norm, and mixture-of-experts); `Runtime`
+keeps only the knobs the port's forward reads. The reference's mesh,
+chunking and int8-KV knobs have no reader in the port yet."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,10 +35,10 @@ class SplitConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """Dense-family architecture fields (the only family ported so far)."""
+    """Architecture fields of the dense and moe families."""
 
     name: str
-    family: str                     # dense
+    family: str                     # dense | moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -45,7 +46,11 @@ class ArchConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0               # 0 -> d_model // n_heads
+    qk_norm: bool = False           # RMS norm of q and k over head_dim
     rope_theta: float = 1e6
+    # --- MoE ---
+    n_experts: int = 0
+    topk_experts: int = 0
     sliding_window: int = 0         # 0 = full causal attention
     param_dtype: str = "float32"
     dtype: str = "float32"
@@ -71,7 +76,6 @@ class ArchConfig:
         return torch_dtype(self.param_dtype)
 
 
-
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     """Execution knobs threaded through the full-sequence forward."""
@@ -81,3 +85,4 @@ class Runtime:
                                     # (torch.utils.checkpoint per layer; the
                                     # cut boundary stays outside it)
     attn_chunk: int = 1024          # query-chunk length for long sequences
+    moe_capacity: float = 1.25      # expert capacity factor (models.moe)

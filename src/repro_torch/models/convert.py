@@ -8,7 +8,10 @@ the same operands:
 
     embed (padded_vocab, d), final_norm.scale (d,), unembed (d, padded_vocab)
     layers.attn.{norm.scale, wq, wk, wv, wo}   (L, ...)
-    layers.mlp.{norm.scale, w_gate, w_up, w_down}   (L, ...)
+    layers.attn.{q_norm.scale, k_norm.scale}   (L, hd), with cfg.qk_norm
+    layers.mlp.{norm.scale, w_gate, w_up, w_down}   (L, ...), dense
+    layers.moe.{norm.scale (L, d), router (L, d, E),
+                w_gate, w_up (L, E, d, ff), w_down (L, E, ff, d)}, moe
 
 `parties_from_jax(np_bottom, np_top, device)` does the same for the
 tabular trainer's two parties (`split.tabular`): flat dicts of f32
@@ -19,12 +22,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig
 
 _KEYS = {
     "attn": ("norm", "wq", "wk", "wv", "wo"),
     "mlp": ("norm", "w_gate", "w_up", "w_down"),
+    "moe": ("norm", "router", "w_gate", "w_up", "w_down"),
 }
+_NORMS = ("norm", "q_norm", "k_norm")
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -37,19 +43,21 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 
 def params_from_jax(np_params, cfg: ArchConfig, device) -> dict:
-    """The reference's dense-family tree (numpy leaves) -> port weights in
-    `cfg.param_dtype` on `device`."""
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r} is not ported yet")
+    """The reference's dense- or moe-family tree (numpy leaves) -> port
+    weights in `cfg.param_dtype` on `device`."""
+    transformer.check_family(cfg)
     dt = cfg.pdtype()
 
     def conv(a):
         return _tensor(a, dt, device)
 
+    ffn = "moe" if cfg.family == "moe" else "mlp"
+    qk = ("q_norm", "k_norm") if cfg.qk_norm else ()
+    blocks = {"attn": _KEYS["attn"] + qk, ffn: _KEYS[ffn]}
     layers = {}
-    for block, keys in _KEYS.items():
+    for block, keys in blocks.items():
         src = np_params["layers"][block]
-        layers[block] = {k: ({"scale": conv(src[k]["scale"])} if k == "norm"
+        layers[block] = {k: ({"scale": conv(src[k]["scale"])} if k in _NORMS
                              else conv(src[k])) for k in keys}
     return {
         "embed": conv(np_params["embed"]),

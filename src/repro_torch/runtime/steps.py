@@ -12,7 +12,9 @@ layers [cut, L) — each party touches only its own range, in place.
   * arena top step (server): the cut rows of `xbuf` -> layers [cut, L) ->
     LM head -> greedy token, over the WHOLE arena with fixed shapes (rows
     are independent, so a row's numbers do not depend on which other rows
-    are active); only the active rows' KV and positions are written.
+    are active; a moe layer routes each row as its own group of one
+    token, as the reference's vmapped per-session step does); only the
+    active rows' KV and positions are written.
   * fused decode step: the flush payload decoded into `xbuf[slots]`, then
     the arena top step — one call per single-meta flush.
 """

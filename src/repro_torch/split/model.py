@@ -14,7 +14,8 @@ from repro_torch.split import protocol
 
 def forward(params, cfg: ArchConfig, rt: Runtime, batch, *, generator=None):
     """Bottom layers -> encode/decode at the cut -> top layers. Returns
-    (logits, aux) where aux folds the L1 cut-activation penalty.
+    (logits, aux) where aux folds the MoE balance loss of both halves and
+    the L1 cut-activation penalty.
 
     The cut runs outside any recomputed (remat) layer, so RandTopK draws
     its noise from `generator` once per forward."""

@@ -1,7 +1,7 @@
 """Shared end-to-end check of the port's streaming serve against the JAX
-reference, used by `test_torch_serving.py` and `test_torch_serving_dense.py`:
-yi-6b SMOKE in f32, the same config, seed, weights and prompts on both
-sides."""
+reference, used by `test_torch_serving.py`, `test_torch_serving_dense.py`
+and `test_torch_families.py`: a SMOKE config in f32 (yi-6b unless named),
+the same config, seed, weights and prompts on both sides."""
 import jax
 import numpy as np
 
@@ -18,21 +18,21 @@ from repro_torch.split import protocol
 N_CLIENTS, PROMPT_LEN, GEN, SEED = 3, 3, 4, 0
 
 
-def weights():
+def weights(arch="yi-6b"):
     """(reference params, the port's converted copy)."""
-    jp = jtr.init_model(jax.random.key(SEED), jconfigs.get("yi-6b",
-                                                           smoke=True))
+    jp = jtr.init_model(jax.random.key(SEED), jconfigs.get(arch, smoke=True))
     tp = params_from_jax(jax.tree.map(np.asarray, jp),
-                         configs.get("yi-6b", smoke=True), "cpu")
+                         configs.get(arch, smoke=True), "cpu")
     return jp, tp
 
 
-def assert_serving_matches_reference(jp, tp, comp: str, k: int = 16):
+def assert_serving_matches_reference(jp, tp, comp: str, k: int = 16,
+                                     arch="yi-6b"):
     """Served tokens and every client's measured bytes equal the
     reference's; the server never densifies a payload on the host."""
     split = dict(cut_layer=1, compressor=comp, k=k)
-    jcfg = jconfigs.get("yi-6b", smoke=True).with_(split=JSplit(**split))
-    cfg = configs.get("yi-6b", smoke=True).with_(split=SplitConfig(**split))
+    jcfg = jconfigs.get(arch, smoke=True).with_(split=JSplit(**split))
+    cfg = configs.get(arch, smoke=True).with_(split=SplitConfig(**split))
     kw = dict(n_clients=N_CLIENTS, prompt_len=PROMPT_LEN, gen=GEN, seed=SEED)
     want = jengine.run_streaming(jcfg, params=jp, **kw)
     # the reference draws its prompts with jax.random (engine.py:172-173)
