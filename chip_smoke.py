@@ -93,7 +93,12 @@ Phases, each fatal on failure:
      their synchronized step times, tokens/s, peak memory, and the busy
      share from a `torch.profiler` trace of 3 more; then 2 steps each
      with randtopk_mask, quant and size_reduction, so every decode kind
-     of the path reaches `decode_rows`;
+     of the path reaches `decode_rows`; then a checkpoint round trip
+     through `launch.train.main --ckpt-dir`: granite-moe-1b-a400m at
+     full width, depth cut from 24 to 2 layers (cut at 1), batch 4 x seq
+     256, randtopk k 64, 3 steps with `--ckpt-every 3` and resumed to 6
+     = 6 uninterrupted steps bit for bit (printed losses, final params),
+     with the checkpoint's size and its save and restore seconds;
   8. the paper's two-party tabular trainer (`split.tabular.train`, the
      `SplitSpec` defaults, batch 128) for one epoch with randtopk, with
      the kernels and with the plain versions: its byte assertion holds
@@ -115,7 +120,16 @@ Phases, each fatal on failure:
      for one randtopk client (the Eq. (7) mask and the fused encode); wall
      time, steps
      per second and the busy share from a `torch.profiler` trace of a
-     rerun;
+     rerun; then under seeded chaos with the kernels built, ARQ 0.3 s x
+     40 retries: one randtopk client under `FaultPlan(seed=7)` and under
+     the heavy-corruption plan (ARQ 0.2 s x 60; reconnects > 0) equals
+     the clean card run bit for bit (losses, test accuracy, final
+     weights) with the clean run's launches (one Eq. (7) mask and one
+     fused encode a logical step, whatever the retransmits); four
+     randtopk_mask clients under chaos complete every sync step; each
+     run's registry bytes agree with its byte accounting; and a traced
+     clean run gives one `client.encode` and one `server.queue_wait`
+     span a step, with their median host ms;
  11. open-loop serving of yi-6b FULL (32 layers, cut at 16, bf16):
      (a) 6 clients x (4 + 8) tokens, randtopk k 64, max_batch 4, at
      capacity 2 with the kernels and with the plain versions and at
@@ -153,7 +167,8 @@ Phases, each fatal on failure:
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, for the serve's two kernels
 plus the loadgen phase's kernel runs, plus the families phase's serves
-and training, or in its check's own loop for the
+and training, plus the fedtrain phase's chaos runs and launch.train's
+resumed checkpoint run, or in its check's own loop for the
 five no path runs, its largest difference from its plain version,
 the CUDA-event times of kernel, plain version and library call at its
 path's shapes, and the card's bound for the same work), the loop's and
@@ -2123,6 +2138,101 @@ def smoke_train_cpu_vs_card(dev, n_steps=3, rtol=1e-5):
           f"{losses['cuda']} vs CPU {losses['cpu']} (rtol {rtol})")
 
 
+CKPT_ARCH, CKPT_LAYERS, CKPT_CUT = "granite-moe-1b-a400m", 2, 1
+CKPT_STOP, CKPT_STEPS = 3, 6
+
+
+def _du(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def train_ckpt_phase(dev):
+    """`launch.train.main` with `--ckpt-dir`: granite-moe-1b-a400m at full
+    width (d 1024, 32 experts, top-8), depth cut from 24 to 2 layers (the
+    cut at 1), batch 4 x seq 256, randtopk k 64: 3 steps with a checkpoint
+    every 3, then resumed to 6, equal 6 uninterrupted steps bit for bit
+    (printed losses and final params). The checkpoints go to a temporary
+    directory, removed afterwards; `store.save` and `store.restore` are
+    timed where `main` calls them."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.adamw import tree_leaves
+
+    timed = {"save": [], "restore": []}
+    orig = {k: getattr(store, k) for k in timed}
+
+    def timing(name):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = orig[name](*a, **kw)
+            timed[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def run(steps, ckpt=None):
+        argv = ["--arch", CKPT_ARCH, "--layers", str(CKPT_LAYERS), "--cut",
+                str(CKPT_CUT), "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ), "--split", "randtopk", "--k", str(K),
+                "--steps", str(steps), "--log-every", "1"]
+        if ckpt:
+            argv += ["--ckpt-dir", ckpt, "--ckpt-every", str(CKPT_STOP)]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            params = train_cli.main(argv)
+        torch.cuda.synchronize()
+        out = buf.getvalue()
+        return params, out, re.findall(r"step +(\d+) (loss=\S+ ce=\S+ "
+                                       r"aux=\S+ gnorm=\S+)", out)
+
+    full, out, want = run(CKPT_STEPS)
+    print(out.splitlines()[0])
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        for k in timed:
+            setattr(store, k, timing(k))
+        _, _, first = run(CKPT_STOP, ckpt)
+        nbytes = _du(ckpt)
+        _lib.reset_launch_counts()
+        resumed, out_b, second = run(CKPT_STEPS, ckpt)
+        counts = _lib.launch_counts()
+    finally:
+        for k, f in orig.items():
+            setattr(store, k, f)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if f"restored step {CKPT_STOP}" not in out_b:
+        fail(f"launch.train did not resume from step {CKPT_STOP}")
+    if first + second != want or len(want) != CKPT_STEPS:
+        fail(f"launch.train stopped at {CKPT_STOP} and resumed: "
+             f"{first + second}, uninterrupted: {want}")
+    off = [i for i, (a, b) in enumerate(zip(tree_leaves(resumed),
+                                            tree_leaves(full)))
+           if not torch.equal(a, b)]
+    if off:
+        fail(f"launch.train resumed params differ in leaves {off}")
+    if counts["randtopk_mask"] != CKPT_STEPS - CKPT_STOP:
+        fail(f"launch.train resumed run: launches {counts}")
+    print(f"launch.train {CKPT_ARCH} ({CKPT_LAYERS} of 24 layers, full "
+          f"width), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, randtopk k {K}: "
+          f"stopped at step {CKPT_STOP} with --ckpt-every {CKPT_STOP} and "
+          f"resumed to {CKPT_STEPS} = {CKPT_STEPS} uninterrupted steps, bit "
+          f"for bit (losses {[w[1] for w in want]}, every final param); "
+          f"the resumed run's launches {counts}")
+    print(f"launch.train checkpoint at step {CKPT_STOP} (params, opt, rng): "
+          f"{nbytes} B on disk; store.save {['%.3f' % t for t in timed['save']]}"
+          f" s (3 files a checkpoint, 2 checkpoints), store.restore "
+          f"{['%.3f' % t for t in timed['restore']]} s (params, opt, rng)")
+    return counts
+
+
 # the codec kernels of a fedtrain step: up, the Eq. (7) mask and the
 # fused encode (gather and bit-pack in one launch); at the label owner the
 # decode; down, for sparse kinds, the scatter onto the support
@@ -2131,6 +2241,13 @@ FED_KERNELS = {"randtopk": ("randtopk_mask", "encode_sections",
                "randtopk_mask": ("randtopk_mask", "encode_sections",
                                  "decode_rows")}
 FED_EPOCHS_N4, FED_CKPT_EVERY, FED_STOP = 2, 20, 40
+# the reference tests' fault plans and ARQ settings (`tests/test_faults.py`)
+CHAOS_PLAN = dict(corrupt=0.06, truncate=0.03, drop=0.05, duplicate=0.05,
+                  reorder=0.03, rechunk=0.15, max_faults=30)
+ARQ = dict(retry_timeout=0.3, max_retries=40)
+HEAVY_PLAN = dict(corrupt=0.25, truncate=0.08, drop=0.1, duplicate=0.1,
+                  reorder=0.05, rechunk=0.2, max_faults=60)
+HEAVY_ARQ = dict(retry_timeout=0.2, max_retries=60)
 
 
 def _fed_bytes_ok(res, what):
@@ -2163,12 +2280,168 @@ def _fed_same(a, b, what):
         fail(f"fedtrain {what}: final weights differ in {off}")
 
 
+def _reg(res, name, **labels):
+    """One series of a run's `metrics` snapshot: a counter's value, a
+    histogram's sample count."""
+    for s in res["metrics"][name]["series"]:
+        if s["labels"] == labels:
+            return s.get("value", s.get("count"))
+    fail(f"no {name}{labels} series in the run's registry")
+
+
+def _fed_registry_bytes(res, clean, what):
+    """The registry's byte counters against the result's byte accounting.
+    The client counts a step's frame once in its registry and every
+    retransmission in its `SessionStats`; the server counts each frame it
+    accepted in both."""
+    cs, ss = res["client_stats"], res["server_stats"]
+    checks = {
+        "client payload up (registry) = clean payload_bytes_up":
+            (_reg(res, "payload_bytes_total", party="client",
+                  direction="up"), clean["payload_bytes_up"]),
+        "server payload up (registry) = server stats":
+            (_reg(res, "payload_bytes_total", party="server",
+                  direction="up"), sum(s["payload_bytes_up"] for s in ss)),
+        "server wire down (registry) = server stats":
+            (_reg(res, "wire_bytes_total", party="server",
+                  direction="down"), sum(s["bytes_down"] for s in ss)),
+    }
+    if res is clean:
+        checks["client wire down (registry) = payload_bytes_down + "
+               "framing"] = (
+            _reg(res, "wire_bytes_total", party="client", direction="down"),
+            res["payload_bytes_down"]
+            + sum(s["header_bytes_down"] for s in cs))
+    off = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if off:
+        fail(f"fedtrain {what}: registry bytes disagree: {off}")
+    print(f"fedtrain {what}: registry bytes agree: " + "; ".join(
+        f"{k} ({a})" for k, (a, _) in checks.items()))
+
+
+def fedtrain_chaos(spec, ds, clean, clean_counts, spec4, kw4, full):
+    """Fedtrain under seeded chaos on the card, with the kernels already
+    built (their first launch would spend the 0.3 s retransmit timer):
+    (c) one randtopk client under `FaultPlan(seed=7)`, ARQ 0.3 s x 40, =
+    the clean card run bit for bit, with the clean run's launches per
+    logical step; (d) the heavy-corruption plan: reconnects and the clean
+    losses; (e) four randtopk_mask clients under chaos complete every
+    sync step, one Eq. (7) mask and one fused encode per logical step;
+    (f) a traced clean run: the median host ms of the spans. Returns the
+    launch counts of the three chaos runs, summed."""
+    import torch
+    from repro_torch.fedtrain import run_fedtrain
+    from repro_torch.kernels import _lib
+    from repro_torch.obs import trace
+    from repro_torch.testing import (DESTRUCTIVE_FAULTS, FaultInjector,
+                                     FaultPlan)
+
+    _fed_registry_bytes(clean, clean, "N=1 clean")
+    total = {}
+    base = dict(n_clients=1, epochs=1, batch=128, seed=0, device="cuda")
+    for name, plan, arq in (
+            ("N=1 chaos", dict(seed=7, **CHAOS_PLAN), ARQ),
+            ("N=1 heavy chaos", dict(seed=3, **HEAVY_PLAN), HEAVY_ARQ)):
+        inj = FaultInjector(FaultPlan(**plan))
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_fedtrain(spec, ds, wrap_endpoint=inj, **arq, **base)
+        wall = time.perf_counter() - t0
+        counts = _lib.launch_counts()
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        fc, injected = res["fault_counters"], inj.injected()
+        if not sum(injected[f] for f in DESTRUCTIVE_FAULTS):
+            fail(f"fedtrain {name}: no destructive fault injected "
+                 f"({dict(injected)})")
+        if not fc["replays"] + fc["duplicates"] + fc["reconnects"]:
+            fail(f"fedtrain {name}: no recovery ran ({fc})")
+        if name == "N=1 heavy chaos" and not fc["reconnects"]:
+            fail(f"fedtrain {name}: no reconnect ({fc})")
+        if res["losses"] != clean["losses"]:
+            fail(f"fedtrain {name}: losses differ from the clean card run")
+        off = [n for x, y in zip(res["bottoms"] + [res["top"]],
+                                 clean["bottoms"] + [clean["top"]])
+               for n in x if not torch.equal(x[n], y[n])]
+        if off or res["mean_test_acc"] != clean["mean_test_acc"]:
+            fail(f"fedtrain {name}: final weights differ in {off} (test acc "
+                 f"{res['mean_test_acc']} vs {clean['mean_test_acc']})")
+        # a replay resends bytes and the server re-acks from its cache:
+        # the clean run's launches, one mask and one encode a logical step
+        steps = res["steps"]
+        if counts != clean_counts or \
+                not counts["randtopk_mask"] == counts["encode_sections"] \
+                == steps:
+            fail(f"fedtrain {name}: launches {counts} for {steps} logical "
+                 f"steps; the clean run's {clean_counts}")
+        if res["payload_bytes_up"] < clean["payload_bytes_up"] or \
+                res["analytic_bytes_up"] != clean["analytic_bytes_up"]:
+            fail(f"fedtrain {name}: bytes up {res['payload_bytes_up']} "
+                 f"measured, {res['analytic_bytes_up']} analytic; clean "
+                 f"{clean['payload_bytes_up']}, "
+                 f"{clean['analytic_bytes_up']}")
+        print(f"fedtrain {name} ({steps} steps, retry "
+              f"{arq['retry_timeout']} s x {arq['max_retries']}): injected "
+              f"{dict(injected)}; fault counters {fc}; losses, test acc "
+              f"and final weights = the clean card run, bit for bit; "
+              f"launches {counts} (= the clean run's); "
+              f"{res['payload_bytes_up']} B up / "
+              f"{res['payload_bytes_down']} B down measured (clean "
+              f"{clean['payload_bytes_up']} / "
+              f"{clean['payload_bytes_down']}); wall {wall:.3f} s "
+              f"(clean {clean['wall_s']:.3f})")
+        _fed_registry_bytes(res, clean, name)
+
+    inj = FaultInjector(FaultPlan(seed=21, **CHAOS_PLAN))
+    _lib.reset_launch_counts()
+    res = run_fedtrain(spec4, ds, wrap_endpoint=inj, **ARQ, **kw4)
+    counts = _lib.launch_counts()
+    for n, c in counts.items():
+        total[n] += c
+    syncs = [[s for s, _ in x] for x in res["losses"]]
+    n_sync = sum(map(len, syncs))
+    if res["steps"] != full["steps"] or \
+            syncs != [[s for s, _ in x] for x in full["losses"]]:
+        fail(f"fedtrain N=4 chaos: {res['steps']} steps, sync steps "
+             f"{[len(x) for x in syncs]} against the clean run's")
+    if not counts["randtopk_mask"] == counts["encode_sections"] == n_sync:
+        fail(f"fedtrain N=4 chaos: launches {counts} for {n_sync} sync "
+             f"steps")
+    print(f"fedtrain N=4 randtopk_mask chaos ({res['steps']} steps, "
+          f"{n_sync} sync steps): completed every client's sync steps; "
+          f"injected {dict(inj.injected())}; fault counters "
+          f"{res['fault_counters']}; launches {counts}; mean test acc "
+          f"{res['mean_test_acc']} (clean {full['mean_test_acc']}); wall "
+          f"{res['wall_s']:.3f} s")
+    _fed_registry_bytes(res, full, "N=4 chaos")
+
+    tracer = trace.Tracer()
+    res = run_fedtrain(spec, ds, tracer=tracer, **base)
+    if res["losses"] != clean["losses"]:
+        fail("fedtrain traced run: losses differ from the clean run")
+    for span, n in ((trace.SPAN_CLIENT_ENCODE, res["steps"]),
+                    (trace.SPAN_QUEUE_WAIT, res["steps"])):
+        ms = [e["dur"] * 1e3 for e in tracer.events()
+              if e["name"] == span]
+        if len(ms) != n:
+            fail(f"fedtrain traced run: {len(ms)} {span} spans for {n} "
+                 f"steps")
+        print(f"fedtrain N=1 traced: {span} x {n}, host ms median "
+              f"{statistics.median(ms):.4f}, min {min(ms):.4f}, max "
+              f"{max(ms):.4f}")
+    print(f"fedtrain N=1 traced: queue_wait_ms count "
+          f"{_reg(res, 'queue_wait_ms')} = frames up "
+          f"{_reg(res, 'frames_total', party='server', direction='up')}")
+    return total
+
+
 def fedtrain_phase(dev):
     """Federated split training over the wire on the card, at the tabular
     phase's paper widths: (a) one client with randtopk against
     `tabular.train` on the card; (b) four clients with randtopk_mask, the
     adaptive schedule and 4 local steps, stopped at step 40 and resumed
-    from a checkpoint, against the uninterrupted run."""
+    from a checkpoint, against the uninterrupted run; then the same
+    under seeded chaos (`fedtrain_chaos`)."""
     import shutil
     import tempfile
 
@@ -2271,9 +2544,11 @@ def fedtrain_phase(dev):
         print(f"fedtrain N=4 under torch.profiler: device {dev_ms} ms of "
               f"{wall_ms} ms wall, card busy {dev_ms / wall_ms * 100:.2f}%"
               f"; the rerun trained the same weights")
+    chaos_counts = fedtrain_chaos(spec, ds, fed, counts, spec4, kw, full)
     if protocol.HOST_DENSIFY_COUNT.value != densify0:
         fail("fedtrain densified a payload on the host")
     print("fedtrain: HOST_DENSIFY_COUNT unchanged (0 host densifications)")
+    return chaos_counts
 
 
 # ---------------------------------------------------------------------------
@@ -2281,9 +2556,6 @@ def fedtrain_phase(dev):
 # ---------------------------------------------------------------------------
 
 LG_CLIENTS, LG_PROMPT, LG_GEN = 6, 4, 8     # (a), (b): 6 x (4 + 8) tokens
-CHAOS_PLAN = dict(corrupt=0.06, truncate=0.03, drop=0.05, duplicate=0.05,
-                  reorder=0.03, rechunk=0.15, max_faults=30)
-ARQ = dict(retry_timeout=0.3, max_retries=40)
 LG_RATES = {"static": (12.0, 24.0),          # the reference's `_mini`
             # raised from (12, 24), where the ladder moved 6 times but
             # reached only (32, 8) at d 4096 (`--phase predict`), until a
@@ -2832,10 +3104,15 @@ def main(argv=None) -> int:
         add("topk_mask_threshold", tabular_phase(dev)["topk_mask_threshold"],
             "tabular trainer's randtopk run (its evaluation)")
         smoke_train_cpu_vs_card(dev)
+        for n, c in train_ckpt_phase(dev).items():
+            if n in launches and c:
+                add(n, c, "launch.train's resumed checkpoint run")
         print(f"training phases: {time.perf_counter() - t0:.1f} s")
     if args.phase in ("all", "fedtrain"):
         t0 = time.perf_counter()
-        fedtrain_phase(dev)
+        for n, c in fedtrain_phase(dev).items():
+            if n in launches and c:
+                add(n, c, "the fedtrain phase's three chaos runs")
         print(f"fedtrain phase: {time.perf_counter() - t0:.1f} s")
     if args.phase in ("all", "loadgen"):
         for n, c in loadgen_phase(dev, card).items():

@@ -26,13 +26,25 @@ initial bottom weights (`tabular.init_parties`, unless weights are given)
 and then every sync step's RandTopK draws, the draw chain of
 `split.tabular.train`, so one client reproduces that trainer exactly.
 
-The port's copy of the reference's `fedtrain/client.py` on a clean wire:
-the stop-and-wait loop is `runtime.arq.ArqClientMixin` with retransmission
-off (`retry_timeout = None`) and no reconnect path, and the tracer spans
-and registry counters are not ported yet. All trainer state (params,
-optimizer moments, the generator's state, EF residual, stale gradient,
-schedule state, byte counters) round-trips through `state()` /
-`load_state` for `checkpoint.store`.
+Recovery is the stop-and-wait ARQ loop of `runtime.arq.ArqClientMixin`
+(shared with the serving client): each sync step's frame carries the step
+as sequence number, the grad reply echoes it, and the client retransmits
+on timeout (`retry_timeout`, at most `max_retries` times), drops stale
+duplicate replies, and reconnects through the engine's `reconnect` and
+replays on an `error` frame or a corrupt downstream. A replay resends the
+encoded frame's bytes and never encodes again, so the generator advances
+once per logical step and the server's dedup by seq keeps the top
+optimizer from stepping twice: a faulted run trains the clean run's
+weights. With `retry_timeout=None` the wait is one blocking receive.
+
+Instruments are the reference's: a `client.encode` span around the
+bottom forward and the encode (on the card it times host dispatch up to
+the packed sections' copy to the host, which waits for the launch; the
+span itself never synchronizes the card), and frames and bytes each way
+in the run's registry. All trainer state (params, optimizer moments, the
+generator's state, EF residual, stale gradient, schedule state, byte
+counters) round-trips through `state()` / `load_state` for
+`checkpoint.store`.
 """
 from __future__ import annotations
 
@@ -46,6 +58,7 @@ from repro_torch.core import compressors as C, wire
 from repro_torch.fedtrain.async_policy import AsyncPolicy
 from repro_torch.fedtrain.schedule import KScheduler
 from repro_torch.kernels.encode import ops as enc_ops
+from repro_torch.obs.trace import NULL_TRACER, SPAN_CLIENT_ENCODE, session_tid
 from repro_torch.optim.adamw import adamw_init, adamw_update
 from repro_torch.runtime.arq import ArqClientMixin
 from repro_torch.runtime.session import SessionStats
@@ -61,20 +74,24 @@ class TrainingClient(ArqClientMixin):
     """One feature owner driving its training shard over the wire.
 
     `bottom` = starting weights (else drawn from `seed`); `device` is where
-    the bottom model trains."""
+    the bottom model trains; `registry` is the run's (else the mixin's
+    process default)."""
 
     _reply_kind = wire.FRAME_GRAD
-    retry_timeout = None                # clean wire: one blocking wait
-    max_retries = 0
-    reconnect = None
 
     def __init__(self, cid: int, spec: tabular.SplitSpec, x_shard: np.ndarray,
                  batch_ids: List[np.ndarray], endpoint, *, seed: int,
                  device, bottom=None, scheduler: Optional[KScheduler] = None,
                  policy: Optional[AsyncPolicy] = None, ef: bool = False,
                  barrier=None, ckpt_every: int = 0,
-                 reply_timeout: float = 120.0):
+                 reply_timeout: float = 120.0,
+                 retry_timeout: Optional[float] = None,
+                 max_retries: int = 16, reconnect=None,
+                 tracer=NULL_TRACER, registry=None):
         self.id = cid
+        self.tracer = tracer
+        if registry is not None:
+            self.registry = registry
         self.spec = spec
         self.device = torch.device(device)
         self.x = np.asarray(x_shard, np.float32)
@@ -86,6 +103,9 @@ class TrainingClient(ArqClientMixin):
         self.barrier = barrier
         self.ckpt_every = ckpt_every
         self.reply_timeout = reply_timeout
+        self.retry_timeout = retry_timeout  # None -> never retransmit
+        self.max_retries = max_retries
+        self.reconnect = reconnect          # () -> fresh endpoint
 
         self.start_step = 0
         self.end_step = len(batch_ids)
@@ -107,6 +127,18 @@ class TrainingClient(ArqClientMixin):
         self._stale = torch.zeros((batch, spec.cut_dim), device=self.device)
         self._has_stale = False
         self._ef_resid = torch.zeros((spec.cut_dim,), device=self.device)
+        # pre-bound hot-path instruments (one registry lookup per metric)
+        reg = self.registry
+        self._m_frames_up = reg.counter("frames_total", party="client",
+                                        direction="up")
+        self._m_payload_up = reg.counter("payload_bytes_total",
+                                         party="client", direction="up")
+        self._m_framing_up = reg.counter("framing_bytes_total",
+                                         party="client", direction="up")
+        self._m_frames_down = reg.counter("frames_total", party="client",
+                                          direction="down")
+        self._m_bytes_down = reg.counter("wire_bytes_total", party="client",
+                                         direction="down")
 
     # -- the two halves -------------------------------------------------------
 
@@ -167,6 +199,8 @@ class TrainingClient(ArqClientMixin):
         # are the Table-2 bwd column
         self.stats.count_down_frame(reply.header_nbytes,
                                     reply.payload_nbytes)
+        self._m_frames_down.inc()
+        self._m_bytes_down.inc(reply.nbytes)
 
     def _sync_step(self, step: int, xb):
         spec = self.spec
@@ -177,12 +211,17 @@ class TrainingClient(ArqClientMixin):
             k, bits = spec.k, spec.quant_bits
         self.sync_count += 1
         comp = self._compressor(min(k, d), bits)
-        p, body = self._encode(comp, xb)
+        with self.tracer.span(SPAN_CLIENT_ENCODE, tid=session_tid(self.id),
+                              step=step):
+            p, body = self._encode(comp, xb)
         fb = wire.encode_payload_frame_from_bytes(self.id, step, p.meta,
                                                   p.batch_shape, body)
         self.endpoint.send(fb)
         hb = wire.payload_frame_header_nbytes(p)
         self.stats.count_up(hb, len(fb) - hb)
+        self._m_frames_up.inc()
+        self._m_payload_up.inc(len(fb) - hb)
+        self._m_framing_up.inc(hb)
         # L1's training transport is dense; its fwd_bits models the
         # worst-case nnz encoding, so account what actually crossed
         fwd_bits = (d * C.FLOAT_BITS if isinstance(comp, C.L1Reg)

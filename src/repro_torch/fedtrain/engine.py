@@ -23,10 +23,15 @@ configuration resumes from the latest step: parameters, optimizer moments,
 generator states, EF residuals, stale gradients, schedule state and byte
 counters. `stop_after_steps` stands in for a kill mid-run.
 
-The port's copy of the reference's `fedtrain/engine.py` on a clean wire:
-its `metrics` and `fault_counters` result keys, the `tracer`,
-`wrap_endpoint`, `retry_timeout` and `max_retries` arguments wait for the
-port of observability and fault injection.
+Faults and instruments, as the reference's: `wrap_endpoint` intercepts
+every client connection (the first and each reconnect, made by one
+`_connect`), which is how `testing.faults.FaultInjector` runs training
+under seeded chaos; `retry_timeout` turns the clients' retransmission on.
+Nothing about ARQ goes into a checkpoint: the save runs at the barrier,
+with no frame in flight. Each run counts into a registry of its own,
+never the process default; the result carries its snapshot (`metrics`)
+and both parties' recovery counters (`fault_counters`). `tracer` records
+the `client.encode` and `server.queue_wait` spans (host time).
 """
 from __future__ import annotations
 
@@ -43,8 +48,10 @@ from repro_torch.fedtrain.async_policy import AsyncPolicy
 from repro_torch.fedtrain.client import TrainingClient
 from repro_torch.fedtrain.schedule import KScheduler, ScheduleSpec
 from repro_torch.fedtrain.server import TrainingServer
+from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.optim.adamw import adamw_init
-from repro_torch.runtime.engine import resolve_device
+from repro_torch.runtime.engine import fault_summary, resolve_device
 from repro_torch.runtime.session import SessionStats
 from repro_torch.runtime.transport import channel_pair
 from repro_torch.split import tabular
@@ -70,17 +77,26 @@ def run_fedtrain(spec: tabular.SplitSpec, dataset, *, n_clients: int = 1,
                  max_batch: Optional[int] = None, max_wait: float = 0.005,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
                  stop_after_steps: Optional[int] = None,
-                 reply_timeout: float = 120.0, device=None,
+                 reply_timeout: float = 120.0, wrap_endpoint=None,
+                 retry_timeout: Optional[float] = None,
+                 max_retries: int = 16, tracer=None, device=None,
                  params=None) -> dict:
     """Train `spec` over the wire on `device` (default the card); returns
     losses, accuracy, measured and analytic byte accounting for both
-    directions, and the final params.
+    directions, `fault_counters`, the run's `metrics` snapshot and the
+    final params.
 
-    `params` = (bottoms, top) starts from given weights, one bottom dict
-    per client (the tests hand in the reference's, converted); otherwise
-    client c draws its bottom from `seed + c` and the server its top from
+    `wrap_endpoint(cid, endpoint) -> endpoint` wraps every client-side
+    connection, the first and each reconnect; `retry_timeout` (seconds)
+    turns retransmission on, `max_retries` bounds it a step; `tracer` (an
+    `obs.trace.Tracer`, default off) records the spans. `params` =
+    (bottoms, top) starts from given weights, one bottom dict per client
+    (the tests hand in the reference's, converted); otherwise client c
+    draws its bottom from `seed + c` and the server its top from
     `seed`."""
     dev = resolve_device(device)
+    tracer = tracer if tracer is not None else NULL_TRACER
+    registry = MetricsRegistry()        # per run, isolated
     # -- parties --------------------------------------------------------------
     if params is None:
         bottoms = [None] * n_clients
@@ -94,7 +110,11 @@ def run_fedtrain(spec: tabular.SplitSpec, dataset, *, n_clients: int = 1,
         top = {k: v.to(dev) for k, v in top.items()}
     server = TrainingServer(spec, top, adamw_init(top), device=dev,
                             max_batch=max_batch or max(1, n_clients),
-                            max_wait=max_wait)
+                            max_wait=max_wait, tracer=tracer,
+                            registry=registry)
+    # the loop must not stop before every client's session exists and
+    # closed: a corrupt first frame retires a connection before its
+    # session is made
     server.expected_sessions = n_clients
 
     shards_x = [dataset.x_train[c::n_clients] for c in range(n_clients)]
@@ -119,15 +139,23 @@ def run_fedtrain(spec: tabular.SplitSpec, dataset, *, n_clients: int = 1,
 
         barrier = threading.Barrier(n_clients, action=_save_action)
 
-    for cid in range(n_clients):
+    def _connect(cid: int):
+        """One client connection (also the reconnect path): a fresh channel
+        pair, its server reader attached, the client half wrapped."""
         cep, sep = channel_pair()
         server.attach(sep)
+        return wrap_endpoint(cid, cep) if wrap_endpoint else cep
+
+    for cid in range(n_clients):
         clients.append(TrainingClient(
-            cid, spec, shards_x[cid], streams[cid], cep, seed=seed + cid,
-            device=dev, bottom=bottoms[cid],
+            cid, spec, shards_x[cid], streams[cid], _connect(cid),
+            seed=seed + cid, device=dev, bottom=bottoms[cid],
             scheduler=KScheduler(schedule) if schedule else None,
             policy=policy, ef=ef, barrier=barrier, ckpt_every=ckpt_every,
-            reply_timeout=reply_timeout))
+            reply_timeout=reply_timeout, retry_timeout=retry_timeout,
+            max_retries=max_retries,
+            reconnect=lambda cid=cid: _connect(cid),
+            tracer=tracer, registry=registry))
 
     # -- resume ---------------------------------------------------------------
     start_step = 0
@@ -204,6 +232,8 @@ def run_fedtrain(spec: tabular.SplitSpec, dataset, *, n_clients: int = 1,
                             for s in cstats),
         "analytic_bytes_up": sum(c.analytic_up for c in clients),
         "analytic_bytes_down": sum(c.analytic_down for c in clients),
+        "fault_counters": fault_summary(server, clients),
+        "metrics": registry.snapshot(),
         "final_k": [c.scheduler.cur_k if c.scheduler else spec.k
                     for c in clients],
         "steps": end_step,

@@ -22,16 +22,27 @@ the same weights on every run. Labels never cross the wire: the engine
 hands the server a `labels_for(session, seq)` view of the label owner's
 shard, aligned with the clients' deterministic batch streams.
 
-Stop-and-wait dedup by sequence number re-acks a replayed step from the
-cached grad frame and never steps the top optimizer twice.
+Fault tolerance is `FrameServerBase`'s: a malformed frame is answered
+with a typed `error` frame and its connection retired (never a dead
+thread), the session survives for the client's reconnect, and
+stop-and-wait dedup by sequence number re-acks a replayed step from the
+cached grad frame, so the top optimizer never steps twice and a faulted
+run's losses equal the clean run's.
+
+Instruments are the reference's, in the run's registry (the engine's,
+never the process default): frames and bytes each way, `duplicates_total`,
+`flush_fill`, `queue_wait_ms` (every enqueue stamp popped at its flush)
+and `queue_depth`; with a tracer, one `server.queue_wait` span a frame.
 """
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 
 from repro_torch.core import wire
+from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.optim.adamw import adamw_update
 from repro_torch.runtime.batching import BatchingQueue
 from repro_torch.runtime.server import FrameServerBase
@@ -45,7 +56,9 @@ class TrainingServer(FrameServerBase):
     direction = "training"
 
     def __init__(self, spec: tabular.SplitSpec, top, opt, *, device,
-                 max_batch: int = 4, max_wait: float = 0.005):
+                 max_batch: int = 4, max_wait: float = 0.005,
+                 tracer=NULL_TRACER,
+                 registry: Optional[MetricsRegistry] = None):
         self.spec = spec
         self.device = torch.device(device)
         self.top = top
@@ -53,7 +66,8 @@ class TrainingServer(FrameServerBase):
         self.batch_sizes: List[int] = []
         self.step_count = 0
         self.labels_for: Callable = None    # set by the engine
-        self._init_connections(BatchingQueue(max_batch, max_wait))
+        self._init_connections(BatchingQueue(max_batch, max_wait),
+                               tracer=tracer, registry=registry)
 
     def _new_session(self, sid: int, endpoint) -> Session:
         return Session(id=sid, endpoint=endpoint)
@@ -81,7 +95,14 @@ class TrainingServer(FrameServerBase):
             elif self.queue.drained:
                 return
 
+    def _reply(self, sess: Session, frame: bytes, header: int) -> None:
+        sess.endpoint.send(frame)
+        sess.stats.count_down_frame(header, len(frame) - header)
+        self._m_frames_down.inc()
+        self._m_bytes_down.inc(len(frame))
+
     def _process(self, items) -> None:
+        self._observe_queue_wait(items)
         kept = 0
         for sess, frame in sorted(items, key=lambda it: (it[1].seq,
                                                          it[0].id)):
@@ -92,12 +113,11 @@ class TrainingServer(FrameServerBase):
             # again: re-ack the latest from the cache instead
             if frame.seq <= sess.last_seq:
                 sess.stats.duplicates += 1
+                self._m_dups.inc()
                 if (frame.seq == sess.last_seq
                         and sess.last_reply is not None):
-                    sess.endpoint.send(sess.last_reply)
-                    sess.stats.count_down_frame(
-                        sess.last_reply_header,
-                        len(sess.last_reply) - sess.last_reply_header)
+                    self._reply(sess, sess.last_reply,
+                                sess.last_reply_header)
                 continue
             kept += 1
             view = protocol.server_decode_device(
@@ -109,12 +129,11 @@ class TrainingServer(FrameServerBase):
             gf = wire.encode_grad_frame(sess.id, frame.seq, gp, float(loss))
             sess.last_seq, sess.last_reply = frame.seq, gf
             sess.last_reply_header = wire.grad_frame_header_nbytes(gp)
-            sess.endpoint.send(gf)
-            sess.stats.count_down_frame(sess.last_reply_header,
-                                        len(gf) - sess.last_reply_header)
+            self._reply(sess, gf, sess.last_reply_header)
             self.step_count += 1
         if kept:
             self.batch_sizes.append(kept)
+            self._m_fill.observe(kept)
 
     # -- checkpoint state -----------------------------------------------------
 

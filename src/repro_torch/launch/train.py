@@ -11,22 +11,32 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch granite-moe-1b-a400m --smoke --device cpu --steps 5 \
-        --split randtopk --k 16
+        --split randtopk --k 16 --ckpt-dir /tmp/ck --ckpt-every 5
 
 Runs a real training loop: synthetic token batches drawn on the device,
 the split model with the cut-layer codec at `--cut` (default n_layers // 2),
 AdamW; a mixture-of-experts model adds its balance loss (weight
-`launch.steps.AUX_WEIGHT`). Weights are random, drawn from `--seed`. The
-reference's `--mesh` and `--ckpt-dir` are not ported.
+`launch.steps.AUX_WEIGHT`). Weights are random, drawn from `--seed`.
+
+Checkpoints, in the reference's layout: every `--ckpt-every` steps the
+params go to `step_%08d.npz` in `--ckpt-dir` and the optimizer to its
+`opt` subdirectory (`checkpoint.store`); the generator that draws each
+step's RandTopK noise goes to its `rng` subdirectory (the reference
+draws from `fold_in(key, step)` and has no such state). A run given a directory that
+holds a checkpoint resumes from its latest step and trains to `--steps`,
+as the uninterrupted run would, bit for bit. The reference's `--mesh` is
+not ported.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint import store
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer
@@ -72,6 +82,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' on purpose)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
@@ -98,8 +110,20 @@ def main(argv=None):
                          device=str(dev))
     step_fn = make_train_step(cfg, rt, lr=args.lr)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    start = 0
+    if args.ckpt_dir:
+        opt_dir = os.path.join(args.ckpt_dir, "opt")
+        rng_dir = os.path.join(args.ckpt_dir, "rng")
+        last = store.latest_step(args.ckpt_dir)
+        if last >= 0:
+            params = store.restore(args.ckpt_dir, last, params)
+            opt = store.restore(opt_dir, last, opt)
+            gen.set_state(store.restore(rng_dir, last,
+                                        {"gen": gen.get_state()})["gen"])
+            start = last
+            print(f"restored step {last}")
     t0 = time.perf_counter()
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         params, opt, metrics = step_fn(params, opt, pipe.next_batch(step),
                                        gen)
         if step % args.log_every == 0 or step == args.steps - 1:
@@ -107,6 +131,10 @@ def main(argv=None):
             print(f"step {step:5d} loss={m['loss']:.4f} ce={m['ce']:.4f} "
                   f"aux={m['aux']:.4f} gnorm={m['grad_norm']:.2f} "
                   f"({time.perf_counter() - t0:.1f}s)")
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            store.save(args.ckpt_dir, step + 1, params)
+            store.save(opt_dir, step + 1, opt)
+            store.save(rng_dir, step + 1, {"gen": gen.get_state()})
     if dev.type == "cuda":
         print(f"peak device memory: "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")

@@ -1,9 +1,9 @@
 """Stop-and-wait ARQ recovery — the client half, shared by both runtimes.
 
 `ArqClientMixin` holds the one copy of the retry/reconnect/dedup loop that
-`runtime.client.StreamingClient` (awaiting token frames) runs, and the
-load generator's event-driven sessions reuse (`runtime.loadgen`); the
-port's `fedtrain.client.TrainingClient` keeps a clean-wire wait for now:
+`runtime.client.StreamingClient` (awaiting token frames) and
+`fedtrain.client.TrainingClient` (awaiting grad frames) run, and the
+load generator's event-driven sessions reuse (`runtime.loadgen`):
 
   * every request carries its step as the sequence number; the reply echoes
     it, so stale duplicate re-acks (seq < step) are counted and dropped;

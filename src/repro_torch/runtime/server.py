@@ -139,8 +139,37 @@ class FrameServerBase:
         self._m_payload_up.inc(frame.payload_nbytes)
         self._m_framing_up.inc(frame.header_nbytes)
 
-    def _note_enqueue(self, sess: Session, frame) -> None:
-        self._enq_ts[(sess.id, frame.seq)] = self.queue.clock.monotonic()
+    def _enqueue(self, sess: Session, frame) -> None:
+        """Stamp a frame, then queue it. The stamp goes first: written after
+        the put, it could land after the loop had flushed the frame and
+        popped nothing, and stay for good. A refused put takes its stamp
+        back."""
+        key = (sess.id, frame.seq)
+        self._enq_ts[key] = self.queue.clock.monotonic()
+        try:
+            self.queue.put((sess, frame))
+        except BaseException:
+            self._enq_ts.pop(key, None)
+            raise
+
+    def _observe_queue_wait(self, items) -> float:
+        """Pop the enqueue stamp of every frame a flush picked up (replays
+        the dedup drops included: they waited too) into the `queue_wait_ms`
+        histogram and, when tracing, a `server.queue_wait` span; set
+        `queue_depth`. Returns the flush's clock time."""
+        t_flush = self.queue.clock.monotonic()
+        trace = self.tracer.enabled
+        for sess, frame in items:
+            t_enq = self._enq_ts.pop((sess.id, frame.seq), None)
+            if t_enq is None:
+                continue
+            self._m_qwait.observe((t_flush - t_enq) * 1e3)
+            if trace:
+                self.tracer.complete(SPAN_QUEUE_WAIT, t_enq, t_flush,
+                                     tid=session_tid(sess.id), sid=sess.id,
+                                     seq=frame.seq)
+        self._m_depth.set(len(self.queue))
+        return t_flush
 
     def _count_frame_down(self, sess: Session, nbytes: int) -> None:
         sess.stats.count_down(nbytes)
@@ -215,10 +244,9 @@ class FrameServerBase:
                 sid_seen = frame.session
                 sess = self._admit_frame(frame, endpoint)
                 try:
-                    self.queue.put((sess, frame))
+                    self._enqueue(sess, frame)
                 except RuntimeError:
                     return              # server shut down under us
-                self._note_enqueue(sess, frame)
         except wire.WireError as e:     # protocol violation from a valid frame
             self._reject(endpoint, sid_seen, e)
         except BaseException as e:      # surfaced by the engine
@@ -264,8 +292,7 @@ class FrameServerBase:
                 return "retired", sid_seen
             sid_seen = frame.session
             sess = self._admit_frame(frame, endpoint)
-            self.queue.put((sess, frame))   # QueueFull surfaces to caller
-            self._note_enqueue(sess, frame)
+            self._enqueue(sess, frame)      # QueueFull surfaces to caller
 
     def _session_for(self, sid: int, endpoint) -> Session:
         with self._lock:
@@ -554,20 +581,8 @@ class StreamingServer(FrameServerBase):
             self._bucket(len(idxs)))
 
     def _process(self, items) -> None:
-        # queue-wait accounting for every frame this flush picked up
-        # (replays the dedup below drops included: they waited too)
-        t_flush = self.clock.monotonic()
+        t_flush = self._observe_queue_wait(items)
         trace = self.tracer.enabled
-        for sess, frame in items:
-            t_enq = self._enq_ts.pop((sess.id, frame.seq), None)
-            if t_enq is None:
-                continue
-            self._m_qwait.observe((t_flush - t_enq) * 1e3)
-            if trace:
-                self.tracer.complete(SPAN_QUEUE_WAIT, t_enq, t_flush,
-                                     tid=session_tid(sess.id), sid=sess.id,
-                                     seq=frame.seq)
-        self._m_depth.set(len(self.queue))
         all_items = items
         items = self._dedup(items)
         with self._lock:

@@ -3,8 +3,7 @@
 `faults` drives the streaming/fedtrain runtimes through seeded byte-level
 chaos (corrupt/truncate/drop/duplicate/reorder/re-chunk) via the engines'
 `wrap_endpoint` hook — the proof harness for the frame layer's CRC +
-typed-error + reconnect/replay guarantees (the port's fedtrain does not
-take the hook yet). `clock` is the injectable time source that lets the
+typed-error + reconnect/replay guarantees. `clock` is the injectable time source that lets the
 same timing-dependent runtime code run under real threads or a
 deterministic single-threaded simulation (`runtime.loadgen`).
 """
