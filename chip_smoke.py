@@ -8,6 +8,8 @@
     python3 chip_smoke.py --phase fedtrain    # kernel checks + fedtrain
     python3 chip_smoke.py --phase loadgen     # kernel checks + open loop
     python3 chip_smoke.py --phase families    # kernel checks + 5 models
+    python3 chip_smoke.py --phase recurrent   # kernel checks + zamba2,
+                                              # rwkv6 and the int8 KV arena
     python3 chip_smoke.py --phase probe       # build + `probe_kernels`
     python3 chip_smoke.py --phase ab --parent DIR   # probes, P C C P
     python3 chip_smoke.py --phase predict     # CPU: phase 11's reports
@@ -17,11 +19,11 @@ Phases, each fatal on failure:
   1. build the port's CUDA kernels from `src/repro_torch/csrc` (nvcc,
      sm_90a, one process per source, seven sources, twelve launchers);
   2. hold each kernel against its plain PyTorch version on the card, at
-     the shapes its path gives it (serving: one row of d 4096, 1024 and
-     3072, and 1- and 2-row flushes at d 1024 and 3072; training: 1024
-     rows of d 4096 and 1024, k 64; the standalone top-k: the tabular
-     evaluation's 4000 and 20000 rows of 128 f32, k 3) and at odd ones (rows not a multiple of a
-     block, d not a multiple of 32, k in {1, 64, d-1}, ties, duplicate and
+     the shapes its path gives it (serving: one row of d 4096, 1024,
+     3072, 3584 and 2048, and 1- and 2-row flushes at d 1024, 2048, 3072
+     and 3584; training: 1024 rows of d 4096, 1024, 3584 and 2048, k 64;
+     the standalone top-k: the tabular evaluation's 4000 and 20000 rows
+     of 128 f32, k 3) and at odd ones (rows not a multiple of a block, d not a multiple of 32, k in {1, 64, d-1}, ties, duplicate and
      out-of-range indices, d = 16384): masks, indices, words, scattered
      and non-quant values exact; the fused client codec
      (`encode_sections`) byte for byte, leaves and wire sections, with the
@@ -162,13 +164,32 @@ Phases, each fatal on failure:
      first steps equal each other and the kernels' first step bit for
      bit (loss, aux, grad norm, updated parameters), aux > 0, the pairs
      dropped at capacity in the first forward, 3 steps through the
-     kernels with their median ms and peak memory.
+     kernels with their median ms and peak memory;
+ 13. the recurrent families and the int8 KV arena at full width
+     (`--phase recurrent`), random bf16 weights from a seed, randtopk
+     k 64: serve zamba2-7b (81 Mamba2 layers, d 3584, a shared attention
+     block after every 6th: cut 40, 6 sites below it and 7 above) and
+     rwkv6-1.6b (24 layers, d 2048, cut 12) through `run_streaming` with
+     2 clients x (4 + 8) tokens, with the kernels and with the plain
+     versions: equal tokens, 352 and 344 payload B a token, one fused
+     encode per served token and one flush decode per flush group; a
+     traced third run for the busy share; rwkv6 again at capacity 1
+     (every switch evicts the row's WKV state to the host): evictions > 0
+     and the clean run's tokens; yi-6b FULL with `kv_cache_bits=8`: the
+     arena's caches built int8 and the clients' 16-bit, kernel tokens =
+     plain tokens, and its token agreement with the 16-bit run (reported,
+     not gated); then train zamba2-7b at full width with its depth cut
+     from 81 to 12 layers (cut 6, one site on each side) and rwkv6-1.6b
+     FULL (cut 12), batch 4 x seq 256, randtopk k 64 alpha 0.1, AdamW:
+     two plain first steps equal each other and the kernels' first step
+     bit for bit, 3 kernel steps with their median ms, the busy share of
+     a traced fourth step, and peak memory.
 
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, for the serve's two kernels
-plus the loadgen phase's kernel runs, plus the families phase's serves
-and training, plus the fedtrain phase's chaos runs and launch.train's
-resumed checkpoint run, or in its check's own loop for the
+plus the loadgen phase's kernel runs, plus the families and recurrent
+phases' serves and training, plus the fedtrain phase's chaos runs and
+launch.train's resumed checkpoint run, or in its check's own loop for the
 five no path runs, its largest difference from its plain version,
 the CUDA-event times of kernel, plain version and library call at its
 path's shapes, and the card's bound for the same work), the loop's and
@@ -194,6 +215,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor f32 (data sheet)
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 D, K, W_IDX = 4096, 64, 12     # yi-6b cut width, top-k, index bits
+D_MOE = 1024                   # granite-moe-1b-a400m's width
+D_ZAMBA, D_RWKV = 3584, 2048   # zamba2-7b's and rwkv6-1.6b's widths
 N_CLIENTS, PROMPT_LEN = 4, 4   # closed-loop sessions and prompt tokens
 GEN = 16                       # generated tokens per session, randtopk runs
 GEN_OTHER = 8                  # ... and for the other compressors
@@ -339,7 +362,9 @@ def check_topk(dev, g):
     cases = [((rows, d_tab), torch.float32, k_tab),
              ((rows_train, d_tab), torch.float32, k_tab),
              ((128, d_tab), torch.float32, k_tab),
-             ((1, D), torch.bfloat16, K), ((37, 1000), torch.float32, 1),
+             ((1, D), torch.bfloat16, K), ((1, D_ZAMBA), torch.bfloat16, K),
+             ((1, D_RWKV), torch.bfloat16, K),
+             ((37, 1000), torch.float32, 1),
              ((37, 1000), torch.float32, 64), ((37, 1000), torch.float32,
                                                999),
              ((3, 16384), torch.bfloat16, K), ((5, 4097), torch.float32, 64),
@@ -465,6 +490,8 @@ def _hostile_rows(x, g):
 SECTION_CASES = [((1, D), "bfloat16"),          # the serving client's row
                  ((1, 1024), "bfloat16"),       # ... granite-moe's (10 bits)
                  ((1, 3072), "bfloat16"),       # ... phi3's (12 bits)
+                 ((1, 3584), "bfloat16"),       # ... zamba2's (12 bits)
+                 ((1, 2048), "bfloat16"),       # ... rwkv6's (11 bits)
                  ((128, 128), "float32"),       # fedtrain: rows share words
                  ((3, 16384), "bfloat16"), ((3, 16384), "float32"),
                  ((37, 1000), "float32"), ((5, 4097), "float32"),
@@ -673,9 +700,10 @@ def _decode_cases(kind, k):
          False),
         ("d 70, f32", 70, f32, 8, 6, [5, 4, 3, 2, 1, 0, 6, 6], k, False)]
     cases = [c + (6,) for c in cases]
-    # the families phase's 2-client flushes (buckets of 1 and 2 rows into
-    # a 3-row buffer) at granite-moe's and phi3's widths
-    for d in (1024, 3072):
+    # the families and recurrent phases' 2-client flushes (buckets of 1
+    # and 2 rows into a 3-row buffer) at granite-moe's, rwkv6's, phi3's
+    # and zamba2's widths
+    for d in (D_MOE, D_RWKV, 3072, D_ZAMBA):
         cases += [(f"d {d} flush, 2 rows", d, bf, 2, 2, [1, 0], k, False,
                    2),
                   (f"d {d} flush, 1 row", d, bf, 1, 1, [1], k, False, 2),
@@ -752,7 +780,6 @@ def check_decode(dev, g):
 
 
 TRAIN_ROWS = 1024               # a training step: batch 4 x seq 256
-D_MOE = 1024                    # granite-moe-1b-a400m's width
 
 
 def _tol_ok(a, b, slack=None) -> bool:
@@ -777,6 +804,8 @@ def check_randtopk(dev, g):
 
     cases = [((TRAIN_ROWS, D), torch.bfloat16, K),
              ((TRAIN_ROWS, D_MOE), torch.bfloat16, K),
+             ((TRAIN_ROWS, D_ZAMBA), torch.bfloat16, K),
+             ((TRAIN_ROWS, D_RWKV), torch.bfloat16, K),
              ((37, 1000), torch.float32, 1),
              ((37, 1000), torch.float32, 64), ((37, 1000), torch.float32,
                                                500),
@@ -864,6 +893,8 @@ def check_decode_rows(dev, g):
     for kind, k, bits in KIND_CASES:
         for n, d, kk, hostile in ((TRAIN_ROWS, D, k, False),
                                   (TRAIN_ROWS, D_MOE, k, False),
+                                  (TRAIN_ROWS, D_ZAMBA, k, False),
+                                  (TRAIN_ROWS, D_RWKV, k, False),
                                   (37, 1000, min(k, 999), False),
                                   (5, 1000, 999 if k else 0, False),
                                   (37, 1000, min(k, 999), True),
@@ -970,6 +1001,7 @@ def check_scatter_rows(dev, g):
     # (2, 16384, 16384): a thread's 64 values, as many as its duplicate
     # record holds; (5, 9000, 70): k > d, more than that
     for n, k, d in ((TRAIN_ROWS, K, D), (TRAIN_ROWS, K, D_MOE),
+                    (TRAIN_ROWS, K, D_ZAMBA), (TRAIN_ROWS, K, D_RWKV),
                     (37, 1, 1000), (37, 999, 1000),
                     (5, 64, 4097), (3, 64, 16384), (2, 16384, 16384),
                     (5, 9000, 70)):
@@ -1606,9 +1638,12 @@ def _one_launch_per_token(res, counts, compressor):
 
 
 def serve(cfg, params, compressor, *, gen, backend=None, trace=False,
-          n_clients=N_CLIENTS, prompt_len=PROMPT_LEN):
+          n_clients=N_CLIENTS, prompt_len=PROMPT_LEN, capacity=None,
+          prompts=None):
     """One closed-loop run of `n_clients` sessions of `prompt_len` + `gen`
-    tokens, the cut at n_layers // 2; returns (result, launch counts of
+    tokens, the cut at n_layers // 2, `capacity` arena slots (None: one a
+    session), `prompts` (None: the engine's draw); returns (result, launch
+    counts of
     the run, analytic payload bytes per token). With `trace` the
     call runs under `torch.profiler`, and the result also holds the trace's
     device ms (`device_ms`) and the wall ms of the whole call, warm-up
@@ -1625,7 +1660,8 @@ def serve(cfg, params, compressor, *, gen, backend=None, trace=False,
     _lib.reset_launch_counts()
     res, dev_ms, call_ms, _ = traced(lambda: engine.run_streaming(
         scfg, n_clients=n_clients, prompt_len=prompt_len, gen=gen,
-        params=params, device="cuda"), enabled=trace)
+        params=params, device="cuda", capacity=capacity, prompts=prompts),
+        enabled=trace)
     res.update(device_ms=dev_ms, call_ms=call_ms)
     counts = _lib.launch_counts()
     if protocol.HOST_DENSIFY_COUNT.value != densify0:
@@ -2820,6 +2856,26 @@ FAM_TRAIN = "granite-moe-1b-a400m"         # full: 24 layers, cut at 12
 FAM_TRAIN_STEPS = 3
 
 
+def held_gib(dev):
+    """Free what earlier runs left to the cyclic collector; reset the
+    peak. Returns the GiB still allocated, which a `peak_gib` after it
+    excludes, so each peak is that model's own."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev) / 2**30
+
+
+def peak_gib(dev, base):
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 2**30 - base
+
+
 def _moe_drops(params, cfg, batch, seed, dev):
     """(token, expert) pairs dropped at capacity, summed over the moe
     layers, in the forward of the first step (its RandTopK draws, the plain
@@ -2861,7 +2917,6 @@ def families_phase(dev, card):
     updated parameter), aux > 0, 3 steps through the kernels. Returns the
     kernels' launches of the serves and the training run."""
     import collections
-    import gc
     import math
 
     import torch
@@ -2873,18 +2928,6 @@ def families_phase(dev, card):
     from repro_torch.models.config import Runtime
     from repro_torch.optim.adamw import adamw_init
 
-    def held_gib():
-        """Free what earlier runs left to the cyclic collector; reset the
-        peak. Returns the GiB still allocated, which the peaks below
-        exclude, so each is that model's own."""
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        return torch.cuda.memory_allocated(dev) / 2**30
-
-    def peak_gib(base):
-        return torch.cuda.max_memory_allocated(dev) / 2**30 - base
-
     t_phase = time.perf_counter()
     total = collections.Counter()
     print(f"families phase: {FAM_CLIENTS} clients x ({FAM_PROMPT} prompt + "
@@ -2893,7 +2936,7 @@ def families_phase(dev, card):
         cfg = configs.get(arch)
         if layers:
             cfg = cfg.with_(n_layers=layers)
-        base = held_gib()
+        base = held_gib(dev)
         t0 = time.perf_counter()
         params = transformer.init_model(
             cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -2909,7 +2952,7 @@ def families_phase(dev, card):
         if not (plain["tokens"] == res["tokens"]).all():
             fail(f"{arch}: tokens differ between kernels and plain versions")
         total.update(counts)
-        peak = peak_gib(base)
+        peak = peak_gib(dev, base)
         print(f"  {arch}: {cfg.n_layers} layers (cut at "
               f"{cfg.n_layers // 2}), d_model {cfg.d_model}, "
               f"{cfg.family}; kernel tokens = plain tokens "
@@ -2927,7 +2970,7 @@ def families_phase(dev, card):
     plain_cfg = _train_cfg("randtopk", "torch", layers=None, cut=0,
                            arch=FAM_TRAIN)
     rt = Runtime(training=True)
-    base = held_gib()
+    base = held_gib(dev)
     params = transformer.init_model(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
@@ -2970,7 +3013,7 @@ def families_phase(dev, card):
             _same_first_step(params, m, p_plain, m_plain)
             del p_plain
     counts = _lib.launch_counts()
-    peak = peak_gib(base)
+    peak = peak_gib(dev, base)
     missing = [n for n in TRAIN_PATH_KERNELS["randtopk"] if counts[n] == 0]
     if missing:
         fail(f"{FAM_TRAIN} training never launched {missing}")
@@ -2995,15 +3038,266 @@ def families_phase(dev, card):
     return total
 
 
+# the recurrent families: (arch, d, payload B a token at randtopk k 64)
+REC_SERVES = (("zamba2-7b", D_ZAMBA, 352), ("rwkv6-1.6b", D_RWKV, 344))
+# (arch, layers (None: full depth), cut): zamba2's 81 layers hold 13.5 GB
+# of bf16 weights, and with f32 AdamW moments leave no room for the
+# activations at batch 4 x seq 256, so its training depth is cut to 12
+REC_TRAIN = (("zamba2-7b", 12, 6), ("rwkv6-1.6b", None, 12))
+REC_INT8 = "yi-6b"
+
+
+def _busy_text(tr) -> str:
+    """The card's busy share of a traced run (`traced`'s device ms over
+    its wall ms)."""
+    if tr[1] is None:
+        return "busy share not measured (the trace held no device time)"
+    busy = tr[1] / tr[2]
+    return (f"device {tr[1]:.2f} ms of {tr[2]:.2f} ms wall under "
+            f"torch.profiler, busy {busy * 100:.2f}%")
+
+
+def _serve_pair(cfg, params, what, **kw):
+    """The kernel serve and the plain-version serve of one config: equal
+    tokens, one fused encode per served token and one flush decode per
+    flush group, no launch in the plain run. Returns (kernel result, its
+    launch counts, plain result, payload B a token)."""
+    res, counts, nb = serve(cfg, params, "randtopk", **kw)
+    _one_launch_per_token(res, counts, f"{what} randtopk")
+    plain, pcounts, _ = serve(cfg, params, "randtopk", backend="torch", **kw)
+    if any(pcounts.values()):
+        fail(f"{what}: plain-version run launched kernels {pcounts}")
+    if not (plain["tokens"] == res["tokens"]).all():
+        fail(f"{what}: tokens differ between kernels and plain versions")
+    return res, counts, plain, nb
+
+
+def _evicted_serve(cfg, params, clean, kw):
+    """`cfg` at capacity 1: the sessions take turns in one arena row, each
+    switch evicting the row's state to the host and restoring it. On the
+    card a one-row arena's top-step products round differently from a
+    two-row arena's (the GEMM's reduction follows the row count), so the
+    run is held to each session served alone in a one-row arena, from the
+    same prompts; whether it also equals the two-row run `clean` is
+    reported. Returns (result, launch counts, evictions, equal to
+    `clean`)."""
+    import numpy as np
+
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab, (kw["n_clients"], kw["prompt_len"]))
+    ev, counts, _ = serve(cfg, params, "randtopk", capacity=1,
+                          prompts=prompts, **kw)
+    _one_launch_per_token(ev, counts, f"{cfg.name} at capacity 1")
+    n_ev = ev["metrics"]["slot_evictions_total"]["series"][0]["value"]
+    alone = np.concatenate([serve(
+        cfg, params, "randtopk", prompts=prompts[i:i + 1],
+        **dict(kw, n_clients=1))[0]["tokens"] for i in range(len(prompts))])
+    if n_ev <= 0 or not (ev["tokens"] == alone).all():
+        fail(f"{cfg.name} at capacity 1: {n_ev} evictions, tokens "
+             f"{ev['tokens'].tolist()}, each session alone "
+             f"{alone.tolist()}")
+    return ev, counts, n_ev, bool((ev["tokens"] == clean["tokens"]).all())
+
+
+def _recurrent_train(dev, arch, layers, cut, card):
+    """Train one recurrent model through the codec (batch 4 x seq 256,
+    randtopk k 64 alpha 0.1, AdamW): two plain first steps equal each
+    other and the kernels' first step bit for bit, then 3 kernel steps.
+    Returns their launch counts."""
+    import math
+
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.models.config import Runtime
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+
+    cfg = _train_cfg("randtopk", layers=layers, cut=cut, arch=arch)
+    plain_cfg = _train_cfg("randtopk", "torch", layers=layers, cut=cut,
+                           arch=arch)
+    rt = Runtime(training=True)
+    base = held_gib(dev)
+    params = transformer.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    batches = [pipe.next_batch(i) for i in range(FAM_TRAIN_STEPS)]
+    print(f"training {arch}: {cfg.n_layers} layers (cut at "
+          f"{cfg.split.cut_layer}), d_model {cfg.d_model}, {n_params:,} "
+          f"params, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, randtopk k={K} "
+          f"alpha={cfg.split.alpha}, AdamW, remat={rt.remat}")
+    plain_step = steps.make_train_step(plain_cfg, rt)
+    _lib.reset_launch_counts()
+    runs = []
+    for _ in range(2):
+        p1, _, m1 = plain_step(params, adamw_init(params), batches[0],
+                               torch.Generator(device=dev).manual_seed(1))
+        runs.append((p1, m1))
+    torch.cuda.synchronize()
+    if any(_lib.launch_counts().values()):
+        fail(f"{arch}: plain-version step launched {_lib.launch_counts()}")
+    (p_plain, m_plain), (p_again, m_again) = runs
+    del runs, p1
+    _same_first_step(p_plain, m_plain, p_again, m_again,
+                     f"{arch}, two runs of the plain versions")
+    del p_again
+    step = steps.make_train_step(cfg, rt)
+    opt = adamw_init(params)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    times, losses = [], []
+    for i in range(FAM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[i], gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            _same_first_step(params, m, p_plain, m_plain,
+                             f"{arch}, kernels vs plain versions")
+            del p_plain
+    counts = _lib.launch_counts()
+    peak = peak_gib(dev, base)
+    missing = [n for n in TRAIN_PATH_KERNELS["randtopk"] if counts[n] == 0]
+    if missing:
+        fail(f"{arch} training never launched {missing}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{arch} losses not finite: {losses}")
+    tr = traced(lambda: step(params, opt, batches[0], gen))
+    print(f"  {arch} training: losses {losses}; launches {counts}; step ms "
+          f"{[round(t, 2) for t in times]}, median of steps 2-"
+          f"{FAM_TRAIN_STEPS} {statistics.median(times[1:]):.2f} ms; a "
+          f"fourth step: {_busy_text(tr)}; peak {peak:.2f} GiB (the plain "
+          f"runs' two first steps included; above the {base:.2f} GiB held "
+          f"before it); {card}")
+    del params, opt, tr
+    torch.cuda.empty_cache()
+    return counts
+
+
+def recurrent_phase(dev, card):
+    """Phase 13: the recurrent families and the int8 KV arena at full
+    width, random bf16 weights from a seed, randtopk k 64 at the cut. Serve
+    zamba2-7b (81 layers, d 3584, cut 40) and rwkv6-1.6b (24, d 2048, cut
+    12) through `run_streaming`, 2 clients x (4 + 8) tokens, with the
+    kernels and with the plain versions (equal tokens, 352 and 344 payload
+    B a token, one fused encode per served token and one flush decode per
+    flush group), and a traced third run for the busy share; rwkv6 again
+    at capacity 1 (evictions > 0, the clean run's tokens). Serve yi-6b
+    with `kv_cache_bits=8` (the arena int8, the clients 16-bit), kernels
+    and plain (equal tokens), and report its token agreement with the
+    16-bit run. Train zamba2 (depth cut to 12, cut 6) and rwkv6 (24, cut
+    12): first steps bit for bit against the plain versions, 3 steps.
+    Returns the kernels' launches of the serves and the training runs."""
+    import collections
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    kw = dict(gen=FAM_GEN, n_clients=FAM_CLIENTS, prompt_len=FAM_PROMPT)
+    print(f"recurrent phase: {FAM_CLIENTS} clients x ({FAM_PROMPT} prompt "
+          f"+ {FAM_GEN} gen) tokens, randtopk k={K}, bf16; {card}")
+    for arch, d, want_nb in REC_SERVES:
+        cfg = configs.get(arch)
+        base = held_gib(dev)
+        t0 = time.perf_counter()
+        params = transformer.init_model(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        res, counts, plain, nb = _serve_pair(cfg, params, arch, **kw)
+        if cfg.d_model != d or nb != want_nb:
+            fail(f"{arch}: {nb} payload B/token at d {cfg.d_model}, "
+                 f"{want_nb} expected")
+        total.update(counts)
+        tr = traced(lambda: serve(cfg, params, "randtopk", **kw)[0])
+        evict = ""
+        if cfg.family == "ssm":
+            ev, ecounts, n_ev, same2 = _evicted_serve(cfg, params, res, kw)
+            total.update(ecounts)
+            evict = (f"; at capacity 1: {n_ev} evictions, each session's "
+                     f"tokens served alone in a one-row arena, "
+                     f"{ev['tokens_per_s']} tokens/s (tokens equal to the "
+                     f"two-row arena's run: {same2})")
+        peak = peak_gib(dev, base)
+        sites = [s >= 0 for s in transformer.attn_sites(cfg)]
+        below = sum(sites[:cfg.n_layers // 2])
+        print(f"  {arch}: {cfg.n_layers} layers (cut at "
+              f"{cfg.n_layers // 2}; {cfg.family}"
+              + (f", shared-attention sites {below} below the cut and "
+                 f"{sum(sites) - below} above" if any(sites) else "")
+              + f"), d_model {cfg.d_model}; kernel tokens = plain tokens "
+              f"({res['tokens'].tolist()}); {nb} payload B/token "
+              f"(fwd_bits(d) / 8); encode_sections "
+              f"{counts['encode_sections']}, decode_to_slots "
+              f"{counts['decode_to_slots']} launches ({res['flushes']} "
+              f"flushes); {res['tokens_per_s']} tokens/s kernels, "
+              f"{plain['tokens_per_s']} plain; a third run: "
+              f"{_busy_text(tr)}{evict}; init {init_s:.2f} s; peak "
+              f"{peak:.2f} GiB (above the {base:.2f} GiB held before it); "
+              f"{card}")
+        del params, tr
+        torch.cuda.empty_cache()
+
+    cfg16 = configs.get(REC_INT8)
+    cfg8 = cfg16.with_(kv_cache_bits=8)
+    base = held_gib(dev)
+    params = transformer.init_model(
+        cfg16, torch.Generator(device=dev).manual_seed(0), device=dev)
+    built, init_cache = [], transformer.init_cache
+
+    def recording(cfg_, rows, max_len, device=None, bits=16):
+        built.append((rows, bits))
+        return init_cache(cfg_, rows, max_len, device, bits)
+
+    transformer.init_cache = recording
+    try:
+        r8, c8, p8, _ = _serve_pair(cfg8, params, f"{REC_INT8} int8 KV",
+                                    **kw)
+    finally:
+        transformer.init_cache = init_cache
+    arena_bits = {bits for rows, bits in built if rows == FAM_CLIENTS}
+    client_bits = {bits for rows, bits in built if rows == 1}
+    if arena_bits != {8} or 16 not in client_bits:
+        fail(f"int8 KV: caches built {sorted(set(built))}: the arena must "
+             f"be int8 and the clients 16-bit")
+    total.update(c8)
+    r16, _, _ = serve(cfg16, params, "randtopk", **kw)
+    agree = float(np.mean(r8["tokens"] == r16["tokens"]))
+    peak = peak_gib(dev, base)
+    print(f"  {REC_INT8} FULL with kv_cache_bits=8 ({cfg8.n_layers} layers, "
+          f"cut at {cfg8.n_layers // 2}; caches built (rows, bits) "
+          f"{sorted(set(built))}): kernel tokens = plain tokens "
+          f"({r8['tokens'].tolist()}); {r8['tokens_per_s']} tokens/s "
+          f"kernels, {p8['tokens_per_s']} plain; token agreement with the "
+          f"16-bit run {agree} ({r16['tokens_per_s']} tokens/s 16-bit); "
+          f"peak {peak:.2f} GiB; {card}")
+    del params
+    torch.cuda.empty_cache()
+
+    for arch, layers, cut in REC_TRAIN:
+        total.update(_recurrent_train(dev, arch, layers, cut, card))
+    print(f"recurrent phase wall: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
                                         "fedtrain", "loadgen", "families",
-                                        "probe", "ab", "predict"),
+                                        "recurrent", "probe", "ab",
+                                        "predict"),
                     default="all",
                     help="kernels: build + kernel checks + codec probes; "
-                         "serve / train / fedtrain / loadgen / families: "
-                         "the checks, "
+                         "serve / train / fedtrain / loadgen / families / "
+                         "recurrent: the checks, "
                          "probes and one path; probe: build + `probe_kernels` "
                          "alone; ab: `probe` in turns on a parent tree's "
                          "package and this one (--parent); predict: the "
@@ -3123,6 +3417,14 @@ def main(argv=None) -> int:
             if counts[n]:
                 add(n, counts[n], "the families phase's kernel serves and "
                                   "granite-moe training")
+    if args.phase in ("all", "recurrent"):
+        counts = recurrent_phase(dev, card)
+        for n in launches:
+            if counts[n]:
+                add(n, counts[n], "the recurrent phase's kernel serves "
+                                  "(zamba2, rwkv6, rwkv6 at capacity 1, "
+                                  "yi-6b int8 KV) and zamba2 and rwkv6 "
+                                  "training")
 
     for r in records:
         r["launches"] = launches[r["name"]]

@@ -1,24 +1,24 @@
 """Architecture registry. Each module exposes FULL (the exact published
 config) and SMOKE (a reduced same-family variant for CPU tests). The
-dense and moe families are ported; the hybrid, ssm, vlm and audio
-families are not yet."""
+dense, moe, hybrid (zamba2) and ssm (rwkv6) families are ported; the vlm
+and audio families are not yet."""
 from __future__ import annotations
 
 import importlib
 
 ARCHS = [
     "qwen3_moe_235b_a22b",
+    "zamba2_7b",
     "granite_3_8b",
     "yi_6b",
     "granite_moe_1b_a400m",
+    "rwkv6_1p6b",
     "qwen3_8b",
     "phi3_mini_3p8b",
 ]
 
 #: the reference's architectures whose families the port lacks
 NOT_PORTED = {
-    "zamba2_7b": "hybrid",
-    "rwkv6_1p6b": "ssm",
     "llama_3_2_vision_90b": "vlm",
     "whisper_tiny": "audio",
 }

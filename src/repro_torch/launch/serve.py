@@ -20,9 +20,17 @@ Table-2 analytic prediction. Runs on the card unless `--device cpu`:
         --arch granite-moe-1b-a400m --smoke --device cpu --clients 2 \
         --gen 6 --split topk --k 8
 
-`--arch` takes the dense (yi-6b, qwen3-8b, granite-3-8b, phi3-mini-3.8b)
-and mixture-of-experts (granite-moe-1b-a400m, qwen3-moe-235b-a22b)
-configurations.
+    python -m repro_torch.launch.serve --arch zamba2-7b --clients 2 \
+        --prompt-len 4 --gen 8 --split randtopk --k 64
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --smoke --device cpu --clients 2 --gen 6 --split randtopk --k 16
+
+`--arch` takes the dense (yi-6b, qwen3-8b, granite-3-8b, phi3-mini-3.8b),
+mixture-of-experts (granite-moe-1b-a400m, qwen3-moe-235b-a22b), hybrid
+Mamba2 (zamba2-7b) and RWKV6 (rwkv6-1.6b) configurations; the cut sits at
+n_layers // 2. A config with `kv_cache_bits=8` serves from an int8 KV
+arena on the label owner's side.
 
 Weights are random, drawn from `--seed`. `--trace OUT.json` records the
 frame lifecycle (Chrome-trace JSON, loadable in https://ui.perfetto.dev).

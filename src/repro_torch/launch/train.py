@@ -13,6 +13,12 @@
         --arch granite-moe-1b-a400m --smoke --device cpu --steps 5 \
         --split randtopk --k 16 --ckpt-dir /tmp/ck --ckpt-every 5
 
+    python -m repro_torch.launch.train --arch zamba2-7b --layers 12 \
+        --steps 3 --batch 4 --seq 256 --split randtopk --k 64
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
+        --smoke --device cpu --steps 5 --split randtopk --k 16
+
 Runs a real training loop: synthetic token batches drawn on the device,
 the split model with the cut-layer codec at `--cut` (default n_layers // 2),
 AdamW; a mixture-of-experts model adds its balance loss (weight

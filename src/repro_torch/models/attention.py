@@ -5,7 +5,10 @@ are RMS-normed over head_dim after the projection and before RoPE.
 For decode, the reference vmaps one session at a time, each with its own
 scalar position; here the sessions are a batch dimension written out, so
 every use of the position (RoPE, the ring slot `pos % size`, the KV write
-and the validity mask) takes a per-row `pos` vector.
+and the validity mask) takes a per-row `pos` vector. The decode cache is
+16-bit (the activation dtype) or int8 codes with f32 per-(token, head)
+scales (`init_kv_cache(bits=8)`, the label owner's arena at
+`kv_cache_bits=8`).
 """
 from __future__ import annotations
 
@@ -39,15 +42,42 @@ def init_attention(generator, cfg: ArchConfig, n_layers: int, device=None):
 
 
 def init_kv_cache(cfg: ArchConfig, rows: int, n_layers: int, max_len: int,
-                  device=None):
-    """16-bit rolling cache: k/v (rows, n_layers, 1, size, Hkv, hd) in the
-    activation dtype (the reference's per-session (1, size, Hkv, hd) leaf,
-    stacked over layers and then over sessions)."""
+                  device=None, *, bits: int = 16):
+    """Rolling cache of `n_layers` attention layers (or sites): k/v (rows,
+    n_layers, 1, size, Hkv, hd), the reference's per-session (1, size, Hkv,
+    hd) leaf stacked over layers and then over sessions. bits=16 stores
+    them in the activation dtype; bits=8 stores int8 codes and f32
+    per-(token, head) scales k_scale/v_scale (rows, n_layers, 1, size, Hkv)
+    (symmetric quantization, dequantized on read)."""
     size = min(max_len, cfg.sliding_window) if cfg.sliding_window \
         else max_len
     shape = (rows, n_layers, 1, size, cfg.n_kv_heads, cfg.hd)
+    if bits == 8:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:5], dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:5], dtype=torch.float32,
+                                       device=device)}
+    if bits != 16:
+        raise ValueError(f"kv cache bits {bits}: 16 or 8")
     return {"k": torch.zeros(shape, dtype=cfg.adtype(), device=device),
             "v": torch.zeros(shape, dtype=cfg.adtype(), device=device)}
+
+
+def quantize_kv(x):
+    """x (B, 1, H, hd) -> (int8 codes, f32 scale (B, 1, H)): the scale is
+    max |x| / 127 over hd, codes round half to even (as `jnp.round`) and
+    clip to +-127; a zero row divides by the 1e-9 floor."""
+    xf = x.float()
+    scale = torch.amax(xf.abs(), dim=-1) / 127.0
+    safe = torch.clamp_min(scale, 1e-9)
+    code = torch.clamp(torch.round(xf / safe[..., None]), -127, 127)
+    return code.to(torch.int8), scale
+
+
+def dequantize_kv(code, scale, dtype):
+    return (code.float() * scale[..., None]).to(dtype)
 
 
 def sdpa(q, k, v, mask, cfg: ArchConfig):
@@ -115,25 +145,42 @@ def full_attention(p, cfg: ArchConfig, rt: Runtime, x):
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
 
 
-def decode_attention(p, cfg: ArchConfig, x_tok, k_cache, v_cache, pos,
-                     rows=None):
-    """x_tok: (B, 1, d); k_cache/v_cache: (B, size, Hkv, hd) views of one
-    layer's cache; pos: (B,) absolute position of each row's new token.
+def layer_kv(kv, layer: int):
+    """One layer's (or site's) views of the stacked cache: every leaf
+    without its layer and singleton axes, e.g. k (rows, size, Hkv, hd)."""
+    return {name: t[:, layer, 0] for name, t in kv.items()}
 
-    Writes the new K/V IN PLACE at each row's ring slot — only for `rows`
-    (an index vector; None = every row), so inactive arena rows keep their
-    cache (the reference's `where(active, new, old)`). Rows not written
-    attend over their old cache; their outputs are discarded by the caller.
+
+def decode_attention(p, cfg: ArchConfig, x_tok, kv, pos, rows=None):
+    """x_tok: (B, 1, d); kv: one layer's cache views (`layer_kv`): k, v
+    (B, size, Hkv, hd), and with an int8 cache k_scale, v_scale (B, size,
+    Hkv); pos: (B,) absolute position of each row's new token.
+
+    Writes the new K/V (int8 codes and scales when the cache holds
+    `k_scale`) IN PLACE at each row's ring slot, only for `rows` (an index
+    vector; None = every row), so inactive arena rows keep their cache
+    (the reference's `where(active, new, old)`). Rows not written attend
+    over their old cache; their outputs are discarded by the caller.
     Returns y (B, 1, d)."""
     B = x_tok.shape[0]
     hq, hd = cfg.n_heads, cfg.hd
-    size = k_cache.shape[1]
+    size = kv["k"].shape[1]
     q, k_new, v_new = project_qkv(p, cfg, x_tok, pos[:, None])
     slot = pos % size
     if rows is None:
         rows = torch.arange(B, device=pos.device)
-    k_cache[rows, slot[rows]] = k_new[rows, 0]
-    v_cache[rows, slot[rows]] = v_new[rows, 0]
+    at = (rows, slot[rows])
+    if "k_scale" in kv:
+        for name, new in (("k", k_new), ("v", v_new)):
+            code, scale = quantize_kv(new[rows])
+            kv[name][at] = code[:, 0]
+            kv[name + "_scale"][at] = scale[:, 0]
+        k = dequantize_kv(kv["k"], kv["k_scale"], x_tok.dtype)
+        v = dequantize_kv(kv["v"], kv["v_scale"], x_tok.dtype)
+    else:
+        kv["k"][at] = k_new[rows, 0]
+        kv["v"][at] = v_new[rows, 0]
+        k, v = kv["k"], kv["v"]
 
     # valid slots: the absolute position each ring slot holds
     idx = torch.arange(size, device=pos.device)[None, :]
@@ -142,5 +189,5 @@ def decode_attention(p, cfg: ArchConfig, x_tok, k_cache, v_cache, pos,
     valid = (abs_pos >= 0) & (abs_pos <= p_)
     if cfg.sliding_window:
         valid &= abs_pos > p_ - cfg.sliding_window
-    out = sdpa(q, k_cache, v_cache, valid[:, None, :], cfg)
+    out = sdpa(q, k, v, valid[:, None, :], cfg)
     return out.reshape(B, 1, hq * hd) @ p["wo"].to(x_tok.dtype)

@@ -1,9 +1,11 @@
 """Architecture, cut-layer and runtime configuration dataclasses (the
 reference's field names and defaults; dtypes are named by string and
 resolved to torch). `ArchConfig` holds the fields of the families the port
-runs (dense, with or without qk-norm, and mixture-of-experts); `Runtime`
-keeps only the knobs the port's forward reads. The reference's mesh,
-chunking and int8-KV knobs have no reader in the port yet."""
+runs (dense, with or without qk-norm, mixture-of-experts, the zamba2
+hybrid of Mamba2 layers and a shared attention block, and RWKV6);
+`Runtime` keeps only the knobs the port's forward reads: the scan chunks
+of the recurrent families and the label owner's KV cache width among
+them. The reference's mesh knobs have no reader in the port yet."""
 from __future__ import annotations
 
 import dataclasses
@@ -35,10 +37,10 @@ class SplitConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """Architecture fields of the dense and moe families."""
+    """Architecture fields of the dense, moe, hybrid and ssm families."""
 
     name: str
-    family: str                     # dense | moe
+    family: str                     # dense | moe | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -51,9 +53,22 @@ class ArchConfig:
     # --- MoE ---
     n_experts: int = 0
     topk_experts: int = 0
+    # --- SSM (mamba2) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    attn_every: int = 0             # zamba2: shared attn block every N layers
+    # --- RWKV6 ---
+    rwkv: bool = False
+    rwkv_lora: int = 64
     sliding_window: int = 0         # 0 = full causal attention
     param_dtype: str = "float32"
     dtype: str = "float32"
+    kv_cache_bits: int = 0          # the label owner's KV arena: 8 -> int8
+    #   codes + f32 per-(token, head) scales (attention.init_kv_cache);
+    #   0 -> the Runtime default (16: the activation dtype). Clients keep
+    #   16-bit caches.
     split: Optional[SplitConfig] = None
 
     @property
@@ -65,6 +80,14 @@ class ArchConfig:
         """Embedding tables padded to a multiple of 256, as in the
         reference (pad logits are never the argmax of trained weights)."""
         return (self.vocab + 255) // 256 * 256
+
+    @property
+    def d_inner(self) -> int:  # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
@@ -86,3 +109,7 @@ class Runtime:
                                     # cut boundary stays outside it)
     attn_chunk: int = 1024          # query-chunk length for long sequences
     moe_capacity: float = 1.25      # expert capacity factor (models.moe)
+    ssm_chunk: int = 128            # SSD chunk length (models.ssm)
+    rwkv_chunk: int = 16            # WKV chunk length (models.rwkv)
+    rwkv_mode: str = "chunk"        # chunk (matrix form) | scan (sequential)
+    kv_cache_bits: int = 16         # 8 -> int8 KV cache (+ f32 scales)

@@ -12,6 +12,13 @@ the same operands:
     layers.mlp.{norm.scale, w_gate, w_up, w_down}   (L, ...), dense
     layers.moe.{norm.scale (L, d), router (L, d, E),
                 w_gate, w_up (L, E, d, ff), w_down (L, E, ff, d)}, moe
+    layers.{norm.scale, w_xz, w_bc, w_dt, conv_x, conv_b, conv_c, A_log, D,
+            dt_bias, norm_g.scale, w_out}   (L, ...), hybrid (Mamba2)
+    shared_attn.{norm.scale, wq, wk, wv, wo},
+    shared_mlp.{norm.scale, w_gate, w_up, w_down}   (one block), hybrid
+    layers.time.{norm.scale, mu, w_r, w_k, w_v, w_g, w0, w1, w2, u,
+                 ln_x.scale, w_out}   (L, ...), ssm (RWKV6)
+    layers.chan.{norm.scale, mu, w_k, w_v, w_r}   (L, ...), ssm
 
 `parties_from_jax(np_bottom, np_top, device)` does the same for the
 tabular trainer's two parties (`split.tabular`): flat dicts of f32
@@ -29,8 +36,13 @@ _KEYS = {
     "attn": ("norm", "wq", "wk", "wv", "wo"),
     "mlp": ("norm", "w_gate", "w_up", "w_down"),
     "moe": ("norm", "router", "w_gate", "w_up", "w_down"),
+    "mamba": ("norm", "w_xz", "w_bc", "w_dt", "conv_x", "conv_b", "conv_c",
+              "A_log", "D", "dt_bias", "norm_g", "w_out"),
+    "time": ("norm", "mu", "w_r", "w_k", "w_v", "w_g", "w0", "w1", "w2",
+             "u", "ln_x", "w_out"),
+    "chan": ("norm", "mu", "w_k", "w_v", "w_r"),
 }
-_NORMS = ("norm", "q_norm", "k_norm")
+_NORMS = ("norm", "q_norm", "k_norm", "norm_g", "ln_x")
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -43,28 +55,36 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 
 def params_from_jax(np_params, cfg: ArchConfig, device) -> dict:
-    """The reference's dense- or moe-family tree (numpy leaves) -> port
-    weights in `cfg.param_dtype` on `device`."""
+    """The reference's dense-, moe-, hybrid- or ssm-family tree (numpy
+    leaves) -> port weights in `cfg.param_dtype` on `device`."""
     transformer.check_family(cfg)
     dt = cfg.pdtype()
 
-    def conv(a):
-        return _tensor(a, dt, device)
+    def block(src, keys):
+        return {k: ({"scale": _tensor(src[k]["scale"], dt, device)}
+                    if k in _NORMS else _tensor(src[k], dt, device))
+                for k in keys}
 
-    ffn = "moe" if cfg.family == "moe" else "mlp"
-    qk = ("q_norm", "k_norm") if cfg.qk_norm else ()
-    blocks = {"attn": _KEYS["attn"] + qk, ffn: _KEYS[ffn]}
-    layers = {}
-    for block, keys in blocks.items():
-        src = np_params["layers"][block]
-        layers[block] = {k: ({"scale": conv(src[k]["scale"])} if k in _NORMS
-                             else conv(src[k])) for k in keys}
-    return {
-        "embed": conv(np_params["embed"]),
-        "final_norm": {"scale": conv(np_params["final_norm"]["scale"])},
-        "unembed": conv(np_params["unembed"]),
-        "layers": layers,
+    out = {
+        "embed": _tensor(np_params["embed"], dt, device),
+        "final_norm": {"scale": _tensor(np_params["final_norm"]["scale"],
+                                        dt, device)},
+        "unembed": _tensor(np_params["unembed"], dt, device),
     }
+    src = np_params["layers"]
+    if cfg.family == "hybrid":
+        out["layers"] = block(src, _KEYS["mamba"])
+        out["shared_attn"] = block(np_params["shared_attn"], _KEYS["attn"])
+        out["shared_mlp"] = block(np_params["shared_mlp"], _KEYS["mlp"])
+    elif cfg.family == "ssm":
+        out["layers"] = {part: block(src[part], _KEYS[part])
+                         for part in ("time", "chan")}
+    else:
+        ffn = "moe" if cfg.family == "moe" else "mlp"
+        qk = ("q_norm", "k_norm") if cfg.qk_norm else ()
+        out["layers"] = {"attn": block(src["attn"], _KEYS["attn"] + qk),
+                         ffn: block(src[ffn], _KEYS[ffn])}
+    return out
 
 
 def parties_from_jax(np_bottom, np_top, device) -> tuple:

@@ -1,0 +1,210 @@
+"""RWKV6 ("Finch") block: linear attention with a data-dependent
+per-channel decay (time-mix), and a token-shifted squared-ReLU FFN
+(channel-mix).
+
+Time-mix evaluates the WKV6 recurrence chunk by chunk: `rt.rwkv_mode`
+"chunk" (the default) takes each chunk in matrix form, "scan" steps
+through it one token at a time (the exact recurrence, the numerics
+oracle). Decode is the one-step recurrence. Heads are 64 wide, so a
+layer has d // 64 of them whatever `cfg.n_heads` says, as in the
+reference. r, k and v stay in the activation dtype; the decay chain and
+every WKV product run in f32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import common
+from repro_torch.models.config import ArchConfig, Runtime
+
+HD = 64                                 # the WKV head width
+
+
+def init_rwkv_time(generator, cfg: ArchConfig, n_layers: int, device=None):
+    """Stacked (n_layers, ...) time-mix weights (w0 at the reference's
+    -0.7)."""
+    d, lora, dt, L = cfg.d_model, cfg.rwkv_lora, cfg.pdtype(), n_layers
+
+    def w(shape, scale=0.02):
+        return common.normal_init(generator, (L,) + shape, dt, scale,
+                                  device=device)
+
+    def const(shape, value):
+        return torch.full((L,) + shape, value, dtype=dt, device=device)
+
+    return {
+        "norm": {"scale": const((d,), 1.0)},
+        "mu": w((5, d), 0.2),                  # r, k, v, g, w mixes
+        "w_r": w((d, d)), "w_k": w((d, d)), "w_v": w((d, d)),
+        "w_g": w((d, d)),
+        "w0": const((d,), -0.7),
+        "w1": w((d, lora)), "w2": w((lora, d)),
+        "u": w((d // HD, HD), 0.5),
+        "ln_x": {"scale": const((d,), 1.0)},
+        "w_out": w((d, d), 0.02 / max(1, cfg.n_layers) ** 0.5),
+    }
+
+
+def init_rwkv_channel(generator, cfg: ArchConfig, n_layers: int,
+                      device=None):
+    """Stacked (n_layers, ...) channel-mix weights."""
+    d, ff, dt, L = cfg.d_model, cfg.d_ff, cfg.pdtype(), n_layers
+
+    def w(shape, scale=0.02):
+        return common.normal_init(generator, (L,) + shape, dt, scale,
+                                  device=device)
+
+    return {
+        "norm": {"scale": torch.ones((L, d), dtype=dt, device=device)},
+        "mu": w((2, d), 0.2),                  # k, r mixes
+        "w_k": w((d, ff)),
+        "w_v": w((ff, d), 0.02 / max(1, cfg.n_layers) ** 0.5),
+        "w_r": w((d, d)),
+    }
+
+
+def token_shift(x, x_prev=None):
+    """x (B, S, d) shifted right by one token; the first slot is x_prev
+    (B, d), or zeros without one."""
+    if x.shape[1] == 1 and x_prev is not None:
+        return x_prev[:, None, :]
+    shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    if x_prev is not None:
+        shifted = torch.cat([x_prev[:, None, :], shifted[:, 1:]], dim=1)
+    return shifted
+
+
+def time_mix_inputs(p, x, x_prev=None):
+    """r, k, v (B, S, H, 64) and g (B, S, d) in x's dtype, and the decay
+    w (B, S, H, 64) in f32."""
+    B, S, d = x.shape
+    H = d // HD
+    xp = token_shift(x, x_prev)
+    mu = p["mu"].to(x.dtype)
+    mix = [x + mu[i] * (xp - x) for i in range(5)]
+    r = (mix[0] @ p["w_r"].to(x.dtype)).reshape(B, S, H, HD)
+    k = (mix[1] @ p["w_k"].to(x.dtype)).reshape(B, S, H, HD)
+    v = (mix[2] @ p["w_v"].to(x.dtype)).reshape(B, S, H, HD)
+    g = mix[3] @ p["w_g"].to(x.dtype)
+    ww = p["w0"].float() + torch.tanh(mix[4].float() @ p["w1"].float()) \
+        @ p["w2"].float()
+    w = torch.exp(-torch.exp(ww)).reshape(B, S, H, HD)
+    return r, k, v, g, w
+
+
+def wkv_step(S, r, k, v, w, u):
+    """The exact recurrence for one token. S: (B, H, K, V) f32; r, k, v, w:
+    (B, H, 64); u: (H, 64) f32. Returns (S', out (B, H, V))."""
+    r, k, v, w = r.float(), k.float(), v.float(), w.float()
+    kv = k[..., :, None] * v[..., None, :]                 # (B, H, K, V)
+    out = torch.einsum("bhk,bhkv->bhv", r, S + u[None, :, :, None] * kv)
+    return w[..., :, None] * S + kv, out
+
+
+def wkv_chunk(S0, rc, kc, vc, wc, u):
+    """Matrix-form WKV6 over one chunk. rc, kc, vc (B, c, H, 64) in the
+    activation dtype, wc (B, c, H, 64) f32. Each step's log decay is
+    clamped to [-5, 0], so exp(-L) stays inside f32 range for c * 5 < 88.
+    Returns (S', y (B, c, H, V))."""
+    c = rc.shape[1]
+    la = torch.clamp(torch.log(torch.clamp_min(wc, 1e-38)), -5.0, 0.0)
+    L = torch.cumsum(la, dim=1)                            # inclusive
+    L_prev = L - la                                        # exclusive
+    r_t = rc.float() * torch.exp(L_prev)
+    k_s = kc.float() * torch.exp(-L)
+    A = torch.einsum("bthk,bshk->btsh", r_t, k_s)          # (B, t, s, H)
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool,
+                                 device=rc.device), diagonal=-1)
+    A = torch.where(mask[None, :, :, None], A, torch.zeros_like(A))
+    diag = torch.einsum("bthk,hk->bth", (rc * kc).float(), u)
+    vf = vc.float()
+    y = (torch.einsum("btsh,bshv->bthv", A, vf)
+         + torch.einsum("bthk,bhkv->bthv", r_t, S0)
+         + diag[..., None] * vf)
+    to_end = torch.exp(L[:, -1:] - L)                      # <= 1
+    S_new = S0 * torch.exp(L[:, -1])[..., None] + torch.einsum(
+        "bshk,bshv->bhkv", kc.float() * to_end, vf)
+    return S_new, y
+
+
+def _wkv_norm_out(p, y, g, dtype):
+    """Per-head RMS norm of y (B, S, H, 64) f32, ln_x, the SiLU gate and the
+    output projection."""
+    B, S = y.shape[:2]
+    ones = torch.ones((HD,), dtype=torch.float32, device=y.device)
+    y = common.rms_norm(y, ones).reshape(B, S, -1)
+    y = y * p["ln_x"]["scale"].float()
+    return (y.to(dtype) * F.silu(g)) @ p["w_out"].to(dtype)
+
+
+def rwkv_time_mix(p, cfg: ArchConfig, rt: Runtime, x):
+    """Full-sequence WKV6 over the normed x (B, S, d) from a zero state.
+    Returns (y (B, S, d), the final state (B, H, 64, 64) f32)."""
+    B, S, d = x.shape
+    H = d // HD
+    r, k, v, g, w = time_mix_inputs(p, x)
+    u = p["u"].float()
+    cl = min(rt.rwkv_chunk, S)
+    if S % cl:
+        raise ValueError(f"seq {S} must divide rwkv_chunk {cl}")
+    if rt.rwkv_mode not in ("chunk", "scan"):
+        raise ValueError(f"rwkv_mode {rt.rwkv_mode!r}")
+    state = torch.zeros((B, H, HD, HD), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for i in range(0, S, cl):
+        sl = slice(i, i + cl)
+        if rt.rwkv_mode == "chunk":
+            state, y = wkv_chunk(state, r[:, sl], k[:, sl], v[:, sl],
+                                 w[:, sl], u)
+            ys.append(y)
+        else:
+            for t in range(i, i + cl):
+                state, out = wkv_step(state, r[:, t], k[:, t], v[:, t],
+                                      w[:, t], u)
+                ys.append(out[:, None])
+    return _wkv_norm_out(p, torch.cat(ys, dim=1), g, x.dtype), state
+
+
+def rwkv_channel_mix(p, x, x_prev=None):
+    """Token-shifted squared-ReLU FFN over the normed x (B, S, d)."""
+    xp = token_shift(x, x_prev)
+    mu = p["mu"].to(x.dtype)
+    xk = x + mu[0] * (xp - x)
+    xr = x + mu[1] * (xp - x)
+    kk = torch.square(F.relu(xk @ p["w_k"].to(x.dtype)))
+    vv = kk @ p["w_v"].to(kk.dtype)
+    r = torch.sigmoid(xr @ p["w_r"].to(x.dtype))
+    return r * vv
+
+
+def init_rwkv_cache(cfg: ArchConfig, rows: int, n_layers: int, device=None):
+    """Decode state of `rows` sessions: S (rows, L, H, 64, 64) f32 and the
+    last normed time-mix and channel-mix inputs x_tm, x_cm (rows, L, d) in
+    the activation dtype."""
+    d = cfg.d_model
+    return {
+        "S": torch.zeros((rows, n_layers, d // HD, HD, HD),
+                         dtype=torch.float32, device=device),
+        "x_tm": torch.zeros((rows, n_layers, d), dtype=cfg.adtype(),
+                            device=device),
+        "x_cm": torch.zeros((rows, n_layers, d), dtype=cfg.adtype(),
+                            device=device),
+    }
+
+
+def rwkv_decode(p_time, p_chan, x_tok, S, x_tm, x_cm):
+    """One token x_tok (B, 1, d) through time-mix and channel-mix with
+    their pre-norms, against one layer's state S (B, H, 64, 64), x_tm and
+    x_cm (B, d). Returns (x', S', the normed inputs h and h2 (B, d) that
+    become x_tm and x_cm); the caller writes the new state. The decode
+    step does not clamp the decay."""
+    h = common.rms_norm(x_tok, p_time["norm"]["scale"])
+    r, k, v, g, w = time_mix_inputs(p_time, h, x_tm)
+    S_new, out = wkv_step(S, r[:, 0], k[:, 0], v[:, 0], w[:, 0],
+                          p_time["u"].float())
+    x1 = x_tok + _wkv_norm_out(p_time, out[:, None], g, x_tok.dtype)
+    h2 = common.rms_norm(x1, p_chan["norm"]["scale"])
+    x2 = x1 + rwkv_channel_mix(p_chan, h2, x_cm)
+    return x2, S_new, h[:, -1], h2[:, -1]

@@ -1,0 +1,185 @@
+"""Mamba2 block (SSD, structured state-space duality), chunked scan form.
+
+Training / prefill runs the chunked SSD algorithm: within a chunk of
+length c the contribution is a masked quadratic form, across chunks a
+sequential loop carries the (B, H, P, N) f32 state. Every decay factor is
+exp(non-positive), so nothing overflows. Decode is the exact one-step
+recurrence with a depthwise-conv history of the last K - 1 inputs.
+
+Single group (G = 1): head dim P = cfg.ssm_head_dim, state N =
+cfg.ssm_state, inner width = ssm_expand * d_model. Weights are the
+reference's tree, stacked over the layers.
+
+The reference writes the chunk's products as einsums of up to five
+operands and leaves their order to XLA. Here each is a chain of
+two-operand products in a fixed order that never builds a (B, t, s, H, P)
+tensor: C.B is contracted to (B, t, s) first, weighted by the decay and
+dt to (B, t, s, H), and the chunk ends on a batched (t, s) x (s, P)
+product per (batch, head).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import common
+from repro_torch.models.config import ArchConfig, Runtime
+
+
+def init_mamba(generator, cfg: ArchConfig, n_layers: int, device=None):
+    """Stacked (n_layers, ...) Mamba2 weights; A_log, D and dt_bias start at
+    the reference's constants (A = -1, D = 1, softplus(-2) ~ 0.13)."""
+    d, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    K, dt, L = cfg.ssm_conv, cfg.pdtype(), n_layers
+
+    def w(shape, scale=0.02):
+        return common.normal_init(generator, (L,) + shape, dt, scale,
+                                  device=device)
+
+    def const(shape, value):
+        return torch.full((L,) + shape, value, dtype=dt, device=device)
+
+    return {
+        "norm": {"scale": const((d,), 1.0)},
+        "w_xz": w((d, 2 * di)),
+        "w_bc": w((d, 2 * N)),
+        "w_dt": w((d, H)),
+        "conv_x": w((K, di), 0.1),
+        "conv_b": w((K, N), 0.1),
+        "conv_c": w((K, N), 0.1),
+        "A_log": const((H,), 0.0),
+        "D": const((H,), 1.0),
+        "dt_bias": const((H,), -2.0),
+        "norm_g": {"scale": const((di,), 1.0)},
+        "w_out": w((di, d), 0.02 / max(1, cfg.n_layers) ** 0.5),
+    }
+
+
+def softplus(x):
+    """log(1 + exp(x)) as `jax.nn.softplus` computes it (logaddexp(x, 0))."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def causal_conv(u, w):
+    """Depthwise causal conv in u's dtype, then SiLU. u: (B, S, C);
+    w: (K, C). Tap i reads u shifted right by K - 1 - i."""
+    K, S = w.shape[0], u.shape[1]
+    acc = None
+    for i in range(K):
+        shift = K - 1 - i
+        ui = F.pad(u, (0, 0, shift, 0))[:, :S] if shift else u
+        term = ui * w[i].to(u.dtype)
+        acc = term if acc is None else acc + term
+    return F.silu(acc)
+
+
+def project(p, cfg: ArchConfig, x):
+    """x (B, S, d) -> xs (B, S, di), z (B, S, di), b, c (B, S, N) in x's
+    dtype and dt (B, S, H) f32."""
+    di, N = cfg.d_inner, cfg.ssm_state
+    xz = x @ p["w_xz"].to(x.dtype)
+    xs, z = xz[..., :di], xz[..., di:]
+    bc = x @ p["w_bc"].to(x.dtype)
+    b, c = bc[..., :N], bc[..., N:]
+    dt_raw = x @ p["w_dt"].to(x.dtype)
+    dt = softplus(dt_raw.float() + p["dt_bias"].float())
+    return xs, z, b, c, dt
+
+
+def ssd_chunk(h, xs, b, cm, dt, la):
+    """One SSD chunk. h: (B, H, P, N) f32 carry; xs (B, c, H, P), b and cm
+    (B, c, N), dt and la (B, c, H), all f32 (la: log decay per step,
+    <= 0). Returns (h', y (B, c, H, P))."""
+    c = la.shape[1]
+    L = torch.cumsum(la, dim=1)                            # (B, c, H) <= 0
+    tot = L[:, -1]                                         # (B, H)
+    # state contribution: y1[t] = exp(L_t) * (C_t . h)
+    y1 = torch.einsum("bcn,bhpn->bchp", cm, h) * torch.exp(L)[..., None]
+    # intra-chunk: decay(t, s) = exp(L_t - L_s) for s <= t
+    dec = torch.exp(L[:, :, None, :] - L[:, None, :, :])   # (B, t, s, H)
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=la.device))
+    dec = torch.where(mask[None, :, :, None], dec, torch.zeros_like(dec))
+    cb = torch.einsum("btn,bsn->bts", cm, b)               # (B, t, s)
+    wts = cb[..., None] * dec * dt[:, None, :, :]          # (B, t, s, H)
+    y2 = torch.einsum("btsh,bshp->bthp", wts, xs)
+    # new state: h' = exp(tot) h + sum_s exp(tot - L_s) dt_s x_s B_s^T
+    carry = torch.exp(tot[:, None, :] - L) * dt            # (B, c, H)
+    h_new = torch.exp(tot)[:, :, None, None] * h + torch.einsum(
+        "bshp,bsn->bhpn", xs * carry[..., None], b)
+    return h_new, y1 + y2
+
+
+def mamba(p, cfg: ArchConfig, rt: Runtime, x):
+    """Full-sequence Mamba2 mixer over the normed x (B, S, d) -> (B, S, d)."""
+    B, S, _ = x.shape
+    di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    xs, z, b, c, dt = project(p, cfg, x)
+    xs = causal_conv(xs, p["conv_x"])
+    b = causal_conv(b, p["conv_b"])
+    c = causal_conv(c, p["conv_c"])
+
+    A = -torch.exp(p["A_log"].float())                     # (H,)
+    la = dt * A                                            # (B, S, H)
+    xs4 = xs.reshape(B, S, H, Pd).float()
+    bf, cf = b.float(), c.float()
+
+    cl = min(rt.ssm_chunk, S)
+    if S % cl:
+        raise ValueError(f"seq {S} must divide ssm_chunk {cl}")
+    h = torch.zeros((B, H, Pd, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(0, S, cl):
+        sl = slice(i, i + cl)
+        h, y = ssd_chunk(h, xs4[:, sl], bf[:, sl], cf[:, sl], dt[:, sl],
+                         la[:, sl])
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    y = y + p["D"].float()[None, None, :, None] * xs4
+    y = y.reshape(B, S, di).to(x.dtype)
+    y = common.rms_norm(y * F.silu(z), p["norm_g"]["scale"])
+    return y @ p["w_out"].to(y.dtype)
+
+
+def init_mamba_cache(cfg: ArchConfig, rows: int, n_layers: int,
+                     device=None):
+    """Decode state of `rows` sessions: h (rows, L, H, P, N) f32 and the
+    conv history (rows, L, K - 1, di + 2N) in the activation dtype (the
+    reference's per-session leaves without their batch axis of 1)."""
+    di, N, H, Pd, K = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
+                       cfg.ssm_head_dim, cfg.ssm_conv)
+    return {
+        "h": torch.zeros((rows, n_layers, H, Pd, N), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((rows, n_layers, K - 1, di + 2 * N),
+                            dtype=cfg.adtype(), device=device),
+    }
+
+
+def mamba_decode(p, cfg: ArchConfig, x_tok, h, conv):
+    """One-step recurrence of x_tok (B, 1, d) (normed) against one layer's
+    state h (B, H, P, N) and conv (B, K - 1, di + 2N). Returns (y (B, 1, d),
+    h', conv'); the caller writes the new state."""
+    B = x_tok.shape[0]
+    di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    xs, z, b, c, dt = project(p, cfg, x_tok)
+    u = torch.cat([xs, b, c], dim=-1)                      # (B, 1, di+2N)
+    hist = torch.cat([conv, u], dim=1)                     # (B, K, di+2N)
+    w = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], dim=-1)
+    conv_out = F.silu(torch.einsum("bkc,kc->bc", hist.float(), w.float()))
+    xs1, b1, c1 = conv_out[:, :di], conv_out[:, di:di + N], \
+        conv_out[:, di + N:]
+    new_conv = hist[:, 1:].to(conv.dtype)
+
+    A = -torch.exp(p["A_log"].float())
+    dt1 = dt[:, 0]                                         # (B, H)
+    a = torch.exp(dt1 * A)                                 # (B, H)
+    xh = xs1.reshape(B, H, Pd)
+    h_new = h * a[:, :, None, None] + (dt1[:, :, None] * xh)[..., None] \
+        * b1[:, None, None, :]
+    y = torch.einsum("bn,bhpn->bhp", c1, h_new)
+    y = y + p["D"].float()[None, :, None] * xh
+    y = y.reshape(B, 1, di).to(x_tok.dtype)
+    y = common.rms_norm(y * F.silu(z), p["norm_g"]["scale"])
+    return y @ p["w_out"].to(x_tok.dtype), h_new, new_conv

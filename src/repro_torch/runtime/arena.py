@@ -1,27 +1,37 @@
 """Device-resident session-slot arena — the serving runtime's hot state.
 
 Every admitted session owns one slot: a fixed row of the pre-allocated
-batched KV-cache/position tensors (`cache`, every leaf stacked over a
-leading capacity axis) and of the cut-activation buffer (`xbuf`). The slot
-is assigned at admission and never moves while the session is resident, so
-the serve loop's per-flush work is: decode the flush's payloads into
-`xbuf[slots]` on the device, run one top step over the whole arena with an
-active-slot mask, read the token rows back.
+batched decode-state tensors (`cache`, every leaf stacked over a leading
+capacity axis) and of the cut-activation buffer (`xbuf`). A row holds
+its position and, by family (`transformer.init_cache`):
+
+  * dense / moe: `kv` {k, v} of every layer;
+  * hybrid (zamba2): `mamba` {h, conv} of every layer (the SSM state and
+    the conv history) and `kv` of every shared-attention site;
+  * ssm (rwkv6): `rwkv` {S, x_tm, x_cm} of every layer (the WKV state and
+    the token-shift inputs);
+
+with `kv` as int8 codes plus `k_scale`/`v_scale` when the label owner
+serves at `kv_cache_bits=8`. The slot is assigned at admission and never
+moves while the session is resident, so the serve loop's per-flush work
+is: decode the flush's payloads into `xbuf[slots]` on the device, run one
+top step over the whole arena with an active-slot mask, read the token
+rows back.
 
 Where the reference donates `cache` and `xbuf` to its jitted steps and
 rebinds the results, the port updates both IN PLACE: the decode kernel
-writes `xbuf` rows, the top step writes the KV rows and positions of the
+writes `xbuf` rows, the top step writes the state and positions of the
 active slots only, and `reset_slot` zeroes one row. All of these run on the
 serve-loop thread, serialized with the step.
 
-Eviction moves a row to the host and back: `fetch_slot` copies a row's KV
-and position into new host tensors and `restore_slot` writes them into a
-(possibly different) row. Both copies are synchronous — `fetch_slot`
-returns only once the row is on the host — so the reset that hands the
-row to another session, queued after the fetch, can never overwrite it
-before it was read (a `non_blocking` copy into pageable memory could).
-The server orders every row op FIFO on the serve-loop thread, so a
-restore always follows its own eviction's fetch.
+Eviction moves a row to the host and back: `fetch_slot` copies every
+leaf of a row (whatever state kinds it holds) into new host tensors and
+`restore_slot` writes them into a (possibly different) row. Both copies
+are synchronous — `fetch_slot` returns only once the row is on the host —
+so the reset that hands the row to another session, queued after the
+fetch, can never overwrite it before it was read (a `non_blocking` copy
+into pageable memory could). The server orders every row op FIFO on the
+serve-loop thread, so a restore always follows its own eviction's fetch.
 
 `xbuf` has `capacity + 1` rows: row `capacity` is the scratch row that
 group padding decodes into (zero rows, never a live session's data), so
@@ -76,8 +86,8 @@ class SlotArena:
         _write_row(self.cache, _map(self._template, lambda a: a[0]), slot)
 
     def fetch_slot(self, slot: int) -> Dict[str, Any]:
-        """Host copy of one row's KV and position (leaves without the
-        capacity axis) — the eviction path. Synchronous: the copy has
+        """Host copy of every leaf of one row (without the capacity axis)
+        — the eviction path. Synchronous: the copy has
         landed when this returns. Serve-loop thread only."""
         return _map(self.cache, lambda a: a[slot].to("cpu", copy=True))
 

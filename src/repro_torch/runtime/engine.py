@@ -21,7 +21,7 @@ import torch
 from repro_torch.core import compressors
 from repro_torch.core.payload import to_host
 from repro_torch.models import transformer
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, Runtime
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime import steps
@@ -111,13 +111,11 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
                    else steps.make_bottom_step)
     bottom_steps = {c: make_bottom(cfg, cut, c) for c in dict.fromkeys(comps)}
 
-    def make_cache(rows=1):
-        return transformer.init_cache(cfg, rows, max_len, device=dev)
-
+    make_cache, make_top_cache = cache_makers(cfg, max_len, dev)
     tracer = tracer if tracer is not None else NULL_TRACER
     registry = MetricsRegistry()        # per run, isolated
     server = StreamingServer(params, steps.make_arena_top_step(cfg, cut),
-                             make_cache, device=dev, max_batch=max_batch,
+                             make_top_cache, device=dev, max_batch=max_batch,
                              max_wait=max_wait, dtype=cfg.adtype(),
                              capacity=capacity or n_clients,
                              x_shape=(1, 1, cfg.d_model), backend=backend,
@@ -196,6 +194,23 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
         "cut_layer": cut,
         "device": str(dev),
     }
+
+
+def cache_makers(cfg: ArchConfig, max_len: int, device):
+    """(make_cache, make_top_cache), each `rows -> transformer.init_cache`:
+    the clients' bottom-model caches are always 16-bit; the label owner's
+    arena takes `cfg.kv_cache_bits` (int8 codes + f32 scales at 8), or the
+    Runtime default when it is 0."""
+    top_bits = cfg.kv_cache_bits or Runtime().kv_cache_bits
+
+    def make_cache(rows=1):
+        return transformer.init_cache(cfg, rows, max_len, device=device)
+
+    def make_top_cache(rows=1):
+        return transformer.init_cache(cfg, rows, max_len, device=device,
+                                      bits=top_bits)
+
+    return make_cache, make_top_cache
 
 
 def fault_summary(server, clients) -> dict:

@@ -344,11 +344,11 @@ class _Harness:
             params = transformer.init_model(cfg, gen, device=dev)
         self.params = params
         self.max_len = lg.fleet.prompt_len[1] + lg.fleet.gen[1]
-        self._make_cache = lambda rows=1: transformer.init_cache(
-            cfg, rows, self.max_len, device=dev)
+        self._make_cache, make_top_cache = _engine.cache_makers(
+            cfg, self.max_len, dev)
         self.server = StreamingServer(
             self.params, steps.make_arena_top_step(cfg, cut),
-            self._make_cache, device=dev, max_batch=lg.max_batch,
+            make_top_cache, device=dev, max_batch=lg.max_batch,
             max_wait=lg.max_wait, dtype=cfg.adtype(), capacity=lg.capacity,
             x_shape=(1, 1, cfg.d_model), backend=self.backend,
             clock=self.clock, tracer=self.tracer, registry=self.registry)

@@ -14,7 +14,8 @@ layers [cut, L) — each party touches only its own range, in place.
     are independent, so a row's numbers do not depend on which other rows
     are active; a moe layer routes each row as its own group of one
     token, as the reference's vmapped per-session step does); only the
-    active rows' KV and positions are written.
+    active rows' state (KV, SSM state and conv history, WKV state and
+    token-shift inputs) and positions are written.
   * fused decode step: the flush payload decoded into `xbuf[slots]`, then
     the arena top step — one call per single-meta flush.
 """
@@ -68,8 +69,8 @@ def make_bottom_step(cfg: ArchConfig, cut: int,
 
 
 def top_logits(params, cfg: ArchConfig, cut: int, xbuf, cache, rows):
-    """Layers [cut, L) + LM head over every arena row; writes the KV of the
-    `rows` (index vector) in place. Returns logits (C, 1, V)."""
+    """Layers [cut, L) + LM head over every arena row; writes the state of
+    the `rows` (index vector) in place. Returns logits (C, 1, V)."""
     C = cache["pos"].shape[0]
     x = xbuf[:C].reshape(C, 1, cfg.d_model)
     x = transformer.decode_layers(params, cfg, x, cache, cut, cfg.n_layers,
@@ -80,7 +81,7 @@ def top_logits(params, cfg: ArchConfig, cut: int, xbuf, cache, rows):
 def make_arena_top_step(cfg: ArchConfig, cut: int) -> Callable:
     """(params, xbuf (C+1, 1, 1, d), cache (C rows), active (C,) numpy
     bool) -> tokens (C,) int32 on the device. Inactive slots compute and
-    discard: their KV and position are never written."""
+    discard: their state and position are never written."""
 
     def arena_step(params, xbuf, cache, active):
         dev = cache["pos"].device

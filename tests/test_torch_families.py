@@ -3,7 +3,7 @@
 qwen3-moe-235b-a22b) at SMOKE in f32, from the JAX reference's weights.
 
   * the registry: FULL and SMOKE field for field the reference's, and the
-    four families that are not ported raise;
+    two families that are not ported (vlm, audio) raise;
   * the converted tree keeps the reference's layout leaf for leaf;
   * the full forward and the split forward (topk at the cut): logits and
     the balance loss;
@@ -54,8 +54,7 @@ from repro_torch.split import model as split_model
 ARCHS = ["qwen3-8b", "granite-3-8b", "phi3-mini-3.8b",
          "granite-moe-1b-a400m", "qwen3-moe-235b-a22b"]
 MOE = ["granite-moe-1b-a400m", "qwen3-moe-235b-a22b"]
-NOT_PORTED = ["zamba2-7b", "rwkv6-1.6b", "llama-3.2-vision-90b",
-              "whisper-tiny"]
+NOT_PORTED = ["llama-3.2-vision-90b", "whisper-tiny"]
 CUT = 1
 TOL = dict(rtol=1e-5, atol=1e-6)
 RT = JRuntime(mesh=None, training=False)

@@ -27,13 +27,20 @@ def weights(arch="yi-6b"):
 
 
 def assert_serving_matches_reference(jp, tp, comp: str, k: int = 16,
-                                     arch="yi-6b"):
+                                     arch="yi-6b", cut: int = 1, cfg_kw=None,
+                                     **run_kw):
     """Served tokens and every client's measured bytes equal the
-    reference's; the server never densifies a payload on the host."""
-    split = dict(cut_layer=1, compressor=comp, k=k)
-    jcfg = jconfigs.get(arch, smoke=True).with_(split=JSplit(**split))
-    cfg = configs.get(arch, smoke=True).with_(split=SplitConfig(**split))
-    kw = dict(n_clients=N_CLIENTS, prompt_len=PROMPT_LEN, gen=GEN, seed=SEED)
+    reference's; the server never densifies a payload on the host.
+    `cfg_kw` changes both configs alike (e.g. `kv_cache_bits`); `run_kw`
+    goes to both `run_streaming` calls (e.g. `capacity`). Returns the
+    port's result."""
+    split = dict(cut_layer=cut, compressor=comp, k=k)
+    jcfg = jconfigs.get(arch, smoke=True).with_(split=JSplit(**split),
+                                                **(cfg_kw or {}))
+    cfg = configs.get(arch, smoke=True).with_(split=SplitConfig(**split),
+                                              **(cfg_kw or {}))
+    kw = dict(n_clients=N_CLIENTS, prompt_len=PROMPT_LEN, gen=GEN, seed=SEED,
+              **run_kw)
     want = jengine.run_streaming(jcfg, params=jp, **kw)
     # the reference draws its prompts with jax.random (engine.py:172-173)
     prompts = np.asarray(jax.random.randint(
@@ -54,3 +61,4 @@ def assert_serving_matches_reference(jp, tp, comp: str, k: int = 16,
     for s in got["client_stats"]:
         assert s["payload_bytes_up"] == s["frames_up"] * \
             comp_obj.fwd_bits(cfg.d_model) / 8
+    return got
