@@ -10,6 +10,8 @@
     python3 chip_smoke.py --phase families    # kernel checks + 5 models
     python3 chip_smoke.py --phase recurrent   # kernel checks + zamba2,
                                               # rwkv6 and the int8 KV arena
+    python3 chip_smoke.py --phase multimodal  # kernel checks + the vlm
+                                              # and whisper-tiny
     python3 chip_smoke.py --phase probe       # build + `probe_kernels`
     python3 chip_smoke.py --phase ab --parent DIR   # probes, P C C P
     python3 chip_smoke.py --phase predict     # CPU: phase 11's reports
@@ -183,12 +185,31 @@ Phases, each fatal on failure:
      FULL (cut 12), batch 4 x seq 256, randtopk k 64 alpha 0.1, AdamW:
      two plain first steps equal each other and the kernels' first step
      bit for bit, 3 kernel steps with their median ms, the busy share of
-     a traced fourth step, and peak memory.
+     a traced fourth step, and peak memory;
+ 14. the vision and audio families (`--phase multimodal`), random bf16
+     weights from a seed, randtopk k 64: serve llama-3.2-vision-90b at
+     full width (d 8192) with its depth cut from 100 to 10 layers (8
+     self + 2 gated cross, cut 5: one cross site on each side) and
+     whisper-tiny FULL (4 decoder layers, d 384, cut 2) through
+     `run_streaming` with 2 clients x (4 + 8) tokens, kernels and plain:
+     equal tokens, 360 and 328 payload B a token, one fused encode per
+     served token and one flush decode per flush group, a traced third
+     run for the busy share; with every vlm gate at 0.5, one split
+     forward over 2 x 64 tokens with the pipeline's patches (2 x 1601 x
+     8192), kernels = plain bit for bit and unlike the gates-at-0
+     logits, then 4 tokens decoded from caches built with the patches,
+     kernels = plain; train whisper-tiny FULL (cut 2, batch 4 x seq 256,
+     frames 4 x 1500 x 384) and the vlm at SMOKE in f32 (cut 2; the full
+     width's smallest valid depth, 10 layers, needs ~128 GB with AdamW):
+     first steps bit for bit against the plain versions, 3 kernel steps,
+     the busy share of a traced fourth step, peak memory, and the vlm's
+     gates nonzero after its first step. The kernel checks cover d 8192
+     and 384 (bf16) and the vlm SMOKE's 256 (f32).
 
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, for the serve's two kernels
-plus the loadgen phase's kernel runs, plus the families and recurrent
-phases' serves and training, plus the fedtrain phase's chaos runs and
+plus the loadgen phase's kernel runs, plus the families, recurrent and
+multimodal phases' serves, live checks and training, plus the fedtrain phase's chaos runs and
 launch.train's resumed checkpoint run, or in its check's own loop for the
 five no path runs, its largest difference from its plain version,
 the CUDA-event times of kernel, plain version and library call at its
@@ -217,6 +238,8 @@ BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 D, K, W_IDX = 4096, 64, 12     # yi-6b cut width, top-k, index bits
 D_MOE = 1024                   # granite-moe-1b-a400m's width
 D_ZAMBA, D_RWKV = 3584, 2048   # zamba2-7b's and rwkv6-1.6b's widths
+D_VLM, D_WHISPER = 8192, 384   # llama-3.2-vision-90b's and whisper-tiny's
+D_VLM_SMOKE = 256              # the vlm's SMOKE width (trained in f32)
 N_CLIENTS, PROMPT_LEN = 4, 4   # closed-loop sessions and prompt tokens
 GEN = 16                       # generated tokens per session, randtopk runs
 GEN_OTHER = 8                  # ... and for the other compressors
@@ -364,6 +387,8 @@ def check_topk(dev, g):
              ((128, d_tab), torch.float32, k_tab),
              ((1, D), torch.bfloat16, K), ((1, D_ZAMBA), torch.bfloat16, K),
              ((1, D_RWKV), torch.bfloat16, K),
+             ((1, D_VLM), torch.bfloat16, K),
+             ((1, D_WHISPER), torch.bfloat16, K),
              ((37, 1000), torch.float32, 1),
              ((37, 1000), torch.float32, 64), ((37, 1000), torch.float32,
                                                999),
@@ -492,6 +517,8 @@ SECTION_CASES = [((1, D), "bfloat16"),          # the serving client's row
                  ((1, 3072), "bfloat16"),       # ... phi3's (12 bits)
                  ((1, 3584), "bfloat16"),       # ... zamba2's (12 bits)
                  ((1, 2048), "bfloat16"),       # ... rwkv6's (11 bits)
+                 ((1, D_VLM), "bfloat16"),      # ... the vlm's (13 bits)
+                 ((1, D_WHISPER), "bfloat16"),  # ... whisper's (9 bits)
                  ((128, 128), "float32"),       # fedtrain: rows share words
                  ((3, 16384), "bfloat16"), ((3, 16384), "float32"),
                  ((37, 1000), "float32"), ((5, 4097), "float32"),
@@ -703,7 +730,7 @@ def _decode_cases(kind, k):
     # the families and recurrent phases' 2-client flushes (buckets of 1
     # and 2 rows into a 3-row buffer) at granite-moe's, rwkv6's, phi3's
     # and zamba2's widths
-    for d in (D_MOE, D_RWKV, 3072, D_ZAMBA):
+    for d in (D_MOE, D_RWKV, 3072, D_ZAMBA, D_VLM, D_WHISPER):
         cases += [(f"d {d} flush, 2 rows", d, bf, 2, 2, [1, 0], k, False,
                    2),
                   (f"d {d} flush, 1 row", d, bf, 1, 1, [1], k, False, 2),
@@ -806,6 +833,9 @@ def check_randtopk(dev, g):
              ((TRAIN_ROWS, D_MOE), torch.bfloat16, K),
              ((TRAIN_ROWS, D_ZAMBA), torch.bfloat16, K),
              ((TRAIN_ROWS, D_RWKV), torch.bfloat16, K),
+             ((TRAIN_ROWS, D_VLM), torch.bfloat16, K),
+             ((TRAIN_ROWS, D_WHISPER), torch.bfloat16, K),
+             ((TRAIN_ROWS, D_VLM_SMOKE), torch.float32, K),
              ((37, 1000), torch.float32, 1),
              ((37, 1000), torch.float32, 64), ((37, 1000), torch.float32,
                                                500),
@@ -895,6 +925,9 @@ def check_decode_rows(dev, g):
                                   (TRAIN_ROWS, D_MOE, k, False),
                                   (TRAIN_ROWS, D_ZAMBA, k, False),
                                   (TRAIN_ROWS, D_RWKV, k, False),
+                                  (TRAIN_ROWS, D_VLM, k, False),
+                                  (TRAIN_ROWS, D_WHISPER, k, False),
+                                  (TRAIN_ROWS, D_VLM_SMOKE, k, False),
                                   (37, 1000, min(k, 999), False),
                                   (5, 1000, 999 if k else 0, False),
                                   (37, 1000, min(k, 999), True),
@@ -1002,6 +1035,8 @@ def check_scatter_rows(dev, g):
     # record holds; (5, 9000, 70): k > d, more than that
     for n, k, d in ((TRAIN_ROWS, K, D), (TRAIN_ROWS, K, D_MOE),
                     (TRAIN_ROWS, K, D_ZAMBA), (TRAIN_ROWS, K, D_RWKV),
+                    (TRAIN_ROWS, K, D_VLM), (TRAIN_ROWS, K, D_WHISPER),
+                    (TRAIN_ROWS, K, D_VLM_SMOKE),
                     (37, 1, 1000), (37, 999, 1000),
                     (5, 64, 4097), (3, 64, 16384), (2, 16384, 16384),
                     (5, 9000, 70)):
@@ -3099,11 +3134,13 @@ def _evicted_serve(cfg, params, clean, kw):
     return ev, counts, n_ev, bool((ev["tokens"] == clean["tokens"]).all())
 
 
-def _recurrent_train(dev, arch, layers, cut, card):
-    """Train one recurrent model through the codec (batch 4 x seq 256,
-    randtopk k 64 alpha 0.1, AdamW): two plain first steps equal each
-    other and the kernels' first step bit for bit, then 3 kernel steps.
-    Returns their launch counts."""
+def _train_through_codec(dev, arch, layers, cut, card, smoke=False,
+                         after_first=None):
+    """Train one model through the codec (batch 4 x seq 256, randtopk k 64
+    alpha 0.1, AdamW; `smoke`: the SMOKE config): two plain first steps
+    equal each other and the kernels' first step bit for bit, then 3
+    kernel steps; `after_first(params)` checks the weights after the
+    first kernel step. Returns their launch counts."""
     import math
 
     import torch
@@ -3114,9 +3151,10 @@ def _recurrent_train(dev, arch, layers, cut, card):
     from repro_torch.models.config import Runtime
     from repro_torch.optim.adamw import adamw_init, tree_leaves
 
-    cfg = _train_cfg("randtopk", layers=layers, cut=cut, arch=arch)
+    cfg = _train_cfg("randtopk", layers=layers, cut=cut, arch=arch,
+                     smoke=smoke)
     plain_cfg = _train_cfg("randtopk", "torch", layers=layers, cut=cut,
-                           arch=arch)
+                           arch=arch, smoke=smoke)
     rt = Runtime(training=True)
     base = held_gib(dev)
     params = transformer.init_model(
@@ -3124,7 +3162,8 @@ def _recurrent_train(dev, arch, layers, cut, card):
     n_params = sum(p.numel() for p in tree_leaves(params))
     pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
     batches = [pipe.next_batch(i) for i in range(FAM_TRAIN_STEPS)]
-    print(f"training {arch}: {cfg.n_layers} layers (cut at "
+    print(f"training {arch}{' SMOKE' if smoke else ''}: {cfg.n_layers} "
+          f"layers (cut at "
           f"{cfg.split.cut_layer}), d_model {cfg.d_model}, {n_params:,} "
           f"params, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, randtopk k={K} "
           f"alpha={cfg.split.alpha}, AdamW, remat={rt.remat}")
@@ -3159,6 +3198,8 @@ def _recurrent_train(dev, arch, layers, cut, card):
             _same_first_step(params, m, p_plain, m_plain,
                              f"{arch}, kernels vs plain versions")
             del p_plain
+            if after_first is not None:
+                after_first(params)
     counts = _lib.launch_counts()
     peak = peak_gib(dev, base)
     missing = [n for n in TRAIN_PATH_KERNELS["randtopk"] if counts[n] == 0]
@@ -3253,9 +3294,9 @@ def recurrent_phase(dev, card):
         cfg16, torch.Generator(device=dev).manual_seed(0), device=dev)
     built, init_cache = [], transformer.init_cache
 
-    def recording(cfg_, rows, max_len, device=None, bits=16):
+    def recording(cfg_, rows, max_len, device=None, bits=16, **kw):
         built.append((rows, bits))
-        return init_cache(cfg_, rows, max_len, device, bits)
+        return init_cache(cfg_, rows, max_len, device, bits, **kw)
 
     transformer.init_cache = recording
     try:
@@ -3283,8 +3324,200 @@ def recurrent_phase(dev, card):
     torch.cuda.empty_cache()
 
     for arch, layers, cut in REC_TRAIN:
-        total.update(_recurrent_train(dev, arch, layers, cut, card))
+        total.update(_train_through_codec(dev, arch, layers, cut, card))
     print(f"recurrent phase wall: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the vision and audio families
+# ---------------------------------------------------------------------------
+
+# the vlm at full width, depth cut from 100 to 10 layers (8 self + 2 gated
+# cross; 21.3 GB of bf16 weights), cut at 5: one cross site on each side
+VLM, VLM_LAYERS, VLM_NB = "llama-3.2-vision-90b", 10, 360
+WHISPER, WHISPER_NB = "whisper-tiny", 328         # FULL: 4 layers, cut 2
+LIVE_BATCH, LIVE_SEQ, LIVE_DECODE = 2, 64, 4       # the live-gate checks
+
+
+def _set_gates(params, value):
+    """Every cross layer's `gate` (attention and MLP) set to `value`, in
+    place."""
+    for sub in ("attn", "mlp"):
+        params["cross_layers"][sub]["gate"].fill_(value)
+
+
+def _split_logits(params, cfg, batch, dev):
+    """One split forward (randtopk in training mode, draws from a seeded
+    generator) under no autograd: the logits."""
+    import torch
+    from repro_torch.models.config import Runtime
+    from repro_torch.split import model as split_model
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    with torch.no_grad():
+        return split_model.forward(params, cfg, Runtime(training=True),
+                                   batch, generator=gen)[0]
+
+
+def _decode_tokens(params, cfg, extras, first, n, dev):
+    """`n` greedy tokens of the split model from caches built with
+    `extras` (`init_cache(params=, extras=)`): bottom layers, the cut
+    codec (inference mode), top layers, one token a step for every row."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.split import protocol
+
+    comp = protocol.make_cut_compressor(cfg.split)
+    cut, rows = cfg.split.cut_layer, first.shape[0]
+    tok, out = first, []
+    with torch.no_grad():
+        cache = transformer.init_cache(cfg, rows, n, device=dev,
+                                       params=params, extras=extras)
+        for _ in range(n):
+            x = transformer.embed(params, cfg, tok)
+            x = transformer.decode_layers(params, cfg, x, cache, 0, cut)
+            x = comp.decode(comp.encode(x, training=False), dtype=x.dtype)
+            x = transformer.decode_layers(params, cfg, x, cache, cut,
+                                          cfg.n_layers)
+            cache["pos"] += 1
+            tok = torch.argmax(transformer.lm_head(params, cfg, x)[:, -1],
+                               dim=-1)[:, None].to(torch.int32)
+            out.append(tok)
+    return torch.cat(out, dim=1)
+
+
+def _live_cross(params, cfg, dev, card):
+    """The vlm's cross branch at full width with every gate at 0.5: a split
+    forward over the pipeline's batch (patches (2, 1601, d)) with the
+    kernels and with the plain versions, bit for bit, and unlike the
+    gates-at-0 logits; then 4 decoded tokens from caches built with the
+    patches, kernels = plain. Returns the kernels' launch counts."""
+    import collections
+
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import _lib
+    from repro_torch.models import transformer
+    from repro_torch.models.config import Runtime, SplitConfig
+
+    def with_backend(backend):
+        return cfg.with_(split=SplitConfig(
+            cut_layer=cfg.n_layers // 2, compressor="randtopk", k=K,
+            backend=backend))
+
+    batch = TokenPipeline(cfg, LIVE_BATCH, LIVE_SEQ, device="cuda"
+                          ).next_batch(0)
+    total = collections.Counter()
+    _set_gates(params, 0.0)
+    shut = _split_logits(params, with_backend(None), batch, dev)
+    _set_gates(params, 0.5)
+    _lib.reset_launch_counts()
+    live = _split_logits(params, with_backend(None), batch, dev)
+    torch.cuda.synchronize()
+    total.update(_lib.launch_counts())
+    plain = _split_logits(params, with_backend("torch"), batch, dev)
+    if not torch.equal(live, plain):
+        fail(f"{cfg.name} live cross forward: kernels != plain, max |diff| "
+             f"{float((live.float() - plain.float()).abs().max())}")
+    moved = float((live.float() - shut.float()).abs().max())
+    if moved == 0.0:
+        fail(f"{cfg.name}: the gates at 0.5 left the logits as at 0")
+    with torch.no_grad():
+        extras = transformer.make_extras(params, cfg, Runtime(
+            training=False), batch)
+    first = batch["tokens"][:, :1]
+    _lib.reset_launch_counts()
+    toks = _decode_tokens(params, with_backend(None), extras, first,
+                          LIVE_DECODE, dev)
+    torch.cuda.synchronize()
+    total.update(_lib.launch_counts())
+    ptoks = _decode_tokens(params, with_backend("torch"), extras, first,
+                           LIVE_DECODE, dev)
+    if not torch.equal(toks, ptoks) or int(toks.max()) >= cfg.vocab:
+        fail(f"{cfg.name} decode with patches: kernels {toks.tolist()}, "
+             f"plain {ptoks.tolist()}")
+    print(f"  {cfg.name} cross branch live (gates 0.5): split forward over "
+          f"{LIVE_BATCH} x {LIVE_SEQ} tokens with patches "
+          f"{tuple(batch['patches'].shape)}, logits kernels = plain bit for "
+          f"bit, max |logits - gates-at-0 logits| {moved}; {LIVE_DECODE} "
+          f"decoded tokens from caches of the patches, kernels = plain "
+          f"({toks.tolist()}); launches {dict(total)}; {card}")
+    return total
+
+
+def multimodal_phase(dev, card):
+    """Phase 14: the vision and audio families, random bf16 weights from a
+    seed, randtopk k 64 at the cut. Serve llama-3.2-vision-90b (depth cut
+    to 10 layers, cut 5) and whisper-tiny FULL (4 layers, cut 2) through
+    `run_streaming`, 2 clients x (4 + 8) tokens, kernels and plain (equal
+    tokens, 360 and 328 payload B a token, one fused encode per served
+    token and one flush decode per flush group), a traced third run for
+    the busy share; the vlm's cross branch live at full width
+    (`_live_cross`); train whisper-tiny FULL (cut 2) and the vlm at SMOKE
+    (f32, cut 2): first steps bit for bit against the plain versions, 3
+    steps, and the vlm's gates nonzero after its first step. Returns the
+    kernels' launches of the serves, the live checks and the training
+    runs."""
+    import collections
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import tree_leaves
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    kw = dict(gen=FAM_GEN, n_clients=FAM_CLIENTS, prompt_len=FAM_PROMPT)
+    print(f"multimodal phase: {FAM_CLIENTS} clients x ({FAM_PROMPT} prompt "
+          f"+ {FAM_GEN} gen) tokens, randtopk k={K}, bf16; {card}")
+    for arch, layers, want_nb in ((VLM, VLM_LAYERS, VLM_NB),
+                                  (WHISPER, None, WHISPER_NB)):
+        cfg = configs.with_layers(configs.get(arch), layers)
+        base = held_gib(dev)
+        t0 = time.perf_counter()
+        params = transformer.init_model(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        res, counts, plain, nb = _serve_pair(cfg, params, arch, **kw)
+        if nb != want_nb:
+            fail(f"{arch}: {nb} payload B/token at d {cfg.d_model}, "
+                 f"{want_nb} expected")
+        total.update(counts)
+        tr = traced(lambda: serve(cfg, params, "randtopk", **kw)[0])
+        peak = peak_gib(dev, base)
+        print(f"  {arch}: {cfg.n_layers} layers (cut at {cfg.n_layers // 2}"
+              f"; {cfg.family}), d_model {cfg.d_model}, {n_params:,} params;"
+              f" kernel tokens = plain tokens ({res['tokens'].tolist()}); "
+              f"{nb} payload B/token (fwd_bits(d) / 8); encode_sections "
+              f"{counts['encode_sections']}, decode_to_slots "
+              f"{counts['decode_to_slots']} launches ({res['flushes']} "
+              f"flushes); {res['tokens_per_s']} tokens/s kernels, "
+              f"{plain['tokens_per_s']} plain; a third run: "
+              f"{_busy_text(tr)}; init {init_s:.2f} s; peak {peak:.2f} GiB "
+              f"(above the {base:.2f} GiB held before it); {card}")
+        del tr
+        if cfg.family == "vlm":
+            total.update(_live_cross(params, cfg, dev, card))
+        del params
+        torch.cuda.empty_cache()
+
+    def gates_moved(params):
+        for sub in ("attn", "mlp"):
+            g = params["cross_layers"][sub]["gate"]
+            if not bool((g != 0).all()):
+                fail(f"{VLM} SMOKE: {sub} gates {g.tolist()} after the "
+                     f"first step")
+        print(f"  {VLM} SMOKE gates after the first step: attn "
+              f"{params['cross_layers']['attn']['gate'].tolist()}, mlp "
+              f"{params['cross_layers']['mlp']['gate'].tolist()}")
+
+    total.update(_train_through_codec(dev, WHISPER, None, 2, card))
+    total.update(_train_through_codec(dev, VLM, None, 2, card, smoke=True,
+                                      after_first=gates_moved))
+    print(f"multimodal phase wall: {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -3292,12 +3525,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
                                         "fedtrain", "loadgen", "families",
-                                        "recurrent", "probe", "ab",
-                                        "predict"),
+                                        "recurrent", "multimodal", "probe",
+                                        "ab", "predict"),
                     default="all",
                     help="kernels: build + kernel checks + codec probes; "
                          "serve / train / fedtrain / loadgen / families / "
-                         "recurrent: the checks, "
+                         "recurrent / multimodal: the checks, "
                          "probes and one path; probe: build + `probe_kernels` "
                          "alone; ab: `probe` in turns on a parent tree's "
                          "package and this one (--parent); predict: the "
@@ -3425,6 +3658,14 @@ def main(argv=None) -> int:
                                   "(zamba2, rwkv6, rwkv6 at capacity 1, "
                                   "yi-6b int8 KV) and zamba2 and rwkv6 "
                                   "training")
+    if args.phase in ("all", "multimodal"):
+        counts = multimodal_phase(dev, card)
+        for n in launches:
+            if counts[n]:
+                add(n, counts[n], "the multimodal phase's kernel serves "
+                                  "(llama-3.2-vision-90b, whisper-tiny), "
+                                  "the vlm's live-gate forward and decode, "
+                                  "and whisper and vlm SMOKE training")
 
     for r in records:
         r["launches"] = launches[r["name"]]

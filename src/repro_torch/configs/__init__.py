@@ -1,7 +1,7 @@
 """Architecture registry. Each module exposes FULL (the exact published
-config) and SMOKE (a reduced same-family variant for CPU tests). The
-dense, moe, hybrid (zamba2) and ssm (rwkv6) families are ported; the vlm
-and audio families are not yet."""
+config) and SMOKE (a reduced same-family variant for CPU tests): the
+dense, moe, hybrid (zamba2), ssm (rwkv6), vlm (llama-3.2-vision) and
+audio (whisper) families, the reference's ten configs."""
 from __future__ import annotations
 
 import importlib
@@ -13,15 +13,11 @@ ARCHS = [
     "yi_6b",
     "granite_moe_1b_a400m",
     "rwkv6_1p6b",
+    "llama_3_2_vision_90b",
     "qwen3_8b",
+    "whisper_tiny",
     "phi3_mini_3p8b",
 ]
-
-#: the reference's architectures whose families the port lacks
-NOT_PORTED = {
-    "llama_3_2_vision_90b": "vlm",
-    "whisper_tiny": "audio",
-}
 
 _ALIASES = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
@@ -40,10 +36,29 @@ _ALIASES = {
 def get(name: str, *, smoke: bool = False):
     mod_name = _ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
     if mod_name not in ARCHS:
-        family = NOT_PORTED.get(mod_name)
-        raise ValueError(
-            f"architecture {name!r} is not ported yet"
-            + (f" (its {family} family is not)" if family else "")
-            + f"; not ported: {sorted(NOT_PORTED)}; ported: {ARCHS}")
+        raise ValueError(f"unknown architecture {name!r}; known: {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.SMOKE if smoke else mod.FULL
+
+
+def with_layers(cfg, layers=None):
+    """`cfg` with its depth cut to `layers` (None: as it is); a vlm's depth
+    must be whole groups of `cross_attn_every` layers."""
+    if not layers:
+        return cfg
+    if cfg.family == "vlm" and layers % cfg.cross_attn_every:
+        raise ValueError(f"depth {layers}: the vlm's depth must be a "
+                         f"multiple of cross_attn_every "
+                         f"{cfg.cross_attn_every}")
+    return cfg.with_(n_layers=layers)
+
+
+def cut_for(cfg, cut=0):
+    """The cut layer: `cut`, or n_layers // 2 when 0; a vlm cut is rounded
+    down to whole groups of `cross_attn_every` layers, at least one (the
+    reference's `launch/train.py`)."""
+    cut = cut or max(1, cfg.n_layers // 2)
+    if cfg.family == "vlm":
+        g = cfg.cross_attn_every
+        cut = max(g, cut // g * g)
+    return cut

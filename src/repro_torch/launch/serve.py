@@ -26,10 +26,21 @@ Table-2 analytic prediction. Runs on the card unless `--device cpu`:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --smoke --device cpu --clients 2 --gen 6 --split randtopk --k 16
 
+    python -m repro_torch.launch.serve --arch llama-3.2-vision-90b \
+        --layers 10 --clients 2 --prompt-len 4 --gen 8 --split randtopk --k 64
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --smoke --device cpu --clients 2 --gen 6 --split randtopk --k 16
+
 `--arch` takes the dense (yi-6b, qwen3-8b, granite-3-8b, phi3-mini-3.8b),
 mixture-of-experts (granite-moe-1b-a400m, qwen3-moe-235b-a22b), hybrid
-Mamba2 (zamba2-7b) and RWKV6 (rwkv6-1.6b) configurations; the cut sits at
-n_layers // 2. A config with `kv_cache_bits=8` serves from an int8 KV
+Mamba2 (zamba2-7b), RWKV6 (rwkv6-1.6b), vision (llama-3.2-vision-90b,
+gated cross attention over image patches) and audio (whisper-tiny, an
+encoder-decoder) configurations; the cut sits at n_layers // 2 (for the
+vlm rounded down to whole groups of `cross_attn_every` layers), and a
+vlm's `--layers` must be whole groups. The served sessions carry no
+patches or audio: the cross-attention KV is that of zeros, as the
+reference serves. A config with `kv_cache_bits=8` serves from an int8 KV
 arena on the label owner's side.
 
 Weights are random, drawn from `--seed`. `--trace OUT.json` records the
@@ -153,13 +164,11 @@ def main(argv=None):
                       help="per-client link bytes/s (0 = infinite)")
     args = ap.parse_args(argv)
 
-    cfg = configs.get(args.arch, smoke=args.smoke)
-    if args.layers:
-        cfg = cfg.with_(n_layers=args.layers)
+    cfg = configs.with_layers(configs.get(args.arch, smoke=args.smoke),
+                              args.layers)
     if args.split:
         cfg = cfg.with_(split=SplitConfig(
-            cut_layer=max(1, cfg.n_layers // 2), compressor=args.split,
-            k=args.k))
+            cut_layer=configs.cut_for(cfg), compressor=args.split, k=args.k))
 
     if args.loadgen:
         return _run_loadgen(cfg, args)

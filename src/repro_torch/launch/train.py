@@ -13,6 +13,13 @@
         --arch granite-moe-1b-a400m --smoke --device cpu --steps 5 \
         --split randtopk --k 16 --ckpt-dir /tmp/ck --ckpt-every 5
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \
+        --smoke --device cpu --steps 5 --split randtopk --k 16
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch llama-3.2-vision-90b --smoke --device cpu --steps 5 \
+        --split randtopk --k 16
+
     python -m repro_torch.launch.train --arch zamba2-7b --layers 12 \
         --steps 3 --batch 4 --seq 256 --split randtopk --k 64
 
@@ -20,8 +27,9 @@
         --smoke --device cpu --steps 5 --split randtopk --k 16
 
 Runs a real training loop: synthetic token batches drawn on the device,
-the split model with the cut-layer codec at `--cut` (default n_layers // 2),
-AdamW; a mixture-of-experts model adds its balance loss (weight
+the split model with the cut-layer codec at `--cut` (default n_layers // 2;
+for the vlm rounded down to whole groups of `cross_attn_every` layers, at
+least one, as the reference does), AdamW; a mixture-of-experts model adds its balance loss (weight
 `launch.steps.AUX_WEIGHT`). Weights are random, drawn from `--seed`.
 
 Checkpoints, in the reference's layout: every `--ckpt-every` steps the
@@ -55,15 +63,14 @@ from repro_torch.split import protocol
 def build(arch: str, *, smoke=False, layers=None, split=None, k=16,
           alpha=0.1, cut=0, backend=None):
     """The config `main` trains: `arch` (depth cut to `layers`) with the
-    cut-layer codec `split` at `cut` (default n_layers // 2)."""
-    cfg = configs.get(arch, smoke=smoke)
-    if layers:
-        cfg = cfg.with_(n_layers=layers)
+    cut-layer codec `split` at `cut` (`cut_for`)."""
+    cfg = configs.with_layers(configs.get(arch, smoke=smoke), layers)
     if split:
         cfg = cfg.with_(split=SplitConfig(
-            cut_layer=cut or max(1, cfg.n_layers // 2), compressor=split,
-            k=k, alpha=alpha, backend=backend))
+            cut_layer=configs.cut_for(cfg, cut), compressor=split, k=k,
+            alpha=alpha, backend=backend))
     return cfg
+
 
 
 def main(argv=None):

@@ -9,6 +9,12 @@ and the validity mask) takes a per-row `pos` vector. The decode cache is
 16-bit (the activation dtype) or int8 codes with f32 per-(token, head)
 scales (`init_kv_cache(bits=8)`, the label owner's arena at
 `kv_cache_bits=8`).
+
+Cross attention (the vlm's gated layers over image patches, the whisper
+decoder's over the encoder output) has no RoPE and sees every key: q
+comes from the residual, k and v from the tokens or from a `cross_kv`
+cache computed once per session. A gated block scales its output by
+`tanh(gate)`, a 0-d weight that starts at 0.
 """
 from __future__ import annotations
 
@@ -18,9 +24,10 @@ from repro_torch.models import common
 from repro_torch.models.config import ArchConfig, Runtime
 
 
-def init_attention(generator, cfg: ArchConfig, n_layers: int, device=None):
+def init_attention(generator, cfg: ArchConfig, n_layers: int, device=None,
+                   *, gated=False):
     """Stacked (n_layers, ...) attention weights, the reference's layout
-    (x @ W)."""
+    (x @ W); `gated` adds the cross block's 0-d `gate` (zeros)."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt, L = cfg.pdtype(), n_layers
 
@@ -29,7 +36,7 @@ def init_attention(generator, cfg: ArchConfig, n_layers: int, device=None):
                                   device=device)
 
     p = {
-        "norm": {"scale": torch.ones((L, d), dtype=dt, device=device)},
+        "norm": common.init_norm(d, dt, device, cfg.norm, (L,)),
         "wq": w((d, hq * hd)),
         "wk": w((d, hkv * hd)),
         "wv": w((d, hkv * hd)),
@@ -38,6 +45,8 @@ def init_attention(generator, cfg: ArchConfig, n_layers: int, device=None):
     if cfg.qk_norm:
         p["q_norm"] = {"scale": torch.ones((L, hd), dtype=dt, device=device)}
         p["k_norm"] = {"scale": torch.ones((L, hd), dtype=dt, device=device)}
+    if gated:
+        p["gate"] = torch.zeros((L,), dtype=dt, device=device)
     return p
 
 
@@ -107,33 +116,56 @@ def _causal_mask(q_pos, kv_pos, window: int):
     return m
 
 
+def project_q(p, cfg: ArchConfig, x):
+    """q (B, S, Hq, hd) of x (B, S, d), qk-normed, without RoPE."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = common.rms_norm(q, p["q_norm"]["scale"])
+    return q
+
+
+def cross_kv(p, cfg: ArchConfig, kv_tokens):
+    """k, v (B, N, Hkv, hd) of kv_tokens (B, N, d), qk-normed, without
+    RoPE: the cross-attention cache of the encoder's or the image's
+    tokens."""
+    B, N, _ = kv_tokens.shape
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    k = (kv_tokens @ p["wk"].to(kv_tokens.dtype)).reshape(B, N, hkv, hd)
+    v = (kv_tokens @ p["wv"].to(kv_tokens.dtype)).reshape(B, N, hkv, hd)
+    if cfg.qk_norm:
+        k = common.rms_norm(k, p["k_norm"]["scale"])
+    return k, v
+
+
 def project_qkv(p, cfg: ArchConfig, x, positions):
     """q (B, S, Hq, hd), k and v (B, S, Hkv, hd) of x (B, S, d) at
     `positions` (B or 1, S), qk-normed (`cfg.qk_norm`) and with RoPE
-    applied to q and k: exactly the operands `full_attention` attends with,
-    and the decode's new token (the reference's `_project_qkv`)."""
-    B, S, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, hq, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, hkv, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, hkv, hd)
-    if cfg.qk_norm:
-        q = common.rms_norm(q, p["q_norm"]["scale"])
-        k = common.rms_norm(k, p["k_norm"]["scale"])
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
+    applied to q and k (none when `positions` is None): exactly the
+    operands `full_attention` attends with, and the decode's new token
+    (the reference's `_project_qkv`)."""
+    q = project_q(p, cfg, x)
+    k, v = cross_kv(p, cfg, x)
+    if positions is not None:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def full_attention(p, cfg: ArchConfig, rt: Runtime, x):
-    """Causal training / prefill self-attention with RoPE over x (B, S, d).
-    Sequences longer than `rt.attn_chunk` (and a multiple of it) are
-    attended one query chunk at a time, bounding the logits at (chunk, S)."""
+def full_attention(p, cfg: ArchConfig, rt: Runtime, x, *, causal=True,
+                   rope=True):
+    """Training / prefill self-attention over x (B, S, d): causal with
+    RoPE, or (the whisper encoder) bidirectional without it. Sequences
+    longer than `rt.attn_chunk` (and a multiple of it) are attended one
+    query chunk at a time, bounding the logits at (chunk, S)."""
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)
-    q, k, v = project_qkv(p, cfg, x, pos[None])
+    q, k, v = project_qkv(p, cfg, x, pos[None] if rope else None)
 
     def mask_for(q_pos):
+        if not causal:
+            return torch.ones((1, q_pos.shape[0], S), dtype=torch.bool,
+                              device=x.device)
         return _causal_mask(q_pos, pos, cfg.sliding_window)[None]
 
     c = rt.attn_chunk
@@ -143,6 +175,20 @@ def full_attention(p, cfg: ArchConfig, rt: Runtime, x):
         out = torch.cat([sdpa(q[:, i:i + c], k, v, mask_for(pos[i:i + c]),
                               cfg) for i in range(0, S, c)], dim=1)
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+
+
+def cross_attention(p, cfg: ArchConfig, x, kv_tokens=None, *, kv_cache=None,
+                    gated=False):
+    """Cross attention of x (B, S, d) over kv_tokens (B, N, d), or over a
+    precomputed `kv_cache` (k, v) each (B, N, Hkv, hd): no RoPE, every key
+    visible; `gated` scales the output by tanh(p["gate"])."""
+    B, S, _ = x.shape
+    q = project_q(p, cfg, x)
+    k, v = kv_cache if kv_cache is not None else cross_kv(p, cfg, kv_tokens)
+    mask = torch.ones((1, S, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = sdpa(q, k, v, mask, cfg)
+    y = out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+    return common.tanh_gate(p, y) if gated else y
 
 
 def layer_kv(kv, layer: int):

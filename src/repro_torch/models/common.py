@@ -1,4 +1,5 @@
-"""Shared layers: RMS norm, RoPE, initializers."""
+"""Shared layers: RMS and layer norm, RoPE, sinusoidal positions,
+initializers."""
 from __future__ import annotations
 
 import torch
@@ -12,8 +13,14 @@ def normal_init(generator: torch.Generator, shape, dtype, scale=0.02,
     return (w.mul_(scale)).to(dtype)
 
 
-def init_norm(d, dtype, device=None):
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def init_norm(d, dtype, device=None, kind="rms", lead=()):
+    """A norm's weights, with leading (stacking) axes `lead`: a scale of
+    ones, and for layer norm a bias of zeros."""
+    shape = tuple(lead) + (d,)
+    p = {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    if kind == "layer":
+        p["bias"] = torch.zeros(shape, dtype=dtype, device=device)
+    return p
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -22,6 +29,30 @@ def rms_norm(x, scale, eps=1e-6):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    """Layer norm computed in f32 (population variance), returned in x's
+    dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(x, p, kind="rms"):
+    """The norm `kind` ("rms" or "layer", `ArchConfig.norm`) with the
+    weights `p`."""
+    if kind == "layer":
+        return layer_norm(x, p["scale"], p["bias"])
+    return rms_norm(x, p["scale"])
+
+
+def tanh_gate(p, y):
+    """tanh(p["gate"]) * y, the gate's tanh taken in f32: a gated cross
+    block's output (0 while the gate is at its initial 0)."""
+    return torch.tanh(p["gate"].float()).to(y.dtype) * y
 
 
 def rope_freqs(hd: int, theta: float, device=None):
@@ -40,3 +71,14 @@ def apply_rope(x, positions, theta: float):
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(n_pos: int, d: int, device=None):
+    """(n_pos, d) f32: sin then cos of pos / 10000^(2i/d), i < d/2. The
+    power is taken in f64 and rounded to f32 (the correctly rounded value,
+    which XLA's f32 power gives and torch's f32 power misses by an ulp
+    at some i: an ulp of the angle at pos 1499 is 1.2e-4)."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d).double()).float()
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

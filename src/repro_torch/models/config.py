@@ -2,7 +2,9 @@
 reference's field names and defaults; dtypes are named by string and
 resolved to torch). `ArchConfig` holds the fields of the families the port
 runs (dense, with or without qk-norm, mixture-of-experts, the zamba2
-hybrid of Mamba2 layers and a shared attention block, and RWKV6);
+hybrid of Mamba2 layers and a shared attention block, RWKV6, the vlm's
+gated cross-attention layers over image patches, and the audio
+encoder-decoder with layer norm);
 `Runtime` keeps only the knobs the port's forward reads: the scan chunks
 of the recurrent families and the label owner's KV cache width among
 them. The reference's mesh knobs have no reader in the port yet."""
@@ -37,10 +39,11 @@ class SplitConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """Architecture fields of the dense, moe, hybrid and ssm families."""
+    """Architecture fields of the dense, moe, hybrid, ssm, vlm and audio
+    families."""
 
     name: str
-    family: str                     # dense | moe | hybrid | ssm
+    family: str                     # dense | moe | hybrid | ssm | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,6 +53,8 @@ class ArchConfig:
     head_dim: int = 0               # 0 -> d_model // n_heads
     qk_norm: bool = False           # RMS norm of q and k over head_dim
     rope_theta: float = 1e6
+    norm: str = "rms"               # rms | layer (every block, the encoder's
+                                    # and the final norm)
     # --- MoE ---
     n_experts: int = 0
     topk_experts: int = 0
@@ -62,6 +67,13 @@ class ArchConfig:
     # --- RWKV6 ---
     rwkv: bool = False
     rwkv_lora: int = 64
+    # --- VLM ---
+    cross_attn_every: int = 0       # a gated cross-attn layer every N layers
+    n_image_tokens: int = 0
+    # --- audio enc-dec ---
+    encdec: bool = False
+    n_enc_layers: int = 0
+    n_frames: int = 0
     sliding_window: int = 0         # 0 = full causal attention
     param_dtype: str = "float32"
     dtype: str = "float32"

@@ -7,6 +7,7 @@ reference's (x @ W, layers stacked on axis 0), so the two packages multiply
 the same operands:
 
     embed (padded_vocab, d), final_norm.scale (d,), unembed (d, padded_vocab)
+    (every norm also carries .bias (..., d) where cfg.norm is "layer")
     layers.attn.{norm.scale, wq, wk, wv, wo}   (L, ...)
     layers.attn.{q_norm.scale, k_norm.scale}   (L, hd), with cfg.qk_norm
     layers.mlp.{norm.scale, w_gate, w_up, w_down}   (L, ...), dense
@@ -19,6 +20,12 @@ the same operands:
     layers.time.{norm.scale, mu, w_r, w_k, w_v, w_g, w0, w1, w2, u,
                  ln_x.scale, w_out}   (L, ...), ssm (RWKV6)
     layers.chan.{norm.scale, mu, w_k, w_v, w_r}   (L, ...), ssm
+    layers.{attn, mlp}   (L - L/g, ...), vlm: the self layers
+    cross_layers.attn.{norm.scale, wq, wk, wv, wo, gate (L/g,)},
+    cross_layers.mlp.{norm.scale, w_gate, w_up, w_down, gate (L/g,)},
+        vlm: the gated cross layers (g = cross_attn_every)
+    enc_layers.{attn, mlp}   (n_enc_layers, ...), enc_norm.{scale, bias},
+    layers.{attn, cross, mlp}   (L, ...), audio (whisper)
 
 `parties_from_jax(np_bottom, np_top, device)` does the same for the
 tabular trainer's two parties (`split.tabular`): flat dicts of f32
@@ -55,24 +62,40 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 
 def params_from_jax(np_params, cfg: ArchConfig, device) -> dict:
-    """The reference's dense-, moe-, hybrid- or ssm-family tree (numpy
-    leaves) -> port weights in `cfg.param_dtype` on `device`."""
+    """The reference's tree of any family (numpy leaves) -> port weights
+    in `cfg.param_dtype` on `device`."""
     transformer.check_family(cfg)
     dt = cfg.pdtype()
 
+    def norm(src):
+        return {k: _tensor(src[k], dt, device) for k in
+                (("scale", "bias") if "bias" in src else ("scale",))}
+
     def block(src, keys):
-        return {k: ({"scale": _tensor(src[k]["scale"], dt, device)}
-                    if k in _NORMS else _tensor(src[k], dt, device))
-                for k in keys}
+        keys = keys + (("gate",) if "gate" in src else ())
+        return {k: (norm(src[k]) if k in _NORMS
+                    else _tensor(src[k], dt, device)) for k in keys}
+
+    def attn_mlp(src, qk=()):
+        return {"attn": block(src["attn"], _KEYS["attn"] + qk),
+                "mlp": block(src["mlp"], _KEYS["mlp"])}
 
     out = {
         "embed": _tensor(np_params["embed"], dt, device),
-        "final_norm": {"scale": _tensor(np_params["final_norm"]["scale"],
-                                        dt, device)},
+        "final_norm": norm(np_params["final_norm"]),
         "unembed": _tensor(np_params["unembed"], dt, device),
     }
     src = np_params["layers"]
-    if cfg.family == "hybrid":
+    qk = ("q_norm", "k_norm") if cfg.qk_norm else ()
+    if cfg.family == "vlm":
+        out["layers"] = attn_mlp(src, qk)
+        out["cross_layers"] = attn_mlp(np_params["cross_layers"], qk)
+    elif cfg.family == "audio":
+        out["enc_layers"] = attn_mlp(np_params["enc_layers"], qk)
+        out["enc_norm"] = norm(np_params["enc_norm"])
+        out["layers"] = dict(attn_mlp(src, qk), cross=block(
+            src["cross"], _KEYS["attn"] + qk))
+    elif cfg.family == "hybrid":
         out["layers"] = block(src, _KEYS["mamba"])
         out["shared_attn"] = block(np_params["shared_attn"], _KEYS["attn"])
         out["shared_mlp"] = block(np_params["shared_mlp"], _KEYS["mlp"])
@@ -81,7 +104,6 @@ def params_from_jax(np_params, cfg: ArchConfig, device) -> dict:
                          for part in ("time", "chan")}
     else:
         ffn = "moe" if cfg.family == "moe" else "mlp"
-        qk = ("q_norm", "k_norm") if cfg.qk_norm else ()
         out["layers"] = {"attn": block(src["attn"], _KEYS["attn"] + qk),
                          ffn: block(src[ffn], _KEYS[ffn])}
     return out

@@ -1,20 +1,30 @@
-"""Decoder model of the dense, moe, hybrid and ssm families: embed ->
-layer stack -> LM head, as a full-sequence forward (training / prefill)
-and as one-token decode. Each block sits behind its RMS norm:
+"""Decoder model of the dense, moe, hybrid, ssm, vlm and audio families:
+embed -> layer stack -> LM head, as a full-sequence forward (training /
+prefill) and as one-token decode. Each block sits behind its norm (RMS,
+or layer norm with a bias where `cfg.norm` is "layer"):
 
   * dense / moe: attention, then an MLP or a mixture of experts;
   * hybrid (zamba2): a Mamba2 mixer (`models.ssm`); after every
     `attn_every`-th layer one SHARED attention + MLP block (`shared_attn`,
     `shared_mlp`, one set of weights for every site) with its own KV
     cache per site;
-  * ssm (rwkv6): RWKV6 time-mix, then channel-mix (`models.rwkv`).
+  * ssm (rwkv6): RWKV6 time-mix, then channel-mix (`models.rwkv`);
+  * vlm (llama-3.2-vision): groups of `cross_attn_every` layers, each
+    `g - 1` dense self layers (`layers`, stacked over every self layer)
+    and one cross layer (`cross_layers`): gated cross attention over the
+    batch's image patches, then a gated MLP;
+  * audio (whisper): a bidirectional encoder over the batch's frames
+    (`enc_layers`, sinusoidal positions, `enc_norm`, run once per
+    forward by `make_extras`), and decoder layers of causal self
+    attention, cross attention over the encoder output (`cross`) and an
+    MLP.
 
 Parameters are a plain dict mirroring the reference's tree (layers stacked
 on axis 0), so `models.convert.params_from_jax` is a one-to-one map and
 every product takes the same operands as in the reference. The split-
 learning cut is a residual-stream boundary: `apply_layers(..., lo, hi)`
-runs any contiguous layer range, and `split.model.forward` composes
-bottom range -> cut codec -> top range.
+runs any contiguous layer range (for the vlm, whole groups), and
+`split.model.forward` composes bottom range -> cut codec -> top range.
 """
 from __future__ import annotations
 
@@ -26,14 +36,18 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention, common, mlp, moe, rwkv, ssm
 from repro_torch.models.config import ArchConfig, Runtime
 
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
 
 def check_family(cfg: ArchConfig):
-    """Raise for a family the port does not run yet."""
+    """Raise for a family the port does not know, and for a vlm whose
+    depth is not whole groups of `cross_attn_every` layers."""
     if cfg.family not in FAMILIES:
-        raise ValueError(f"family {cfg.family!r} is not ported yet "
-                         f"(ported: {FAMILIES})")
+        raise ValueError(f"unknown family {cfg.family!r} (known: "
+                         f"{FAMILIES})")
+    if cfg.family == "vlm" and cfg.n_layers % cfg.cross_attn_every:
+        raise ValueError(f"vlm n_layers {cfg.n_layers} must be a multiple "
+                         f"of cross_attn_every {cfg.cross_attn_every}")
 
 
 def init_model(cfg: ArchConfig, generator: torch.Generator, device=None):
@@ -44,9 +58,14 @@ def init_model(cfg: ArchConfig, generator: torch.Generator, device=None):
     def w(shape, scale=0.02):
         return common.normal_init(generator, shape, dt, scale, device=device)
 
+    def attn_mlp(n, gated=False):
+        return {"attn": attention.init_attention(generator, cfg, n, device,
+                                                 gated=gated),
+                "mlp": mlp.init_mlp(generator, cfg, n, device, gated=gated)}
+
     params = {
         "embed": w((cfg.padded_vocab, d)),
-        "final_norm": common.init_norm(d, dt, device),
+        "final_norm": common.init_norm(d, dt, device, cfg.norm),
         "unembed": w((d, cfg.padded_vocab)),
     }
     if cfg.family == "hybrid":
@@ -59,6 +78,17 @@ def init_model(cfg: ArchConfig, generator: torch.Generator, device=None):
         params["layers"] = {
             "time": rwkv.init_rwkv_time(generator, cfg, L, device),
             "chan": rwkv.init_rwkv_channel(generator, cfg, L, device)}
+    elif cfg.family == "vlm":
+        n_cross = L // cfg.cross_attn_every
+        params["layers"] = attn_mlp(L - n_cross)
+        params["cross_layers"] = attn_mlp(n_cross, gated=True)
+    elif cfg.family == "audio":
+        params["enc_layers"] = attn_mlp(cfg.n_enc_layers)
+        params["enc_norm"] = common.init_norm(d, dt, device, cfg.norm)
+        params["layers"] = {
+            "attn": attention.init_attention(generator, cfg, L, device),
+            "cross": attention.init_attention(generator, cfg, L, device),
+            "mlp": mlp.init_mlp(generator, cfg, L, device)}
     else:
         layers = {"attn": attention.init_attention(generator, cfg, L,
                                                    device)}
@@ -76,12 +106,14 @@ def _unstack(tree):
             for k, v in tree.items()}
 
 
-def layer_params(params, layer: int):
-    """One layer's weights as views into the stacked tensors."""
+def layer_params(params, layer: int, stack: str = "layers"):
+    """One layer's weights of the stack `stack` ("layers", the vlm's
+    "cross_layers", whisper's "enc_layers") as views into the stacked
+    tensors."""
     def pick(tree):
         return {k: pick(v) if isinstance(v, dict) else v[layer]
                 for k, v in tree.items()}
-    return pick(params["layers"])
+    return pick(params[stack])
 
 
 def attn_sites(cfg: ArchConfig):
@@ -97,13 +129,37 @@ def attn_sites(cfg: ArchConfig):
     return out
 
 
+def blocks(cfg: ArchConfig, lo: int, hi: int):
+    """The blocks of layers [lo, hi) in order: ("layer", i) is entry i of
+    `params["layers"]` (and of `cache["kv"]`), ("cross", s) the vlm's
+    cross layer s (`params["cross_layers"]`, `cache["cross_kv"]`). A vlm
+    range must hold whole groups (g = `cross_attn_every`: g - 1 self
+    layers, then one cross layer); the reference reads a range that does
+    not as groups lo // g .. hi // g without a word, the port raises."""
+    if cfg.family != "vlm":
+        return [("layer", i) for i in range(lo, hi)]
+    g = cfg.cross_attn_every
+    if lo % g or hi % g:
+        raise ValueError(f"vlm layer range [{lo}, {hi}) is not whole groups "
+                         f"of cross_attn_every={g} layers")
+    out = []
+    for s in range(lo // g, hi // g):
+        out += [("layer", s * (g - 1) + j) for j in range(g - 1)]
+        out.append(("cross", s))
+    return out
+
+
+def _norm(cfg: ArchConfig, x, p):
+    return common.apply_norm(x, p, cfg.norm)
+
+
 def embed(params, cfg: ArchConfig, tokens):
     """tokens (B, S) -> (B, S, d) in the activation dtype."""
     return params["embed"][tokens.long()].to(cfg.adtype())
 
 
 def lm_head(params, cfg: ArchConfig, x):
-    x = common.rms_norm(x, params["final_norm"]["scale"])
+    x = _norm(cfg, x, params["final_norm"])
     return x @ params["unembed"].to(x.dtype)
 
 
@@ -111,39 +167,62 @@ def _ffn(pl, cfg: ArchConfig, rt: Runtime, x, per_row: bool = False):
     """The layer's second half on the normed residual: (the MLP, None) or
     (the mixture of experts, its balance loss)."""
     if cfg.family == "moe":
-        return moe.moe(pl["moe"], cfg, rt, common.rms_norm(
-            x, pl["moe"]["norm"]["scale"]), per_row=per_row)
-    return mlp.mlp(pl["mlp"], common.rms_norm(x, pl["mlp"]["norm"][
-        "scale"])), None
+        return moe.moe(pl["moe"], cfg, rt, _norm(cfg, x, pl["moe"]["norm"]),
+                       per_row=per_row)
+    return mlp.mlp(pl["mlp"], _norm(cfg, x, pl["mlp"]["norm"])), None
 
 
 def _shared_block(params, cfg: ArchConfig, rt: Runtime, x):
     """Hybrid: the shared attention + MLP block, full sequence."""
     sa, sm = params["shared_attn"], params["shared_mlp"]
-    h = x + attention.full_attention(sa, cfg, rt, common.rms_norm(
-        x, sa["norm"]["scale"]))
-    return h + mlp.mlp(sm, common.rms_norm(h, sm["norm"]["scale"]))
+    h = x + attention.full_attention(sa, cfg, rt, _norm(cfg, x, sa["norm"]))
+    return h + mlp.mlp(sm, _norm(cfg, h, sm["norm"]))
 
 
-def _layer_fwd(params, layer: int, cfg: ArchConfig, rt: Runtime, x):
-    """Layer `layer` over x (B, S, d): (x, its moe balance loss or None)."""
-    pl = layer_params(params, layer)
+def _cross_fwd(pl, cfg: ArchConfig, x, kv_tokens=None, kv_cache=None):
+    """The vlm's cross layer: gated cross attention over the image tokens
+    (or their cache), then the gated MLP."""
+    x = x + attention.cross_attention(
+        pl["attn"], cfg, _norm(cfg, x, pl["attn"]["norm"]), kv_tokens,
+        kv_cache=kv_cache, gated=True)
+    return x + mlp.mlp(pl["mlp"], _norm(cfg, x, pl["mlp"]["norm"]),
+                       gated=True)
+
+
+def _block_fwd(params, block, cfg: ArchConfig, rt: Runtime, x, extras):
+    """One block (`blocks`) over x (B, S, d): (x, its moe balance loss or
+    None)."""
+    kind, i = block
+    if kind == "cross":
+        return _cross_fwd(layer_params(params, i, "cross_layers"), cfg, x,
+                          extras["patches"]), None
+    pl = layer_params(params, i)
     if cfg.family == "hybrid":
-        x = x + ssm.mamba(pl, cfg, rt, common.rms_norm(
-            x, pl["norm"]["scale"]))
-        if attn_sites(cfg)[layer] >= 0:
+        x = x + ssm.mamba(pl, cfg, rt, _norm(cfg, x, pl["norm"]))
+        if attn_sites(cfg)[i] >= 0:
             x = _shared_block(params, cfg, rt, x)
         return x, None
     if cfg.family == "ssm":
         pt, pc = pl["time"], pl["chan"]
-        x = x + rwkv.rwkv_time_mix(pt, cfg, rt, common.rms_norm(
-            x, pt["norm"]["scale"]))[0]
-        return x + rwkv.rwkv_channel_mix(pc, common.rms_norm(
-            x, pc["norm"]["scale"])), None
-    h = common.rms_norm(x, pl["attn"]["norm"]["scale"])
-    x = x + attention.full_attention(pl["attn"], cfg, rt, h)
+        x = x + rwkv.rwkv_time_mix(pt, cfg, rt, _norm(cfg, x, pt["norm"]))[0]
+        return x + rwkv.rwkv_channel_mix(pc, _norm(cfg, x, pc["norm"])), None
+    x = x + attention.full_attention(pl["attn"], cfg, rt,
+                                     _norm(cfg, x, pl["attn"]["norm"]))
+    if cfg.family == "audio":
+        x = x + attention.cross_attention(
+            pl["cross"], cfg, _norm(cfg, x, pl["cross"]["norm"]),
+            extras["enc_out"])
     y, aux = _ffn(pl, cfg, rt, x)
     return x + y, aux
+
+
+def _remat(rt: Runtime, fn, *args):
+    """fn(*args), recomputed in the backward instead of keeping its
+    activations when `rt.remat` and autograd are on; nothing random runs
+    inside a block, so the recompute gives the forward's numbers."""
+    if rt.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def apply_layers(params, cfg: ArchConfig, rt: Runtime, x, extras, lo: int,
@@ -151,27 +230,46 @@ def apply_layers(params, cfg: ArchConfig, rt: Runtime, x, extras, lo: int,
     """Run layers [lo, hi) over x (B, S, d). Returns (x, aux loss): the
     moe family's balance losses summed over the layers, in layer order as
     the reference sums them (0 for the other families). With `rt.remat`
-    (and autograd on) each layer, a hybrid layer's shared block included,
-    is recomputed in the backward instead of keeping its activations;
-    nothing random runs inside a layer, so the recompute gives the
-    forward's numbers."""
+    each block (`blocks`; a hybrid layer with its shared block) is
+    recomputed in the backward. `extras` (`make_extras`) carries the
+    vlm's patches or whisper's encoder output."""
     check_family(cfg)
-    remat = rt.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in range(lo, hi):
-        if remat:
-            x, a = checkpoint(_layer_fwd, params, layer, cfg, rt, x,
-                              use_reentrant=False)
-        else:
-            x, a = _layer_fwd(params, layer, cfg, rt, x)
+    for block in blocks(cfg, lo, hi):
+        x, a = _remat(rt, _block_fwd, params, block, cfg, rt, x, extras)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
+def _enc_layer_fwd(params, i: int, cfg: ArchConfig, rt: Runtime, x):
+    pl = layer_params(params, i, "enc_layers")
+    x = x + attention.full_attention(
+        pl["attn"], cfg, rt, _norm(cfg, x, pl["attn"]["norm"]),
+        causal=False, rope=False)
+    return x + mlp.mlp(pl["mlp"], _norm(cfg, x, pl["mlp"]["norm"]))
+
+
+def run_encoder(params, cfg: ArchConfig, rt: Runtime, frames):
+    """Whisper's encoder over the stubbed frame embeddings (B, F, d):
+    sinusoidal positions added, bidirectional attention without RoPE,
+    then `enc_norm`."""
+    pos = common.sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                      device=frames.device)
+    x = frames + pos[None].to(frames.dtype)
+    for i in range(cfg.n_enc_layers):
+        x = _remat(rt, _enc_layer_fwd, params, i, cfg, rt, x)
+    return _norm(cfg, x, params["enc_norm"])
+
+
 def make_extras(params, cfg: ArchConfig, rt: Runtime, batch) -> dict:
-    """Family-specific side inputs from the batch dict (none for dense and
-    moe)."""
+    """Family-specific side inputs from the batch dict: the vlm's
+    `patches`, whisper's `enc_out` (the encoder, run once here for both
+    halves of a split forward); none for the other families."""
+    if cfg.family == "vlm":
+        return {"patches": batch["patches"]}
+    if cfg.family == "audio":
+        return {"enc_out": run_encoder(params, cfg, rt, batch["frames"])}
     return {}
 
 
@@ -191,15 +289,47 @@ def cross_entropy(logits, labels):
     return torch.mean(lse - gold)
 
 
+@torch.no_grad()
+def _cross_kv_cache(params, cfg: ArchConfig, rows: int, extras, device):
+    """(rows, sites, 2, 1, N, Hkv, hd): each cross site's (k, v) of the
+    rows' image patches (vlm) or encoder output (audio), zeros when
+    `extras` holds none, as in the reference; the reference's per-session
+    (sites, 2, 1, N, Hkv, hd) leaf stacked over rows."""
+    if params is None:
+        raise ValueError(f"the {cfg.family} cache needs the weights "
+                         f"(params=): its cross-attention KV comes from them")
+    if cfg.family == "vlm":
+        stack, sub, key, n = "cross_layers", "attn", "patches", \
+            cfg.n_image_tokens
+    else:
+        stack, sub, key, n = "layers", "cross", "enc_out", cfg.n_frames
+    tokens = (extras or {}).get(key)
+    if tokens is None:
+        tokens = torch.zeros((rows, n, cfg.d_model), dtype=cfg.adtype(),
+                             device=device)
+    sites = []
+    for s in range(params[stack][sub]["wk"].shape[0]):
+        k, v = attention.cross_kv(layer_params(params, s, stack)[sub], cfg,
+                                  tokens)
+        sites.append(torch.stack([k, v], dim=1)[:, :, None])
+    return torch.stack(sites, dim=1)
+
+
 def init_cache(cfg: ArchConfig, rows: int, max_len: int, device=None,
-               bits: int = 16):
+               bits: int = 16, *, params=None, extras=None):
     """Decode state for `rows` sessions: per-row positions and every
     layer's state (the client fills [0, cut), the server [cut, L)):
 
-      * dense / moe: `kv` of every layer;
+      * dense / moe / audio: `kv` of every layer;
       * hybrid: `mamba` {h, conv} of every layer and `kv` of every
         shared-attention site (`attn_sites`);
-      * ssm: `rwkv` {S, x_tm, x_cm} of every layer.
+      * ssm: `rwkv` {S, x_tm, x_cm} of every layer;
+      * vlm: `kv` of every self layer;
+      * vlm / audio: `cross_kv` (rows, sites, 2, 1, N, Hkv, hd) of every
+        cross layer, in the activation dtype whatever `bits`, computed
+        from `params` and `extras` (`make_extras` of the rows' batch: the
+        patches or the encoder output; zeros without it). Decode reads it
+        and never writes it.
 
     `bits` is the KV cache's width: 16 (the activation dtype) or 8 (int8
     codes and f32 scales, the label owner's arena at `kv_cache_bits=8`)."""
@@ -214,8 +344,13 @@ def init_cache(cfg: ArchConfig, rows: int, max_len: int, device=None,
     if cfg.family == "hybrid":
         cache["mamba"] = ssm.init_mamba_cache(cfg, rows, L, device)
         n_kv = sum(s >= 0 for s in attn_sites(cfg))
+    elif cfg.family == "vlm":
+        n_kv = L - L // cfg.cross_attn_every
     cache["kv"] = attention.init_kv_cache(cfg, rows, n_kv, max_len, device,
                                           bits=bits)
+    if cfg.family in ("vlm", "audio"):
+        cache["cross_kv"] = _cross_kv_cache(params, cfg, rows, extras,
+                                            device)
     return cache
 
 
@@ -233,6 +368,12 @@ def _write_rows(dst, layer: int, new, rows):
         dst[rows, layer] = new[rows]
 
 
+def _site_kv(cache, site: int):
+    """(k, v) (rows, N, Hkv, hd) of cross site `site`."""
+    ckv = cache["cross_kv"][:, site]
+    return ckv[:, 0, 0], ckv[:, 1, 0]
+
+
 def decode_layers(params, cfg: ArchConfig, x, cache: Dict[str, Any],
                   lo: int, hi: int, rows=None):
     """One-token pass of x (B, 1, d) through layers [lo, hi), each row at
@@ -242,10 +383,15 @@ def decode_layers(params, cfg: ArchConfig, x, cache: Dict[str, Any],
     independent: a moe layer routes each row as its own group (the
     reference vmaps one session at a time), so no row takes expert
     capacity from another. A hybrid range without a shared-attention site
-    runs its Mamba2 layers alone."""
+    runs its Mamba2 layers alone; a vlm range must hold whole groups
+    (`blocks`). Cross attention reads `cache["cross_kv"]`."""
     pos = cache["pos"]
     sites = attn_sites(cfg) if cfg.family == "hybrid" else None
-    for layer in range(lo, hi):
+    for kind, layer in blocks(cfg, lo, hi):
+        if kind == "cross":
+            x = _cross_fwd(layer_params(params, layer, "cross_layers"), cfg,
+                           x, kv_cache=_site_kv(cache, layer))
+            continue
         pl = layer_params(params, layer)
         if cfg.family == "ssm":
             st = cache["rwkv"]
@@ -258,22 +404,25 @@ def decode_layers(params, cfg: ArchConfig, x, cache: Dict[str, Any],
         if cfg.family == "hybrid":
             mc = cache["mamba"]
             y, h, conv = ssm.mamba_decode(
-                pl, cfg, common.rms_norm(x, pl["norm"]["scale"]),
-                mc["h"][:, layer], mc["conv"][:, layer])
+                pl, cfg, _norm(cfg, x, pl["norm"]), mc["h"][:, layer],
+                mc["conv"][:, layer])
             _write_rows(mc["h"], layer, h, rows)
             _write_rows(mc["conv"], layer, conv, rows)
             x = x + y
             if sites[layer] >= 0:
                 sa, sm = params["shared_attn"], params["shared_mlp"]
                 x = x + attention.decode_attention(
-                    sa, cfg, common.rms_norm(x, sa["norm"]["scale"]),
+                    sa, cfg, _norm(cfg, x, sa["norm"]),
                     attention.layer_kv(cache["kv"], sites[layer]), pos,
                     rows)
-                x = x + mlp.mlp(sm, common.rms_norm(x, sm["norm"]["scale"]))
+                x = x + mlp.mlp(sm, _norm(cfg, x, sm["norm"]))
             continue
-        h = common.rms_norm(x, pl["attn"]["norm"]["scale"])
         x = x + attention.decode_attention(
-            pl["attn"], cfg, h, attention.layer_kv(cache["kv"], layer), pos,
-            rows)
+            pl["attn"], cfg, _norm(cfg, x, pl["attn"]["norm"]),
+            attention.layer_kv(cache["kv"], layer), pos, rows)
+        if cfg.family == "audio":
+            x = x + attention.cross_attention(
+                pl["cross"], cfg, _norm(cfg, x, pl["cross"]["norm"]),
+                kv_cache=_site_kv(cache, layer))
         x = x + _ffn(pl, cfg, DECODE_RT, x, per_row=True)[0]
     return x

@@ -10,6 +10,10 @@ its position and, by family (`transformer.init_cache`):
     the conv history) and `kv` of every shared-attention site;
   * ssm (rwkv6): `rwkv` {S, x_tm, x_cm} of every layer (the WKV state and
     the token-shift inputs);
+  * vlm / audio: `kv` of every self-attention layer and `cross_kv` of
+    every cross layer (the patches' or the encoder output's k and v,
+    computed at init and never written by decode; `reset_slot`, the
+    eviction copies and the top step carry it like any other leaf);
 
 with `kv` as int8 codes plus `k_scale`/`v_scale` when the label owner
 serves at `kv_cache_bits=8`. The slot is assigned at admission and never

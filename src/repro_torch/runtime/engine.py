@@ -111,7 +111,7 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
                    else steps.make_bottom_step)
     bottom_steps = {c: make_bottom(cfg, cut, c) for c in dict.fromkeys(comps)}
 
-    make_cache, make_top_cache = cache_makers(cfg, max_len, dev)
+    make_cache, make_top_cache = cache_makers(cfg, max_len, dev, params)
     tracer = tracer if tracer is not None else NULL_TRACER
     registry = MetricsRegistry()        # per run, isolated
     server = StreamingServer(params, steps.make_arena_top_step(cfg, cut),
@@ -196,19 +196,22 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
     }
 
 
-def cache_makers(cfg: ArchConfig, max_len: int, device):
+def cache_makers(cfg: ArchConfig, max_len: int, device, params=None):
     """(make_cache, make_top_cache), each `rows -> transformer.init_cache`:
     the clients' bottom-model caches are always 16-bit; the label owner's
     arena takes `cfg.kv_cache_bits` (int8 codes + f32 scales at 8), or the
-    Runtime default when it is 0."""
+    Runtime default when it is 0. The vlm and audio caches compute their
+    cross-attention KV from `params` (of zero patches or encoder output,
+    as the reference serves)."""
     top_bits = cfg.kv_cache_bits or Runtime().kv_cache_bits
 
     def make_cache(rows=1):
-        return transformer.init_cache(cfg, rows, max_len, device=device)
+        return transformer.init_cache(cfg, rows, max_len, device=device,
+                                      params=params)
 
     def make_top_cache(rows=1):
         return transformer.init_cache(cfg, rows, max_len, device=device,
-                                      bits=top_bits)
+                                      bits=top_bits, params=params)
 
     return make_cache, make_top_cache
 

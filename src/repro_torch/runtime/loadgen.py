@@ -345,7 +345,7 @@ class _Harness:
         self.params = params
         self.max_len = lg.fleet.prompt_len[1] + lg.fleet.gen[1]
         self._make_cache, make_top_cache = _engine.cache_makers(
-            cfg, self.max_len, dev)
+            cfg, self.max_len, dev, params)
         self.server = StreamingServer(
             self.params, steps.make_arena_top_step(cfg, cut),
             make_top_cache, device=dev, max_batch=lg.max_batch,

@@ -15,7 +15,8 @@ layers [cut, L) — each party touches only its own range, in place.
     are active; a moe layer routes each row as its own group of one
     token, as the reference's vmapped per-session step does); only the
     active rows' state (KV, SSM state and conv history, WKV state and
-    token-shift inputs) and positions are written.
+    token-shift inputs) and positions are written; the vlm's and
+    whisper's cross KV is read, never written.
   * fused decode step: the flush payload decoded into `xbuf[slots]`, then
     the arena top step — one call per single-meta flush.
 """

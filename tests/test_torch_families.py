@@ -2,8 +2,7 @@
 (qwen3-8b, granite-3-8b, phi3-mini-3.8b, granite-moe-1b-a400m,
 qwen3-moe-235b-a22b) at SMOKE in f32, from the JAX reference's weights.
 
-  * the registry: FULL and SMOKE field for field the reference's, and the
-    two families that are not ported (vlm, audio) raise;
+  * the registry: FULL and SMOKE field for field the reference's;
   * the converted tree keeps the reference's layout leaf for leaf;
   * the full forward and the split forward (topk at the cut): logits and
     the balance loss;
@@ -54,7 +53,6 @@ from repro_torch.split import model as split_model
 ARCHS = ["qwen3-8b", "granite-3-8b", "phi3-mini-3.8b",
          "granite-moe-1b-a400m", "qwen3-moe-235b-a22b"]
 MOE = ["granite-moe-1b-a400m", "qwen3-moe-235b-a22b"]
-NOT_PORTED = ["llama-3.2-vision-90b", "whisper-tiny"]
 CUT = 1
 TOL = dict(rtol=1e-5, atol=1e-6)
 RT = JRuntime(mesh=None, training=False)
@@ -96,16 +94,6 @@ def test_configs_are_the_reference_configs(arch, smoke):
     if not smoke:
         for key, val in FULL[arch].items():
             assert getattr(cfg, key) == val, key
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_families_raise(arch):
-    family = jconfigs.get(arch).family
-    with pytest.raises(ValueError, match=f"its {family} family is not"):
-        configs.get(arch)
-    with pytest.raises(ValueError, match="not ported yet"):
-        transformer.init_model(configs.get("yi-6b", smoke=True).with_(
-            family=family), torch.Generator())
 
 
 def test_converted_params_keep_the_reference_layout(model):

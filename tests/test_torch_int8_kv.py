@@ -163,9 +163,9 @@ def test_clients_keep_16bit_caches(monkeypatch):
     built = []
     init_cache = transformer.init_cache
 
-    def recording(cfg_, rows, max_len, device=None, bits=16):
+    def recording(cfg_, rows, max_len, device=None, bits=16, **kw):
         built.append((rows, bits))
-        return init_cache(cfg_, rows, max_len, device, bits)
+        return init_cache(cfg_, rows, max_len, device, bits, **kw)
 
     monkeypatch.setattr(transformer, "init_cache", recording)
     out = engine.run_streaming(cfg, n_clients=2, prompt_len=2, gen=2,
