@@ -12,6 +12,8 @@
                                               # rwkv6 and the int8 KV arena
     python3 chip_smoke.py --phase multimodal  # kernel checks + the vlm
                                               # and whisper-tiny
+    python3 chip_smoke.py --phase mesh        # kernel checks + yi-6b
+                                              # served on device meshes
     python3 chip_smoke.py --phase probe       # build + `probe_kernels`
     python3 chip_smoke.py --phase ab --parent DIR   # probes, P C C P
     python3 chip_smoke.py --phase predict     # CPU: phase 11's reports
@@ -204,12 +206,31 @@ Phases, each fatal on failure:
      first steps bit for bit against the plain versions, 3 kernel steps,
      the busy share of a traced fourth step, peak memory, and the vlm's
      gates nonzero after its first step. The kernel checks cover d 8192
-     and 384 (bf16) and the vlm SMOKE's 256 (f32).
+     and 384 (bf16) and the vlm SMOKE's 256 (f32);
+ 15. serving on a device mesh (`--phase mesh`): yi-6b FULL (32 layers,
+     cut 16, padded vocab 64000), random bf16 weights from a seed, 4
+     clients x (4 + 4) tokens, randtopk k 64, through
+     `run_streaming(mesh=)` at `mesh=None` and at `make_serving_mesh(1)`,
+     `(4)`, `(4, model=2)` and `(8, model=2, pod=2)`, every position on
+     the one card (the port's meshes are single-controller), with the
+     kernels; the pod mesh again with the plain versions, and `(4,
+     model=2)` at capacity 2: (1, 1) = mesh=None in tokens and, driven
+     directly, every cache leaf bit for bit; kernel = plain tokens under
+     the pod mesh; 352 payload B a token, one fused encode a served token
+     and one flush decode a flush group; evictions and readmissions at
+     capacity 2 with the uncontended tokens; each mesh's counted
+     collective bytes per op = `roofline.analysis.
+     serving_collective_costs`, for one step driven directly and over the
+     run's steps; a mesh's tokens may differ from mesh=None's only where
+     the mesh-less top-2 logit gap is within 2 bf16 ulps of the max
+     logit (a position multiplies fewer rows, and bf16 GEMMs of another
+     row count round differently); tokens/s, wall and peak at each mesh,
+     and the busy share of a traced pod-mesh run.
 
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, for the serve's two kernels
-plus the loadgen phase's kernel runs, plus the families, recurrent and
-multimodal phases' serves, live checks and training, plus the fedtrain phase's chaos runs and
+plus the loadgen phase's kernel runs, plus the families, recurrent,
+multimodal and mesh phases' serves, live checks and training, plus the fedtrain phase's chaos runs and
 launch.train's resumed checkpoint run, or in its check's own loop for the
 five no path runs, its largest difference from its plain version,
 the CUDA-event times of kernel, plain version and library call at its
@@ -1674,10 +1695,11 @@ def _one_launch_per_token(res, counts, compressor):
 
 def serve(cfg, params, compressor, *, gen, backend=None, trace=False,
           n_clients=N_CLIENTS, prompt_len=PROMPT_LEN, capacity=None,
-          prompts=None):
+          prompts=None, mesh=None):
     """One closed-loop run of `n_clients` sessions of `prompt_len` + `gen`
     tokens, the cut at n_layers // 2, `capacity` arena slots (None: one a
-    session), `prompts` (None: the engine's draw); returns (result, launch
+    session), `prompts` (None: the engine's draw), the server's arena
+    sharded over `mesh` (None: one device); returns (result, launch
     counts of
     the run, analytic payload bytes per token). With `trace` the
     call runs under `torch.profiler`, and the result also holds the trace's
@@ -1695,8 +1717,8 @@ def serve(cfg, params, compressor, *, gen, backend=None, trace=False,
     _lib.reset_launch_counts()
     res, dev_ms, call_ms, _ = traced(lambda: engine.run_streaming(
         scfg, n_clients=n_clients, prompt_len=prompt_len, gen=gen,
-        params=params, device="cuda", capacity=capacity, prompts=prompts),
-        enabled=trace)
+        params=params, device="cuda", capacity=capacity, prompts=prompts,
+        mesh=mesh), enabled=trace)
     res.update(device_ms=dev_ms, call_ms=call_ms)
     counts = _lib.launch_counts()
     if protocol.HOST_DENSIFY_COUNT.value != densify0:
@@ -3521,16 +3543,291 @@ def multimodal_phase(dev, card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 15: serving on a device mesh
+# ---------------------------------------------------------------------------
+
+MESH_ARCH, MESH_NB = "yi-6b", 352            # FULL: 32 layers, cut 16
+MESH_GEN = 4                  # at 8 the phase took 190 s on an H100
+                              # and the whole run passed 700 s
+# (label, make_serving_mesh arguments): every position on the one card
+MESH_SHAPES = (("(1, 1)", (1, {})), ("(4, 1)", (4, {})),
+               ("(2, 2)", (4, {"model": 2})),
+               ("(2, 2, 2)", (8, {"model": 2, "pod": 2})))
+MESH_DRIVE_STEPS = 3
+
+
+def _mesh_cache_leaves(cache):
+    """A cache (a dict, or a mesh's list of per-position dicts) as one
+    tensor per leaf over all rows."""
+    import torch
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}.") if isinstance(v, dict)
+                       else {prefix + k: v})
+        return out
+    if isinstance(cache, dict):
+        return flat(cache)
+    blocks = [flat(b) for b in cache]
+    return {k: torch.cat([b[k] for b in blocks]) for k in blocks[0]}
+
+
+def _mesh_1x1_drive(cfg, params, dev, make_top_cache):
+    """The (1, 1) mesh's step against the mesh-less step, driven directly
+    on the same bf16 activations for `MESH_DRIVE_STEPS` steps (every row,
+    then every other one, then the first): tokens of the active rows and
+    every cache leaf bit for bit. Returns the leaf count."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.arena import SlotArena
+
+    cut, cap = cfg.n_layers // 2, N_CLIENTS
+    g = torch.Generator(device=dev).manual_seed(3)
+    xs = [torch.randn((cap + 1, 1, 1, cfg.d_model), generator=g,
+                      device=dev).to(cfg.adtype())
+          for _ in range(MESH_DRIVE_STEPS)]
+    actives = [np.ones(cap, bool), np.arange(cap) % 2 == 0,
+               np.arange(cap) == 0]
+    out = []
+    for mesh in (None, make_serving_mesh(1)):
+        arena = SlotArena(make_top_cache, cap, (1, 1, cfg.d_model),
+                          cfg.adtype(), dev, mesh=mesh)
+        step = steps.make_arena_top_step(cfg, cut, mesh=mesh)
+        toks = []
+        for x, active in zip(xs, actives):
+            arena.xbuf.copy_(x)
+            toks.append(step(params, arena.xbuf, arena.cache,
+                             active).cpu().numpy()[active])
+        out.append((toks, _mesh_cache_leaves(arena.cache)))
+    (t0, c0), (t1, c1) = out
+    if any(not np.array_equal(a, b) for a, b in zip(t0, t1)):
+        fail(f"mesh (1, 1) direct drive: tokens {t1} != mesh-less {t0}")
+    bad = [k for k in c0 if c0[k].shape != c1[k].shape
+           or not torch.equal(c0[k], c1[k])]
+    if bad or c0.keys() != c1.keys():
+        fail(f"mesh (1, 1) direct drive: cache leaves {bad} differ from "
+             f"the mesh-less step's")
+    return len(c0)
+
+
+def _mesh_step_collectives(cfg, params, dev, mesh, make_top_cache, cap):
+    """One sharded step, driven directly on an arena of `cap` requested
+    rows with every row active: the collective bytes it counts per op and
+    the closed form's (`serving_collective_costs`, bf16 activations)."""
+    import numpy as np
+    from repro_torch.mesh import collective_bytes
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.roofline import analysis
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.arena import SlotArena
+
+    arena = SlotArena(make_top_cache, cap, (1, 1, cfg.d_model), cfg.adtype(),
+                      dev, mesh=mesh)
+    registry = MetricsRegistry()
+    step = steps.make_arena_top_step(cfg, cfg.n_layers // 2, mesh=mesh,
+                                     registry=registry)
+    step(params, arena.xbuf, arena.cache, np.ones(arena.capacity, bool))
+    got = {k: float(v)
+           for k, v in collective_bytes(registry.snapshot()).items()}
+    want, _ = analysis.serving_collective_costs(
+        cfg, arena.capacity, mesh.shape, dtype_bytes=2)
+    return got, want
+
+
+def _mesh_gap(cfg, params, ref, got, kw):
+    """Where a mesh's tokens `got` differ from the mesh-less run's `ref`:
+    rerun the mesh-less serve recording every row's top-2 logits at every
+    position (`steps.top_logits`); every session's history agrees up to
+    the first differing step, so the mesh-less logits there are the ones
+    the mesh computed on the same inputs. Returns (session, step, top-2
+    gap there, 2 bf16 ulps of its max logit)."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.runtime import steps
+
+    rec, orig = {}, steps.top_logits
+
+    def recording(params_, cfg_, cut, xbuf, cache, rows):
+        logits = orig(params_, cfg_, cut, xbuf, cache, rows)
+        last = logits[:, -1, :].float()
+        top = last.topk(2, dim=-1).values.cpu().tolist()
+        tok = torch.argmax(logits[:, -1, :], dim=-1).cpu().tolist()
+        pos = cache["pos"].cpu().tolist()
+        for r in rows.cpu().tolist():
+            rec[(r, pos[r])] = (top[r], tok[r])
+        return logits
+
+    steps.top_logits = recording
+    try:
+        again, _, _ = serve(cfg, params, "randtopk", **kw)
+    finally:
+        steps.top_logits = orig
+    if not np.array_equal(again["tokens"], ref):
+        fail("mesh-less serve: a rerun gave other tokens")
+    first = [int(np.argmax(ref[s] != got[s])) if (ref[s] != got[s]).any()
+             else len(ref[s]) for s in range(len(ref))]
+    s = int(np.argmin(first))
+    t, p = first[s], kw["prompt_len"] - 1 + first[s]
+    rows = [r for (r, pos) in rec if pos == p and all(
+        rec.get((r, kw["prompt_len"] - 1 + i), (None, None))[1] == ref[s][i]
+        for i in range(t + 1))]
+    if not rows:
+        fail(f"mesh gap: no arena row served session {s}'s tokens")
+    (top1, top2), _ = rec[(rows[0], p)]
+    return s, t, top1 - top2, 2 * 2.0 ** (math.floor(math.log2(
+        abs(top1))) - 7)
+
+
+def mesh_phase(dev, card):
+    """Phase 15: yi-6b FULL (32 layers, d 4096, padded vocab 64000, cut
+    16), random bf16 weights from a seed, served through `run_streaming`
+    at `mesh=None` and on `make_serving_mesh` meshes whose positions all
+    share the one card, 4 clients x (4 + 4) tokens, randtopk k 64. Fatal:
+    (1, 1) = mesh-less, tokens and (direct drive) every cache leaf bit for
+    bit; kernels = plain under the pod mesh; 352 payload B a token; one
+    fused encode a served token and one flush decode a flush group; at
+    capacity 2 under (2, 2) evictions and readmissions >= 1 and the
+    uncontended tokens; each step's counted collective bytes per op =
+    `serving_collective_costs`, in the direct step and over the run's
+    steps; tokens that differ from the mesh-less run only where its top-2
+    logit gap is within 2 bf16 ulps of its max logit. Returns the kernels'
+    launches of the kernel serves."""
+    import collections
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.mesh import collective_bytes
+    from repro_torch.models import transformer
+    from repro_torch.runtime import engine
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    cfg = configs.get(MESH_ARCH)
+    kw = dict(gen=MESH_GEN, n_clients=N_CLIENTS, prompt_len=PROMPT_LEN)
+    print(f"mesh phase: {MESH_ARCH} FULL ({cfg.n_layers} layers, cut "
+          f"{cfg.n_layers // 2}, d {cfg.d_model}, padded vocab "
+          f"{cfg.padded_vocab}), {N_CLIENTS} clients x ({PROMPT_LEN} + "
+          f"{MESH_GEN}) tokens, randtopk k={K}, bf16; every mesh position "
+          f"on the one card; {card}")
+    params = transformer.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    _, make_top_cache = engine.cache_makers(cfg, PROMPT_LEN + MESH_GEN,
+                                            dev, params)
+    buckets = len({1 << i for i in range(N_CLIENTS.bit_length())
+                   if (1 << i) <= N_CLIENTS} | {N_CLIENTS})
+
+    def run(label, mesh, **extra):
+        base = held_gib(dev)
+        t0 = time.perf_counter()
+        res, counts, nb = serve(cfg, params, "randtopk", mesh=mesh, **kw,
+                                **extra)
+        res["call_s"] = time.perf_counter() - t0
+        if nb != MESH_NB:
+            fail(f"mesh {label}: {nb} payload B/token, {MESH_NB} expected")
+        run_bytes = collective_bytes(res["metrics"])
+        _one_launch_per_token(res, counts, f"mesh {label} randtopk")
+        total.update(counts)
+        res["peak_gib"] = peak_gib(dev, base)
+        res["run_bytes"] = run_bytes
+        return res, counts
+
+    ref, _ = run("None", None)
+    print(f"  mesh=None: {ref['tokens_per_s']} tokens/s, wall "
+          f"{ref['wall_s']:.3f} s (the call {ref['call_s']:.1f} s), peak {ref['peak_gib']:.2f} GiB; tokens "
+          f"{ref['tokens'].tolist()}")
+    leaves = _mesh_1x1_drive(cfg, params, dev, make_top_cache)
+    results = {}
+    for label, (n, spec) in MESH_SHAPES:
+        mesh = make_serving_mesh(n, **spec)
+        res, counts = run(label, mesh)
+        results[label] = (mesh, res)
+        got, want = _mesh_step_collectives(cfg, params, dev, mesh,
+                                           make_top_cache, N_CLIENTS)
+        if got != want:
+            fail(f"mesh {label}: a step counted collective bytes {got}, "
+                 f"serving_collective_costs {want}")
+        n_steps = res["flushes"] + buckets + 1     # + the warm-up's steps
+        run_want = {k: int(v) * n_steps for k, v in want.items()}
+        if res["run_bytes"] != run_want:
+            fail(f"mesh {label}: the run counted {res['run_bytes']} for "
+                 f"{n_steps} steps, {run_want} expected")
+        same = bool((res["tokens"] == ref["tokens"]).all())
+        if label == "(1, 1)" and not same:
+            fail(f"mesh (1, 1): tokens {res['tokens'].tolist()} != "
+                 f"mesh=None's")
+        note = "= mesh=None's tokens"
+        if not same:
+            s, t, gap, tol = _mesh_gap(cfg, params, ref["tokens"],
+                                       res["tokens"], kw)
+            if gap > tol:
+                fail(f"mesh {label}: session {s} differs from mesh=None at "
+                     f"step {t}, where the mesh-less top-2 logit gap {gap} "
+                     f"exceeds 2 bf16 ulps ({tol})")
+            note = (f"differs from mesh=None's first at session {s} step "
+                    f"{t}, where the mesh-less top-2 logit gap is {gap} "
+                    f"(2 bf16 ulps of the max logit: {tol}); tokens "
+                    f"{res['tokens'].tolist()}")
+        print(f"  mesh {label} {mesh.shape}: {res['tokens_per_s']} tokens/s,"
+              f" wall {res['wall_s']:.3f} s (the call {res['call_s']:.1f} s),"
+              f" peak {res['peak_gib']:.2f} GiB;"
+              f" {note}; encode_sections {counts['encode_sections']}, "
+              f"decode_to_slots {counts['decode_to_slots']} launches "
+              f"({res['flushes']} flushes); collective bytes a step "
+              f"counted {got}, serving_collective_costs {want}; over the "
+              f"run's {n_steps} steps {res['run_bytes']}")
+        if label == "(1, 1)":
+            print(f"  mesh (1, 1) direct drive, {MESH_DRIVE_STEPS} steps: "
+                  f"tokens and all {leaves} cache leaves bit for bit = "
+                  f"mesh=None's")
+    pod_mesh, pod = results["(2, 2, 2)"]
+    plain, pcounts, _ = serve(cfg, params, "randtopk", backend="torch",
+                              mesh=pod_mesh, **kw)
+    if any(pcounts.values()):
+        fail(f"mesh (2, 2, 2) plain run launched kernels {pcounts}")
+    if not (plain["tokens"] == pod["tokens"]).all():
+        fail("mesh (2, 2, 2): kernel tokens != plain tokens")
+    print(f"  mesh (2, 2, 2) plain versions: kernel tokens = plain tokens, "
+          f"{plain['tokens_per_s']} tokens/s")
+    tp_mesh, uncontended = results["(2, 2)"]
+    ev, _ = run("(2, 2) at capacity 2", tp_mesh, capacity=2)
+    n_ev = ev["metrics"]["slot_evictions_total"]["series"][0]["value"]
+    n_re = ev["metrics"]["slot_readmissions_total"]["series"][0]["value"]
+    if n_ev < 1 or n_re < 1 or not (ev["tokens"] ==
+                                    uncontended["tokens"]).all():
+        fail(f"mesh (2, 2) at capacity 2: {n_ev} evictions, {n_re} "
+             f"readmissions, tokens {ev['tokens'].tolist()} against "
+             f"{uncontended['tokens'].tolist()}")
+    print(f"  mesh (2, 2) at capacity 2 (padded to "
+          f"{-(-2 // tp_mesh.size) * tp_mesh.size} rows): {n_ev} "
+          f"evictions, {n_re} readmissions, the uncontended tokens; "
+          f"{ev['tokens_per_s']} tokens/s")
+    tr = traced(lambda: serve(cfg, params, "randtopk", mesh=pod_mesh,
+                              **kw)[0])
+    print(f"  mesh (2, 2, 2), a traced run: {_busy_text(tr)}; {card}")
+    del params, tr
+    torch.cuda.empty_cache()
+    print(f"mesh phase wall: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
                                         "fedtrain", "loadgen", "families",
-                                        "recurrent", "multimodal", "probe",
-                                        "ab", "predict"),
+                                        "recurrent", "multimodal", "mesh",
+                                        "probe", "ab", "predict"),
                     default="all",
                     help="kernels: build + kernel checks + codec probes; "
                          "serve / train / fedtrain / loadgen / families / "
-                         "recurrent / multimodal: the checks, "
+                         "recurrent / multimodal / mesh: the checks, "
                          "probes and one path; probe: build + `probe_kernels` "
                          "alone; ab: `probe` in turns on a parent tree's "
                          "package and this one (--parent); predict: the "
@@ -3666,6 +3963,13 @@ def main(argv=None) -> int:
                                   "(llama-3.2-vision-90b, whisper-tiny), "
                                   "the vlm's live-gate forward and decode, "
                                   "and whisper and vlm SMOKE training")
+    if args.phase in ("all", "mesh"):
+        counts = mesh_phase(dev, card)
+        for n in launches:
+            if counts[n]:
+                add(n, counts[n], "the mesh phase's kernel serves (yi-6b "
+                                  "at mesh=None and four meshes, and at "
+                                  "capacity 2)")
 
     for r in records:
         r["launches"] = launches[r["name"]]

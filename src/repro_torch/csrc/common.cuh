@@ -572,5 +572,39 @@ __device__ __forceinline__ unsigned admit(unsigned gt, unsigned eq,
   return sel;
 }
 
+// The words of a flat stream of `width`-bit values (value i at stream bits
+// [i*width, (i+1)*width), bit j at bit j%32 of word j//32) that hold rows
+// [r0, r1) of `per_row` values each: the rows start and end on a word
+// boundary (the caller groups rows so they do), and a range that ends at
+// the last row also writes the zero words up to ceil(rows * per_row / 32)
+// * width. Thread `tid` of `nthreads` takes words tid, tid + nthreads, ...
+// of the range, ORing together the at most ceil(32 / width) + 1 values of
+// each: no atomics, no combining across threads, coalesced writes. The
+// fused encode packs its block's rows with its block's threads (`vals`
+// written by the block before a barrier, so plain coherent loads); the
+// standalone `pack_bits` packs one row of n values with the whole grid.
+__device__ __forceinline__ void pack_rows(const int* vals, long long per_row,
+                                          int width, unsigned* out,
+                                          long long r0, long long r1,
+                                          long long rows, long long tid,
+                                          long long nthreads) {
+  const long long n = rows * per_row;
+  const long long w0 = r0 * per_row * width / 32;
+  const long long w1 = r1 == rows ? (n + 31) / 32 * width
+                                  : r1 * per_row * width / 32;
+  const unsigned vmask = width == 32 ? 0xffffffffu : (1u << width) - 1u;
+  for (long long w = w0 + tid; w < w1; w += nthreads) {
+    const long long lo_bit = w * 32;
+    const long long first = lo_bit / width;
+    const long long last = min((lo_bit + 31) / width, n - 1);
+    unsigned word = 0u;
+    for (long long i = first; i <= last; ++i) {
+      const unsigned v = static_cast<unsigned>(vals[i]) & vmask;
+      const long long s = i * width - lo_bit;       // -(width-1) .. 31
+      word |= s >= 0 ? (v << s) : (v >> (-s));
+    }
+    out[w] = word;
+  }
+}
 
 }  // namespace repro

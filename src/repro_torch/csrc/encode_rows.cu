@@ -232,37 +232,6 @@ __device__ __forceinline__ void encode_row(const EncodeArgs a,
   }
 }
 
-// The words of a flat stream of `width`-bit values (value i at stream bits
-// [i*width, (i+1)*width), bit j at bit j%32 of word j//32) that hold rows
-// [r0, r1) of `per_row` values each: the block's rows start and end on a
-// word boundary (`group_rows`), and the last block also writes the zero
-// words up to ceil(rows * per_row / 32) * width. Each thread ORs together
-// the at most ceil(32 / width) + 1 values of whole words. `vals` was
-// written by this block before a block barrier, so it is read with plain
-// (coherent) loads.
-__device__ __forceinline__ void pack_rows(const int* vals, int per_row,
-                                          int width, unsigned* out,
-                                          long long r0, long long r1,
-                                          long long rows) {
-  const long long n = rows * per_row;
-  const long long w0 = r0 * per_row * width / 32;
-  const long long w1 = r1 == rows ? (n + 31) / 32 * width
-                                  : r1 * per_row * width / 32;
-  const unsigned vmask = width == 32 ? 0xffffffffu : (1u << width) - 1u;
-  for (long long w = w0 + threadIdx.x; w < w1; w += blockDim.x) {
-    const long long lo_bit = w * 32;
-    const long long first = lo_bit / width;
-    const long long last = min((lo_bit + 31) / width, n - 1);
-    unsigned word = 0u;
-    for (long long i = first; i <= last; ++i) {
-      const unsigned v = static_cast<unsigned>(vals[i]) & vmask;
-      const long long s = i * width - lo_bit;       // -(width-1) .. 31
-      word |= s >= 0 ? (v << s) : (v >> (-s));
-    }
-    out[w] = word;
-  }
-}
-
 template <int kMaxThreads, bool kSelect, int R>
 __global__ void __launch_bounds__(kMaxThreads)
 encode_rows_kernel(const EncodeArgs a) {
@@ -281,12 +250,12 @@ encode_rows_kernel(const EncodeArgs a) {
   if (a.idx_words == nullptr && a.code_words == nullptr) return;
   __syncthreads();              // the block's leaves are complete
   if (a.idx_words != nullptr)
-    pack_rows(static_cast<const int*>(a.out1), a.k, a.idx_bits,
-              a.idx_words, r0, r1, a.rows);
+    repro::pack_rows(static_cast<const int*>(a.out1), a.k, a.idx_bits,
+                     a.idx_words, r0, r1, a.rows, threadIdx.x, blockDim.x);
   if (a.code_words != nullptr)
-    pack_rows(static_cast<const int*>(a.out0),
-              a.kind == repro::kQuant ? a.d : a.k, a.bits, a.code_words,
-              r0, r1, a.rows);
+    repro::pack_rows(static_cast<const int*>(a.out0),
+                     a.kind == repro::kQuant ? a.d : a.k, a.bits,
+                     a.code_words, r0, r1, a.rows, threadIdx.x, blockDim.x);
 }
 
 bool aligned16(const void* p) {

@@ -7,7 +7,8 @@
     `Payload` in one kernel launch (the same kernel), every kind.
   * `pack_bits` — flat ints -> u32 words (as int32) whose first
     ceil(n * width / 8) bytes equal `core.wire._pack_bits`
-    (`csrc/pack_bits.cu`).
+    (`csrc/pack_bits.cu`: the fused encode's `pack_rows` over the stream
+    as one row).
   * `pack_payload` / `section_nbytes` / `sections_to_bytes` — the wire
     bitstream assembled on the device as word sections, so the host only
     pulls them, cuts each to its exact byte length and frames it.
@@ -19,8 +20,8 @@ raises (`_lib.resolve_backend`).
 `encode_sections` runs once per served token, so its host path is kept
 short: the checks and the output layout of a key (kind, x's shape and
 dtype, k, bits, select) are resolved once, in `sections_plan` (for
-`encode_rows`, `encode_plan`), and a call then allocates the buffers and
-launches.
+`encode_rows`, `encode_plan`; for `pack_bits`, `pack_plan`), and a call
+then allocates the buffers and launches.
 """
 from __future__ import annotations
 
@@ -134,22 +135,47 @@ def launch_encode(plan: EncodePlan, x, mask) -> Payload:
     return Payload(plan.meta, **dict(zip(plan.names, outs)))
 
 
+def _words(count: int, width: int) -> int:
+    """int32 words of `count` values packed at `width` bits (`pack_bits`)."""
+    return (count + 31) // 32 * width
+
+
+class PackPlan(NamedTuple):
+    """What `pack_bits` needs of one key besides the tensor."""
+
+    n: int                  # values
+    width: int
+    words: int              # int32 words of the output
+
+
+@lru_cache(maxsize=1024)
+def pack_plan(n: int, width: int, dtype) -> PackPlan:
+    """Check one pack key (value count, width, dtype); raises on what the
+    kernel does not take."""
+    if not 1 <= width <= 32:
+        raise ValueError(f"pack width {width} not in 1..32")
+    if dtype != torch.int32:
+        raise TypeError(f"pack kernel takes int32, got {dtype}")
+    return PackPlan(n, width, _words(n, width))
+
+
 def pack_bits(vals, width: int, *, backend=None):
     """Flat int32 values of `width` bits -> little-endian u32 words (as
     int32)."""
     if _lib.resolve_backend(backend, vals) == "torch":
         return ref.pack_bits(vals, width)
-    if not 1 <= width <= 32:
-        raise ValueError(f"pack width {width} not in 1..32")
-    if vals.dtype != torch.int32:
-        raise TypeError(f"pack kernel takes int32, got {vals.dtype}")
-    v = vals.contiguous().view(-1)
-    n = v.shape[0]
-    out = torch.empty(((n + 31) // 32 * width,), dtype=torch.int32,
-                      device=vals.device)
-    if n:
-        _lib.launch("pack_bits", v.data_ptr(), n, width, out.data_ptr(),
-                    _lib.stream_handle(vals))
+    return launch_pack(pack_plan(vals.numel(), width, vals.dtype), vals)
+
+
+def launch_pack(plan: PackPlan, vals):
+    """Allocate the words of a checked key (`pack_plan`) and launch
+    `pack_bits` on `vals`, made contiguous if it is not."""
+    if not vals.is_contiguous():
+        vals = vals.contiguous()
+    out = vals.new_empty((plan.words,))
+    if plan.n:
+        _lib.launch("pack_bits", vals.data_ptr(), plan.n, plan.width,
+                    out.data_ptr(), _lib.stream_handle(vals))
     return out
 
 
@@ -162,11 +188,6 @@ def pack_payload(p: Payload, *, backend=None):
     return ref.payload_sections(
         m.kind, m.d, m.bits, leaves,
         pack=lambda v, w: pack_bits(v, w, backend=backend))
-
-
-def _words(count: int, width: int) -> int:
-    """int32 words of `count` values packed at `width` bits (`pack_bits`)."""
-    return (count + 31) // 32 * width
 
 
 class SectionsPlan(NamedTuple):

@@ -7,7 +7,10 @@ gated cross-attention layers over image patches, and the audio
 encoder-decoder with layer norm);
 `Runtime` keeps only the knobs the port's forward reads: the scan chunks
 of the recurrent families and the label owner's KV cache width among
-them. The reference's mesh knobs have no reader in the port yet."""
+them. Serving takes its mesh as an argument, as the reference's does
+(`runtime.engine.run_streaming(mesh=)`), not from `Runtime`; the
+reference's training-mesh knobs (`mesh`, `seq_shard`, `dp_only`,
+`flash_decode`) come with the training mesh, which is not ported yet."""
 from __future__ import annotations
 
 import dataclasses

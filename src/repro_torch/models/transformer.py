@@ -158,8 +158,12 @@ def embed(params, cfg: ArchConfig, tokens):
     return params["embed"][tokens.long()].to(cfg.adtype())
 
 
+def final_norm(params, cfg: ArchConfig, x):
+    return _norm(cfg, x, params["final_norm"])
+
+
 def lm_head(params, cfg: ArchConfig, x):
-    x = _norm(cfg, x, params["final_norm"])
+    x = final_norm(params, cfg, x)
     return x @ params["unembed"].to(x.dtype)
 
 

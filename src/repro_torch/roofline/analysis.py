@@ -1,0 +1,234 @@
+"""Roofline terms and the serving closed forms of the reference's
+`src/repro/roofline/analysis.py`, for one NVIDIA H100 SXM:
+
+    compute    = FLOPs / (chips * peak FLOP/s)
+    memory     = bytes / (chips * HBM bytes/s)
+    collective = collective link bytes / link bytes/s
+
+The closed forms (`active_param_count`, `model_flops`,
+`top_matmul_params`, `serving_{decode,encode,step}_costs`,
+`serving_collective_costs`, `serving_collective_slack`) and the bands
+are the reference's, number for number. The reference fills `Roofline`
+from a compiled program (`from_compiled`, with `roofline/hlo.py`); the
+port has no compiled program yet, so the dataclass is filled by hand.
+`serving_collective_costs` predicts the collective bytes that one
+sharded arena step counts (`repro_torch.mesh.collective_bytes`) exactly.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+# NVIDIA H100 SXM data sheet, dense rates at the 700 W power limit
+PEAK_FLOPS = 989e12          # bf16 tensor-core FLOP/s
+HBM_BW = 3.35e12             # HBM3 bytes/s
+LINK_BW = 450e9              # NVLink 4: 900 GB/s to the host's other
+                             # cards, all to all; 450 GB/s each way
+
+#: per-op ring factor: link bytes a device moves per raw byte of a
+#: collective's output (the reference's `roofline.hlo.RING_FACTOR`)
+RING_FACTOR = {
+    "all-gather": 1.0,          # receives (N-1)/N of the gathered result
+    "all-reduce": 2.0,          # reduce-scatter + all-gather phases
+    "reduce-scatter": 1.0,
+    "all-to-all": 1.0,
+    "collective-permute": 1.0,
+}
+
+
+@dataclasses.dataclass
+class Roofline:
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    hlo_flops: float          # whole-program FLOPs (all chips)
+    hlo_bytes: float          # whole-program bytes accessed
+    coll_bytes: float         # per-chip link bytes
+    coll_detail: Dict[str, float]
+    model_flops: float = 0.0  # 6*N*D (or 6*N_active*D)
+    peak_memory: float = 0.0  # per-device bytes
+
+    @property
+    def t_compute(self) -> float:
+        return self.hlo_flops / (self.chips * PEAK_FLOPS)
+
+    @property
+    def t_memory(self) -> float:
+        return self.hlo_bytes / (self.chips * HBM_BW)
+
+    @property
+    def t_collective(self) -> float:
+        return self.coll_bytes / LINK_BW
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        return self.model_flops / self.hlo_flops if self.hlo_flops else 0.0
+
+    def row(self) -> dict:
+        return {
+            "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
+            "t_compute_s": self.t_compute, "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective,
+            "bottleneck": self.bottleneck,
+            "model_flops": self.model_flops,
+            "hlo_flops": self.hlo_flops,
+            "useful_ratio": self.useful_flops_ratio,
+            "peak_mem_gb": self.peak_memory / 1e9,
+            "coll_detail": self.coll_detail,
+        }
+
+
+# --------------------------------------------------------------------------
+# MODEL_FLOPS = 6 * N_active * D  (D = tokens processed in the step)
+# --------------------------------------------------------------------------
+
+def active_param_count(cfg) -> int:
+    """Active params per token (MoE counts topk experts, not all)."""
+    d, ff, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    attn = d * hq * hd + 2 * d * hkv * hd + hq * hd * d
+
+    if cfg.family in ("dense",):
+        per_layer = attn + 3 * d * ff
+        total = L * per_layer
+    elif cfg.family == "moe":
+        expert = 3 * d * ff
+        per_layer = attn + cfg.topk_experts * expert + d * cfg.n_experts
+        total = L * per_layer
+    elif cfg.family == "hybrid":
+        di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        mamba = d * 2 * di + d * (2 * N + H) + di * d
+        n_attn = sum((i + 1) % cfg.attn_every == 0 for i in range(L))
+        total = L * mamba + n_attn * (attn + 3 * d * ff)
+    elif cfg.family == "ssm":
+        total = L * (4 * d * d + d * d) + L * (2 * d * ff + d * d)
+    elif cfg.family == "vlm":
+        n_cross = L // cfg.cross_attn_every
+        n_self = L - n_cross
+        total = n_self * (attn + 3 * d * ff) + n_cross * (attn + 3 * d * ff)
+    elif cfg.family == "audio":
+        enc = cfg.n_enc_layers * (attn + 3 * d * ff)
+        dec = L * (2 * attn + 3 * d * ff)
+        total = enc + dec
+    else:
+        total = 0
+    total += 2 * V * d  # embed + unembed
+    return int(total)
+
+
+def model_flops(cfg, *, tokens: int, training: bool) -> float:
+    mult = 6.0 if training else 2.0
+    return mult * active_param_count(cfg) * tokens
+
+
+# --------------------------------------------------------------------------
+# The serving programs' predicted (flops, bytes), under the reference's
+# conventions (flops = dots only; bytes = 2x every materialized output).
+# The bands are the reference's, calibrated on its XLA:CPU programs.
+# --------------------------------------------------------------------------
+
+#: measured decode bytes / predicted floor
+DECODE_BYTES_BAND = (1.0, 5.0)
+#: measured fused-step bytes / predicted floor
+FUSED_BYTES_BAND = (1.0, 16.0)
+#: fused-step dot flops against the prediction
+FUSED_FLOPS_RTOL = 0.05
+#: measured encode bytes / predicted floor
+ENCODE_BYTES_BAND = (1.0, 10.0)
+
+
+def top_matmul_params(cfg, cut: int) -> int:
+    """Matmul params of the label owner's top model: attention + FFN
+    projections of layers [cut, n_layers) plus the unembed over the
+    padded vocab. Dense family only (the serving bench's arch)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    attn = d * hq * hd + 2 * d * hkv * hd + hq * hd * d
+    return (cfg.n_layers - cut) * (attn + 3 * d * ff) + d * cfg.padded_vocab
+
+
+def serving_decode_costs(rows: int, d: int, *, dtype_bytes: int = 4):
+    """(flops, bytes floor) of the slot decode: no dots; the decoded
+    update slice written and read."""
+    return 0.0, 2.0 * rows * d * dtype_bytes
+
+
+def serving_encode_costs(rows: int, d: int, *, dtype_bytes: int = 4):
+    """(flops, bytes floor) of the client's fused encode: no dots; the
+    activation read and an output write of the same order."""
+    return 0.0, 2.0 * rows * d * dtype_bytes
+
+
+def serving_step_costs(cfg, cut: int, capacity: int, max_len: int,
+                       state_nbytes: int):
+    """(flops, bytes floor) of the fused decode + step: every arena row
+    pays the top matmul params and the two decode-attention dots against
+    a `max_len` KV cache; the arena state (`state_nbytes`: cache leaves +
+    xbuf) written and read."""
+    score_dots = 2 * cfg.n_heads * cfg.hd * max_len
+    flops = 2.0 * capacity * (top_matmul_params(cfg, cut) + score_dots)
+    return flops, 2.0 * state_nbytes
+
+
+def serving_collective_costs(cfg, capacity: int, mesh_axes,
+                             *, dtype_bytes: int = 4):
+    """Per-op raw collective bytes of one sharded arena step
+    (`runtime.steps._make_sharded_arena_step`; raw bytes are each
+    collective's per-device output size) and their total under
+    `RING_FACTOR`:
+
+      * 'model': the row gather of the hidden block (one all-gather of
+        `capacity / positions * model` rows of d) and the exact argmax
+        (one f32 max and one s32 min all-reduce, 4 B a gathered row);
+      * 'pod': the ring crossing, one collective-permute of the local
+        activation block forward and one of the gathered tokens back.
+
+    `mesh_axes` maps each axis to its size; `capacity` is the padded row
+    count; `dtype_bytes` the activation's."""
+    sizes = dict(mesh_axes)
+    n_model = sizes.get("model", 1)
+    n_pod = sizes.get("pod", 1)
+    n_dev = 1
+    for s in sizes.values():
+        n_dev *= s
+    rows_local = capacity // n_dev          # per-device row shard
+    rows_group = rows_local * n_model       # rows a model group reassembles
+    d = cfg.d_model
+    per_op: Dict[str, float] = {}
+    if n_model > 1:
+        per_op["all-gather"] = float(rows_group * d * dtype_bytes)
+        # pmax f32[rows, 1] + pmin s32[rows, 1]: 4 bytes each per row
+        per_op["all-reduce"] = float(2 * rows_group * 4)
+    if n_pod > 1:
+        per_op["collective-permute"] = float(
+            rows_local * d * dtype_bytes     # activation block forward
+            + rows_group * 4)                # s32 token rows back
+    total = sum(RING_FACTOR.get(op, 1.0) * b for op, b in per_op.items())
+    return per_op, total
+
+
+def serving_collective_slack(cfg, capacity: int, mesh_axes,
+                             *, dtype_bytes: int = 4):
+    """Per-op bytes the reference's audit allows above
+    `serving_collective_costs` for traffic its partitioner adds: a
+    collective-permute reshard of the replicated `xbuf`'s live rows (at
+    most one copy, `capacity * d_model * dtype_bytes`) and, with a model
+    axis of 1, the argmax's degenerate all-reduces (4 B twice a row).
+    The gate is `predicted <= measured <= predicted + slack` per op."""
+    sizes = dict(mesh_axes)
+    n_dev = 1
+    for s in sizes.values():
+        n_dev *= s
+    rows_group = (capacity // n_dev) * sizes.get("model", 1)
+    slack = {"collective-permute":
+             float(capacity * cfg.d_model * dtype_bytes)}
+    if sizes.get("model", 1) == 1:
+        slack["all-reduce"] = float(2 * 4 * rows_group)
+    return slack

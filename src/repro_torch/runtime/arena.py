@@ -40,10 +40,22 @@ serve-loop thread, so a restore always follows its own eviction's fetch.
 `xbuf` has `capacity + 1` rows: row `capacity` is the scratch row that
 group padding decodes into (zero rows, never a live session's data), so
 the flush-size buckets keep fixed shapes whatever the fill.
+
+With a `mesh` (`repro_torch.mesh.Mesh`, docs/sharding.md) the rows shard
+over every mesh position, flattened in axis order: `capacity` is the requested
+capacity rounded up to a multiple of the position count, so each position
+holds `capacity / positions` rows, and the server admits at most
+`requested_capacity` sessions (pad rows stay inactive). `cache` is then a
+list of one rows-batched cache dict per position, its row block on its
+position's device; `xbuf` stays one buffer, replicated on position 0's
+device (the reference's `P()`): the flush decode kernel writes it through
+its slot map and the sharded step slices the live rows into the
+positions' blocks. The row ops address a slot as (position, offset)
+(`locate`). `mesh=None` is the single-device arena, unchanged.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -64,41 +76,68 @@ def _write_row(dst: Dict[str, Any], row: Dict[str, Any], slot: int) -> None:
 
 
 class SlotArena:
-    """Per-session serving state on one device.
+    """Per-session serving state on one device, or sharded over a mesh.
 
     `make_cache(rows)` builds a rows-batched cache dict (`transformer.
     init_cache`); `x_shape`/`x_dtype` define one slot's cut-activation row.
     """
 
-    def __init__(self, make_cache, capacity: int, x_shape, x_dtype, device):
+    def __init__(self, make_cache, capacity: int, x_shape, x_dtype, device,
+                 mesh=None):
         assert capacity >= 1
-        self.capacity = capacity
+        self.mesh = mesh
+        n_pos = mesh.size if mesh is not None else 1
+        self._n_pod = mesh.shape.get("pod", 1) if mesh is not None else 1
+        self.requested_capacity = capacity
+        self.capacity = -(-capacity // n_pos) * n_pos
         self._template = make_cache(1)
-        self.cache = make_cache(capacity)
-        self.xbuf = torch.zeros((capacity + 1,) + tuple(x_shape),
+        if mesh is None:
+            self.cache = make_cache(capacity)
+        else:
+            device = mesh.devices[0]
+            self._rows = self.capacity // n_pos
+            self.cache = [_map(make_cache(self._rows),
+                               lambda a, d=d: a.to(d))
+                          for d in mesh.devices]
+        self.xbuf = torch.zeros((self.capacity + 1,) + tuple(x_shape),
                                 dtype=x_dtype, device=device)
 
     def wire_row(self, slot: int) -> int:
-        """The `xbuf`/token row of a slot: the slot itself (the reference
-        maps it across a mesh's pod axis; the port has no mesh)."""
-        return slot
+        """The `xbuf`/token row of a slot: the slot itself, but with a pod
+        axis the slot's ingestion-pod block, the ring-previous pod's (the
+        sharded step's forward ring carries the activation row to the
+        slot's own block, the inverse ring its token back)."""
+        if self._n_pod <= 1 or slot >= self.capacity:
+            return slot
+        block = self.capacity // self._n_pod
+        pod, off = divmod(slot, block)
+        return ((pod - 1) % self._n_pod) * block + off
+
+    def locate(self, slot: int) -> Tuple[Dict[str, Any], int]:
+        """(the cache dict holding a slot's row, the row's index in it)."""
+        if self.mesh is None:
+            return self.cache, slot
+        return self.cache[slot // self._rows], slot % self._rows
 
     def reset_slot(self, slot: int) -> None:
         """Restore one row to the fresh-session template, in place (slot
         reuse after a session closed or was evicted). Serve-loop thread
         only."""
-        _write_row(self.cache, _map(self._template, lambda a: a[0]), slot)
+        cache, row = self.locate(slot)
+        _write_row(cache, _map(self._template, lambda a: a[0]), row)
 
     def fetch_slot(self, slot: int) -> Dict[str, Any]:
         """Host copy of every leaf of one row (without the capacity axis)
         — the eviction path. Synchronous: the copy has
         landed when this returns. Serve-loop thread only."""
-        return _map(self.cache, lambda a: a[slot].to("cpu", copy=True))
+        cache, row = self.locate(slot)
+        return _map(cache, lambda a: a[row].to("cpu", copy=True))
 
     def restore_slot(self, slot: int, state: Dict[str, Any]) -> None:
         """Write an evicted session's host state (`fetch_slot`) back into
         row `slot` — the re-admission path. Serve-loop thread only."""
-        _write_row(self.cache, state, slot)
+        cache, row = self.locate(slot)
+        _write_row(cache, state, row)
 
     def slot_cache(self, slot: int) -> Dict[str, Any]:
         """Host copy of one row (tests and debugging; the serve path never

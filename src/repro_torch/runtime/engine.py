@@ -65,7 +65,7 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
                   capacity: Optional[int] = None, wrap_endpoint=None,
                   retry_timeout: Optional[float] = None,
                   max_retries: int = 16, tracer=None,
-                  device_encode: bool = True) -> dict:
+                  device_encode: bool = True, mesh=None) -> dict:
     """Serve `n_clients` concurrent sessions of `prompt_len + gen` tokens.
 
     `params` are the port's weights (e.g. `models.convert.params_from_jax`)
@@ -84,7 +84,12 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
     retransmission (None: one blocking wait per reply). `tracer` (an
     `obs.trace.Tracer`, default off) records the frame lifecycle.
     `device_encode=False` frames each payload with the host codec
-    (`steps.make_bottom_step`) instead of the device sections.
+    (`steps.make_bottom_step`) instead of the device sections. `mesh` (a
+    `repro_torch.mesh.Mesh` whose positions lie on the run's device
+    type, e.g. `launch.mesh.make_serving_mesh`) shards the server's arena
+    and runs the sharded top step (docs/sharding.md), whose collective
+    bytes land in `metrics` (`repro_torch.mesh.collective_bytes`); the
+    clients are unchanged.
 
     Returns the generated tokens `(n_clients, gen)`, per-session client
     and server stats, the compressors, the flush fill history, wall-clock
@@ -92,6 +97,9 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
     `metrics` snapshot of the run's own `MetricsRegistry`.
     """
     dev = resolve_device(device)
+    if mesh is not None and mesh.devices[0].type != dev.type:
+        raise ValueError(f"the mesh lies on {mesh.devices[0]}, the run on "
+                         f"{dev}")
     cut = (cfg.split.cut_layer if cfg.split and cfg.split.cut_layer > 0
            else max(1, cfg.n_layers // 2))
     assert 0 < cut < cfg.n_layers
@@ -114,12 +122,14 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
     make_cache, make_top_cache = cache_makers(cfg, max_len, dev, params)
     tracer = tracer if tracer is not None else NULL_TRACER
     registry = MetricsRegistry()        # per run, isolated
-    server = StreamingServer(params, steps.make_arena_top_step(cfg, cut),
+    top_step = steps.make_arena_top_step(cfg, cut, mesh=mesh,
+                                         registry=registry)
+    server = StreamingServer(params, top_step,
                              make_top_cache, device=dev, max_batch=max_batch,
                              max_wait=max_wait, dtype=cfg.adtype(),
                              capacity=capacity or n_clients,
                              x_shape=(1, 1, cfg.d_model), backend=backend,
-                             tracer=tracer, registry=registry)
+                             tracer=tracer, registry=registry, mesh=mesh)
     server.expected_sessions = n_clients
 
     def _connect(cid: int):

@@ -315,7 +315,9 @@ class StreamingServer(FrameServerBase):
     ("torch"). `evict_idle` turns LRU eviction to the host on;
     `admit_timeout` bounds an admission's wait for a slot (read through
     `clock`, so under a virtual clock a full arena raises at once instead
-    of deadlocking a single-threaded pump)."""
+    of deadlocking a single-threaded pump). With `mesh` the arena shards
+    over its positions (`top_step` must be the sharded step of the same
+    mesh); pad rows are never admitted into."""
 
     def __init__(self, params, top_step: Callable, make_cache: Callable,
                  *, device, max_batch: int = 8, max_wait: float = 0.01,
@@ -323,7 +325,7 @@ class StreamingServer(FrameServerBase):
                  x_shape=None, backend: Optional[str] = None,
                  clock: Clock = SYSTEM_CLOCK, evict_idle: bool = True,
                  admit_timeout: float = 5.0, tracer=NULL_TRACER,
-                 registry: Optional[MetricsRegistry] = None):
+                 registry: Optional[MetricsRegistry] = None, mesh=None):
         self.params = params
         self.device = torch.device(device)
         self.clock = clock
@@ -346,11 +348,12 @@ class StreamingServer(FrameServerBase):
         self.arena: Optional[SlotArena] = None
         self._make_cache = make_cache
         self._capacity = capacity or max_batch
+        self._mesh = mesh
         self.evict_idle = evict_idle
         self.admit_timeout = admit_timeout
         if x_shape is not None:
             self.arena = SlotArena(make_cache, self._capacity, x_shape,
-                                   dtype, self.device)
+                                   dtype, self.device, mesh=mesh)
         # FIFO free deque: O(1) admission, freed slots cycle to the back
         self._free_slots: Deque[int] = collections.deque(
             range(self._capacity))
@@ -369,7 +372,8 @@ class StreamingServer(FrameServerBase):
     def _ensure_arena(self, d: int) -> None:
         if self.arena is None:
             self.arena = SlotArena(self._make_cache, self._capacity,
-                                   (1, 1, d), self.dtype, self.device)
+                                   (1, 1, d), self.dtype, self.device,
+                                   mesh=self._mesh)
 
     # -- slot lifecycle (admission / reclaim / evict / re-admit) -------------
 

@@ -19,6 +19,10 @@ layers [cut, L) — each party touches only its own range, in place.
     whisper's cross KV is read, never written.
   * fused decode step: the flush payload decoded into `xbuf[slots]`, then
     the arena top step — one call per single-meta flush.
+
+With a mesh (`repro_torch.mesh.Mesh`) the arena top step is the sharded
+one (`_make_sharded_arena_step`, docs/sharding.md): rows over every mesh
+position, a vocab-parallel head, and a pod ring.
 """
 from __future__ import annotations
 
@@ -27,8 +31,9 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import mesh as mesh_mod
 from repro_torch.core import compressors
-from repro_torch.models import transformer
+from repro_torch.models import tp, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.split import protocol
 
@@ -69,20 +74,34 @@ def make_bottom_step(cfg: ArchConfig, cut: int,
     return bottom_step
 
 
+def top_hidden(params, cfg: ArchConfig, cut: int, x, cache, rows):
+    """Layers [cut, L) and the final norm over arena rows `x` (C, 1, d);
+    writes the state of the `rows` (index vector) in place. Positions are
+    the caller's to advance."""
+    x = transformer.decode_layers(params, cfg, x, cache, cut, cfg.n_layers,
+                                  rows)
+    return transformer.final_norm(params, cfg, x)
+
+
 def top_logits(params, cfg: ArchConfig, cut: int, xbuf, cache, rows):
     """Layers [cut, L) + LM head over every arena row; writes the state of
     the `rows` (index vector) in place. Returns logits (C, 1, V)."""
     C = cache["pos"].shape[0]
-    x = xbuf[:C].reshape(C, 1, cfg.d_model)
-    x = transformer.decode_layers(params, cfg, x, cache, cut, cfg.n_layers,
-                                  rows)
-    return transformer.lm_head(params, cfg, x)
+    h = top_hidden(params, cfg, cut, xbuf[:C].reshape(C, 1, cfg.d_model),
+                   cache, rows)
+    return h @ params["unembed"].to(h.dtype)
 
 
-def make_arena_top_step(cfg: ArchConfig, cut: int) -> Callable:
+def make_arena_top_step(cfg: ArchConfig, cut: int, mesh=None,
+                        registry=None) -> Callable:
     """(params, xbuf (C+1, 1, 1, d), cache (C rows), active (C,) numpy
     bool) -> tokens (C,) int32 on the device. Inactive slots compute and
-    discard: their state and position are never written."""
+    discard: their state and position are never written. With `mesh` the
+    sharded step: `cache` is the arena's list of per-position blocks, the
+    tokens come back in wire-row order (`SlotArena.wire_row`), and the
+    collectives count their bytes into `registry` when given."""
+    if mesh is not None:
+        return _make_sharded_arena_step(cfg, cut, mesh, registry)
 
     def arena_step(params, xbuf, cache, active):
         dev = cache["pos"].device
@@ -90,6 +109,89 @@ def make_arena_top_step(cfg: ArchConfig, cut: int) -> Callable:
         logits = top_logits(params, cfg, cut, xbuf, cache, rows)
         cache["pos"][rows] += 1
         return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+
+    return arena_step
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def _make_sharded_arena_step(cfg: ArchConfig, cut: int, mesh,
+                             registry) -> Callable:
+    """The reference's `_make_sharded_arena_step`, one program per mesh
+    position on its position's device, the collectives those of
+    `repro_torch.mesh`:
+
+      * arena rows shard over every mesh axis, flattened in axis order:
+        position p holds rows [p r, (p + 1) r), r = capacity / positions,
+        and runs layers [cut, L) on them, writing only its active rows
+        (batch decomposition: each row's program is the mesh-less
+        `top_hidden`);
+      * with a 'pod' axis the cut activation first crosses the pod ring
+        (`protocol.pod_ring_perm`): the server stages slot s at
+        `SlotArena.wire_row(s)`, in the ring-previous pod's block, and
+        the tokens return on the inverse ring;
+      * the lm head is vocab-parallel over 'model': the model group's row
+        gather (`tp.gather_seq_local`, after the norm), each rank's
+        product with its column slice of `unembed` (an output-dim split;
+        no contraction is split) and `tp.vocab_parallel_argmax`.
+
+    Positions on the device the params lie on read them in place (the
+    column slices are views of the one `unembed`); a position on another
+    device reads a copy made there once per params object."""
+    n = mesh.size
+    n_model = mesh.shape["model"]
+    n_pod = mesh.shape.get("pod", 1)
+    if cfg.padded_vocab % n_model:
+        raise ValueError(f"padded vocab {cfg.padded_vocab} not divisible by "
+                         f"model axis {n_model}")
+    v_local = cfg.padded_vocab // n_model
+    ranks = [mesh.coord(p, "model") for p in range(n)]
+    copies: dict = {}               # device -> (params, their copy there)
+
+    def on(params, dev):
+        if params["unembed"].device == dev:
+            return params
+        if dev not in copies or copies[dev][0] is not params:
+            copies[dev] = (params, _to(params, dev))
+        return copies[dev][1]
+
+    def arena_step(params, xbuf, blocks, active):
+        C = active.shape[0]
+        if C % n:
+            raise ValueError(f"arena capacity {C} not divisible by the "
+                             f"{n}-position row sharding (SlotArena pads "
+                             f"for this)")
+        r = C // n
+        x = [xbuf[p * r:(p + 1) * r].reshape(r, 1, cfg.d_model).to(dev)
+             for p, dev in enumerate(mesh.devices)]
+        if n_pod > 1:
+            x = mesh_mod.permute(mesh, x, "pod",
+                                 protocol.pod_ring_perm(n_pod), registry)
+        h = []
+        for p, dev in enumerate(mesh.devices):
+            prm, cache = on(params, dev), blocks[p]
+            rows = torch.as_tensor(
+                np.flatnonzero(active[p * r:(p + 1) * r]), device=dev)
+            h.append(top_hidden(prm, cfg, cut, x[p], cache, rows))
+            cache["pos"][rows] += 1
+        h = tp.gather_seq_local(mesh, h, registry=registry)
+        logits = []
+        for p, dev in enumerate(mesh.devices):
+            w = on(params, dev)["unembed"][
+                :, ranks[p] * v_local:(ranks[p] + 1) * v_local]
+            logits.append((h[p] @ w.to(h[p].dtype))[:, -1, :])
+        tok = tp.vocab_parallel_argmax(mesh, logits, registry=registry)
+        if n_pod > 1:
+            tok = mesh_mod.permute(
+                mesh, tok, "pod", protocol.pod_ring_perm(n_pod, inverse=True),
+                registry)
+        # each position's own rows: its rank's block of the group's tokens
+        dev0 = mesh.devices[0]
+        return torch.cat([tok[p][ranks[p] * r:(ranks[p] + 1) * r].to(dev0)
+                          for p in range(n)])
 
     return arena_step
 

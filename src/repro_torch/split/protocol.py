@@ -7,9 +7,13 @@ Training:
     a `torch.autograd.Function` (`_Transport`, the reference's custom VJP):
     the gradient is gathered at the far side's support and scattered onto
     the feature owner's (sparse kinds), sliced and padded (slice), or
-    passed through (dense, quant: the straight-through estimator). The
-    reference's pod ring (a ppermute of the leaves across a mesh axis) is
-    not ported: both parties live on one device.
+    passed through (dense, quant: the straight-through estimator). Both
+    parties live on one device: the reference's in-graph pod transfer
+    (`_pod_permute` under `SplitConfig.transfer_over_pod`) waits for the
+    training mesh.
+  * `pod_ring_perm` — the cut boundary's ring permutation along a mesh's
+    'pod' axis, which the sharded serving step runs
+    (`runtime.steps.make_arena_top_step` with a pod mesh).
   * `server_grad_encode` / `client_grad_decode` — the same backward rules
     as out-of-process halves, for a label owner and a feature owner that
     exchange frames.
@@ -65,6 +69,14 @@ def make_cut_compressor(sc: SplitConfig) -> compressors.Compressor:
 # ---------------------------------------------------------------------------
 # Backward wire rules, dispatched on the payload kind (not the compressor).
 # ---------------------------------------------------------------------------
+
+def pod_ring_perm(n_pod: int, *, inverse: bool = False):
+    """The cut-boundary ring permutation along the 'pod' axis, as (src,
+    dst) pairs: forward sends pod i's rows to pod i+1 (mod n), inverse
+    returns them."""
+    step = -1 if inverse else 1
+    return [(i, (i + step) % n_pod) for i in range(n_pod)]
+
 
 def _grad_to_wire(kind: str, g, idx_far, k: int):
     """Label-owner side: the gradient leaves that cross back (Table 2 bwd)."""

@@ -1,7 +1,8 @@
-"""The host side of the `encode_rows`, `decode_rows`,
+"""The host side of the `encode_rows`, `pack_bits`, `decode_rows`,
 `decode_rows_to_slots` and `quantize` wrappers, on the CPU with a fake
 library in place of the built kernels: the checks that run once per key
-(`encode_plan`, `rows_plan`, `slots_plan`, `quant_plan`) raise where the
+(`encode_plan`, `pack_plan`, `rows_plan`, `slots_plan`, `quant_plan`)
+raise where the
 kernels cannot take an input; the outputs a launch allocates have the plain
 version's shapes and dtypes, do not overlap and start 16-byte aligned;
 and a launch hands the kernel the pointers and scalars its C signature
@@ -78,6 +79,8 @@ def _assert_signature(name, args):
         if t is ctypes.c_int:
             assert -2 ** 31 <= a < 2 ** 31
             assert t(a).value == a
+        elif t is ctypes.c_longlong:
+            assert 0 <= a < 2 ** 63
         else:
             assert t is ctypes.c_void_p and 0 <= a < 2 ** 64
             assert (t(a).value or 0) == a
@@ -439,3 +442,44 @@ def test_quant_plan_is_resolved_once_per_key():
 def test_quant_plan_raises(shape, dtype, bits, err):
     with pytest.raises(err):
         q_ops.quant_plan(torch.Size(shape), dtype, bits)
+
+
+# pack_bits
+
+PACK_CASES = [(64, 12), (4096, 4), (33, 32), (1, 1), (0, 7)]
+
+
+@pytest.mark.parametrize("n, width", PACK_CASES)
+def test_pack_launch_passes_signature_args(fake, n, width):
+    vals = torch.arange(n, dtype=torch.int32)
+    plan = enc_ops.pack_plan(n, width, torch.int32)
+    out = enc_ops.launch_pack(plan, vals)
+    want = enc_ref.pack_bits(vals, width)
+    assert out.shape == want.shape and out.dtype == want.dtype
+    if not n:
+        assert not fake.pack_bits.calls
+        return
+    (args,) = fake.pack_bits.calls
+    _assert_signature("pack_bits", args)
+    assert args == (vals.data_ptr(), n, width, out.data_ptr(), STREAM)
+    assert _lib.launch_counts()["pack_bits"] == 1
+
+
+def test_pack_launch_makes_a_strided_stream_contiguous(fake):
+    vals = torch.arange(64, dtype=torch.int32).reshape(8, 8).t()
+    enc_ops.launch_pack(enc_ops.pack_plan(64, 6, torch.int32), vals)
+    (args,) = fake.pack_bits.calls
+    assert args[0] != vals.data_ptr() and args[1:3] == (64, 6)
+
+
+def test_pack_plan_is_resolved_once_per_key():
+    key = (64, 12, torch.int32)
+    assert enc_ops.pack_plan(*key) is enc_ops.pack_plan(*key)
+
+
+@pytest.mark.parametrize("width, dtype, err", [
+    (0, torch.int32, ValueError), (33, torch.int32, ValueError),
+    (8, torch.int64, TypeError), (8, torch.float32, TypeError)])
+def test_pack_plan_raises(width, dtype, err):
+    with pytest.raises(err):
+        enc_ops.pack_plan(16, width, dtype)
