@@ -14,6 +14,9 @@
                                               # and whisper-tiny
     python3 chip_smoke.py --phase mesh        # kernel checks + yi-6b
                                               # served on device meshes
+    python3 chip_smoke.py --phase trainmesh   # kernel checks + yi-6b and
+                                              # granite-moe trained on
+                                              # device meshes
     python3 chip_smoke.py --phase probe       # build + `probe_kernels`
     python3 chip_smoke.py --phase ab --parent DIR   # probes, P C C P
     python3 chip_smoke.py --phase predict     # CPU: phase 11's reports
@@ -207,8 +210,10 @@ Phases, each fatal on failure:
      the busy share of a traced fourth step, peak memory, and the vlm's
      gates nonzero after its first step. The kernel checks cover d 8192
      and 384 (bf16) and the vlm SMOKE's 256 (f32);
- 15. serving on a device mesh (`--phase mesh`): yi-6b FULL (32 layers,
-     cut 16, padded vocab 64000), random bf16 weights from a seed, 4
+ 15. serving on a device mesh (`--phase mesh`): yi-6b at full width
+     (padded vocab 64000), depth cut from 32 to 16 layers (cut 8, so
+     that the whole run stays near half its time limit with phase 16),
+     random bf16 weights from a seed, 4
      clients x (4 + 4) tokens, randtopk k 64, through
      `run_streaming(mesh=)` at `mesh=None` and at `make_serving_mesh(1)`,
      `(4)`, `(4, model=2)` and `(8, model=2, pod=2)`, every position on
@@ -225,12 +230,28 @@ Phases, each fatal on failure:
      the mesh-less top-2 logit gap is within 2 bf16 ulps of the max
      logit (a position multiplies fewer rows, and bf16 GEMMs of another
      row count round differently); tokens/s, wall and peak at each mesh,
-     and the busy share of a traced pod-mesh run.
+     and the busy share of a traced pod-mesh run;
+ 16. training on a device mesh (`--phase trainmesh`): yi-6b at full width
+     (d 4096, 32 heads, 4 KV heads, d_ff 11008, vocab 64000), depth cut
+     to 8 layers (cut 4), batch 4 x seq 256, randtopk k 64, bf16, AdamW,
+     remat, random weights from a seed, at mesh=None, (1, 1), (2, 4) and
+     (2, 2, 2) ('pod', 'data', 'model'), and granite-moe-1b-a400m FULL
+     (24 layers, cut 12, 32 experts over 'model') at (1, 4), every
+     position on the one card: a plain first step that launches nothing,
+     then 4 kernel steps whose first equals it bit for bit; (1, 1) =
+     mesh=None bit for bit; the codec (randtopk_mask, decode_rows,
+     scatter_rows) once a batch shard a step; each step's counted
+     collective bytes per op = `analysis.training_collective_costs`;
+     step ms, peak, the busy share of a traced fifth step, and each
+     mesh's first loss against mesh=None's; the first batch's loss in
+     f32 (forward only, the weights upcast) through the identity codec
+     within 2e-4 of mesh=None's, and through randtopk (reported).
 
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, for the serve's two kernels
 plus the loadgen phase's kernel runs, plus the families, recurrent,
-multimodal and mesh phases' serves, live checks and training, plus the fedtrain phase's chaos runs and
+multimodal and mesh phases' serves, live checks and training, plus the
+train mesh phase's kernel steps, plus the fedtrain phase's chaos runs and
 launch.train's resumed checkpoint run, or in its check's own loop for the
 five no path runs, its largest difference from its plain version,
 the CUDA-event times of kernel, plain version and library call at its
@@ -242,6 +263,7 @@ fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -3547,7 +3569,8 @@ def multimodal_phase(dev, card):
 # phase 15: serving on a device mesh
 # ---------------------------------------------------------------------------
 
-MESH_ARCH, MESH_NB = "yi-6b", 352            # FULL: 32 layers, cut 16
+MESH_ARCH, MESH_NB = "yi-6b", 352            # full width
+MESH_LAYERS = 16              # of 32 (cut 8): the whole run's time limit
 MESH_GEN = 4                  # at 8 the phase took 190 s on an H100
                               # and the whole run passed 700 s
 # (label, make_serving_mesh arguments): every position on the one card
@@ -3685,10 +3708,11 @@ def _mesh_gap(cfg, params, ref, got, kw):
 
 
 def mesh_phase(dev, card):
-    """Phase 15: yi-6b FULL (32 layers, d 4096, padded vocab 64000, cut
-    16), random bf16 weights from a seed, served through `run_streaming`
-    at `mesh=None` and on `make_serving_mesh` meshes whose positions all
-    share the one card, 4 clients x (4 + 4) tokens, randtopk k 64. Fatal:
+    """Phase 15: yi-6b at full width, 16 of its 32 layers (d 4096, padded
+    vocab 64000, cut 8; `MESH_LAYERS`), random bf16 weights from a seed,
+    served through `run_streaming` at `mesh=None` and on
+    `make_serving_mesh` meshes whose positions all share the one card,
+    4 clients x (4 + 4) tokens, randtopk k 64. Fatal:
     (1, 1) = mesh-less, tokens and (direct drive) every cache leaf bit for
     bit; kernels = plain under the pod mesh; 352 payload B a token; one
     fused encode a served token and one flush decode a flush group; at
@@ -3710,9 +3734,10 @@ def mesh_phase(dev, card):
 
     t_phase = time.perf_counter()
     total = collections.Counter()
-    cfg = configs.get(MESH_ARCH)
+    cfg = configs.with_layers(configs.get(MESH_ARCH), MESH_LAYERS)
     kw = dict(gen=MESH_GEN, n_clients=N_CLIENTS, prompt_len=PROMPT_LEN)
-    print(f"mesh phase: {MESH_ARCH} FULL ({cfg.n_layers} layers, cut "
+    print(f"mesh phase: {MESH_ARCH} at full width ({cfg.n_layers} of 32 "
+          f"layers, cut "
           f"{cfg.n_layers // 2}, d {cfg.d_model}, padded vocab "
           f"{cfg.padded_vocab}), {N_CLIENTS} clients x ({PROMPT_LEN} + "
           f"{MESH_GEN}) tokens, randtopk k={K}, bf16; every mesh position "
@@ -3818,16 +3843,265 @@ def mesh_phase(dev, card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training on a device mesh
+# ---------------------------------------------------------------------------
+
+TRAINMESH_STEPS = 4           # kernel steps a mesh, after one plain step
+# (label, shape): ('data', 'model'), or ('pod', 'data', 'model') for three
+TRAINMESH_SHAPES = (("(1, 1)", (1, 1)), ("(2, 4)", (2, 4)),
+                    ("(2, 2, 2)", (2, 2, 2)))
+TRAINMESH_MOE = ("(1, 4)", (1, 4))
+
+
+def _train_mesh(shape, dev):
+    from repro_torch.launch.mesh import make_mesh
+
+    if shape is None:
+        return None
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    return make_mesh(shape, axes, devices=dev)
+
+
+def _mesh_train_run(cfg, params, batches, dev, label, mesh, card):
+    """One mesh's training through the codec: a first step with the plain
+    versions (no launch), then `TRAINMESH_STEPS` kernel steps (counts
+    zeroed just before) whose first equals it bit for bit; the codec once
+    a batch shard a step (randtopk_mask, decode_rows and scatter_rows
+    each); counted collective bytes of every step =
+    `analysis.training_collective_costs`; step ms, peak and the busy
+    share of a traced extra step. Returns (launch counts, the first kernel
+    step's (params, metrics), a summary dict)."""
+    import math
+
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import steps
+    from repro_torch.mesh import collective_bytes
+    from repro_torch.models.config import Runtime
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.roofline import analysis
+
+    plain_cfg = cfg.with_(split=dataclasses.replace(cfg.split,
+                                                    backend="torch"))
+    n_shards = 1 if mesh is None else mesh.size // mesh.shape["model"]
+    want = {} if mesh is None else analysis.training_collective_costs(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, mesh.shape,
+        act_bytes=cfg.adtype().itemsize,
+        param_bytes=cfg.pdtype().itemsize)[0]
+    base = held_gib(dev)
+    reg_plain = MetricsRegistry()
+    _lib.reset_launch_counts()
+    p_plain, opt_plain, m_plain = steps.make_train_step(
+        plain_cfg, Runtime(mesh=mesh, training=True, registry=reg_plain))(
+        params, adamw_init(params), batches[0],
+        torch.Generator(device=dev).manual_seed(1))
+    del opt_plain
+    torch.cuda.synchronize()
+    if any(_lib.launch_counts().values()):
+        fail(f"train mesh {label}: plain-version step launched "
+             f"{_lib.launch_counts()}")
+    torch.cuda.empty_cache()
+    reg = MetricsRegistry()
+    step = steps.make_train_step(cfg, Runtime(mesh=mesh, training=True,
+                                              registry=reg))
+    p, opt = params, adamw_init(params)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    times, losses, first = [], [], None
+    for i in range(TRAINMESH_STEPS):
+        t0 = time.perf_counter()
+        p, opt, m = step(p, opt, batches[i], gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            _same_first_step(p, m, p_plain, m_plain,
+                             f"train mesh {label}, kernels vs plain "
+                             f"versions")
+            first = (p, m)
+            del p_plain
+            torch.cuda.reset_peak_memory_stats(dev)   # peak of steps 2-N
+            got = {k: float(v)
+                   for k, v in collective_bytes(reg.snapshot()).items()}
+            plain_got = {k: float(v) for k, v in
+                         collective_bytes(reg_plain.snapshot()).items()}
+            if got != want or plain_got != want:
+                fail(f"train mesh {label}: a step counted collective bytes "
+                     f"{got} (plain: {plain_got}), "
+                     f"training_collective_costs {want}")
+    counts = _lib.launch_counts()
+    run = {k: float(v) for k, v in collective_bytes(reg.snapshot()).items()}
+    if run != {k: v * TRAINMESH_STEPS for k, v in want.items()}:
+        fail(f"train mesh {label}: {TRAINMESH_STEPS} steps counted {run}, "
+             f"{TRAINMESH_STEPS} x {want} expected")
+    wrong = {n: counts[n] for n in TRAIN_PATH_KERNELS["randtopk"]
+             if counts[n] != n_shards * TRAINMESH_STEPS}
+    if wrong:
+        fail(f"train mesh {label}: launches {wrong}, {n_shards} batch "
+             f"shards x {TRAINMESH_STEPS} steps of each expected")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"train mesh {label}: losses not finite: {losses}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    tr = traced(lambda: step(p, opt, batches[TRAINMESH_STEPS], gen))
+    med = statistics.median(times[1:])
+    print(f"  mesh {label}{'' if mesh is None else ' ' + str(mesh.shape)}: "
+          f"losses {losses}; launches "
+          f"{ {n: counts[n] for n in TRAIN_PATH_KERNELS['randtopk']} } "
+          f"({n_shards} batch "
+          f"shard(s) a step); step ms {[round(t, 2) for t in times]}, "
+          f"median of steps 2-{TRAINMESH_STEPS} {med:.2f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.1f} tokens/s; a traced "
+          f"step: {_busy_text(tr)}; peak of steps 2-{TRAINMESH_STEPS} "
+          f"{peak:.2f} GiB ({base:.2f} GiB held before the mesh's first "
+          f"step); "
+          f"collective bytes a step {want or 'none'} = "
+          f"training_collective_costs; {card}")
+    if tr[3]:
+        print(f"    the traced step's device ms by kernel, longest first "
+              f"({len(tr[3])} kernels, {sum(c for _, _, c in tr[3])} "
+              f"launches): " + "; ".join(
+                  f"{ms:.2f} ms {c}x {name[:60]}" for name, ms, c in
+                  tr[3][:6]))
+    del opt, tr
+    torch.cuda.empty_cache()
+    return counts, first, {"median_ms": med, "peak_gib": peak,
+                           "loss0": losses[0]}
+
+
+def _mesh_forward_f32(cfg, params, batch, dev):
+    """The first batch's training loss, forward only, with the weights and
+    activations in f32, at mesh=None and at each of `TRAINMESH_SHAPES`,
+    through the identity codec (dense payload leaves: the pod ring moves
+    them, the labels stay with their rows) and through randtopk (the same
+    draws). Fatal: an identity-codec mesh loss off mesh=None's by more
+    than 2e-4 (the reference's own bound). The randtopk losses are
+    reported: a mask element that flips between two GEMM shapes moves a
+    token's top-layer input, so they need not agree as closely. Returns
+    {codec: {label: loss}}."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models.config import Runtime
+    from repro_torch.optim.adamw import tree_map
+
+    p32 = tree_map(lambda t: t.float(), params)
+    out = {}
+    for codec in ("identity", "randtopk"):
+        f32 = cfg.with_(param_dtype="float32", dtype="float32",
+                        split=dataclasses.replace(cfg.split,
+                                                  compressor=codec))
+        out[codec] = {}
+        for label, shape in (("None", None),) + TRAINMESH_SHAPES:
+            rt = Runtime(mesh=_train_mesh(shape, dev), training=True)
+            with torch.no_grad():
+                loss, _ = steps.loss_fn(p32, f32, rt, batch, torch.Generator(
+                    device=dev).manual_seed(1))
+            out[codec][label] = float(loss)
+    del p32
+    torch.cuda.empty_cache()
+    ident = out["identity"]
+    off = {k: v - ident["None"] for k, v in ident.items()
+           if abs(v - ident["None"]) > 2e-4}
+    if off:
+        fail(f"train mesh, f32 forward through the identity codec: losses "
+             f"{ident}; off mesh=None's by more than 2e-4: {off}")
+    return out
+
+
+def trainmesh_phase(dev, card):
+    """Phase 16: split training on a device mesh whose positions all share
+    the one card. yi-6b at full width (d 4096, 32 heads, 4 KV heads, d_ff
+    11008, vocab 64000), depth cut to 8 layers (cut 4), batch 4 x seq 256,
+    randtopk k 64 alpha 0.1, bf16, AdamW, remat, random weights from a
+    seed, at mesh=None, (1, 1), (2, 4) and (2, 2, 2) ('pod', 'data',
+    'model'); granite-moe-1b-a400m FULL (24 layers, cut 12, 32 experts)
+    at (1, 4). Fatal: at every mesh the kernels' first step = the plain
+    versions' bit for bit (loss, aux, grad norm, every updated weight);
+    (1, 1) = mesh=None bit for bit; the codec once a batch shard a step;
+    counted collective bytes = `training_collective_costs`. Returns the
+    kernels' launches of the kernel steps."""
+    import collections
+
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    cfg = _train_cfg("randtopk")
+    print(f"train mesh phase: yi-6b at full width, {cfg.n_layers} layers "
+          f"(cut at {TRAIN_CUT}), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+          f"randtopk k={K}, bf16, AdamW, remat; every mesh position on the "
+          f"one card; {card}")
+    params = transformer.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    batches = [pipe.next_batch(i) for i in range(TRAINMESH_STEPS + 1)]
+    counts, ref, res = _mesh_train_run(cfg, params, batches, dev, "None",
+                                       None, card)
+    total.update(counts)
+    summary = {"None": res}
+    for label, shape in TRAINMESH_SHAPES:
+        counts, first, res = _mesh_train_run(
+            cfg, params, batches, dev, label, _train_mesh(shape, dev), card)
+        total.update(counts)
+        summary[label] = res
+        if label == "(1, 1)":
+            _same_first_step(first[0], first[1], ref[0], ref[1],
+                             "train mesh (1, 1) vs mesh=None")
+            del ref
+        del first
+    torch.cuda.empty_cache()
+    print("  first-step loss against mesh=None's "
+          f"({summary['None']['loss0']}): " + ", ".join(
+              f"{k} {v['loss0'] - summary['None']['loss0']:+.3g}"
+              for k, v in summary.items() if k != "None"))
+    for codec, f32 in _mesh_forward_f32(cfg, params, batches[0],
+                                        dev).items():
+        print(f"  the first batch's loss, forward only, weights and "
+              f"activations in f32, {codec} codec: mesh=None "
+              f"{f32['None']}; " + ", ".join(
+                  f"{k} {v - f32['None']:+.3g}" for k, v in f32.items()
+                  if k != "None") + (" (gate: 2e-4)" if codec == "identity"
+                                     else " (reported)"))
+    del params
+    torch.cuda.empty_cache()
+
+    label, shape = TRAINMESH_MOE
+    mcfg = _train_cfg("randtopk", layers=None, cut=0, arch=FAM_TRAIN)
+    print(f"  {FAM_TRAIN} FULL: {mcfg.n_layers} layers (cut at "
+          f"{mcfg.split.cut_layer}), {mcfg.n_experts} experts over 'model' "
+          f"{shape[-1]}, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}")
+    params = transformer.init_model(
+        mcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    pipe = TokenPipeline(mcfg, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    batches = [pipe.next_batch(i) for i in range(TRAINMESH_STEPS + 1)]
+    counts, first, _ = _mesh_train_run(mcfg, params, batches, dev, label,
+                                       _train_mesh(shape, dev), card)
+    total.update(counts)
+    if not float(first[1]["aux"]) > 0:
+        fail(f"train mesh {label}: the moe's balance loss is "
+             f"{float(first[1]['aux'])}")
+    del first, params
+    torch.cuda.empty_cache()
+    print(f"train mesh phase wall: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
                                         "fedtrain", "loadgen", "families",
                                         "recurrent", "multimodal", "mesh",
-                                        "probe", "ab", "predict"),
+                                        "trainmesh", "probe", "ab",
+                                        "predict"),
                     default="all",
                     help="kernels: build + kernel checks + codec probes; "
                          "serve / train / fedtrain / loadgen / families / "
-                         "recurrent / multimodal / mesh: the checks, "
+                         "recurrent / multimodal / mesh / trainmesh: the "
+                         "checks, "
                          "probes and one path; probe: build + `probe_kernels` "
                          "alone; ab: `probe` in turns on a parent tree's "
                          "package and this one (--parent); predict: the "
@@ -3970,6 +4244,13 @@ def main(argv=None) -> int:
                 add(n, counts[n], "the mesh phase's kernel serves (yi-6b "
                                   "at mesh=None and four meshes, and at "
                                   "capacity 2)")
+    if args.phase in ("all", "trainmesh"):
+        counts = trainmesh_phase(dev, card)
+        for n in launches:
+            if counts[n]:
+                add(n, counts[n], "the train mesh phase's kernel steps "
+                                  "(yi-6b at mesh=None, (1, 1), (2, 4) and "
+                                  "(2, 2, 2); granite-moe at (1, 4))")
 
     for r in records:
         r["launches"] = launches[r["name"]]

@@ -9,6 +9,8 @@ module re-exports.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels._lib import resolve_backend  # noqa: F401
@@ -81,18 +83,37 @@ def gumbel_noise(generator: torch.Generator, shape, device=None):
     return -torch.log(-torch.log(torch.clamp(u, tiny, 1.0)))
 
 
-def randtopk_mask(x: torch.Tensor, k: int, alpha: float,
-                  generator: torch.Generator, *, backend: str = None):
+class Draws(NamedTuple):
+    """RandTopK's draws for a block of rows, made ahead (`draw`): the pick
+    counts (..., 1) and the Gumbel noise (..., d). A mesh step draws them
+    for the whole batch in the mesh-less step's order and hands each
+    batch shard its rows, so every shard's mask is the mesh-less one."""
+
+    counts: torch.Tensor
+    noise: torch.Tensor
+
+
+def draw(generator: torch.Generator, alpha: float, k: int, shape,
+         device=None) -> Draws:
+    """The pick counts, then the Gumbel noise, for rows of `shape` (...,
+    d), from `generator` in that order."""
+    m = binomial_nontop_count(generator, alpha, k, shape[-1], shape[:-1],
+                              device=device)
+    return Draws(m, gumbel_noise(generator, shape, device=device))
+
+
+def randtopk_mask(x: torch.Tensor, k: int, alpha: float, generator, *,
+                  backend: str = None):
     """Randomized top-k selection mask, Eq. (7): exactly k elements, each
     draw a top-k element w.p. 1-alpha and a non-top-k one w.p. alpha.
 
     The pick counts and the Gumbel noise are drawn here from `generator`
-    (in that order) and handed to the `randtopk_mask` kernel, or to its
-    plain version, as data (`kernels.randtopk.ops.randtopk_mask`)."""
+    (in that order), or taken from it when it is `Draws` made ahead, and
+    handed to the `randtopk_mask` kernel, or to its plain version, as
+    data (`kernels.randtopk.ops.randtopk_mask`)."""
     d = x.shape[-1]
     if k >= d:
         return torch.ones(x.shape, dtype=torch.bool, device=x.device)
-    m = binomial_nontop_count(generator, alpha, k, d, x.shape[:-1],
-                              device=x.device)
-    g = gumbel_noise(generator, x.shape, device=x.device)
-    return tk_ops.randtopk_mask(x, g, m, k, backend=backend)
+    dr = generator if isinstance(generator, Draws) else draw(
+        generator, alpha, k, x.shape, device=x.device)
+    return tk_ops.randtopk_mask(x, dr.noise, dr.counts, k, backend=backend)

@@ -1,4 +1,5 @@
-"""The meshes a user builds for the sharded serving arena: the port's
+"""The meshes a user builds for the sharded serving arena and the training
+mesh (`Runtime.mesh`, `launch/train --mesh`): the port's
 `src/repro/launch/mesh.py`, over `repro_torch.mesh.Mesh` (one process
 drives every position; see that module for the collectives and their
 byte counter). By default every position lies on the resolved default

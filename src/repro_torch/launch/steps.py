@@ -4,6 +4,10 @@ A step takes the parameters as a nested dict of tensors (the reference's
 tree), computes the loss and its gradients with autograd, and applies
 AdamW; it returns new parameter tensors and the moments updated in place
 (`optim.adamw`), so callers treat the old parameters and state as consumed.
+On a training mesh (`Runtime.mesh`) the parameters stay whole, one tensor
+a leaf, and each position takes its shard as a slice: autograd's
+accumulation into the leaf is the data-parallel gradient sum, so AdamW
+and the global grad norm are the mesh-less ones.
 """
 from __future__ import annotations
 
@@ -20,9 +24,18 @@ AUX_WEIGHT = 0.01  # MoE balance-loss weight (the dense family has none)
 
 
 def loss_fn(params, cfg: ArchConfig, rt: Runtime, batch, generator):
+    """Cross entropy + AUX_WEIGHT * aux. On a mesh the loss runs once a
+    batch shard, on the logits of its rows against its own labels
+    (wherever the pod ring took the rows), and the shards' means are
+    averaged."""
     logits, aux = split_model.forward(params, cfg, rt, batch,
                                       generator=generator)
-    ce = transformer.cross_entropy(logits, batch["labels"])
+    if rt.mesh is None:
+        ce = transformer.cross_entropy(logits, batch["labels"])
+    else:
+        labels = batch["labels"].split(logits[0].shape[0])
+        ce = torch.stack([transformer.cross_entropy(lg, lb)
+                          for lg, lb in zip(logits, labels)]).mean()
     return ce + AUX_WEIGHT * aux, (ce, aux)
 
 

@@ -26,6 +26,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
         --smoke --device cpu --steps 5 --split randtopk --k 16
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
+        --smoke --device cpu --steps 5 --split randtopk --k 16 --mesh 2,2
+
 Runs a real training loop: synthetic token batches drawn on the device,
 the split model with the cut-layer codec at `--cut` (default n_layers // 2;
 for the vlm rounded down to whole groups of `cross_attn_every` layers, at
@@ -38,8 +41,13 @@ params go to `step_%08d.npz` in `--ckpt-dir` and the optimizer to its
 step's RandTopK noise goes to its `rng` subdirectory (the reference
 draws from `fold_in(key, step)` and has no such state). A run given a directory that
 holds a checkpoint resumes from its latest step and trains to `--steps`,
-as the uninterrupted run would, bit for bit. The reference's `--mesh` is
-not ported.
+as the uninterrupted run would, bit for bit.
+
+`--mesh d,m` trains on a ('data', 'model')[:len] mesh, as the reference
+takes it (`launch.mesh.make_mesh`): the batch splits over 'data', and
+the dense and moe families run Megatron tensor and sequence parallelism
+and expert parallelism over 'model' (`models.tp`). Every position lies
+on the one device of `--device`; the parameters stay whole there.
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ import torch
 from repro_torch import configs
 from repro_torch.checkpoint import store
 from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer
 from repro_torch.models.config import Runtime, SplitConfig
@@ -95,6 +104,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' on purpose)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default=None, help="e.g. 2,4 for (data,model)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
@@ -104,13 +114,17 @@ def main(argv=None):
     cfg = build(args.arch, smoke=args.smoke, layers=args.layers,
                 split=args.split, k=args.k, alpha=args.alpha, cut=args.cut,
                 backend=args.backend)
-    rt = Runtime(training=True)
+    mesh = None
+    if args.mesh:
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        mesh = make_mesh(shape, ("data", "model")[:len(shape)], devices=dev)
+    rt = Runtime(mesh=mesh, training=True)
     params = transformer.init_model(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
     opt = adamw_init(params)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"arch={cfg.name} layers={cfg.n_layers} params={n_params:,} "
-          f"device={dev} split={cfg.split}")
+          f"device={dev} mesh={mesh} split={cfg.split}")
     if cfg.split:
         analytic = protocol.wire_bytes_per_step(cfg, args.batch, args.seq,
                                                 training=True)

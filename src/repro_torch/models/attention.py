@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import common
+from repro_torch.models import common, tp
 from repro_torch.models.config import ArchConfig, Runtime
 
 
@@ -90,12 +90,14 @@ def dequantize_kv(code, scale, dtype):
 
 
 def sdpa(q, k, v, mask, cfg: ArchConfig):
-    """q: (B,Sq,Hq,hd), k/v: (B,Skv,Hkv,hd), mask: (B,Sq,Skv) bool.
+    """q: (B,Sq,Hq,hd), k/v: (B,Skv,Hkv,hd), mask: (B,Sq,Skv) bool; the
+    head counts are the tensors' (a mesh position attends with its local
+    q heads and their k/v heads).
 
     Operands are upcast to f32 before each product, so bf16 inputs
     accumulate in f32 as the reference's `preferred_element_type` asks;
     the softmax weights are rounded to v's dtype first, as there."""
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hq, hkv, hd = q.shape[2], k.shape[2], cfg.hd
     g = hq // hkv
     B, Sq = q.shape[0], q.shape[1]
     qg = q.reshape(B, Sq, hkv, g, hd)
@@ -116,10 +118,15 @@ def _causal_mask(q_pos, kv_pos, window: int):
     return m
 
 
-def project_q(p, cfg: ArchConfig, x):
-    """q (B, S, Hq, hd) of x (B, S, d), qk-normed, without RoPE."""
+def project_q(p, cfg: ArchConfig, x, heads=None):
+    """q (B, S, Hq, hd) of x (B, S, d), qk-normed, without RoPE; with
+    `heads` = (h0, hl) only q heads [h0, h0 + hl), from their columns of
+    `wq`."""
     B, S, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.hd)
+    h0, hl = heads or (0, cfg.n_heads)
+    wq = p["wq"] if heads is None else p["wq"][:, h0 * cfg.hd:
+                                                (h0 + hl) * cfg.hd]
+    q = (x @ wq.to(x.dtype)).reshape(B, S, hl, cfg.hd)
     if cfg.qk_norm:
         q = common.rms_norm(q, p["q_norm"]["scale"])
     return q
@@ -138,13 +145,14 @@ def cross_kv(p, cfg: ArchConfig, kv_tokens):
     return k, v
 
 
-def project_qkv(p, cfg: ArchConfig, x, positions):
+def project_qkv(p, cfg: ArchConfig, x, positions, heads=None):
     """q (B, S, Hq, hd), k and v (B, S, Hkv, hd) of x (B, S, d) at
     `positions` (B or 1, S), qk-normed (`cfg.qk_norm`) and with RoPE
     applied to q and k (none when `positions` is None): exactly the
     operands `full_attention` attends with, and the decode's new token
-    (the reference's `_project_qkv`)."""
-    q = project_q(p, cfg, x)
+    (the reference's `_project_qkv`). `heads`: q's head range
+    (`project_q`); k and v stay whole."""
+    q = project_q(p, cfg, x, heads)
     k, v = cross_kv(p, cfg, x)
     if positions is not None:
         q = common.apply_rope(q, positions, cfg.rope_theta)
@@ -161,20 +169,65 @@ def full_attention(p, cfg: ArchConfig, rt: Runtime, x, *, causal=True,
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)
     q, k, v = project_qkv(p, cfg, x, pos[None] if rope else None)
+    out = _attend(cfg, rt, q, k, v, causal)
+    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+
+
+def _attend(cfg: ArchConfig, rt: Runtime, q, k, v, causal: bool):
+    """sdpa of q (B, S, h, hd) over the whole sequence's k, v, causal or
+    not, in query chunks of `rt.attn_chunk` where S is longer and a
+    multiple of it."""
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
 
     def mask_for(q_pos):
         if not causal:
             return torch.ones((1, q_pos.shape[0], S), dtype=torch.bool,
-                              device=x.device)
+                              device=q.device)
         return _causal_mask(q_pos, pos, cfg.sliding_window)[None]
 
     c = rt.attn_chunk
     if S <= c or S % c != 0:
-        out = sdpa(q, k, v, mask_for(pos), cfg)
-    else:
-        out = torch.cat([sdpa(q[:, i:i + c], k, v, mask_for(pos[i:i + c]),
-                              cfg) for i in range(0, S, c)], dim=1)
-    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+        return sdpa(q, k, v, mask_for(pos), cfg)
+    return torch.cat([sdpa(q[:, i:i + c], k, v, mask_for(pos[i:i + c]),
+                           cfg) for i in range(0, S, c)], dim=1)
+
+
+def full_attention_mesh(p, cfg: ArchConfig, lay, xs):
+    """`full_attention` on a mesh (`tp.Layout`): xs holds each position's
+    normed (B_loc, S, d) input, gathered to full S. With the heads split
+    over 'model' (`lay.split(n_heads)`) a position projects and attends
+    with its H/model q heads and every k and v head its q heads read (the
+    reference shards q over 'model' and keeps k and v whole,
+    `src/repro/models/attention.py:100-102`), and `tp.out_proj_rs`
+    reduce-scatters its partial output product along the sequence; else
+    every position attends whole and keeps its chunk. Returns per
+    position (B_loc, S/model, d) (or (B_loc, S, d) without sequence
+    parallelism)."""
+    if not lay.split(cfg.n_heads):
+        return tp.out_proj_rs(
+            lay, [_heads_out(p, cfg, lay.rt, x, 0, cfg.n_heads) for x in xs],
+            p["wo"], split=False)
+    hl = cfg.n_heads // lay.n_model
+    return tp.out_proj_rs(
+        lay, [_heads_out(p, cfg, lay.rt, x, lay.rank(i) * hl, hl)
+              for i, x in enumerate(xs)], p["wo"], split=True)
+
+
+def _heads_out(p, cfg: ArchConfig, rt: Runtime, x, h0: int, hl: int):
+    """The causal RoPE attention output (B, S, hl * hd) of q heads
+    [h0, h0 + hl) over x (B, S, d), before the output projection, with
+    the k and v heads those q heads read."""
+    B, S, _ = x.shape
+    g = cfg.n_heads // cfg.n_kv_heads
+    q, k, v = project_qkv(p, cfg, x, torch.arange(S, device=x.device)[None],
+                          heads=(h0, hl))
+    if hl % g == 0:           # whole GQA groups: their k/v heads
+        k, v = (t[:, :, h0 // g:(h0 + hl) // g] for t in (k, v))
+    else:                     # part of a group: each q head's k/v head
+        idx = torch.arange(h0, h0 + hl, device=x.device) // g
+        k, v = k[:, :, idx], v[:, :, idx]
+    return _attend(cfg, rt, q, k, v, True).reshape(B, S, hl * cfg.hd)
 
 
 def cross_attention(p, cfg: ArchConfig, x, kv_tokens=None, *, kv_cache=None,

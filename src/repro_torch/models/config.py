@@ -5,16 +5,19 @@ runs (dense, with or without qk-norm, mixture-of-experts, the zamba2
 hybrid of Mamba2 layers and a shared attention block, RWKV6, the vlm's
 gated cross-attention layers over image patches, and the audio
 encoder-decoder with layer norm);
-`Runtime` keeps only the knobs the port's forward reads: the scan chunks
-of the recurrent families and the label owner's KV cache width among
-them. Serving takes its mesh as an argument, as the reference's does
-(`runtime.engine.run_streaming(mesh=)`), not from `Runtime`; the
-reference's training-mesh knobs (`mesh`, `seq_shard`, `dp_only`,
-`flash_decode`) come with the training mesh, which is not ported yet."""
+`Runtime` keeps the knobs the port's forward reads: the scan chunks
+of the recurrent families, the label owner's KV cache width, and the
+training mesh (`mesh`, `seq_shard`, `dp_only`, with the reference's
+defaults and its `axis_names`, `batch_axes` and `has_model_axis`) with
+`registry`, the run's registry its collectives count into (the port's
+own field). Serving takes its mesh as an argument, as the reference's
+does (`runtime.engine.run_streaming(mesh=)`), not from `Runtime`;
+`flash_decode`, a decode-cache knob, waits for the decode path under a
+mesh."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -38,6 +41,8 @@ class SplitConfig:
     l1_lam: float = 1e-4
     backend: Optional[str] = None   # kernel backend: None->auto (cuda kernel
                                     # for CUDA tensors), 'torch', 'cuda'
+    transfer_over_pod: bool = True  # under a mesh with a 'pod' axis, the
+                                    # payload leaves cross to the next pod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,3 +133,28 @@ class Runtime:
     rwkv_chunk: int = 16            # WKV chunk length (models.rwkv)
     rwkv_mode: str = "chunk"        # chunk (matrix form) | scan (sequential)
     kv_cache_bits: int = 16         # 8 -> int8 KV cache (+ f32 scales)
+    mesh: Any = None                # repro_torch.mesh.Mesh: the training mesh
+    seq_shard: bool = True          # Megatron sequence parallelism: the
+                                    # residual is sharded over 'model' along
+                                    # the sequence at layer boundaries
+    dp_only: bool = False           # the 'model' axis joins the batch axes;
+                                    # no tensor parallelism
+    registry: Any = None            # the run's MetricsRegistry: collective
+                                    # bytes under a mesh
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self.mesh.axis_names) if self.mesh is not None else ()
+
+    @property
+    def batch_axes(self):
+        """The mesh axes the batch splits over: ('pod', 'data'), plus
+        'model' under `dp_only`, those the mesh has; None without any."""
+        names = (("pod", "data", "model") if self.dp_only
+                 else ("pod", "data"))
+        ax = tuple(a for a in names if a in self.axis_names)
+        return ax if ax else None
+
+    @property
+    def has_model_axis(self) -> bool:
+        return "model" in self.axis_names

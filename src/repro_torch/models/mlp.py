@@ -1,9 +1,10 @@
-"""SwiGLU MLP block, optionally gated (the vlm's cross layers)."""
+"""SwiGLU MLP block, optionally gated (the vlm's cross layers), and its
+tensor-parallel form on a mesh (`mlp_mesh`)."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import common
+from repro_torch.models import common, tp
 from repro_torch.models.config import ArchConfig
 
 
@@ -35,3 +36,21 @@ def mlp(p, x, *, gated=False):
         * (x @ p["w_up"].to(x.dtype))
     y = h @ p["w_down"].to(h.dtype)
     return common.tanh_gate(p, y) if gated else y
+
+
+def mlp_mesh(p, cfg: ArchConfig, lay, xs):
+    """`mlp` on a mesh (`tp.Layout`), xs each position's normed (B_loc, S,
+    d) input gathered to full S: with ff split over 'model'
+    (`lay.split(d_ff)`) a position takes its ff/model columns of w_gate
+    and w_up and `tp.out_proj_rs` reduce-scatters its partial w_down
+    product along the sequence (`src/repro/models/mlp.py:40-47`); else
+    every position computes the MLP whole and keeps its chunk."""
+    split = lay.split(cfg.d_ff)
+    n = cfg.d_ff // lay.n_model if split else cfg.d_ff
+    hs = []
+    for i, x in enumerate(xs):
+        c = slice(lay.rank(i) * n, (lay.rank(i) + 1) * n) if split \
+            else slice(None)
+        hs.append(torch.nn.functional.silu(x @ p["w_gate"][:, c].to(
+            x.dtype)) * (x @ p["w_up"][:, c].to(x.dtype)))
+    return tp.out_proj_rs(lay, hs, p["w_down"], split=split)

@@ -9,13 +9,16 @@ so a layer is a fixed number of launches whatever E is. The full-sequence
 forward routes the B*S tokens as one group, as the reference does. Decode
 (`per_row=True`) makes every row its own group of one token, which is the
 reference's vmapped per-session step: C is 1, no token is dropped and a
-row's output does not depend on the other rows.
+row's output does not depend on the other rows. On a training mesh
+(`moe_mesh`) the experts split over 'model' (expert parallelism): each
+position runs its E/model experts on its batch shard's tokens.
 
 Every gather and scatter is deterministic on the card, forward and
 backward, so a step is bit-reproducible: the combine gathers each token's
-top-k slot outputs and sums them in one reduction, and the dispatch
-gather's backward is that same gather of the slot gradients (a plain
-index backward would scatter-add with atomics).
+top-k slot outputs and sums them in one reduction, and its backward
+gathers each slot's token gradient; the dispatch gather's backward is
+the combine's gather of the slot gradients (a plain index backward would
+scatter-add with atomics).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import mesh as mesh_mod
 from repro_torch.models import common
 from repro_torch.models.config import ArchConfig, Runtime
 
@@ -120,34 +124,126 @@ def _gather_slots(rows, slot):
     return pad[slot.reshape(-1, slot.shape[-1])].sum(dim=1)
 
 
+class _Combine(torch.autograd.Function):
+    """`_gather_slots` with a deterministic backward: a slot that holds a
+    token takes that token's gradient, gathered through `token`, and a
+    slot that holds none (`valid` false) takes zero. A plain index
+    backward would scatter every dropped pair's gradient onto the one
+    zero pad row, serialized, and on a mesh every pair of another
+    position's experts is such a pair."""
+
+    @staticmethod
+    def forward(ctx, rows, slot, token, valid):
+        ctx.save_for_backward(token, valid)
+        return _gather_slots(rows, slot)
+
+    @staticmethod
+    def backward(ctx, g):
+        token, valid = ctx.saved_tensors
+        gr = torch.where(valid.reshape(-1, 1), g[token.reshape(-1)], 0)
+        return gr, None, None, None
+
+
 def moe(p, cfg: ArchConfig, rt: Runtime, x, *, per_row: bool = False):
     """x: (B, S, d). Returns (y (B, S, d), aux balance loss).
 
     `per_row`: route each row of B on its own (decode, where S is 1)."""
     B, S, d = x.shape
-    E, K = cfg.n_experts, cfg.topk_experts
     G = B if per_row else 1
-    T = B * S // G
-    C = _capacity(T, cfg, rt.moe_capacity)
-    xf = x.reshape(G * T, d)
-    logits = (xf @ p["router"].to(x.dtype)).float()
+    C = _capacity(B * S // G, cfg, rt.moe_capacity)
+    y, aux = _experts(p, cfg, x.reshape(B * S, d), G, C, 0,
+                      (p["w_gate"], p["w_up"], p["w_down"]))
+    return y.reshape(B, S, d), aux
+
+
+def _experts(p, cfg: ArchConfig, xf, G: int, C: int, e_off: int, ws):
+    """Route the G groups of xf (G*T, d) over all E experts at capacity C
+    and run the experts [e_off, e_off + len(ws[0])) of weights `ws`
+    (w_gate, w_up, w_down): their partial y (G*T, d), each token's kept
+    slots of those experts summed, and the balance loss of the routing."""
+    E, K, d = cfg.n_experts, cfg.topk_experts, xf.shape[-1]
+    e_loc = ws[0].shape[0]
+    T = xf.shape[0] // G
+    logits = (xf @ p["router"].to(xf.dtype)).float()
     probs = torch.softmax(logits, dim=-1)                      # (G*T, E)
     r = route(probs.reshape(G, T, E), K, C)
+    slot, order = r.slot, r.order
+    valid = r.valid
+    if e_loc < E:             # this position's experts only
+        lo, n = e_off * G * C, e_loc * G * C
+        slot = torch.where((slot >= lo) & (slot < lo + n), slot - lo, n)
+        order = order[e_off:e_off + e_loc]
+        valid = valid[e_off:e_off + e_loc]
 
-    g = torch.arange(G, device=x.device)[:, None] * T
-    token = (r.order + g).reshape(E, G * C)
-    x_e = _Dispatch.apply(xf, token, r.slot)                   # (E, G*C, d)
-    h = torch.nn.functional.silu(torch.bmm(x_e, p["w_gate"].to(x.dtype)))
-    h = h * torch.bmm(x_e, p["w_up"].to(x.dtype))
-    out = torch.bmm(h, p["w_down"].to(x.dtype))                # (E, G*C, d)
+    g = torch.arange(G, device=xf.device)[:, None] * T
+    token = (order + g).reshape(e_loc, G * C)
+    x_e = _Dispatch.apply(xf, token, slot)                     # (e, G*C, d)
+    h = torch.nn.functional.silu(torch.bmm(x_e, ws[0].to(xf.dtype)))
+    h = h * torch.bmm(x_e, ws[1].to(xf.dtype))
+    out = torch.bmm(h, ws[2].to(xf.dtype))                     # (e, G*C, d)
     w_tok = torch.zeros_like(probs.reshape(G, T, E)).scatter(
         -1, r.top_i, r.top_p)
     w_slot = torch.gather(w_tok, 1, r.order.permute(1, 2, 0)) \
         .permute(2, 0, 1) * r.valid                            # (E, G, C)
-    out = out * w_slot.reshape(E, G * C, 1).to(out.dtype)
-    y = _gather_slots(out.reshape(E * G * C, d), r.slot)
+    w_slot = w_slot[e_off:e_off + e_loc]
+    out = out * w_slot.reshape(e_loc, G * C, 1).to(out.dtype)
+    y = _Combine.apply(out.reshape(e_loc * G * C, d), slot, token, valid)
 
     f = torch.mean(torch.zeros_like(probs).scatter_(
         -1, r.top_i.reshape(G * T, K), 1.0), dim=0)
     aux = E * torch.sum(f * torch.mean(probs, dim=0))
-    return y.reshape(B, S, d), aux
+    return y, aux
+
+
+def moe_mesh(p, cfg: ArchConfig, lay, xs):
+    """`moe` on a mesh (`tp.Layout`) with expert parallelism over 'model',
+    as the reference's `ranked` (`src/repro/models/moe.py:102-156`): xs
+    holds each position's normed (B_loc, S, d) input gathered to full S.
+    A position routes its batch shard's B_loc*S tokens as one group over
+    all E experts (capacity from those local tokens), runs its E/model
+    experts from `e_offset = rank * E/model` with their 'data' shards
+    all-gathered over 'data', and combines the experts' partial outputs
+    with a reduce-scatter along the sequence under sequence parallelism,
+    else a psum; the balance loss is averaged over the batch axes. Without
+    tensor parallelism (no 'model' axis, or `dp_only`) every position
+    runs every expert on its shard. Returns (per position y, aux of
+    position 0: every position holds the same)."""
+    mesh, reg = lay.mesh, lay.registry
+    E = cfg.n_experts
+    if E % lay.n_model:
+        raise ValueError(f"{E} experts do not divide over 'model' "
+                         f"{lay.n_model}")
+    e_loc = E // lay.n_model
+    B, S, d = xs[0].shape
+    C = _capacity(B * S, cfg, lay.rt.moe_capacity)
+    ws = []
+    for i in range(mesh.size):
+        lo = lay.rank(i) * e_loc
+        ws.append([p[n][lo:lo + e_loc] for n in ("w_gate", "w_up",
+                                                 "w_down")])
+    n_data = mesh.shape.get("data", 1)
+    if lay.n_model > 1 and n_data > 1 and d % n_data == 0:
+        # the experts' 'data' shards (d of w_gate and w_up, d of w_down)
+        c = d // n_data
+        for j, axis in enumerate((1, 1, 2)):
+            got = mesh_mod.all_gather(
+                mesh, [w[j].narrow(axis, mesh.coord(i, "data") * c, c)
+                       for i, w in enumerate(ws)], "data", dim=axis,
+                registry=reg)
+            for w, g in zip(ws, got):
+                w[j] = g
+    ys, auxes = [], []
+    for i, x in enumerate(xs):
+        y, aux = _experts(p, cfg, x.reshape(B * S, d), 1, C,
+                          lay.rank(i) * e_loc, ws[i])
+        ys.append(y.reshape(B, S, d))
+        auxes.append(aux)
+    if lay.n_model > 1:
+        ys = (mesh_mod.reduce_scatter(mesh, ys, "model", dim=1, registry=reg)
+              if lay.seq else mesh_mod.all_reduce(mesh, ys, "model", "sum",
+                                                  registry=reg))
+    axes = lay.rt.batch_axes
+    if axes and mesh.group_size(axes) > 1:
+        auxes = mesh_mod.all_reduce(mesh, auxes, axes, "sum", registry=reg)
+        auxes = [a / mesh.group_size(axes) for a in auxes]
+    return ys, auxes[0]

@@ -1,25 +1,158 @@
-"""The tensor-parallel lm head of the sharded serving arena, the serving
-half of the reference's `src/repro/models/tp.py` (docs/sharding.md, "The
-tensor-parallel head"). Both functions take and return one tensor per
-mesh position (`repro_torch.mesh.Mesh`) and move data only through the
-mesh's collectives, which count their bytes into `registry` when given."""
+"""Tensor parallelism over a mesh's 'model' axis: the reference's
+`src/repro/models/tp.py`. Every function takes and returns one tensor per
+mesh position (`repro_torch.mesh.Mesh`) and moves data only through the
+mesh's collectives, which count their bytes into the registry when given.
+
+Serving (docs/sharding.md, "The tensor-parallel head"): `gather_seq_local`
+and `vocab_parallel_argmax`.
+
+Training (Megatron tensor and sequence parallelism): `Layout` lays one
+step's (B, S) batch over the positions: the batch splits over the
+runtime's `batch_axes` (one batch shard per group of 'model' positions),
+and the residual stream at each layer boundary is sharded over 'model'
+along the sequence, (B/shards, S/model, d) a position, when `Layout.seq`
+holds (a 'model' axis of more than one position, `seq_shard`, not
+`dp_only`, S divisible). `gather_seq` all-gathers a normed activation to
+full S; a projection whose heads or ff columns split over 'model'
+(`Layout.split`) multiplies its local shard and `out_proj_rs`
+reduce-scatters the partial products back along the sequence. Where a
+rule does not hold (the reference's `usable` fall-backs) every position
+computes the projection whole and keeps its own chunk of the sequence.
+The parameters stay whole, one tensor a leaf: a position's shard is a
+slice of it, so autograd's accumulation into the leaf is the
+data-parallel gradient sum, which moves no bytes between positions of
+one device and is not counted.
+"""
 from __future__ import annotations
 
 import torch
 
 from repro_torch import mesh as mesh_mod
+from repro_torch.mesh import Mesh
 
 INT32_MAX = torch.iinfo(torch.int32).max
 
 
+class Layout:
+    """How one training step of (B, S) tokens lies on `rt.mesh`.
+
+    `groups[b]` are the positions of batch shard b (its 'model' group, or
+    the one position under `dp_only` or without a 'model' axis), shards in
+    the batch's row order; `reps[b]` is the shard's first position, where
+    a computation that runs once a shard (the cut codec, the lm head and
+    the loss) runs. Every position must lie on one device: the
+    parameters stay whole there."""
+
+    def __init__(self, rt, batch: int, seq: int):
+        mesh = rt.mesh
+        if len(set(mesh.devices)) != 1:
+            raise ValueError("the training mesh keeps whole parameters on "
+                             "one device: every position must lie on it "
+                             "(several cards wait for ROADMAP item 8c)")
+        self.rt, self.mesh, self.registry = rt, mesh, rt.registry
+        tp = rt.has_model_axis and not rt.dp_only
+        self.n_model = mesh.shape["model"] if tp else 1
+        self.groups = (mesh.groups("model") if tp
+                       else [[p] for p in range(mesh.size)])
+        self.reps = [g[0] for g in self.groups]
+        self.shard_of = {p: b for b, g in enumerate(self.groups) for p in g}
+        if batch % len(self.groups):
+            raise ValueError(f"batch {batch} does not split over "
+                             f"{len(self.groups)} batch shards of {mesh}")
+        self.b_loc = batch // len(self.groups)
+        self.seq = self.n_model > 1 and rt.seq_shard and seq % self.n_model \
+            == 0
+        axes = rt.batch_axes or ()
+        # the batch shards as a mesh over `batch_axes` (position b = shard
+        # b, on its representative's device), for the pod ring
+        self.shards = Mesh([mesh.shape[a] for a in axes], axes,
+                           [mesh.devices[r] for r in self.reps])
+
+    def shard_batch(self, batch):
+        """The batch dict split along its rows into one dict a batch
+        shard, shards in row order, each a view of its rows."""
+        b = self.b_loc
+        return [{k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+                for i in range(len(self.groups))]
+
+    def rank(self, p: int) -> int:
+        """Position `p`'s index along 'model' (0 without tensor
+        parallelism)."""
+        return self.mesh.coord(p, "model") if self.n_model > 1 else 0
+
+    def split(self, n: int) -> bool:
+        """Whether a projection over `n` heads or ff columns splits over
+        'model' (the reference's `out_proj_rs` rule, with the sequence
+        sharded at the layer boundary)."""
+        return self.seq and n % self.n_model == 0
+
+    def local_seq(self, p: int, y):
+        """Position `p`'s chunk of the sequence (dim 1) of a whole
+        (B_loc, S, ...) tensor, or all of it without sequence
+        parallelism."""
+        if not self.seq:
+            return y
+        c = y.shape[1] // self.n_model
+        return y[:, self.rank(p) * c:(self.rank(p) + 1) * c]
+
+
 def gather_seq_local(mesh, blocks, axis_name: str = "model",
                      registry=None):
-    """The Megatron-SP gather: each position's row block concatenated with
-    its `axis_name` group's, in the activation dtype it came in (the
-    caller applies the final norm first). Rows stand in for the sequence
-    axis of the reference's (B, S/model, d) activation."""
+    """The Megatron-SP gather of the serving arena: each position's row
+    block concatenated with its `axis_name` group's, in the activation
+    dtype it came in (the caller applies the final norm first). Rows stand
+    in for the sequence axis of the reference's (B, S/model, d)
+    activation."""
     return mesh_mod.all_gather(mesh, blocks, axis_name, dim=0,
                                registry=registry)
+
+
+def gather_seq(lay: Layout, ys):
+    """Each position's normed (B_loc, S/model, d) activation all-gathered
+    over 'model' to full S, in the dtype it came in (after the norm, as
+    the reference pins it); the backward reduce-scatters. Without
+    sequence parallelism the activations are whole already."""
+    if not lay.seq:
+        return list(ys)
+    return mesh_mod.all_gather(lay.mesh, ys, "model", dim=1,
+                               registry=lay.registry)
+
+
+def out_proj_rs(lay: Layout, hs, w, *, split: bool,
+                w_spec=("model", "data")):
+    """hs: per position (B_loc, S, n) with n the local shard of w's rows
+    when `split`, else all of them; w: the whole (N, d) weight. Returns
+    per position (B_loc, S/model, d): the partial products over the local
+    shard reduce-scattered along the sequence (`out_proj_rs_local`), or,
+    without `split`, the whole product's chunk of the sequence."""
+    if not split:
+        return [lay.local_seq(p, h @ w.to(h.dtype)) for p, h in
+                enumerate(hs)]
+    n = w.shape[0] // lay.n_model
+    return out_proj_rs_local(
+        lay, hs, [w[lay.rank(p) * n:(lay.rank(p) + 1) * n]
+                  for p in range(len(hs))], w_spec=w_spec)
+
+
+def out_proj_rs_local(lay: Layout, hs, ws, *, w_spec=("model", "data")):
+    """Per position: the local ff or head shard's partial product h @ w,
+    reduce-scattered over 'model' along the sequence. With 'data' in
+    `w_spec` the weight's 'data' shard (each position's slice of its
+    local rows) is all-gathered over 'data' first, in the parameter
+    dtype, as the reference gathers an FSDP-sharded weight
+    (`src/repro/models/tp.py:82-93`)."""
+    mesh = lay.mesh
+    if "data" in w_spec and mesh.shape.get("data", 1) > 1:
+        axis, n_data = w_spec.index("data"), mesh.shape["data"]
+        if ws[0].shape[axis] % n_data == 0:
+            c = ws[0].shape[axis] // n_data
+            ws = mesh_mod.all_gather(
+                mesh, [w.narrow(axis, mesh.coord(p, "data") * c, c)
+                       for p, w in enumerate(ws)], "data", dim=axis,
+                registry=lay.registry)
+    ys = [h @ w.to(h.dtype) for h, w in zip(hs, ws)]
+    return mesh_mod.reduce_scatter(mesh, ys, "model", dim=1,
+                                   registry=lay.registry)
 
 
 def vocab_parallel_argmax(mesh, logits, axis_name: str = "model",

@@ -25,6 +25,13 @@ every product takes the same operands as in the reference. The split-
 learning cut is a residual-stream boundary: `apply_layers(..., lo, hi)`
 runs any contiguous layer range (for the vlm, whole groups), and
 `split.model.forward` composes bottom range -> cut codec -> top range.
+
+On a training mesh (`Runtime.mesh`, the dense and moe families) the same
+layers run over one tensor per mesh position (`embed_mesh`,
+`apply_layers_mesh`, `lm_head_mesh`): the residual sharded over 'model'
+along the sequence at every layer boundary, each norm's output gathered
+to full S (`models.tp`), attention's heads, the MLP's ff columns and the
+moe's experts split over 'model'.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ from typing import Any, Dict, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, common, mlp, moe, rwkv, ssm
+from repro_torch.models import attention, common, mlp, moe, rwkv, ssm, tp
 from repro_torch.models.config import ArchConfig, Runtime
 
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
@@ -278,11 +285,85 @@ def make_extras(params, cfg: ArchConfig, rt: Runtime, batch) -> dict:
 
 
 def forward(params, cfg: ArchConfig, rt: Runtime, batch):
-    """Full forward (no split). Returns (logits (B, S, V), aux loss)."""
+    """Full forward (no split). Returns (logits (B, S, V), aux loss). On a
+    mesh the forward is `split.model.forward`'s."""
+    if rt.mesh is not None:
+        raise ValueError("transformer.forward runs without a mesh; "
+                         "split.model.forward runs on one")
     extras = make_extras(params, cfg, rt, batch)
     x = embed(params, cfg, batch["tokens"])
     x, aux = apply_layers(params, cfg, rt, x, extras, 0, cfg.n_layers)
     return lm_head(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------------------
+# The training mesh (`tp.Layout`): lists of one tensor per mesh position.
+# ---------------------------------------------------------------------------
+
+MESH_FAMILIES = ("dense", "moe")
+
+
+def check_mesh_family(cfg: ArchConfig):
+    """Raise for a family that does not run on a training mesh yet."""
+    check_family(cfg)
+    if cfg.family not in MESH_FAMILIES:
+        raise ValueError(f"the {cfg.family} family does not run on a "
+                         f"training mesh yet (ROADMAP Queue 1 item 8a-ii; "
+                         f"the mesh runs {MESH_FAMILIES})")
+
+
+def embed_mesh(params, cfg: ArchConfig, lay, shards):
+    """Each position's embedded tokens: its batch shard's rows (`shards`,
+    one batch dict a shard), its chunk of the sequence."""
+    return [embed(params, cfg, lay.local_seq(
+        p, shards[lay.shard_of[p]]["tokens"])) for p in range(lay.mesh.size)]
+
+
+def _block_fwd_mesh(params, i: int, cfg: ArchConfig, lay, xs):
+    """Layer i on the mesh over each position's residual xs: every norm's
+    output is gathered to full S (`tp.gather_seq`, after the norm, as
+    `src/repro/models/transformer.py:131-146`), attention and the MLP or
+    the experts return each position's chunk. Returns (xs, the moe's
+    balance loss or None)."""
+    pl = layer_params(params, i)
+
+    def normed(xs, p):
+        return tp.gather_seq(lay, [_norm(cfg, x, p) for x in xs])
+
+    ys = attention.full_attention_mesh(pl["attn"], cfg, lay,
+                                       normed(xs, pl["attn"]["norm"]))
+    xs = [x + y for x, y in zip(xs, ys)]
+    if cfg.family == "moe":
+        ys, aux = moe.moe_mesh(pl["moe"], cfg, lay,
+                               normed(xs, pl["moe"]["norm"]))
+    else:
+        ys, aux = mlp.mlp_mesh(pl["mlp"], cfg, lay,
+                               normed(xs, pl["mlp"]["norm"])), None
+    return [x + y for x, y in zip(xs, ys)], aux
+
+
+def apply_layers_mesh(params, cfg: ArchConfig, lay, xs, lo: int, hi: int):
+    """`apply_layers` on the mesh: xs and the result hold each position's
+    residual, (B_loc, S/model, d) under sequence parallelism. With
+    `rt.remat` each layer's program over every position is recomputed in
+    the backward up to its last saved tensor (checkpoint's early stop):
+    every forward collective of the layer runs again but its trailing
+    ones, the output reduce-scatter of a split MLP or the moe's combine
+    and balance-loss all-reduce, whose results no gradient needs."""
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    for i in range(lo, hi):
+        xs, a = _remat(lay.rt, _block_fwd_mesh, params, i, cfg, lay, xs)
+        if a is not None:
+            aux = aux + a
+    return xs, aux
+
+
+def lm_head_mesh(params, cfg: ArchConfig, lay, xs):
+    """The final norm on every position, gathered to full S; the lm head
+    then runs once a batch shard, on its representative's rows. Returns
+    one (B_loc, S, V) logits tensor a shard."""
+    h = tp.gather_seq(lay, [final_norm(params, cfg, x) for x in xs])
+    return [h[r] @ params["unembed"].to(h[r].dtype) for r in lay.reps]
 
 
 def cross_entropy(logits, labels):

@@ -12,12 +12,18 @@ are the reference's, number for number. The reference fills `Roofline`
 from a compiled program (`from_compiled`, with `roofline/hlo.py`); the
 port has no compiled program yet, so the dataclass is filled by hand.
 `serving_collective_costs` predicts the collective bytes that one
-sharded arena step counts (`repro_torch.mesh.collective_bytes`) exactly.
+sharded arena step counts (`repro_torch.mesh.collective_bytes`) exactly,
+and `training_collective_costs` those of one training step on a mesh
+(`launch.steps.make_train_step` with `Runtime.mesh`), the port's own.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from collections import Counter
 from typing import Dict
+
+from repro_torch.split import protocol
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W power limit
 PEAK_FLOPS = 989e12          # bf16 tensor-core FLOP/s
@@ -232,3 +238,92 @@ def serving_collective_slack(cfg, capacity: int, mesh_axes,
     if sizes.get("model", 1) == 1:
         slack["all-reduce"] = float(2 * 4 * rows_group)
     return slack
+
+
+def training_collective_costs(cfg, batch: int, seq: int, mesh_axes, *,
+                              act_bytes: int = 4, param_bytes: int = 4,
+                              seq_shard: bool = True, dp_only: bool = False,
+                              remat: bool = True):
+    """Per-op raw collective bytes of one training step of the dense or
+    moe family on a mesh (`repro_torch.mesh` convention: each
+    collective's per-device output, once a collective; a backward's
+    collectives too) and their total under `RING_FACTOR`.
+
+    With M = 'model' (1 under `dp_only`), D = 'data', P = 'pod', a batch
+    shard of b = batch / (positions / M) rows, a gathered activation
+    G = b * seq * d and a position's chunk G / M (activation bytes), and
+    the sequence sharded (M > 1, `seq_shard`, seq divisible by M):
+
+      * every layer: two norm gathers (all-gather G; backward
+        reduce-scatter G / M); attention's and the MLP's output
+        projection where heads or d_ff divide by M: the weight's local
+        rows all-gathered over 'data' when D > 1 (rows / M x d parameter
+        bytes; backward a reduce-scatter of rows / M x d / D) and the
+        partial product reduce-scattered (G / M; backward all-gather G);
+        the moe with M > 1: its E / M experts' three matrices all-gathered
+        over 'data' when D > 1 (E / M x d x d_ff each; backward d / D),
+        the combine reduce-scattered (G / M; backward G), or all-reduced
+        (G both ways) without sequence parallelism, and with more than
+        one batch shard the balance loss all-reduced (4 B both ways);
+        with `remat` the layer's forward collectives run again in the
+        backward's recompute, but for the trailing ones that it stops
+        before (checkpoint's early stop, `transformer.apply_layers_mesh`):
+        the dense MLP's output reduce-scatter, the moe's combine and its
+        balance-loss all-reduce;
+      * the cut: its gather (G; backward G / M) and, with a 'pod' axis
+        and `transfer_over_pod`, the payload leaves' collective-permute
+        (b * seq tokens of `split.protocol.pod_leaf_sizes`; backward
+        the gradient leaves');
+      * the lm head's final-norm gather (G; backward G / M)."""
+    sizes = dict(mesh_axes)
+    tp = "model" in sizes and not dp_only
+    m = sizes["model"] if tp else 1
+    n_data, n_pod = sizes.get("data", 1), sizes.get("pod", 1)
+    shards = math.prod(sizes.values()) // m
+    b, d, a, w = batch // shards, cfg.d_model, act_bytes, param_bytes
+    sq = m > 1 and seq_shard and seq % m == 0
+    full = b * seq * d * a
+    part = full // m
+    # a layer's forward collectives that the recompute runs again, those
+    # that close the layer (run once) and the backward's
+    fwd, tail, bwd = Counter(), Counter(), Counter()
+    if sq:
+        fwd["all-gather"] += 2 * full
+        bwd["reduce-scatter"] += 2 * part
+        outs = [(cfg.n_heads, cfg.n_heads * cfg.hd, fwd)]
+        if cfg.family != "moe":
+            outs.append((cfg.d_ff, cfg.d_ff, tail))
+        for n, rows, at in outs:
+            if n % m:
+                continue
+            if n_data > 1 and d % n_data == 0:
+                fwd["all-gather"] += rows // m * d * w
+                bwd["reduce-scatter"] += rows // m * (d // n_data) * w
+            at["reduce-scatter"] += part
+            bwd["all-gather"] += full
+    if cfg.family == "moe":
+        e = cfg.n_experts // m
+        if m > 1 and n_data > 1 and d % n_data == 0:
+            fwd["all-gather"] += 3 * e * d * cfg.d_ff * w
+            bwd["reduce-scatter"] += 3 * e * (d // n_data) * cfg.d_ff * w
+        if m > 1:
+            op, nb = ("reduce-scatter", part) if sq else ("all-reduce", full)
+            tail[op] += nb
+            bwd["all-gather" if sq else "all-reduce"] += full
+        if shards > 1:
+            tail["all-reduce"] += 4
+            bwd["all-reduce"] += 4
+    per_op = Counter()
+    for counts, times in ((fwd, 2 if remat else 1), (tail, 1), (bwd, 1)):
+        for op, nb in counts.items():
+            per_op[op] += times * cfg.n_layers * nb
+    heads = 1 if cfg.split is None or cfg.split.cut_layer <= 0 else 2
+    if sq:                    # the cut's gather and the lm head's
+        per_op["all-gather"] += heads * full
+        per_op["reduce-scatter"] += heads * part
+    if heads == 2 and n_pod > 1 and cfg.split.transfer_over_pod:
+        leaf, grad = protocol.pod_leaf_sizes(cfg)
+        per_op["collective-permute"] += b * seq * (leaf + grad * a)
+    per_op = {op: float(nb) for op, nb in per_op.items() if nb}
+    total = sum(RING_FACTOR.get(op, 1.0) * nb for op, nb in per_op.items())
+    return per_op, total

@@ -31,6 +31,7 @@ import numpy as np
 
 from repro_torch.core import wire
 from repro_torch.kernels.encode import ops as enc_ops
+from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.trace import (NULL_TRACER, SPAN_CLIENT_ENCODE,
                                    SPAN_WIRE_SEND, session_tid)
 from repro_torch.runtime.arq import ArqClientMixin
@@ -69,8 +70,11 @@ class StreamingClient(ArqClientMixin):
         self.id = session_id
         self.clock = clock
         self.tracer = tracer
-        if registry is not None:        # else: the mixin's process default
-            self.registry = registry
+        # a client given no registry counts into one of its own, never the
+        # process default (as the server: an empty histogram's NaN there
+        # would make every later snapshot differ from itself)
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
         self.params = params
         self.cache = cache                      # updated in place per step
         self.bottom_step = bottom_step          # shared per compressor

@@ -52,7 +52,7 @@ import torch
 
 from repro_torch.core import wire
 from repro_torch.core.payload import Payload, device_leaf
-from repro_torch.obs.registry import DEFAULT_REGISTRY, MetricsRegistry
+from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.trace import (EVT_SLOT_ADMIT, EVT_SLOT_EVICT,
                                    NULL_TRACER, SERVE_TID, SPAN_DECODE,
                                    SPAN_QUEUE_WAIT, SPAN_REPLY, SPAN_STEP,
@@ -102,7 +102,11 @@ class FrameServerBase:
         #   not stop before this many sessions exist AND closed (a corrupt
         #   first frame can retire a connection before its session exists)
         self.tracer = tracer
-        self.registry = registry if registry is not None else DEFAULT_REGISTRY
+        # a server given no registry counts into one of its own, never the
+        # process default: its empty histograms (NaN quantiles) and counts
+        # would outlive it there
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
         # pre-bound per-frame instruments: the hot paths pay a lock + add,
         # never a registry lookup
         reg = self.registry

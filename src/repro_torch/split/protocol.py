@@ -4,16 +4,18 @@ Training:
 
   * `cut_boundary` — the in-graph path of `split.model.forward`: encode ->
     decode on one device, with the payload-typed backward wire attached as
-    a `torch.autograd.Function` (`_Transport`, the reference's custom VJP):
+    a `torch.autograd.Function` (`_Transport`, the reference's custom VJP,
+    which `cut_boundary_mesh` shares):
     the gradient is gathered at the far side's support and scattered onto
     the feature owner's (sparse kinds), sliced and padded (slice), or
-    passed through (dense, quant: the straight-through estimator). Both
-    parties live on one device: the reference's in-graph pod transfer
-    (`_pod_permute` under `SplitConfig.transfer_over_pod`) waits for the
-    training mesh.
+    passed through (dense, quant: the straight-through estimator).
+  * `cut_boundary_mesh` — the same on a training mesh: the codec runs
+    once a batch shard, and with `SplitConfig.transfer_over_pod` and a
+    'pod' axis the payload leaves cross to the next pod (the reference's
+    `_pod_permute`) and the gradient leaves come back.
   * `pod_ring_perm` — the cut boundary's ring permutation along a mesh's
-    'pod' axis, which the sharded serving step runs
-    (`runtime.steps.make_arena_top_step` with a pod mesh).
+    'pod' axis, which the training cut and the sharded serving step
+    (`runtime.steps.make_arena_top_step` with a pod mesh) run.
   * `server_grad_encode` / `client_grad_decode` — the same backward rules
     as out-of-process halves, for a label owner and a feature owner that
     exchange frames.
@@ -39,12 +41,14 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch import mesh as mesh_mod
 from repro_torch.core import compressors, selection, wire
 from repro_torch.core.payload import (Payload, PayloadMeta, device_leaf,
                                       to_device, to_host)
 from repro_torch.kernels._lib import resolve_backend
 from repro_torch.kernels.decode import ops as dec_ops
 from repro_torch.kernels.encode import ops as enc_ops
+from repro_torch.models import tp
 from repro_torch.models.config import ArchConfig, Runtime, SplitConfig
 from repro_torch.obs.registry import DEFAULT_REGISTRY
 
@@ -111,25 +115,59 @@ def _grad_from_wire(kind: str, gw, idx_local, d: int, backend=None):
 
 
 class _Transport(torch.autograd.Function):
-    """encode -> decode with the payload-typed backward wire: the
-    reference's `_transport` custom VJP on one device, where the far side's
-    support is the local one."""
+    """encode -> decode with the payload-typed backward wire, the
+    reference's `_transport` custom VJP, over one or more batch shards
+    (xs): each shard's rows encoded with its `draws` entry (a generator,
+    or `selection.Draws`), the payload leaves moved over the shards along
+    'pod' by `perm` on a mesh (`lay`; one collective-permute a leaf, as
+    the reference's `_transfer_payload` sends leaf by leaf) and decoded
+    where they arrive; in the backward the gradient leaves go back by the
+    inverse permutation before they are scattered onto the feature
+    owner's support. Without `perm` the far side's support is the local
+    one."""
 
     @staticmethod
-    def forward(ctx, x, comp, generator, training):
-        p = comp.encode(x, generator=generator, training=training)
-        ctx.kind, ctx.d = comp.wire_kind, x.shape[-1]
+    def forward(ctx, comp, draws, training, lay, perm, *xs):
+        ps = [comp.encode(x, generator=g, training=training)
+              for x, g in zip(xs, draws)]
+        far = _pod_send(lay, ps, perm)
+        ctx.kind, ctx.d = comp.wire_kind, xs[0].shape[-1]
         ctx.k = min(getattr(comp, "k", 0), ctx.d)
-        ctx.backend = comp.backend
-        ctx.save_for_backward(p.indices)
-        return comp.decode(p, dtype=x.dtype)
+        ctx.backend, ctx.lay, ctx.perm = comp.backend, lay, perm
+        ctx.n = len(xs)
+        ctx.save_for_backward(*[p.indices for p in ps + far
+                                if p.indices is not None])
+        return tuple(comp.decode(p, dtype=x.dtype)
+                     for p, x in zip(far, xs))
 
     @staticmethod
-    def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        gw = _grad_to_wire(ctx.kind, g, idx, ctx.k)
-        return (_grad_from_wire(ctx.kind, gw, idx, ctx.d, ctx.backend),
-                None, None, None)
+    def backward(ctx, *gs):
+        saved = ctx.saved_tensors
+        idx_local, idx_far = (saved[:ctx.n], saved[ctx.n:]) if saved \
+            else ([None] * ctx.n, [None] * ctx.n)
+        gws = [_grad_to_wire(ctx.kind, g, i, ctx.k)
+               for g, i in zip(gs, idx_far)]
+        if ctx.perm is not None:
+            back = [(dst, src) for src, dst in ctx.perm]
+            gws = mesh_mod.permute(ctx.lay.shards, gws, "pod", back,
+                                   registry=ctx.lay.registry)
+        return (None,) * 5 + tuple(
+            _grad_from_wire(ctx.kind, gw, i, ctx.d, ctx.backend)
+            for gw, i in zip(gws, idx_local))
+
+
+def _pod_send(lay, ps, perm):
+    """The shards' payloads where they arrive: each wire leaf permuted
+    over the shards along 'pod' (none without `perm`)."""
+    if perm is None:
+        return ps
+    names = [n for n, _ in ps[0].wire_leaves()]
+    moved = {n: mesh_mod.permute(lay.shards,
+                                 [dict(p.wire_leaves())[n] for p in ps],
+                                 "pod", perm, registry=lay.registry)
+             for n in names}
+    return [p.with_leaves(**{n: moved[n][b] for n in names})
+            for b, p in enumerate(ps)]
 
 
 def cut_boundary(x, cfg: ArchConfig, rt: Runtime, generator) -> tuple:
@@ -142,7 +180,62 @@ def cut_boundary(x, cfg: ArchConfig, rt: Runtime, generator) -> tuple:
     (remat) region, so a recompute cannot draw a different mask."""
     comp = make_cut_compressor(cfg.split)
     pen = comp.loss_penalty(x.reshape(-1, x.shape[-1]))
-    return _Transport.apply(x, comp, generator, rt.training), pen
+    (y,) = _Transport.apply(comp, [generator], rt.training, None, None, x)
+    return y, pen
+
+
+def _shard_draws(comp, rows, generator, training: bool):
+    """RandTopK's draws for every shard's rows (B_loc, S, d): drawn for
+    all B rows at once in the mesh-less step's order and sliced by shard,
+    so each shard's mask is the mesh-less one; the generator itself for
+    a codec that draws nothing."""
+    k, d = getattr(comp, "k", 0), rows[0].shape[-1]
+    if not (training and isinstance(comp, compressors.RandTopK) and k < d):
+        return [generator] * len(rows)
+    if generator is None:
+        raise ValueError("RandTopK.forward(training=True) needs a "
+                         "torch.Generator")
+    b = rows[0].shape[0]
+    full = selection.draw(generator, comp.alpha, k,
+                          (b * len(rows),) + tuple(rows[0].shape[1:]),
+                          device=rows[0].device)
+    return [selection.Draws(full.counts[i * b:(i + 1) * b],
+                            full.noise[i * b:(i + 1) * b])
+            for i in range(len(rows))]
+
+
+def cut_boundary_mesh(xs, cfg: ArchConfig, lay, generator):
+    """`cut_boundary` on a training mesh (`tp.Layout`): xs holds each
+    position's cut activation. The activation is gathered to full S
+    (`tp.gather_seq`); the codec runs once a batch shard, on its
+    representative's rows, with RandTopK's draws sliced from the
+    mesh-less step's (`_shard_draws`); with `transfer_over_pod` and a
+    'pod' axis of more than one the payload leaves cross to the next pod
+    (`pod_ring_perm`). Every position of the shard that receives a
+    payload takes its chunk of the decoded rows.
+
+    Returns (xs, l1_penalty, origin): origin[b] is the batch shard whose
+    rows shard b now holds. The reference sends the rows but not their
+    labels, so its pod mesh trains each row against another row's labels
+    (ROADMAP Queue 3); the caller scores shard b against origin[b]'s
+    labels, so the loss is the mesh-less loss."""
+    comp = make_cut_compressor(cfg.split)
+    gathered = tp.gather_seq(lay, xs)
+    rows = [gathered[r] for r in lay.reps]
+    pens = [comp.loss_penalty(x.reshape(-1, x.shape[-1])) for x in rows]
+    draws = _shard_draws(comp, rows, generator, lay.rt.training)
+    n_pod = lay.mesh.shape.get("pod", 1)
+    perm = pod_ring_perm(n_pod) if (cfg.split.transfer_over_pod
+                                    and n_pod > 1) else None
+    ys = _Transport.apply(comp, draws, lay.rt.training, lay, perm, *rows)
+    origin = list(range(len(rows)))
+    if perm is not None:
+        sm = lay.shards
+        for b in range(len(rows)):
+            origin[sm.shift(b, "pod", (sm.coord(b, "pod") + 1) % n_pod)] = b
+    out = [lay.local_seq(p, ys[lay.shard_of[p]])
+           for p in range(lay.mesh.size)]
+    return out, torch.stack(pens).mean(), origin
 
 
 def wire_bytes_per_step(cfg: ArchConfig, batch: int, seq: int,
@@ -170,6 +263,23 @@ def measured_payload_bytes(cfg: ArchConfig, batch: int, seq: int,
                         generator=torch.Generator().manual_seed(0))
     return wire.payload_nbytes(client_encode(comp, probe, generator=generator,
                                              training=training))
+
+
+def pod_leaf_sizes(cfg: ArchConfig) -> tuple:
+    """(bytes, gradient values) a token of what the training cut's pod
+    ring moves (`cut_boundary_mesh`): the device payload's wire leaves
+    forward and the gradient leaves back, in the activation dtype.
+    Measured on a probe token encoded on the CPU, as `_Transport` encodes
+    it; the sizes are a function of the config only."""
+    comp = make_cut_compressor(cfg.split)
+    d = cfg.d_model
+    probe = torch.randn((1, 1, d), generator=torch.Generator().manual_seed(0))
+    p = comp.encode(probe, generator=torch.Generator().manual_seed(0),
+                    training=True)
+    grad = _grad_to_wire(comp.wire_kind, probe, p.indices,
+                         min(getattr(comp, "k", 0), d))
+    return (sum(t.numel() * t.element_size() for _, t in p.wire_leaves()),
+            grad.numel())
 
 
 class HostDensifyCounter:
