@@ -174,8 +174,9 @@ Phases, each fatal on failure:
      kernels with their median ms and peak memory;
  13. the recurrent families and the int8 KV arena at full width
      (`--phase recurrent`), random bf16 weights from a seed, randtopk
-     k 64: serve zamba2-7b (81 Mamba2 layers, d 3584, a shared attention
-     block after every 6th: cut 40, 6 sites below it and 7 above) and
+     k 64: serve zamba2-7b (depth cut from 81 to 24 Mamba2 layers, d
+     3584, a shared attention block after every 6th: cut 12, 2 sites
+     below it and 2 above) and
      rwkv6-1.6b (24 layers, d 2048, cut 12) through `run_streaming` with
      2 clients x (4 + 8) tokens, with the kernels and with the plain
      versions: equal tokens, 352 and 344 payload B a token, one fused
@@ -236,13 +237,18 @@ Phases, each fatal on failure:
      to 8 layers (cut 4), batch 4 x seq 256, randtopk k 64, bf16, AdamW,
      remat, random weights from a seed, at mesh=None, (1, 1), (2, 4) and
      (2, 2, 2) ('pod', 'data', 'model'), and granite-moe-1b-a400m FULL
-     (24 layers, cut 12, 32 experts over 'model') at (1, 4), every
+     (24 layers, cut 12, 32 experts over 'model') at (1, 4); zamba2-7b
+     (12 layers, cut 6) and rwkv6-1.6b (6, cut 3) at full width at
+     mesh=None and (2, 2), whisper-tiny FULL at mesh=None, (2, 2) (its
+     heads split) and (1, 4) (whole), the vlm SMOKE in f32 at mesh=None
+     and (2, 2, 2); every
      position on the one card: a plain first step that launches nothing,
      then 4 kernel steps whose first equals it bit for bit; (1, 1) =
      mesh=None bit for bit; the codec (randtopk_mask, decode_rows,
      scatter_rows) once a batch shard a step; each step's counted
      collective bytes per op = `analysis.training_collective_costs`;
-     step ms, peak, the busy share of a traced fifth step, and each
+     step ms, peak, the busy share of a fifth step traced on the device
+     only, and each
      mesh's first loss against mesh=None's; the first batch's loss in
      f32 (forward only, the weights upcast) through the identity codec
      within 2e-4 of mesh=None's, and through randtopk (reported).
@@ -1806,14 +1812,16 @@ def step_times(cfg, params, n_clients, max_len, reps: int = 20):
     return out
 
 
-def traced(fn, enabled: bool = True):
+def traced(fn, enabled: bool = True, cpu: bool = True):
     """Run `fn()`, under `torch.profiler` when `enabled`; returns (its
     result, the summed duration in ms of the device work in the trace, the
     wall ms of `fn()` and a synchronize, the trace's device kernels as
     (name, ms, count) from the longest). The times are None when not
     traced, the device time also when the trace holds none; the list is
     then empty. Every thread launches on the one default stream, so
-    durations do not overlap."""
+    durations do not overlap. `cpu=False` records the device activity
+    only: the host's operator events of a launch-bound step cost most of
+    a trace's time (tens of seconds at 20000-70000 launches a step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1821,8 +1829,8 @@ def traced(fn, enabled: bool = True):
     if not enabled:
         return fn(), None, None, []
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -3117,8 +3125,12 @@ def families_phase(dev, card):
     return total
 
 
-# the recurrent families: (arch, d, payload B a token at randtopk k 64)
-REC_SERVES = (("zamba2-7b", D_ZAMBA, 352), ("rwkv6-1.6b", D_RWKV, 344))
+# the recurrent families: (arch, d, payload B a token at randtopk k 64,
+# serving depth (None: full)). zamba2's depth is cut from 81 to 24 at full
+# width (cut 12: shared-attention sites after layers 5 and 11 below the
+# cut, 17 and 23 above it) to keep the whole run inside its time
+REC_SERVES = (("zamba2-7b", D_ZAMBA, 352, 24),
+              ("rwkv6-1.6b", D_RWKV, 344, None))
 # (arch, layers (None: full depth), cut): zamba2's 81 layers hold 13.5 GB
 # of bf16 weights, and with f32 AdamW moments leave no room for the
 # activations at batch 4 x seq 256, so its training depth is cut to 12
@@ -3266,9 +3278,9 @@ def _train_through_codec(dev, arch, layers, cut, card, smoke=False,
 def recurrent_phase(dev, card):
     """Phase 13: the recurrent families and the int8 KV arena at full
     width, random bf16 weights from a seed, randtopk k 64 at the cut. Serve
-    zamba2-7b (81 layers, d 3584, cut 40) and rwkv6-1.6b (24, d 2048, cut
-    12) through `run_streaming`, 2 clients x (4 + 8) tokens, with the
-    kernels and with the plain versions (equal tokens, 352 and 344 payload
+    zamba2-7b (depth cut to 24 layers, d 3584, cut 12) and rwkv6-1.6b (24,
+    d 2048, cut 12) through `run_streaming`, 2 clients x (4 + 8) tokens,
+    with the kernels and with the plain versions (equal tokens, 352 and 344 payload
     B a token, one fused encode per served token and one flush decode per
     flush group), and a traced third run for the busy share; rwkv6 again
     at capacity 1 (evictions > 0, the clean run's tokens). Serve yi-6b
@@ -3289,8 +3301,8 @@ def recurrent_phase(dev, card):
     kw = dict(gen=FAM_GEN, n_clients=FAM_CLIENTS, prompt_len=FAM_PROMPT)
     print(f"recurrent phase: {FAM_CLIENTS} clients x ({FAM_PROMPT} prompt "
           f"+ {FAM_GEN} gen) tokens, randtopk k={K}, bf16; {card}")
-    for arch, d, want_nb in REC_SERVES:
-        cfg = configs.get(arch)
+    for arch, d, want_nb, layers in REC_SERVES:
+        cfg = configs.with_layers(configs.get(arch), layers)
         base = held_gib(dev)
         t0 = time.perf_counter()
         params = transformer.init_model(
@@ -3852,6 +3864,20 @@ TRAINMESH_STEPS = 4           # kernel steps a mesh, after one plain step
 TRAINMESH_SHAPES = (("(1, 1)", (1, 1)), ("(2, 4)", (2, 4)),
                     ("(2, 2, 2)", (2, 2, 2)))
 TRAINMESH_MOE = ("(1, 4)", (1, 4))
+# the other families on the training mesh, randtopk at cut_for's cut:
+# (arch, depth (None: the config's), SMOKE, meshes after mesh=None).
+# zamba2 and rwkv6 at full width with their depth cut (zamba2 12, cut 6,
+# a shared-attention site on each side; rwkv6 6, cut 3: its 24 layers
+# took 2.36-2.71 s a step mesh-less, host-bound); whisper-tiny FULL, its
+# 6 heads split at 'model' 2 and whole at 4 (d_ff split); the vlm at
+# SMOKE in f32 (10 full-width layers need ~128 GB with AdamW) on the pod
+# ring
+TRAINMESH_FAMILIES = (
+    ("zamba2-7b", 12, False, (("(2, 2)", (2, 2)),)),
+    ("rwkv6-1.6b", 6, False, (("(2, 2)", (2, 2)),)),
+    ("whisper-tiny", None, False, (("(2, 2)", (2, 2)), ("(1, 4)", (1, 4)))),
+    ("llama-3.2-vision-90b", None, True, (("(2, 2, 2)", (2, 2, 2)),)),
+)
 
 
 def _train_mesh(shape, dev):
@@ -3870,8 +3896,9 @@ def _mesh_train_run(cfg, params, batches, dev, label, mesh, card):
     a batch shard a step (randtopk_mask, decode_rows and scatter_rows
     each); counted collective bytes of every step =
     `analysis.training_collective_costs`; step ms, peak and the busy
-    share of a traced extra step. Returns (launch counts, the first kernel
-    step's (params, metrics), a summary dict)."""
+    share of an extra step traced on the device only. Returns (launch
+    counts, the first kernel step's (params, metrics), a summary
+    dict)."""
     import math
 
     import torch
@@ -3883,6 +3910,7 @@ def _mesh_train_run(cfg, params, batches, dev, label, mesh, card):
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.roofline import analysis
 
+    t_run = time.perf_counter()
     plain_cfg = cfg.with_(split=dataclasses.replace(cfg.split,
                                                     backend="torch"))
     n_shards = 1 if mesh is None else mesh.size // mesh.shape["model"]
@@ -3945,7 +3973,10 @@ def _mesh_train_run(cfg, params, batches, dev, label, mesh, card):
     if not all(math.isfinite(v) for v in losses):
         fail(f"train mesh {label}: losses not finite: {losses}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    tr = traced(lambda: step(p, opt, batches[TRAINMESH_STEPS], gen))
+    t_trace = time.perf_counter()
+    tr = traced(lambda: step(p, opt, batches[TRAINMESH_STEPS], gen),
+                cpu=False)
+    t_trace = time.perf_counter() - t_trace
     med = statistics.median(times[1:])
     print(f"  mesh {label}{'' if mesh is None else ' ' + str(mesh.shape)}: "
           f"losses {losses}; launches "
@@ -3958,7 +3989,9 @@ def _mesh_train_run(cfg, params, batches, dev, label, mesh, card):
           f"{peak:.2f} GiB ({base:.2f} GiB held before the mesh's first "
           f"step); "
           f"collective bytes a step {want or 'none'} = "
-          f"training_collective_costs; {card}")
+          f"training_collective_costs; the run's wall "
+          f"{time.perf_counter() - t_run:.1f} s, of it the traced step "
+          f"{t_trace:.1f} s; {card}")
     if tr[3]:
         print(f"    the traced step's device ms by kernel, longest first "
               f"({len(tr[3])} kernels, {sum(c for _, _, c in tr[3])} "
@@ -4017,8 +4050,11 @@ def trainmesh_phase(dev, card):
     randtopk k 64 alpha 0.1, bf16, AdamW, remat, random weights from a
     seed, at mesh=None, (1, 1), (2, 4) and (2, 2, 2) ('pod', 'data',
     'model'); granite-moe-1b-a400m FULL (24 layers, cut 12, 32 experts)
-    at (1, 4). Fatal: at every mesh the kernels' first step = the plain
-    versions' bit for bit (loss, aux, grad norm, every updated weight);
+    at (1, 4); then `TRAINMESH_FAMILIES`: zamba2-7b (12 layers) and
+    rwkv6-1.6b (6) at full width at mesh=None and (2, 2), whisper-tiny
+    FULL at mesh=None, (2, 2) and (1, 4), the vlm SMOKE in f32 at
+    mesh=None and (2, 2, 2). Fatal: at every mesh the kernels' first step
+    = the plain versions' bit for bit (loss, aux, grad norm, every updated weight);
     (1, 1) = mesh=None bit for bit; the codec once a batch shard a step;
     counted collective bytes = `training_collective_costs`. Returns the
     kernels' launches of the kernel steps."""
@@ -4086,7 +4122,52 @@ def trainmesh_phase(dev, card):
              f"{float(first[1]['aux'])}")
     del first, params
     torch.cuda.empty_cache()
+    for arch, layers, smoke, meshes in TRAINMESH_FAMILIES:
+        total.update(_family_mesh_runs(arch, layers, smoke, meshes, dev,
+                                       card))
     print(f"train mesh phase wall: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def _family_mesh_runs(arch, layers, smoke, meshes, dev, card):
+    """One of `TRAINMESH_FAMILIES` through `_mesh_train_run` at mesh=None
+    and at each of `meshes`; prints each mesh's first loss against
+    mesh=None's. Returns the kernel steps' launches."""
+    import collections
+
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import tree_leaves
+
+    t0 = time.perf_counter()
+    total = collections.Counter()
+    cfg = _train_cfg("randtopk", layers=layers, cut=0, arch=arch,
+                     smoke=smoke)
+    params = transformer.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"  {arch}{' SMOKE' if smoke else ''} ({cfg.family}): "
+          f"{cfg.n_layers} layers (cut at {cfg.split.cut_layer}), d_model "
+          f"{cfg.d_model}, {n_params:,} params, {cfg.dtype}, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, randtopk k={cfg.split.k}")
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+    batches = [pipe.next_batch(i) for i in range(TRAINMESH_STEPS + 1)]
+    loss0 = {}
+    for label, shape in (("None", None),) + meshes:
+        counts, first, res = _mesh_train_run(
+            cfg, params, batches, dev, f"{arch} {label}",
+            _train_mesh(shape, dev), card)
+        total.update(counts)
+        loss0[label] = res["loss0"]
+        del first
+    print(f"  {arch}: first-step loss against mesh=None's "
+          f"({loss0['None']}): " + ", ".join(
+              f"{k} {v - loss0['None']:+.3g}" for k, v in loss0.items()
+              if k != "None") + f"; {time.perf_counter() - t0:.1f} s; "
+          f"{card}")
+    del params
+    torch.cuda.empty_cache()
     return total
 
 
@@ -4250,7 +4331,11 @@ def main(argv=None) -> int:
             if counts[n]:
                 add(n, counts[n], "the train mesh phase's kernel steps "
                                   "(yi-6b at mesh=None, (1, 1), (2, 4) and "
-                                  "(2, 2, 2); granite-moe at (1, 4))")
+                                  "(2, 2, 2); granite-moe at (1, 4); "
+                                  "zamba2 and rwkv6 at mesh=None and (2, "
+                                  "2); whisper at mesh=None, (2, 2) and "
+                                  "(1, 4); vlm SMOKE at mesh=None and "
+                                  "(2, 2, 2))")
 
     for r in records:
         r["launches"] = launches[r["name"]]

@@ -29,6 +29,17 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
         --smoke --device cpu --steps 5 --split randtopk --k 16 --mesh 2,2
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \
+        --smoke --device cpu --steps 5 --batch 4 --seq 16 \
+        --split randtopk --k 16 --mesh 2,2
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \
+        --smoke --device cpu --steps 5 --batch 4 --seq 16 \
+        --split randtopk --k 16 --mesh 1,2
+
+    python -m repro_torch.launch.train --arch rwkv6-1.6b --layers 6 \
+        --steps 5 --batch 4 --seq 256 --split randtopk --k 64 --mesh 2,2
+
 Runs a real training loop: synthetic token batches drawn on the device,
 the split model with the cut-layer codec at `--cut` (default n_layers // 2;
 for the vlm rounded down to whole groups of `cross_attn_every` layers, at
@@ -43,11 +54,13 @@ draws from `fold_in(key, step)` and has no such state). A run given a directory 
 holds a checkpoint resumes from its latest step and trains to `--steps`,
 as the uninterrupted run would, bit for bit.
 
-`--mesh d,m` trains on a ('data', 'model')[:len] mesh, as the reference
-takes it (`launch.mesh.make_mesh`): the batch splits over 'data', and
-the dense and moe families run Megatron tensor and sequence parallelism
-and expert parallelism over 'model' (`models.tp`). Every position lies
-on the one device of `--device`; the parameters stay whole there.
+`--mesh d,m` trains any config on a ('data', 'model')[:len] mesh, as
+the reference takes it (`launch.mesh.make_mesh`): the batch splits over
+'data', and over 'model' run Megatron tensor and sequence parallelism
+(attention's and cross attention's heads, the MLP's and the channel
+mix's ff columns, Mamba2's and RWKV6's heads, whisper's encoder over its
+frames) and the moe's expert parallelism (`models.tp`). Every position
+lies on the one device of `--device`; the parameters stay whole there.
 """
 from __future__ import annotations
 

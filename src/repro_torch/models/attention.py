@@ -132,14 +132,17 @@ def project_q(p, cfg: ArchConfig, x, heads=None):
     return q
 
 
-def cross_kv(p, cfg: ArchConfig, kv_tokens):
+def cross_kv(p, cfg: ArchConfig, kv_tokens, heads=None):
     """k, v (B, N, Hkv, hd) of kv_tokens (B, N, d), qk-normed, without
     RoPE: the cross-attention cache of the encoder's or the image's
-    tokens."""
+    tokens; with `heads` = (h0, hl) only k and v heads [h0, h0 + hl),
+    from their columns of `wk` and `wv`."""
     B, N, _ = kv_tokens.shape
-    hkv, hd = cfg.n_kv_heads, cfg.hd
-    k = (kv_tokens @ p["wk"].to(kv_tokens.dtype)).reshape(B, N, hkv, hd)
-    v = (kv_tokens @ p["wv"].to(kv_tokens.dtype)).reshape(B, N, hkv, hd)
+    h0, hl = heads or (0, cfg.n_kv_heads)
+    c = slice(h0 * cfg.hd, (h0 + hl) * cfg.hd)
+    dt = kv_tokens.dtype
+    k = (kv_tokens @ p["wk"][:, c].to(dt)).reshape(B, N, hl, cfg.hd)
+    v = (kv_tokens @ p["wv"][:, c].to(dt)).reshape(B, N, hl, cfg.hd)
     if cfg.qk_norm:
         k = common.rms_norm(k, p["k_norm"]["scale"])
     return k, v
@@ -193,41 +196,73 @@ def _attend(cfg: ArchConfig, rt: Runtime, q, k, v, causal: bool):
                            cfg) for i in range(0, S, c)], dim=1)
 
 
-def full_attention_mesh(p, cfg: ArchConfig, lay, xs):
+def full_attention_mesh(p, cfg: ArchConfig, lay, xs, *, causal=True,
+                        rope=True):
     """`full_attention` on a mesh (`tp.Layout`): xs holds each position's
     normed (B_loc, S, d) input, gathered to full S. With the heads split
     over 'model' (`lay.split(n_heads)`) a position projects and attends
-    with its H/model q heads and every k and v head its q heads read (the
+    with its H/model q heads and the k and v heads its q heads read (the
     reference shards q over 'model' and keeps k and v whole,
     `src/repro/models/attention.py:100-102`), and `tp.out_proj_rs`
     reduce-scatters its partial output product along the sequence; else
-    every position attends whole and keeps its chunk. Returns per
-    position (B_loc, S/model, d) (or (B_loc, S, d) without sequence
+    every position attends whole and keeps its chunk. `causal` and
+    `rope` as in `full_attention` (whisper's encoder: neither). Returns
+    per position (B_loc, S/model, d) (or (B_loc, S, d) without sequence
     parallelism)."""
-    if not lay.split(cfg.n_heads):
-        return tp.out_proj_rs(
-            lay, [_heads_out(p, cfg, lay.rt, x, 0, cfg.n_heads) for x in xs],
-            p["wo"], split=False)
-    hl = cfg.n_heads // lay.n_model
+    return _attention_mesh(p, cfg, lay, xs, None, causal=causal, rope=rope)
+
+
+def cross_attention_mesh(p, cfg: ArchConfig, lay, xs, kv_tokens, *,
+                         gated=False):
+    """`cross_attention` on a mesh: xs as in `full_attention_mesh`,
+    kv_tokens each position's (B_loc, N, d) image patches or encoder
+    output, whole. The q heads split as in `full_attention_mesh`, each
+    position projecting from its kv_tokens the k and v heads its q heads
+    read; `tp.out_proj_rs` then reduce-scatters, and `gated` scales each
+    position's chunk by tanh(p["gate"]) (the reference's
+    `src/repro/models/attention.py:134-151`)."""
+    ys = _attention_mesh(p, cfg, lay, xs, kv_tokens, causal=False,
+                         rope=False)
+    return [common.tanh_gate(p, y) for y in ys] if gated else ys
+
+
+def _attention_mesh(p, cfg: ArchConfig, lay, xs, kv_tokens, *, causal,
+                    rope):
+    split = lay.split(cfg.n_heads)
+    hl = cfg.n_heads // lay.n_model if split else cfg.n_heads
+    kvs = kv_tokens or [None] * len(xs)
     return tp.out_proj_rs(
-        lay, [_heads_out(p, cfg, lay.rt, x, lay.rank(i) * hl, hl)
-              for i, x in enumerate(xs)], p["wo"], split=True)
+        lay, [_heads_out(p, cfg, lay.rt, x, lay.rank(i) * hl if split
+                         else 0, hl, kv_tokens=kv, causal=causal, rope=rope)
+              for i, (x, kv) in enumerate(zip(xs, kvs))], p["wo"],
+        split=split)
 
 
-def _heads_out(p, cfg: ArchConfig, rt: Runtime, x, h0: int, hl: int):
-    """The causal RoPE attention output (B, S, hl * hd) of q heads
-    [h0, h0 + hl) over x (B, S, d), before the output projection, with
-    the k and v heads those q heads read."""
+def _heads_out(p, cfg: ArchConfig, rt: Runtime, x, h0: int, hl: int, *,
+               kv_tokens=None, causal=True, rope=True):
+    """The attention output (B, S, hl * hd) of q heads [h0, h0 + hl) over
+    x (B, S, d), before the output projection, with the k and v heads
+    those q heads read, projected from x (self attention: causal or not,
+    with RoPE or not) or from `kv_tokens` (cross attention: every key
+    visible, no RoPE)."""
     B, S, _ = x.shape
     g = cfg.n_heads // cfg.n_kv_heads
-    q, k, v = project_qkv(p, cfg, x, torch.arange(S, device=x.device)[None],
-                          heads=(h0, hl))
-    if hl % g == 0:           # whole GQA groups: their k/v heads
-        k, v = (t[:, :, h0 // g:(h0 + hl) // g] for t in (k, v))
-    else:                     # part of a group: each q head's k/v head
-        idx = torch.arange(h0, h0 + hl, device=x.device) // g
+    a, b = h0 // g, (h0 + hl - 1) // g + 1     # the k/v heads read
+    q = project_q(p, cfg, x, heads=(h0, hl))
+    k, v = cross_kv(p, cfg, x if kv_tokens is None else kv_tokens,
+                    heads=(a, b - a))
+    if hl % g:                # part of a group: each q head's k/v head
+        idx = torch.arange(h0, h0 + hl, device=x.device) // g - a
         k, v = k[:, :, idx], v[:, :, idx]
-    return _attend(cfg, rt, q, k, v, True).reshape(B, S, hl * cfg.hd)
+    if kv_tokens is not None:
+        mask = torch.ones((1, S, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        return sdpa(q, k, v, mask, cfg).reshape(B, S, hl * cfg.hd)
+    if rope:
+        pos = torch.arange(S, device=x.device)[None]
+        q = common.apply_rope(q, pos, cfg.rope_theta)
+        k = common.apply_rope(k, pos, cfg.rope_theta)
+    return _attend(cfg, rt, q, k, v, causal).reshape(B, S, hl * cfg.hd)
 
 
 def cross_attention(p, cfg: ArchConfig, x, kv_tokens=None, *, kv_cache=None,

@@ -12,8 +12,8 @@ defaults and its `axis_names`, `batch_axes` and `has_model_axis`) with
 `registry`, the run's registry its collectives count into (the port's
 own field). Serving takes its mesh as an argument, as the reference's
 does (`runtime.engine.run_streaming(mesh=)`), not from `Runtime`;
-`flash_decode`, a decode-cache knob, waits for the decode path under a
-mesh."""
+`flash_decode`, a decode-cache sharding knob that only the reference's
+dry run reads on a mesh, waits for the port's dry run."""
 from __future__ import annotations
 
 import dataclasses

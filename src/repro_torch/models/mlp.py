@@ -38,13 +38,15 @@ def mlp(p, x, *, gated=False):
     return common.tanh_gate(p, y) if gated else y
 
 
-def mlp_mesh(p, cfg: ArchConfig, lay, xs):
+def mlp_mesh(p, cfg: ArchConfig, lay, xs, *, gated=False):
     """`mlp` on a mesh (`tp.Layout`), xs each position's normed (B_loc, S,
     d) input gathered to full S: with ff split over 'model'
     (`lay.split(d_ff)`) a position takes its ff/model columns of w_gate
     and w_up and `tp.out_proj_rs` reduce-scatters its partial w_down
     product along the sequence (`src/repro/models/mlp.py:40-47`); else
-    every position computes the MLP whole and keeps its chunk."""
+    every position computes the MLP whole and keeps its chunk. `gated`
+    (the vlm's cross MLP) scales each position's chunk by the scalar
+    tanh(p["gate"])."""
     split = lay.split(cfg.d_ff)
     n = cfg.d_ff // lay.n_model if split else cfg.d_ff
     hs = []
@@ -53,4 +55,5 @@ def mlp_mesh(p, cfg: ArchConfig, lay, xs):
             else slice(None)
         hs.append(torch.nn.functional.silu(x @ p["w_gate"][:, c].to(
             x.dtype)) * (x @ p["w_up"][:, c].to(x.dtype)))
-    return tp.out_proj_rs(lay, hs, p["w_down"], split=split)
+    ys = tp.out_proj_rs(lay, hs, p["w_down"], split=split)
+    return [common.tanh_gate(p, y) for y in ys] if gated else ys

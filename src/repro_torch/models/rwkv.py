@@ -9,13 +9,19 @@ oracle). Decode is the one-step recurrence. Heads are 64 wide, so a
 layer has d // 64 of them whatever `cfg.n_heads` says, as in the
 reference. r, k and v stay in the activation dtype; the decay chain and
 every WKV product run in f32.
+
+On a training mesh (`models.tp.Layout`) the time mix splits its heads
+over 'model' and reduce-scatters `w_out` (`rwkv_time_mix_mesh`, the
+reference's `src/repro/models/rwkv.py:199-201`), and the channel mix
+splits `w_k`'s columns by d_ff and reduce-scatters `w_v` (`:210-213`,
+`rwkv_channel_mix_mesh`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import common
+from repro_torch.models import common, tp
 from repro_torch.models.config import ArchConfig, Runtime
 
 HD = 64                                 # the WKV head width
@@ -75,20 +81,28 @@ def token_shift(x, x_prev=None):
     return shifted
 
 
-def time_mix_inputs(p, x, x_prev=None):
-    """r, k, v (B, S, H, 64) and g (B, S, d) in x's dtype, and the decay
-    w (B, S, H, 64) in f32."""
+def time_mix_inputs(p, x, x_prev=None, heads=None):
+    """r, k, v (B, S, H, 64) and g (B, S, H * 64) in x's dtype, and the
+    decay w (B, S, H, 64) in f32, of the heads (h0, H) (every head without
+    `heads`): the token shift and the mixing LoRA's first matrix run
+    whole, the projections and the decay's second matrix take the heads'
+    columns."""
     B, S, d = x.shape
-    H = d // HD
+    h0, H = heads or (0, d // HD)
+    c = slice(h0 * HD, (h0 + H) * HD)
     xp = token_shift(x, x_prev)
     mu = p["mu"].to(x.dtype)
     mix = [x + mu[i] * (xp - x) for i in range(5)]
-    r = (mix[0] @ p["w_r"].to(x.dtype)).reshape(B, S, H, HD)
-    k = (mix[1] @ p["w_k"].to(x.dtype)).reshape(B, S, H, HD)
-    v = (mix[2] @ p["w_v"].to(x.dtype)).reshape(B, S, H, HD)
-    g = mix[3] @ p["w_g"].to(x.dtype)
-    ww = p["w0"].float() + torch.tanh(mix[4].float() @ p["w1"].float()) \
-        @ p["w2"].float()
+
+    def proj(i, name):
+        return mix[i] @ p[name][:, c].to(x.dtype)
+
+    r = proj(0, "w_r").reshape(B, S, H, HD)
+    k = proj(1, "w_k").reshape(B, S, H, HD)
+    v = proj(2, "w_v").reshape(B, S, H, HD)
+    g = proj(3, "w_g")
+    ww = p["w0"][c].float() + torch.tanh(mix[4].float() @ p["w1"].float()) \
+        @ p["w2"][:, c].float()
     w = torch.exp(-torch.exp(ww)).reshape(B, S, H, HD)
     return r, k, v, g, w
 
@@ -128,23 +142,24 @@ def wkv_chunk(S0, rc, kc, vc, wc, u):
     return S_new, y
 
 
-def _wkv_norm_out(p, y, g, dtype):
-    """Per-head RMS norm of y (B, S, H, 64) f32, ln_x, the SiLU gate and the
-    output projection."""
+def _wkv_gated(p, y, g, dtype, c=slice(None)):
+    """Per-head RMS norm of y (B, S, H, 64) f32, ln_x (its channels `c`)
+    and the SiLU gate: the output projection's input."""
     B, S = y.shape[:2]
     ones = torch.ones((HD,), dtype=torch.float32, device=y.device)
     y = common.rms_norm(y, ones).reshape(B, S, -1)
-    y = y * p["ln_x"]["scale"].float()
-    return (y.to(dtype) * F.silu(g)) @ p["w_out"].to(dtype)
+    y = y * p["ln_x"]["scale"][c].float()
+    return y.to(dtype) * F.silu(g)
 
 
-def rwkv_time_mix(p, cfg: ArchConfig, rt: Runtime, x):
-    """Full-sequence WKV6 over the normed x (B, S, d) from a zero state.
-    Returns (y (B, S, d), the final state (B, H, 64, 64) f32)."""
+def _time_mix(p, rt: Runtime, x, heads=None):
+    """WKV6 over the normed x (B, S, d) from a zero state, for the heads
+    (h0, H) (all without `heads`). Returns (the output projection's input
+    (B, S, H * 64), the final state (B, H, 64, 64) f32)."""
     B, S, d = x.shape
-    H = d // HD
-    r, k, v, g, w = time_mix_inputs(p, x)
-    u = p["u"].float()
+    h0, H = heads or (0, d // HD)
+    r, k, v, g, w = time_mix_inputs(p, x, heads=heads)
+    u = p["u"][h0:h0 + H].float()
     cl = min(rt.rwkv_chunk, S)
     if S % cl:
         raise ValueError(f"seq {S} must divide rwkv_chunk {cl}")
@@ -164,19 +179,67 @@ def rwkv_time_mix(p, cfg: ArchConfig, rt: Runtime, x):
                 state, out = wkv_step(state, r[:, t], k[:, t], v[:, t],
                                       w[:, t], u)
                 ys.append(out[:, None])
-    return _wkv_norm_out(p, torch.cat(ys, dim=1), g, x.dtype), state
+    c = slice(h0 * HD, (h0 + H) * HD)
+    return _wkv_gated(p, torch.cat(ys, dim=1), g, x.dtype, c), state
+
+
+def rwkv_time_mix(p, cfg: ArchConfig, rt: Runtime, x):
+    """Full-sequence WKV6 over the normed x (B, S, d) from a zero state.
+    Returns (y (B, S, d), the final state (B, H, 64, 64) f32)."""
+    h, state = _time_mix(p, rt, x)
+    return h @ p["w_out"].to(x.dtype), state
+
+
+def rwkv_time_mix_mesh(p, cfg: ArchConfig, lay, xs):
+    """`rwkv_time_mix`'s output on a mesh (`tp.Layout`), xs each position's
+    normed (B_loc, S, d) input gathered to full S (the token shift reads
+    the previous token across chunk edges). With the d / 64 heads split
+    over 'model' (`lay.split`) a position takes its heads' columns of r,
+    k, v, g and the decay's second LoRA matrix, their `u` and `ln_x`, runs
+    the WKV chunks and the group norm on them, and `tp.out_proj_rs`
+    reduce-scatters its `w_out` rows' product; else every position runs
+    the time mix whole and keeps its chunk."""
+    split = lay.split(cfg.d_model // HD)
+    hl = cfg.d_model // HD // lay.n_model
+    hs = [_time_mix(p, lay.rt, x, (lay.rank(i) * hl, hl) if split
+                    else None)[0] for i, x in enumerate(xs)]
+    return tp.out_proj_rs(lay, hs, p["w_out"], split=split)
+
+
+def _channel_inputs(p, x, x_prev=None):
+    """The channel mix's token-shifted key and receptance inputs."""
+    xp = token_shift(x, x_prev)
+    mu = p["mu"].to(x.dtype)
+    return x + mu[0] * (xp - x), x + mu[1] * (xp - x)
 
 
 def rwkv_channel_mix(p, x, x_prev=None):
     """Token-shifted squared-ReLU FFN over the normed x (B, S, d)."""
-    xp = token_shift(x, x_prev)
-    mu = p["mu"].to(x.dtype)
-    xk = x + mu[0] * (xp - x)
-    xr = x + mu[1] * (xp - x)
+    xk, xr = _channel_inputs(p, x, x_prev)
     kk = torch.square(F.relu(xk @ p["w_k"].to(x.dtype)))
     vv = kk @ p["w_v"].to(kk.dtype)
     r = torch.sigmoid(xr @ p["w_r"].to(x.dtype))
     return r * vv
+
+
+def rwkv_channel_mix_mesh(p, cfg: ArchConfig, lay, xs):
+    """`rwkv_channel_mix` on a mesh (`tp.Layout`), xs each position's
+    normed (B_loc, S, d) input gathered to full S: with d_ff split over
+    'model' (`lay.split(d_ff)`) a position takes its columns of `w_k`
+    and `tp.out_proj_rs` reduce-scatters its `w_v` rows' product; the
+    receptance runs on the position's chunk of the sequence only."""
+    split = lay.split(cfg.d_ff)
+    n = cfg.d_ff // lay.n_model
+    kks, rs = [], []
+    for i, x in enumerate(xs):
+        xk, xr = _channel_inputs(p, x)
+        c = slice(lay.rank(i) * n, (lay.rank(i) + 1) * n) if split \
+            else slice(None)
+        kks.append(torch.square(F.relu(xk @ p["w_k"][:, c].to(x.dtype))))
+        rs.append(torch.sigmoid(lay.local_seq(i, xr) @ p["w_r"].to(
+            x.dtype)))
+    vvs = tp.out_proj_rs(lay, kks, p["w_v"], split=split)
+    return [r * vv for r, vv in zip(rs, vvs)]
 
 
 def init_rwkv_cache(cfg: ArchConfig, rows: int, n_layers: int, device=None):
@@ -204,7 +267,8 @@ def rwkv_decode(p_time, p_chan, x_tok, S, x_tm, x_cm):
     r, k, v, g, w = time_mix_inputs(p_time, h, x_tm)
     S_new, out = wkv_step(S, r[:, 0], k[:, 0], v[:, 0], w[:, 0],
                           p_time["u"].float())
-    x1 = x_tok + _wkv_norm_out(p_time, out[:, None], g, x_tok.dtype)
+    x1 = x_tok + _wkv_gated(p_time, out[:, None], g, x_tok.dtype) \
+        @ p_time["w_out"].to(x_tok.dtype)
     h2 = common.rms_norm(x1, p_chan["norm"]["scale"])
     x2 = x1 + rwkv_channel_mix(p_chan, h2, x_cm)
     return x2, S_new, h[:, -1], h2[:, -1]

@@ -16,13 +16,20 @@ two-operand products in a fixed order that never builds a (B, t, s, H, P)
 tensor: C.B is contracted to (B, t, s) first, weighted by the decay and
 dt to (B, t, s, H), and the chunk ends on a batched (t, s) x (s, P)
 product per (batch, head).
+
+On a training mesh (`mamba_mesh`, `models.tp.Layout`) the heads split
+over 'model' as the reference shards the inner width
+(`src/repro/models/ssm.py:113`): a position runs the SSD loop over its
+heads' channels, the gated RMS norm sums its squares over the group
+(`tp.sum_model`), and the output projection reduce-scatters
+(`tp.out_proj_rs`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import common
+from repro_torch.models import common, tp
 from repro_torch.models.config import ArchConfig, Runtime
 
 
@@ -73,17 +80,32 @@ def causal_conv(u, w):
     return F.silu(acc)
 
 
-def project(p, cfg: ArchConfig, x):
+def project(p, cfg: ArchConfig, x, heads=None):
     """x (B, S, d) -> xs (B, S, di), z (B, S, di), b, c (B, S, N) in x's
-    dtype and dt (B, S, H) f32."""
+    dtype and dt (B, S, H) f32; with `heads` = (h0, hl) xs, z and dt of
+    heads [h0, h0 + hl) only (di -> hl * P, H -> hl), from their columns
+    of `w_xz` and `w_dt`."""
     di, N = cfg.d_inner, cfg.ssm_state
-    xz = x @ p["w_xz"].to(x.dtype)
-    xs, z = xz[..., :di], xz[..., di:]
+    if heads is None:
+        xz = x @ p["w_xz"].to(x.dtype)
+        xs, z = xz[..., :di], xz[..., di:]
+        dt_raw, bias = x @ p["w_dt"].to(x.dtype), p["dt_bias"]
+    else:
+        c, h = _channels(cfg, heads), slice(heads[0], sum(heads))
+        w = p["w_xz"].to(x.dtype)
+        xs = x @ w[:, c]
+        z = x @ w[:, di + c.start:di + c.stop]
+        dt_raw, bias = x @ p["w_dt"][:, h].to(x.dtype), p["dt_bias"][h]
     bc = x @ p["w_bc"].to(x.dtype)
     b, c = bc[..., :N], bc[..., N:]
-    dt_raw = x @ p["w_dt"].to(x.dtype)
-    dt = softplus(dt_raw.float() + p["dt_bias"].float())
+    dt = softplus(dt_raw.float() + bias.float())
     return xs, z, b, c, dt
+
+
+def _channels(cfg: ArchConfig, heads):
+    """The inner-width channels of heads (h0, hl)."""
+    P = cfg.ssm_head_dim
+    return slice(heads[0] * P, (heads[0] + heads[1]) * P)
 
 
 def ssd_chunk(h, xs, b, cm, dt, la):
@@ -109,20 +131,23 @@ def ssd_chunk(h, xs, b, cm, dt, la):
     return h_new, y1 + y2
 
 
-def mamba(p, cfg: ArchConfig, rt: Runtime, x):
-    """Full-sequence Mamba2 mixer over the normed x (B, S, d) -> (B, S, d)."""
+def _gated(p, cfg: ArchConfig, rt: Runtime, x, heads=None):
+    """The SSD mixer over the normed x (B, S, d) for heads (h0, hl) (all
+    without `heads`): y * silu(z) (B, S, hl * P) in x's dtype, the gated
+    norm's input."""
     B, S, _ = x.shape
-    di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
-    xs, z, b, c, dt = project(p, cfg, x)
-    xs = causal_conv(xs, p["conv_x"])
+    N, Pd = cfg.ssm_state, cfg.ssm_head_dim
+    h0, H = heads or (0, cfg.ssm_heads)
+    c = _channels(cfg, (h0, H))
+    xs, z, b, cm, dt = project(p, cfg, x, heads)
+    xs = causal_conv(xs, p["conv_x"][:, c])
     b = causal_conv(b, p["conv_b"])
-    c = causal_conv(c, p["conv_c"])
+    cm = causal_conv(cm, p["conv_c"])
 
-    A = -torch.exp(p["A_log"].float())                     # (H,)
+    A = -torch.exp(p["A_log"][h0:h0 + H].float())          # (H,)
     la = dt * A                                            # (B, S, H)
     xs4 = xs.reshape(B, S, H, Pd).float()
-    bf, cf = b.float(), c.float()
+    bf, cf = b.float(), cm.float()
 
     cl = min(rt.ssm_chunk, S)
     if S % cl:
@@ -135,10 +160,41 @@ def mamba(p, cfg: ArchConfig, rt: Runtime, x):
                          la[:, sl])
         ys.append(y)
     y = torch.cat(ys, dim=1)
-    y = y + p["D"].float()[None, None, :, None] * xs4
-    y = y.reshape(B, S, di).to(x.dtype)
-    y = common.rms_norm(y * F.silu(z), p["norm_g"]["scale"])
+    y = y + p["D"][h0:h0 + H].float()[None, None, :, None] * xs4
+    return y.reshape(B, S, H * Pd).to(x.dtype) * F.silu(z)
+
+
+def mamba(p, cfg: ArchConfig, rt: Runtime, x):
+    """Full-sequence Mamba2 mixer over the normed x (B, S, d) -> (B, S, d)."""
+    y = common.rms_norm(_gated(p, cfg, rt, x), p["norm_g"]["scale"])
     return y @ p["w_out"].to(y.dtype)
+
+
+def mamba_mesh(p, cfg: ArchConfig, lay, xs):
+    """`mamba` on a mesh (`tp.Layout`), xs each position's normed (B_loc,
+    S, d) input gathered to full S. With the heads split over 'model'
+    (`lay.split(ssm_heads)`) a position runs its H/model heads: their
+    columns of `w_xz` (xs and z) and `w_dt`, their slices of `conv_x`,
+    `dt_bias`, `A_log`, `D` and `norm_g`; `w_bc` and the b/c convolutions
+    are per token and run whole. The gated RMS norm's mean square is the
+    group's f32 sum of squares (`tp.sum_model`, (B_loc, S, 1) a position)
+    over d_inner, and `tp.out_proj_rs` reduce-scatters the partial
+    `w_out` product along the sequence. Else every position runs the
+    mixer whole and keeps its chunk."""
+    rt, scale = lay.rt, p["norm_g"]["scale"]
+    if not lay.split(cfg.ssm_heads):
+        return tp.out_proj_rs(
+            lay, [common.rms_norm(_gated(p, cfg, rt, x), scale) for x in xs],
+            p["w_out"], split=False)
+    hl = cfg.ssm_heads // lay.n_model
+    heads = [(lay.rank(i) * hl, hl) for i in range(len(xs))]
+    gs = [_gated(p, cfg, rt, x, h) for x, h in zip(xs, heads)]
+    ssq = tp.sum_model(lay, [torch.sum(torch.square(g.float()), dim=-1,
+                                       keepdim=True) for g in gs])
+    hs = [(g.float() * torch.rsqrt(s / cfg.d_inner + 1e-6)
+           * scale[_channels(cfg, h)].float()).to(g.dtype)
+          for g, s, h in zip(gs, ssq, heads)]
+    return tp.out_proj_rs(lay, hs, p["w_out"], split=True)
 
 
 def init_mamba_cache(cfg: ArchConfig, rows: int, n_layers: int,

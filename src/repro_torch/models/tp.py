@@ -18,6 +18,8 @@ full S; a projection whose heads or ff columns split over 'model'
 reduce-scatters the partial products back along the sequence. Where a
 rule does not hold (the reference's `usable` fall-backs) every position
 computes the projection whole and keeps its own chunk of the sequence.
+A per-row statistic over a width split over 'model' (Mamba2's gated RMS
+norm over its heads' channels) is summed over the group by `sum_model`.
 The parameters stay whole, one tensor a leaf: a position's shard is a
 slice of it, so autograd's accumulation into the leaf is the
 data-parallel gradient sum, which moves no bytes between positions of
@@ -153,6 +155,17 @@ def out_proj_rs_local(lay: Layout, hs, ws, *, w_spec=("model", "data")):
     ys = [h @ w.to(h.dtype) for h, w in zip(hs, ws)]
     return mesh_mod.reduce_scatter(mesh, ys, "model", dim=1,
                                    registry=lay.registry)
+
+
+def sum_model(lay: Layout, xs):
+    """Each position's tensor summed over its 'model' group (an all-reduce
+    sum, in the dtype it came in); the backward sums the gradients the
+    same way. Without tensor parallelism each position's tensor is its
+    own sum."""
+    if lay.n_model == 1:
+        return list(xs)
+    return mesh_mod.all_reduce(lay.mesh, xs, "model", "sum",
+                               registry=lay.registry)
 
 
 def vocab_parallel_argmax(mesh, logits, axis_name: str = "model",

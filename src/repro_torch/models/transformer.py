@@ -26,12 +26,15 @@ learning cut is a residual-stream boundary: `apply_layers(..., lo, hi)`
 runs any contiguous layer range (for the vlm, whole groups), and
 `split.model.forward` composes bottom range -> cut codec -> top range.
 
-On a training mesh (`Runtime.mesh`, the dense and moe families) the same
-layers run over one tensor per mesh position (`embed_mesh`,
+On a training mesh (`Runtime.mesh`) the same layers of every family run
+over one tensor per mesh position (`embed_mesh`, `make_extras_mesh`,
 `apply_layers_mesh`, `lm_head_mesh`): the residual sharded over 'model'
 along the sequence at every layer boundary, each norm's output gathered
-to full S (`models.tp`), attention's heads, the MLP's ff columns and the
-moe's experts split over 'model'.
+to full S (`models.tp`), and split over 'model' where they divide:
+attention's and cross attention's q heads, the MLP's and the channel
+mix's ff columns, the moe's experts, Mamba2's and the RWKV6 time mix's
+heads. Whisper's encoder runs on the mesh too, its frames sharded along
+F (`run_encoder_mesh`).
 """
 from __future__ import annotations
 
@@ -300,18 +303,6 @@ def forward(params, cfg: ArchConfig, rt: Runtime, batch):
 # The training mesh (`tp.Layout`): lists of one tensor per mesh position.
 # ---------------------------------------------------------------------------
 
-MESH_FAMILIES = ("dense", "moe")
-
-
-def check_mesh_family(cfg: ArchConfig):
-    """Raise for a family that does not run on a training mesh yet."""
-    check_family(cfg)
-    if cfg.family not in MESH_FAMILIES:
-        raise ValueError(f"the {cfg.family} family does not run on a "
-                         f"training mesh yet (ROADMAP Queue 1 item 8a-ii; "
-                         f"the mesh runs {MESH_FAMILIES})")
-
-
 def embed_mesh(params, cfg: ArchConfig, lay, shards):
     """Each position's embedded tokens: its batch shard's rows (`shards`,
     one batch dict a shard), its chunk of the sequence."""
@@ -319,43 +310,134 @@ def embed_mesh(params, cfg: ArchConfig, lay, shards):
         p, shards[lay.shard_of[p]]["tokens"])) for p in range(lay.mesh.size)]
 
 
-def _block_fwd_mesh(params, i: int, cfg: ArchConfig, lay, xs):
-    """Layer i on the mesh over each position's residual xs: every norm's
-    output is gathered to full S (`tp.gather_seq`, after the norm, as
-    `src/repro/models/transformer.py:131-146`), attention and the MLP or
-    the experts return each position's chunk. Returns (xs, the moe's
+def _normed(cfg: ArchConfig, lay, xs, p):
+    """Every position's residual normed, then gathered to full S
+    (`tp.gather_seq`, after the norm, as
+    `src/repro/models/transformer.py:131-146`)."""
+    return tp.gather_seq(lay, [_norm(cfg, x, p) for x in xs])
+
+
+def _plus(xs, ys):
+    return [x + y for x, y in zip(xs, ys)]
+
+
+def _dense_mesh(pl, cfg: ArchConfig, lay, xs):
+    """Attention, then the MLP or the experts, on the mesh: (xs, the moe's
     balance loss or None)."""
-    pl = layer_params(params, i)
-
-    def normed(xs, p):
-        return tp.gather_seq(lay, [_norm(cfg, x, p) for x in xs])
-
-    ys = attention.full_attention_mesh(pl["attn"], cfg, lay,
-                                       normed(xs, pl["attn"]["norm"]))
-    xs = [x + y for x, y in zip(xs, ys)]
+    xs = _plus(xs, attention.full_attention_mesh(
+        pl["attn"], cfg, lay, _normed(cfg, lay, xs, pl["attn"]["norm"])))
     if cfg.family == "moe":
         ys, aux = moe.moe_mesh(pl["moe"], cfg, lay,
-                               normed(xs, pl["moe"]["norm"]))
+                               _normed(cfg, lay, xs, pl["moe"]["norm"]))
     else:
         ys, aux = mlp.mlp_mesh(pl["mlp"], cfg, lay,
-                               normed(xs, pl["mlp"]["norm"])), None
-    return [x + y for x, y in zip(xs, ys)], aux
+                               _normed(cfg, lay, xs, pl["mlp"]["norm"])), None
+    return _plus(xs, ys), aux
 
 
-def apply_layers_mesh(params, cfg: ArchConfig, lay, xs, lo: int, hi: int):
+def _block_fwd_mesh(params, block, cfg: ArchConfig, lay, xs, extras):
+    """`_block_fwd` on the mesh over each position's residual xs, extras
+    each position's (`make_extras_mesh`): every norm's output is
+    gathered to full S, each mixer returns each position's chunk.
+    Returns (xs, the moe's balance loss or None)."""
+    kind, i = block
+    if kind == "cross":
+        pl = layer_params(params, i, "cross_layers")
+        xs = _plus(xs, attention.cross_attention_mesh(
+            pl["attn"], cfg, lay, _normed(cfg, lay, xs, pl["attn"]["norm"]),
+            extras["patches"], gated=True))
+        return _plus(xs, mlp.mlp_mesh(
+            pl["mlp"], cfg, lay, _normed(cfg, lay, xs, pl["mlp"]["norm"]),
+            gated=True)), None
+    pl = layer_params(params, i)
+    if cfg.family == "hybrid":
+        xs = _plus(xs, ssm.mamba_mesh(pl, cfg, lay,
+                                      _normed(cfg, lay, xs, pl["norm"])))
+        if attn_sites(cfg)[i] >= 0:
+            xs, _ = _dense_mesh({"attn": params["shared_attn"],
+                                 "mlp": params["shared_mlp"]}, cfg, lay, xs)
+        return xs, None
+    if cfg.family == "ssm":
+        pt, pc = pl["time"], pl["chan"]
+        xs = _plus(xs, rwkv.rwkv_time_mix_mesh(
+            pt, cfg, lay, _normed(cfg, lay, xs, pt["norm"])))
+        return _plus(xs, rwkv.rwkv_channel_mix_mesh(
+            pc, cfg, lay, _normed(cfg, lay, xs, pc["norm"]))), None
+    if cfg.family == "audio":
+        xs = _plus(xs, attention.full_attention_mesh(
+            pl["attn"], cfg, lay, _normed(cfg, lay, xs, pl["attn"]["norm"])))
+        xs = _plus(xs, attention.cross_attention_mesh(
+            pl["cross"], cfg, lay,
+            _normed(cfg, lay, xs, pl["cross"]["norm"]), extras["enc_out"]))
+        return _plus(xs, mlp.mlp_mesh(
+            pl["mlp"], cfg, lay, _normed(cfg, lay, xs,
+                                         pl["mlp"]["norm"]))), None
+    return _dense_mesh(pl, cfg, lay, xs)
+
+
+def apply_layers_mesh(params, cfg: ArchConfig, lay, xs, extras, lo: int,
+                      hi: int):
     """`apply_layers` on the mesh: xs and the result hold each position's
-    residual, (B_loc, S/model, d) under sequence parallelism. With
-    `rt.remat` each layer's program over every position is recomputed in
-    the backward up to its last saved tensor (checkpoint's early stop):
-    every forward collective of the layer runs again but its trailing
-    ones, the output reduce-scatter of a split MLP or the moe's combine
-    and balance-loss all-reduce, whose results no gradient needs."""
+    residual, (B_loc, S/model, d) under sequence parallelism; `extras`
+    is `make_extras_mesh`'s. With `rt.remat` each block's program over
+    every position is recomputed in the backward up to its last saved
+    tensor (checkpoint's early stop): every forward collective of the
+    block runs again but its trailing ones, whose results no gradient
+    needs: the output reduce-scatter of a split MLP (dense, vlm self,
+    whisper decoder, zamba2's shared block) or of Mamba2 in a layer
+    without a shared-attention site, and the moe's combine and
+    balance-loss all-reduce. A gated cross layer's MLP and RWKV6's
+    channel mix are not trailing: the gate's and the receptance's
+    products save the reduce-scattered chunk."""
+    check_family(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
-    for i in range(lo, hi):
-        xs, a = _remat(lay.rt, _block_fwd_mesh, params, i, cfg, lay, xs)
+    for block in blocks(cfg, lo, hi):
+        xs, a = _remat(lay.rt, _block_fwd_mesh, params, block, cfg, lay, xs,
+                       extras)
         if a is not None:
             aux = aux + a
     return xs, aux
+
+
+def _enc_layer_fwd_mesh(params, i: int, cfg: ArchConfig, enc, xs):
+    pl = layer_params(params, i, "enc_layers")
+    xs = _plus(xs, attention.full_attention_mesh(
+        pl["attn"], cfg, enc, _normed(cfg, enc, xs, pl["attn"]["norm"]),
+        causal=False, rope=False))
+    return _plus(xs, mlp.mlp_mesh(pl["mlp"], cfg, enc,
+                                  _normed(cfg, enc, xs, pl["mlp"]["norm"])))
+
+
+def run_encoder_mesh(params, cfg: ArchConfig, lay, shards):
+    """`run_encoder` on the mesh: each position's batch shard's frames,
+    its chunk of F (a layout of F frames, `tp.Layout`), the sinusoidal
+    positions of that chunk added; each layer as in `_block_fwd_mesh`
+    with bidirectional attention without RoPE; `enc_norm` on each chunk,
+    then the output gathered to full F once a position, for the
+    decoder's cross attention. Returns each position's (B_loc, F, d)."""
+    frames = [s["frames"] for s in shards]
+    n_frames = frames[0].shape[1]
+    enc = tp.Layout(lay.rt, lay.b_loc * len(shards), n_frames)
+    pos = common.sinusoidal_positions(n_frames, cfg.d_model,
+                                      device=frames[0].device)
+    pos = pos[None].to(frames[0].dtype)
+    xs = [enc.local_seq(p, frames[lay.shard_of[p]] + pos)
+          for p in range(lay.mesh.size)]
+    for i in range(cfg.n_enc_layers):
+        xs = _remat(lay.rt, _enc_layer_fwd_mesh, params, i, cfg, enc, xs)
+    return _normed(cfg, enc, xs, params["enc_norm"])
+
+
+def make_extras_mesh(params, cfg: ArchConfig, lay, shards) -> dict:
+    """`make_extras` on the mesh: each position's batch shard's `patches`
+    (vlm) or encoder output (audio, `run_encoder_mesh`), one entry a
+    position."""
+    if cfg.family == "vlm":
+        return {"patches": [shards[lay.shard_of[p]]["patches"]
+                            for p in range(lay.mesh.size)]}
+    if cfg.family == "audio":
+        return {"enc_out": run_encoder_mesh(params, cfg, lay, shards)}
+    return {}
 
 
 def lm_head_mesh(params, cfg: ArchConfig, lay, xs):

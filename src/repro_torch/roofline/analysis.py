@@ -244,36 +244,58 @@ def training_collective_costs(cfg, batch: int, seq: int, mesh_axes, *,
                               act_bytes: int = 4, param_bytes: int = 4,
                               seq_shard: bool = True, dp_only: bool = False,
                               remat: bool = True):
-    """Per-op raw collective bytes of one training step of the dense or
-    moe family on a mesh (`repro_torch.mesh` convention: each
-    collective's per-device output, once a collective; a backward's
-    collectives too) and their total under `RING_FACTOR`.
+    """Per-op raw collective bytes of one training step of any family on a
+    mesh (`repro_torch.mesh` convention: each collective's per-device
+    output, once a collective; a backward's collectives too) and their
+    total under `RING_FACTOR`.
 
     With M = 'model' (1 under `dp_only`), D = 'data', P = 'pod', a batch
     shard of b = batch / (positions / M) rows, a gathered activation
-    G = b * seq * d and a position's chunk G / M (activation bytes), and
-    the sequence sharded (M > 1, `seq_shard`, seq divisible by M):
+    G = b * s * d over a sequence of s (the tokens, or whisper's F
+    frames; activation bytes) and a position's chunk G / M, and that
+    sequence sharded (M > 1, `seq_shard`, s divisible by M):
 
-      * every layer: two norm gathers (all-gather G; backward
-        reduce-scatter G / M); attention's and the MLP's output
-        projection where heads or d_ff divide by M: the weight's local
-        rows all-gathered over 'data' when D > 1 (rows / M x d parameter
-        bytes; backward a reduce-scatter of rows / M x d / D) and the
-        partial product reduce-scattered (G / M; backward all-gather G);
-        the moe with M > 1: its E / M experts' three matrices all-gathered
+      * each norm gathers (all-gather G; backward reduce-scatter G / M);
+      * each output projection over n heads (or d_ff columns) with n
+        divisible by M: the weight's local rows all-gathered over 'data'
+        when D > 1 (rows / M x d parameter bytes; backward a
+        reduce-scatter of rows / M x d / D) and the partial product
+        reduce-scattered (G / M; backward all-gather G);
+      * with `remat` each block's forward collectives run again in the
+        backward's recompute, but for the trailing ones it stops before
+        (checkpoint's early stop, `transformer.apply_layers_mesh`);
+      * dense, the vlm's self layers, zamba2's shared block: two norm
+        gathers, attention's projection (recomputed) and the MLP's
+        (trailing);
+      * moe: with M > 1 its E / M experts' three matrices all-gathered
         over 'data' when D > 1 (E / M x d x d_ff each; backward d / D),
         the combine reduce-scattered (G / M; backward G), or all-reduced
         (G both ways) without sequence parallelism, and with more than
-        one batch shard the balance loss all-reduced (4 B both ways);
-        with `remat` the layer's forward collectives run again in the
-        backward's recompute, but for the trailing ones that it stops
-        before (checkpoint's early stop, `transformer.apply_layers_mesh`):
-        the dense MLP's output reduce-scatter, the moe's combine and its
-        balance-loss all-reduce;
+        one batch shard the balance loss all-reduced (4 B both ways),
+        the combine and the balance loss trailing;
+      * hybrid (zamba2): a norm gather and Mamba2's projection over its
+        heads (trailing in a layer without a shared-attention site), and
+        with the heads split the gated norm's sum of squares all-reduced
+        (b x s x 4 B f32, both ways, recomputed); then the shared block
+        at each site (every `attn_every`-th layer);
+      * ssm (rwkv6): two norm gathers, the time mix's projection over
+        its d / 64 heads and the channel mix's over d_ff, both
+        recomputed (the receptance's product saves the channel mix's
+        reduce-scattered chunk);
+      * vlm: each group's `cross_attn_every` - 1 self layers, then the
+        cross layer's two norm gathers and its cross attention's and
+        gated MLP's projections, both recomputed (the gate's product
+        saves the chunk); the patches are each shard's own;
+      * audio (whisper): each decoder layer three norm gathers, self and
+        cross attention's projections (recomputed) and the MLP's
+        (trailing); the encoder's layers as dense layers over F, and its
+        normed output gathered to full F once (G over F; backward G / M
+        over F);
       * the cut: its gather (G; backward G / M) and, with a 'pod' axis
         and `transfer_over_pod`, the payload leaves' collective-permute
         (b * seq tokens of `split.protocol.pod_leaf_sizes`; backward
-        the gradient leaves');
+        the gradient leaves'), and whisper's encoder output with them
+        (G over F, both ways);
       * the lm head's final-norm gather (G; backward G / M)."""
     sizes = dict(mesh_axes)
     tp = "model" in sizes and not dp_only
@@ -281,49 +303,85 @@ def training_collective_costs(cfg, batch: int, seq: int, mesh_axes, *,
     n_data, n_pod = sizes.get("data", 1), sizes.get("pod", 1)
     shards = math.prod(sizes.values()) // m
     b, d, a, w = batch // shards, cfg.d_model, act_bytes, param_bytes
-    sq = m > 1 and seq_shard and seq % m == 0
-    full = b * seq * d * a
-    part = full // m
-    # a layer's forward collectives that the recompute runs again, those
-    # that close the layer (run once) and the backward's
-    fwd, tail, bwd = Counter(), Counter(), Counter()
-    if sq:
-        fwd["all-gather"] += 2 * full
-        bwd["reduce-scatter"] += 2 * part
-        outs = [(cfg.n_heads, cfg.n_heads * cfg.hd, fwd)]
-        if cfg.family != "moe":
-            outs.append((cfg.d_ff, cfg.d_ff, tail))
-        for n, rows, at in outs:
-            if n % m:
-                continue
-            if n_data > 1 and d % n_data == 0:
-                fwd["all-gather"] += rows // m * d * w
-                bwd["reduce-scatter"] += rows // m * (d // n_data) * w
-            at["reduce-scatter"] += part
-            bwd["all-gather"] += full
-    if cfg.family == "moe":
-        e = cfg.n_experts // m
-        if m > 1 and n_data > 1 and d % n_data == 0:
-            fwd["all-gather"] += 3 * e * d * cfg.d_ff * w
-            bwd["reduce-scatter"] += 3 * e * (d // n_data) * cfg.d_ff * w
-        if m > 1:
-            op, nb = ("reduce-scatter", part) if sq else ("all-reduce", full)
-            tail[op] += nb
-            bwd["all-gather" if sq else "all-reduce"] += full
-        if shards > 1:
-            tail["all-reduce"] += 4
-            bwd["all-reduce"] += 4
     per_op = Counter()
-    for counts, times in ((fwd, 2 if remat else 1), (tail, 1), (bwd, 1)):
-        for op, nb in counts.items():
-            per_op[op] += times * cfg.n_layers * nb
+
+    def run(ops, times=1):
+        """Add one block's collectives `times` over: (op, bytes, 'fwd' |
+        'tail' | 'bwd'), 'fwd' again in the recompute."""
+        for op, nb, at in ops:
+            per_op[op] += times * nb * (2 if remat and at == "fwd" else 1)
+
+    def sharded(s):
+        return m > 1 and seq_shard and s % m == 0
+
+    def gathers(s, n):
+        g = b * s * d * a
+        return ([("all-gather", g, "fwd"), ("reduce-scatter", g // m, "bwd")]
+                * n if sharded(s) else [])
+
+    def proj(s, n, rows, at):
+        if not sharded(s) or n % m:
+            return []
+        g, ops = b * s * d * a, []
+        if n_data > 1 and d % n_data == 0:
+            ops += [("all-gather", rows // m * d * w, "fwd"),
+                    ("reduce-scatter", rows // m * (d // n_data) * w, "bwd")]
+        return ops + [("reduce-scatter", g // m, at), ("all-gather", g, "bwd")]
+
+    def dense(s):
+        return (gathers(s, 2) + proj(s, cfg.n_heads, cfg.n_heads * cfg.hd,
+                                     "fwd")
+                + proj(s, cfg.d_ff, cfg.d_ff, "tail"))
+
+    L, S = cfg.n_layers, seq
+    if cfg.family == "moe":
+        e, g = cfg.n_experts // m, b * S * d * a
+        ops = gathers(S, 2) + proj(S, cfg.n_heads, cfg.n_heads * cfg.hd,
+                                   "fwd")
+        if m > 1 and n_data > 1 and d % n_data == 0:
+            ops += [("all-gather", 3 * e * d * cfg.d_ff * w, "fwd"),
+                    ("reduce-scatter", 3 * e * (d // n_data) * cfg.d_ff * w,
+                     "bwd")]
+        if m > 1:
+            ops += ([("reduce-scatter", g // m, "tail"),
+                     ("all-gather", g, "bwd")] if sharded(S)
+                    else [("all-reduce", g, "tail"), ("all-reduce", g, "bwd")])
+        if shards > 1:
+            ops += [("all-reduce", 4, "tail"), ("all-reduce", 4, "bwd")]
+        run(ops, L)
+    elif cfg.family == "hybrid":
+        sites = sum((i + 1) % cfg.attn_every == 0 for i in range(L))
+        norm = ([("all-reduce", b * S * 4, "fwd"), ("all-reduce", b * S * 4,
+                                                    "bwd")]
+                if sharded(S) and cfg.ssm_heads % m == 0 else [])
+        for at, n in (("tail", L - sites), ("fwd", sites)):
+            run(gathers(S, 1) + norm
+                + proj(S, cfg.ssm_heads, cfg.d_inner, at), n)
+        run(dense(S), sites)
+    elif cfg.family == "ssm":
+        run(gathers(S, 2) + proj(S, d // 64, d, "fwd")
+            + proj(S, cfg.d_ff, cfg.d_ff, "fwd"), L)
+    elif cfg.family == "vlm":
+        n_cross = L // cfg.cross_attn_every
+        run(dense(S), L - n_cross)
+        run(gathers(S, 2) + proj(S, cfg.n_heads, cfg.n_heads * cfg.hd, "fwd")
+            + proj(S, cfg.d_ff, cfg.d_ff, "fwd"), n_cross)
+    elif cfg.family == "audio":
+        attn = proj(S, cfg.n_heads, cfg.n_heads * cfg.hd, "fwd")
+        run(gathers(S, 3) + attn + attn
+            + proj(S, cfg.d_ff, cfg.d_ff, "tail"), L)
+        F = cfg.n_frames
+        run(dense(F), cfg.n_enc_layers)
+        run([(op, nb, "tail") for op, nb, _ in gathers(F, 1)])
+    else:
+        run(dense(S), L)
     heads = 1 if cfg.split is None or cfg.split.cut_layer <= 0 else 2
-    if sq:                    # the cut's gather and the lm head's
-        per_op["all-gather"] += heads * full
-        per_op["reduce-scatter"] += heads * part
+    run([(op, nb, "tail") for op, nb, _ in gathers(S, heads)])
     if heads == 2 and n_pod > 1 and cfg.split.transfer_over_pod:
         leaf, grad = protocol.pod_leaf_sizes(cfg)
-        per_op["collective-permute"] += b * seq * (leaf + grad * a)
+        per_op["collective-permute"] += b * S * (leaf + grad * a)
+        if cfg.family == "audio":
+            per_op["collective-permute"] += 2 * b * cfg.n_frames * d * a
     per_op = {op: float(nb) for op, nb in per_op.items() if nb}
     total = sum(RING_FACTOR.get(op, 1.0) * nb for op, nb in per_op.items())
     return per_op, total

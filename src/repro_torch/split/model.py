@@ -4,11 +4,14 @@ The bottom layers' activation goes through `split.protocol.cut_boundary`
 (encode to the wire leaves, decode on the far side, payload-typed
 backward) before the top layers, so what the top model sees is exactly what
 the compressed payload carries. On a training mesh (`Runtime.mesh`) the
-same forward runs over one tensor per mesh position (`models.tp.Layout`)
-and the cut is `protocol.cut_boundary_mesh`.
+same forward of every family runs over one tensor per mesh position
+(`models.tp.Layout`): the embedding, the vlm's patches or whisper's
+encoder (`transformer.make_extras_mesh`), the bottom layers, the cut
+(`protocol.cut_boundary_mesh`), the top layers and the lm head.
 """
 from __future__ import annotations
 
+from repro_torch import mesh as mesh_mod
 from repro_torch.models import tp, transformer
 from repro_torch.models.config import ArchConfig, Runtime
 from repro_torch.split import protocol
@@ -46,24 +49,43 @@ def _cut(cfg: ArchConfig) -> int:
 
 
 def _forward_mesh(params, cfg: ArchConfig, rt: Runtime, batch, generator):
-    transformer.check_mesh_family(cfg)
     lay = tp.Layout(rt, *batch["tokens"].shape)
     shards = lay.shard_batch(batch)
+    extras = transformer.make_extras_mesh(params, cfg, lay, shards)
     xs = transformer.embed_mesh(params, cfg, lay, shards)
     origin = list(range(len(shards)))
     if cfg.split is None or cfg.split.cut_layer <= 0:
-        xs, aux = transformer.apply_layers_mesh(params, cfg, lay, xs, 0,
-                                                cfg.n_layers)
+        xs, aux = transformer.apply_layers_mesh(params, cfg, lay, xs, extras,
+                                                0, cfg.n_layers)
     else:
         cut = _cut(cfg)
-        xs, aux1 = transformer.apply_layers_mesh(params, cfg, lay, xs, 0,
-                                                 cut)
+        xs, aux1 = transformer.apply_layers_mesh(params, cfg, lay, xs,
+                                                 extras, 0, cut)
         xs, pen, origin = protocol.cut_boundary_mesh(xs, cfg, lay,
                                                      generator)
-        xs, aux2 = transformer.apply_layers_mesh(params, cfg, lay, xs, cut,
-                                                 cfg.n_layers)
+        extras = _extras_of_rows(cfg, lay, extras, shards, origin)
+        xs, aux2 = transformer.apply_layers_mesh(params, cfg, lay, xs,
+                                                 extras, cut, cfg.n_layers)
         aux = aux1 + aux2 + pen
     logits = [None] * len(shards)
     for b, lg in enumerate(transformer.lm_head_mesh(params, cfg, lay, xs)):
         logits[origin[b]] = lg
     return logits, aux
+
+
+def _extras_of_rows(cfg: ArchConfig, lay, extras, shards, origin):
+    """The side inputs of the rows each position holds after the cut: the
+    pod ring moves shard origin[b]'s rows to shard b, so the vlm's top
+    layers read origin[b]'s patches (batch data, read where they are, as
+    the loss reads the labels) and whisper's encoder output crosses the
+    ring with its rows (a collective-permute along 'pod',
+    `protocol.pod_ring_perm`; the backward returns its gradient)."""
+    if origin == list(range(len(origin))) or not extras:
+        return extras
+    if cfg.family == "vlm":
+        return {"patches": [shards[origin[lay.shard_of[p]]]["patches"]
+                            for p in range(lay.mesh.size)]}
+    return {"enc_out": mesh_mod.permute(
+        lay.mesh, extras["enc_out"], "pod",
+        protocol.pod_ring_perm(lay.mesh.shape["pod"]),
+        registry=lay.registry)}
