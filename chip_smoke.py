@@ -17,6 +17,9 @@
     python3 chip_smoke.py --phase trainmesh   # kernel checks + yi-6b and
                                               # granite-moe trained on
                                               # device meshes
+    python3 chip_smoke.py --phase servestep   # kernel checks + the
+                                              # whole-batch serve step,
+                                              # mesh-less and on meshes
     python3 chip_smoke.py --phase probe       # build + `probe_kernels`
     python3 chip_smoke.py --phase ab --parent DIR   # probes, P C C P
     python3 chip_smoke.py --phase predict     # CPU: phase 11's reports
@@ -139,7 +142,8 @@ Phases, each fatal on failure:
      run's registry bytes agree with its byte accounting; and a traced
      clean run gives one `client.encode` and one `server.queue_wait`
      span a step, with their median host ms;
- 11. open-loop serving of yi-6b FULL (32 layers, cut at 16, bf16):
+ 11. open-loop serving of yi-6b at full width (depth cut from 32 to 16
+     layers, cut at 8, bf16; the reports do not depend on the depth):
      (a) 6 clients x (4 + 8) tokens, randtopk k 64, max_batch 4, at
      capacity 2 with the kernels and with the plain versions and at
      capacity 6: equal tokens, evictions and readmissions > 0 in both
@@ -251,13 +255,38 @@ Phases, each fatal on failure:
      only, and each
      mesh's first loss against mesh=None's; the first batch's loss in
      f32 (forward only, the weights upcast) through the identity codec
-     within 2e-4 of mesh=None's, and through randtopk (reported).
+     within 2e-4 of mesh=None's, and through randtopk (reported);
+ 17. the whole-batch serve step (`--phase servestep`,
+     `launch.steps.make_serve_step`): B 8 rows, 48 greedy tokens from an
+     empty cache over a 32-slot KV ring (it wraps), randtopk k 64 (TopK
+     at inference), bf16, random weights from a seed: yi-6b at full
+     width, depth cut to 8 layers (cut 4), at mesh=None with the kernels
+     and with the plain versions (tokens and first logits bit for bit,
+     the plain run launches nothing), at (1, 4) with flash decode (each
+     'model' position holds 8 of the ring's slots) and without (the
+     ring replicated), and at (2, 2, 2) (the pod ring at the cut); yi-6b
+     at all 32 layers at mesh=None (16 tokens); granite-moe-1b-a400m
+     FULL at mesh=None and (1, 4) (its 32 experts over 'model'; 24
+     tokens over a 16-slot ring); every position on the one card.
+     Fatal: the cut's TopK mask and sparse decode once a batch shard a
+     token and no other launch, counted collective bytes
+     = `analysis.decode_collective_costs` every token, tokens in the
+     vocabulary, each mesh's first-step logits against mesh=None's
+     within 16 bf16 ulps of its largest |logit| through the identity
+     codec in bf16 and within 2e-4 through randtopk with the weights
+     upcast to f32; printed: the bf16 randtopk first step's difference
+     (a mesh's bf16 sums in another order flip TopK elements at the cut)
+     and the share of tokens equal to mesh=None's, tokens/s (the median
+     of 3 runs of 16 tokens after the checked run), device ms a token
+     and the busy share of a device-only trace of 4, peak GiB and
+     launches a token.
 
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, for the serve's two kernels
 plus the loadgen phase's kernel runs, plus the families, recurrent,
 multimodal and mesh phases' serves, live checks and training, plus the
-train mesh phase's kernel steps, plus the fedtrain phase's chaos runs and
+train mesh phase's kernel steps and the serve step phase's kernel runs,
+plus the fedtrain phase's chaos runs and
 launch.train's resumed checkpoint run, or in its check's own loop for the
 five no path runs, its largest difference from its plain version,
 the CUDA-event times of kernel, plain version and library call at its
@@ -2679,6 +2708,10 @@ def fedtrain_phase(dev):
 # ---------------------------------------------------------------------------
 
 LG_CLIENTS, LG_PROMPT, LG_GEN = 6, 4, 8     # (a), (b): 6 x (4 + 8) tokens
+# yi-6b's depth in the phase, cut from 32 so that the whole run stays
+# within its time: a report is virtual time, a function of the seed, the
+# vocabulary and the wire bytes, not of the depth (`loadgen_prediction`)
+LG_LAYERS = 16
 LG_RATES = {"static": (12.0, 24.0),          # the reference's `_mini`
             # raised from (12, 24), where the ladder moved 6 times but
             # reached only (32, 8) at d 4096 (`--phase predict`), until a
@@ -2794,8 +2827,9 @@ def loadgen_prediction() -> None:
 
 
 def loadgen_phase(dev, card):
-    """Phase 11: open-loop serving of yi-6b FULL (32 layers, cut at 16,
-    bf16, random weights from a seed) on the card. (a) LRU eviction to
+    """Phase 11: open-loop serving of yi-6b at full width (`LG_LAYERS`
+    of its 32 layers, cut at half, bf16, random weights from a seed) on
+    the card. (a) LRU eviction to
     the host: 6 clients over 2 slots, with the kernels and with the plain
     versions, against 6 slots; (b) chaos: the same clients under seeded
     faults with ARQ; (c) the load generator, static and QoS, each with the
@@ -2816,7 +2850,7 @@ def loadgen_phase(dev, card):
                                      FaultPlan)
 
     t_phase = time.perf_counter()
-    cfg = configs.get("yi-6b")
+    cfg = configs.with_layers(configs.get("yi-6b"), LG_LAYERS)
     cut = cfg.n_layers // 2
     kern_cfg, plain_cfg = (cfg.with_(split=SplitConfig(
         cut_layer=cut, compressor="randtopk", k=K, backend=b))
@@ -2909,9 +2943,10 @@ def loadgen_phase(dev, card):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "serve_trace.json")
-        serve_cli.main(["--arch", "yi-6b", "--clients", "4", "--prompt-len",
-                        "4", "--gen", "8", "--split", "randtopk", "--k",
-                        str(K), "--trace", path])
+        serve_cli.main(["--arch", "yi-6b", "--layers", str(LG_LAYERS),
+                        "--clients", "4", "--prompt-len", "4", "--gen", "8",
+                        "--split", "randtopk", "--k", str(K), "--trace",
+                        path])
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     problems = check_span_nesting(events)
@@ -4171,17 +4206,308 @@ def _family_mesh_runs(arch, layers, smoke, meshes, dev, card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the whole-batch serve step
+# ---------------------------------------------------------------------------
+
+STEP_BATCH, STEP_MAX_LEN = 8, 32  # rows, ring slots
+STEP_TOKENS = 48              # from an empty cache: the 32-slot ring wraps
+# the checked run's tokens and ring for yi-6b at 32 layers (tokens/s at
+# the model's depth) and granite-moe (24 tokens wrap its 16-slot ring,
+# 4 slots a position at (1, 4)): the phase's time
+STEP_TOKENS_FULL = 16
+STEP_MOE_TOKENS, STEP_MOE_MAX_LEN = 24, 16
+STEP_TIMED, STEP_REPS = 16, 3  # tokens a timed run, runs (after the 48)
+STEP_TRACED = 4               # tokens of the device-only trace
+STEP_LAYERS = TRAIN_LAYERS    # yi-6b's depth, as the train mesh phase's
+# the cut at inference: the TopK mask, then the sparse payload's decode,
+# once a batch shard a token
+STEP_PATH = ("topk_mask_threshold", "decode_rows")
+STEP_MESHES = (("(1, 4) flash", (1, 4), True),
+               ("(1, 4) replicated", (1, 4), False),
+               ("(2, 2, 2) flash", (2, 2, 2), True))
+STEP_ULPS = 16                # the bf16 first-step gate, in bf16 ulps of
+                              # mesh=None's largest |logit|: bf16 sums in
+                              # another order through every layer (4 ulps
+                              # measured at yi-6b's 8 layers, 7.9 at
+                              # granite-moe's 24); the f32 gate below is
+                              # the exact one
+STEP_F32_ATOL = 2e-4          # the f32 first-step gate: the reference's
+                              # own mesh bound (tests/test_distributed.py)
+
+
+def _bf16_ulp(x: float) -> float:
+    import math
+
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def _step_cache(cfg, rt, batch, dev, max_len):
+    """An empty decode cache for `rt` (`init_cache`, or each position's
+    `init_cache_mesh` on a mesh)."""
+    from repro_torch.models import transformer
+    from repro_torch.split import model as split_model
+
+    if rt.mesh is None:
+        return transformer.init_cache(cfg, batch, max_len, device=dev)
+    return transformer.init_cache_mesh(
+        cfg, split_model.decode_layout(cfg, rt, batch), max_len)
+
+
+def _first_logits(cfg, params, dev, mesh, flash, prompts):
+    """The first step's logits (`split.model.decode_step` from an empty
+    cache), f32 on the host."""
+    from repro_torch.models.config import Runtime
+    from repro_torch.split import model as split_model
+
+    rt = Runtime(training=False, mesh=mesh, flash_decode=flash)
+    return split_model.decode_step(params, cfg, rt, prompts, _step_cache(
+        cfg, rt, prompts.shape[0], dev, STEP_MAX_LEN))[0].float().cpu()
+
+
+def _step_run(cfg, params, dev, label, mesh, flash, card, prompts,
+              tokens=STEP_TOKENS, max_len=STEP_MAX_LEN):
+    """`tokens` greedy tokens of `make_serve_step` from an empty cache
+    of `max_len` slots (launch counts zeroed just before): the codec's
+    kernels once a
+    batch shard a token and no other launch (none with the plain
+    versions), counted collective bytes = `decode_collective_costs`
+    (bf16) every token, tokens in the vocabulary; then tokens/s as the
+    median of `STEP_REPS` timed runs of `STEP_TIMED` tokens, device ms a
+    token and the busy share from a device-only trace of `STEP_TRACED`,
+    peak GiB of the first run. Returns (tokens (B, tokens) on the
+    host, launch counts, tokens/s)."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import steps
+    from repro_torch.mesh import collective_bytes
+    from repro_torch.models.config import Runtime
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.roofline import analysis
+    from repro_torch.split import model as split_model
+
+    t_run = time.perf_counter()
+    B = prompts.shape[0]
+    reg = MetricsRegistry()
+    rt = Runtime(training=False, mesh=mesh, flash_decode=flash, registry=reg)
+    serve = steps.make_serve_step(cfg, rt)
+
+    def decode(n, cache):
+        t, out = prompts, []
+        for _ in range(n):
+            t, cache = serve(params, cache, t)
+            out.append(t)
+        return torch.cat(out, 1)
+
+    base = held_gib(dev)
+    cache = _step_cache(cfg, rt, B, dev, max_len)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    toks = decode(tokens, cache)
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+    peak = peak_gib(dev, base)
+    n_shards = 1 if mesh is None else len(
+        split_model.decode_layout(cfg, rt, B).groups)
+    plain = cfg.split.backend == "torch"
+    want = {n: n_shards * tokens if n in STEP_PATH and not plain
+            else 0 for n in counts}
+    if counts != want:
+        fail(f"serve step {label}: launches {counts}, {want} expected")
+    per_tok = {}
+    if mesh is not None:
+        got = {k: float(v) for k, v in
+               collective_bytes(reg.snapshot()).items()}
+        per_tok = analysis.decode_collective_costs(
+            cfg, B, max_len, mesh.shape, flash_decode=flash,
+            act_bytes=cfg.adtype().itemsize)[0]
+        if got != {k: v * tokens for k, v in per_tok.items()}:
+            fail(f"serve step {label}: {tokens} tokens counted collective "
+                 f"bytes {got}, {tokens} x {per_tok} expected "
+                 f"(decode_collective_costs)")
+    toks = toks.cpu()
+    if toks.shape != (B, tokens) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.padded_vocab:
+        fail(f"serve step {label}: tokens {tuple(toks.shape)} out of "
+             f"shape or range")
+    times = []
+    for _ in range(STEP_REPS):
+        cache = _step_cache(cfg, rt, B, dev, max_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(STEP_TIMED, cache)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    tps = B * STEP_TIMED / statistics.median(times)
+    cache = _step_cache(cfg, rt, B, dev, max_len)
+    tr = traced(lambda: decode(STEP_TRACED, cache), cpu=False)
+    dev_tok = "not measured" if tr[1] is None else \
+        f"{tr[1] / STEP_TRACED:.3f}"
+    print(f"  {label}{'' if mesh is None else ' ' + str(mesh.shape)}: "
+          f"{tps:.3f} tokens/s (median of {STEP_REPS} runs of "
+          f"{STEP_TIMED} tokens: {[round(t * 1e3, 2) for t in times]} "
+          f"ms); device ms a token {dev_tok}, {_busy_text(tr)}; peak "
+          f"{peak:.2f} GiB ({base:.2f} GiB held before); launches a token "
+          f"{ {n: counts[n] / tokens for n in STEP_PATH} } "
+          f"({n_shards} batch shard(s)); collective bytes a token "
+          f"{per_tok or 'none'}"
+          + (" = decode_collective_costs" if per_tok else "")
+          + f"; the run's wall {time.perf_counter() - t_run:.1f} s; {card}")
+    del cache, tr
+    return toks, counts, tps
+
+
+def _first_step_gates(cfg, params, dev, prompts):
+    """The first step's logits at mesh=None, for `_step_against_none`:
+    through the identity codec in bf16, and through randtopk in bf16 and
+    (the weights upcast) in f32. Returns (a function of (mesh, flash)
+    giving the same three, mesh=None's three)."""
+    from repro_torch.optim.adamw import tree_map
+
+    ident = cfg.with_(split=dataclasses.replace(cfg.split,
+                                                compressor="identity"))
+    f32 = cfg.with_(param_dtype="float32", dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+
+    def three(mesh, flash):
+        return {"identity bf16": _first_logits(ident, params, dev, mesh,
+                                               flash, prompts),
+                "randtopk bf16": _first_logits(cfg, params, dev, mesh,
+                                               flash, prompts),
+                "randtopk f32": _first_logits(f32, p32, dev, mesh, flash,
+                                              prompts)}
+
+    return three, three(None, True)
+
+
+def _step_against_none(label, toks, got, ref_toks, ref):
+    """Fatal: the first step's logits off mesh=None's by more than
+    `STEP_ULPS` bf16 ulps of mesh=None's largest |logit| through the
+    identity codec in bf16, or by more than `STEP_F32_ATOL` through
+    randtopk in f32. Reported: the bf16 randtopk first step and the
+    share of the run's tokens equal to mesh=None's. In bf16 the cut's
+    TopK (k 64 of 4096) flips elements near its boundary when a mesh
+    sums in another order (the same flips moved PR 24-25's bf16 mesh
+    losses), and a flipped token changes every later one of its row."""
+    diffs = {k: float((got[k] - ref[k]).abs().max()) for k in ref}
+    tol = STEP_ULPS * _bf16_ulp(float(ref["identity bf16"].abs().max()))
+    agree = float((toks == ref_toks).float().mean())
+    print(f"    {label} against mesh=None, first-step logits max |diff|: "
+          f"identity bf16 {diffs['identity bf16']:.4g} (gate {tol:.4g} = "
+          f"{STEP_ULPS} bf16 ulps of max |logit| "
+          f"{float(ref['identity bf16'].abs().max()):.4g}), randtopk f32 "
+          f"{diffs['randtopk f32']:.4g} (gate {STEP_F32_ATOL}), randtopk "
+          f"bf16 {diffs['randtopk bf16']:.4g} (reported); tokens equal "
+          f"{agree * 100:.2f}% of {toks.numel()}, rows equal throughout "
+          f"{int((toks == ref_toks).all(1).sum())} of {toks.shape[0]}")
+    if not (diffs["identity bf16"] <= tol
+            and diffs["randtopk f32"] <= STEP_F32_ATOL):
+        fail(f"serve step {label}: first-step logits off mesh=None's by "
+             f"{diffs}; gates identity bf16 {tol}, randtopk f32 "
+             f"{STEP_F32_ATOL}")
+
+
+def servestep_phase(dev, card):
+    """Phase 17: the whole-batch serve step (`launch.steps.
+    make_serve_step`) from an empty cache, `STEP_TOKENS` greedy tokens of
+    B `STEP_BATCH` rows over a `STEP_MAX_LEN`-slot ring, randtopk k 64
+    (TopK at inference), bf16, random weights from a seed: yi-6b at full
+    width, `STEP_LAYERS` of its 32 layers (cut at half), at mesh=None
+    with the kernels and with the plain versions (tokens and first
+    logits bit for bit, the plain run launches nothing), then at each of
+    `STEP_MESHES`, every position on the one card; yi-6b at all 32
+    layers at mesh=None (`STEP_TOKENS_FULL` tokens); and
+    granite-moe-1b-a400m FULL at mesh=None and (1, 4)
+    (`STEP_MOE_TOKENS` over a `STEP_MOE_MAX_LEN`-slot ring). Each mesh's
+    first step against mesh=None's
+    (`_step_against_none`) and counted collective bytes =
+    `decode_collective_costs`. Returns the kernel runs' launches."""
+    import collections
+
+    import torch
+    from repro_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    cfg = _train_cfg("randtopk", layers=STEP_LAYERS, cut=0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab, (STEP_BATCH, 1), generator=g,
+                            device=dev)
+    print(f"serve step phase: yi-6b at full width, {cfg.n_layers} layers "
+          f"(cut at {cfg.split.cut_layer}), B {STEP_BATCH}, a ring of "
+          f"{STEP_MAX_LEN} slots, {STEP_TOKENS} tokens from an empty "
+          f"cache, randtopk k={K} (TopK at inference), bf16; every mesh "
+          f"position on the one card; {card}")
+    params = transformer.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    ref_toks, counts, _ = _step_run(cfg, params, dev, "mesh=None, kernels",
+                                    None, True, card, prompts)
+    total.update(counts)
+    plain = cfg.with_(split=dataclasses.replace(cfg.split, backend="torch"))
+    p_toks, _, _ = _step_run(plain, params, dev, "mesh=None, plain "
+                             "versions", None, True, card, prompts)
+    first, ref = _first_step_gates(cfg, params, dev, prompts)
+    p_first = _first_logits(plain, params, dev, None, True, prompts)
+    if not (torch.equal(p_toks, ref_toks)
+            and torch.equal(p_first, ref["randtopk bf16"])):
+        fail("serve step mesh=None: the plain versions' tokens or first "
+             "logits differ from the kernels'")
+    print(f"    the plain versions' {STEP_TOKENS} tokens and first logits "
+          f"= the kernels', bit for bit")
+    for label, shape, flash in STEP_MESHES:
+        mesh = _train_mesh(shape, dev)
+        toks, counts, _ = _step_run(cfg, params, dev, label, mesh, flash,
+                                    card, prompts)
+        total.update(counts)
+        _step_against_none(label, toks, first(mesh, flash), ref_toks, ref)
+    del params, first, ref
+    held_gib(dev)
+    full = _train_cfg("randtopk", layers=None, cut=0)
+    params = transformer.init_model(
+        full, torch.Generator(device=dev).manual_seed(0), device=dev)
+    _, counts, _ = _step_run(full, params, dev,
+                             f"yi-6b {full.n_layers} layers, mesh=None",
+                             None, True, card, prompts,
+                             tokens=STEP_TOKENS_FULL)
+    total.update(counts)
+    del params
+    held_gib(dev)
+    mcfg = _train_cfg("randtopk", layers=None, cut=0, arch=FAM_TRAIN)
+    print(f"  {FAM_TRAIN} FULL: {mcfg.n_layers} layers (cut at "
+          f"{mcfg.split.cut_layer}), {mcfg.n_experts} experts")
+    params = transformer.init_model(
+        mcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    m_prompts = prompts % mcfg.vocab
+    moe_kw = dict(tokens=STEP_MOE_TOKENS, max_len=STEP_MOE_MAX_LEN)
+    ref_toks, counts, _ = _step_run(mcfg, params, dev,
+                                    f"{FAM_TRAIN} mesh=None", None, True,
+                                    card, m_prompts, **moe_kw)
+    total.update(counts)
+    first, ref = _first_step_gates(mcfg, params, dev, m_prompts)
+    label = f"{FAM_TRAIN} (1, 4) flash"
+    mesh = _train_mesh((1, 4), dev)
+    toks, counts, _ = _step_run(mcfg, params, dev, label, mesh, True, card,
+                                m_prompts, **moe_kw)
+    total.update(counts)
+    _step_against_none(label, toks, first(mesh, True), ref_toks, ref)
+    del params, first, ref
+    held_gib(dev)
+    print(f"serve step phase wall: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
                                         "fedtrain", "loadgen", "families",
                                         "recurrent", "multimodal", "mesh",
-                                        "trainmesh", "probe", "ab",
-                                        "predict"),
+                                        "trainmesh", "servestep", "probe",
+                                        "ab", "predict"),
                     default="all",
                     help="kernels: build + kernel checks + codec probes; "
                          "serve / train / fedtrain / loadgen / families / "
-                         "recurrent / multimodal / mesh / trainmesh: the "
+                         "recurrent / multimodal / mesh / trainmesh / "
+                         "servestep: the "
                          "checks, "
                          "probes and one path; probe: build + `probe_kernels` "
                          "alone; ab: `probe` in turns on a parent tree's "
@@ -4336,6 +4662,15 @@ def main(argv=None) -> int:
                                   "2); whisper at mesh=None, (2, 2) and "
                                   "(1, 4); vlm SMOKE at mesh=None and "
                                   "(2, 2, 2))")
+    if args.phase in ("all", "servestep"):
+        counts = servestep_phase(dev, card)
+        for n in launches:
+            if counts[n]:
+                add(n, counts[n], "the serve step phase's kernel runs "
+                                  "(yi-6b 8 layers at mesh=None, (1, 4) "
+                                  "flash and replicated, (2, 2, 2); yi-6b "
+                                  "32 layers; granite-moe at mesh=None "
+                                  "and (1, 4))")
 
     for r in records:
         r["launches"] = launches[r["name"]]

@@ -1,13 +1,17 @@
-"""Train and eval step builders shared by the trainer and `chip_smoke.py`.
+"""Train, serve and eval step builders shared by the trainer and
+`chip_smoke.py`.
 
-A step takes the parameters as a nested dict of tensors (the reference's
-tree), computes the loss and its gradients with autograd, and applies
-AdamW; it returns new parameter tensors and the moments updated in place
-(`optim.adamw`), so callers treat the old parameters and state as consumed.
+A train step takes the parameters as a nested dict of tensors (the
+reference's tree), computes the loss and its gradients with autograd, and
+applies AdamW; it returns new parameter tensors and the moments updated
+in place (`optim.adamw`), so callers treat the old parameters and state
+as consumed.
 On a training mesh (`Runtime.mesh`) the parameters stay whole, one tensor
 a leaf, and each position takes its shard as a slice: autograd's
 accumulation into the leaf is the data-parallel gradient sum, so AdamW
-and the global grad norm are the mesh-less ones.
+and the global grad norm are the mesh-less ones. The serve step
+(`make_serve_step`) is one greedy token of the whole batch with a KV
+cache, the reference's `make_serve_step`.
 """
 from __future__ import annotations
 
@@ -59,6 +63,29 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, *, lr=3e-4,
         return new_params, new_opt, metrics
 
     return step
+
+
+def make_serve_step(cfg: ArchConfig, rt: Runtime) -> Callable:
+    """(params, cache, token (B, 1)) -> (next token (B, 1) int64, cache):
+    one greedy token of every row with a cache (`split.model.decode_step`,
+    the cache written in place), the argmax of the last logits over the
+    padded vocab. On a mesh (`rt.mesh`, a cache of
+    `transformer.init_cache_mesh`) the argmax is the vocab-parallel one
+    and the tokens come back in the batch's row order
+    (`split.model.next_tokens`)."""
+
+    def serve_step(params, cache, token):
+        if rt.mesh is None:
+            logits, cache = split_model.decode_step(params, cfg, rt, token,
+                                                    cache)
+            return torch.argmax(logits[:, -1], dim=-1, keepdim=True), cache
+        lay, logits, origin = split_model.decode_mesh(params, cfg, rt,
+                                                      token, cache)
+        toks = split_model.next_tokens(cfg, lay, [lg[:, -1] for lg in logits],
+                                       origin)
+        return toks[:, None], cache
+
+    return serve_step
 
 
 def make_eval_step(cfg: ArchConfig, rt: Runtime) -> Callable:

@@ -29,7 +29,8 @@ of the reference's SPMD program), however many groups run it; a
 backward's collectives count the same way. A group of one position moves
 nothing and is not counted. `collective_bytes(snap)` reads the counter
 back from a registry snapshot; `roofline.analysis.
-serving_collective_costs` and `training_collective_costs` predict it.
+serving_collective_costs`, `training_collective_costs` and
+`decode_collective_costs` predict it.
 """
 from __future__ import annotations
 

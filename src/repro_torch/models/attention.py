@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import mesh as mesh_mod
 from repro_torch.models import common, tp
 from repro_torch.models.config import ArchConfig, Runtime
 
@@ -251,9 +252,7 @@ def _heads_out(p, cfg: ArchConfig, rt: Runtime, x, h0: int, hl: int, *,
     q = project_q(p, cfg, x, heads=(h0, hl))
     k, v = cross_kv(p, cfg, x if kv_tokens is None else kv_tokens,
                     heads=(a, b - a))
-    if hl % g:                # part of a group: each q head's k/v head
-        idx = torch.arange(h0, h0 + hl, device=x.device) // g - a
-        k, v = k[:, :, idx], v[:, :, idx]
+    k, v = _kv_heads(cfg, k, v, h0, hl, first=a)
     if kv_tokens is not None:
         mask = torch.ones((1, S, k.shape[1]), dtype=torch.bool,
                           device=x.device)
@@ -263,6 +262,19 @@ def _heads_out(p, cfg: ArchConfig, rt: Runtime, x, h0: int, hl: int, *,
         q = common.apply_rope(q, pos, cfg.rope_theta)
         k = common.apply_rope(k, pos, cfg.rope_theta)
     return _attend(cfg, rt, q, k, v, causal).reshape(B, S, hl * cfg.hd)
+
+
+def _kv_heads(cfg: ArchConfig, k, v, h0: int, hl: int, first: int = 0):
+    """The k and v heads that q heads [h0, h0 + hl) read, of k and v
+    (B, N, H, hd) whose head 0 is k/v head `first`: those heads' range,
+    or, where the q heads hold part of a group, one k/v head per q
+    head."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    a, b = h0 // g, (h0 + hl - 1) // g + 1
+    if hl % g:                # part of a group: each q head's k/v head
+        idx = torch.arange(h0, h0 + hl, device=k.device) // g - first
+        return k[:, :, idx], v[:, :, idx]
+    return k[:, :, a - first:b - first], v[:, :, a - first:b - first]
 
 
 def cross_attention(p, cfg: ArchConfig, x, kv_tokens=None, *, kv_cache=None,
@@ -285,6 +297,46 @@ def layer_kv(kv, layer: int):
     return {name: t[:, layer, 0] for name, t in kv.items()}
 
 
+def _store(kv, at, news, own=None):
+    """Write each row's new k and v (`news`, each (n, Hkv, hd)) at the
+    cache index `at`, quantized where the cache holds int8 codes (codes
+    and scales); with `own` ((n,) bool) a row outside it writes back what
+    `at` already holds."""
+    for name, new in zip(("k", "v"), news):
+        if "k_scale" in kv:
+            code, scale = quantize_kv(new)
+            leaves = ((name, code), (name + "_scale", scale))
+        else:
+            leaves = ((name, new),)
+        for leaf, val in leaves:
+            if own is not None:
+                keep = own.reshape((-1,) + (1,) * (val.dim() - 1))
+                val = torch.where(keep, val, kv[leaf][at])
+            kv[leaf][at] = val
+
+
+def _read(kv, dtype):
+    """k, v of a cache's views, dequantized from int8 codes to `dtype`."""
+    if "k_scale" in kv:
+        return (dequantize_kv(kv["k"], kv["k_scale"], dtype),
+                dequantize_kv(kv["v"], kv["v_scale"], dtype))
+    return kv["k"], kv["v"]
+
+
+def _valid(cfg: ArchConfig, pos, size: int, idx):
+    """(B, n) bool: which ring slots `idx` ((n,) of a ring of `size`) hold
+    a position the token at `pos` ((B,)) attends to: the absolute
+    position each slot holds after the token's write at `pos % size`,
+    at most `pos` and, with a sliding window, within it."""
+    idx = idx[None, :]
+    p_, s_ = pos[:, None], (pos % size)[:, None]
+    abs_pos = idx + torch.where(idx <= s_, p_ - s_, p_ - size - s_)
+    valid = (abs_pos >= 0) & (abs_pos <= p_)
+    if cfg.sliding_window:
+        valid &= abs_pos > p_ - cfg.sliding_window
+    return valid
+
+
 def decode_attention(p, cfg: ArchConfig, x_tok, kv, pos, rows=None):
     """x_tok: (B, 1, d); kv: one layer's cache views (`layer_kv`): k, v
     (B, size, Hkv, hd), and with an int8 cache k_scale, v_scale (B, size,
@@ -303,25 +355,122 @@ def decode_attention(p, cfg: ArchConfig, x_tok, kv, pos, rows=None):
     slot = pos % size
     if rows is None:
         rows = torch.arange(B, device=pos.device)
-    at = (rows, slot[rows])
-    if "k_scale" in kv:
-        for name, new in (("k", k_new), ("v", v_new)):
-            code, scale = quantize_kv(new[rows])
-            kv[name][at] = code[:, 0]
-            kv[name + "_scale"][at] = scale[:, 0]
-        k = dequantize_kv(kv["k"], kv["k_scale"], x_tok.dtype)
-        v = dequantize_kv(kv["v"], kv["v_scale"], x_tok.dtype)
-    else:
-        kv["k"][at] = k_new[rows, 0]
-        kv["v"][at] = v_new[rows, 0]
-        k, v = kv["k"], kv["v"]
-
-    # valid slots: the absolute position each ring slot holds
-    idx = torch.arange(size, device=pos.device)[None, :]
-    p_, s_ = pos[:, None], slot[:, None]
-    abs_pos = idx + torch.where(idx <= s_, p_ - s_, p_ - size - s_)
-    valid = (abs_pos >= 0) & (abs_pos <= p_)
-    if cfg.sliding_window:
-        valid &= abs_pos > p_ - cfg.sliding_window
+    _store(kv, (rows, slot[rows]), (k_new[rows, 0], v_new[rows, 0]))
+    k, v = _read(kv, x_tok.dtype)
+    valid = _valid(cfg, pos, size, torch.arange(size, device=pos.device))
     out = sdpa(q, k, v, valid[:, None, :], cfg)
     return out.reshape(B, 1, hq * hd) @ p["wo"].to(x_tok.dtype)
+
+
+def decode_ring(cfg: ArchConfig, lay, p: int, pos, size: int, slots: int):
+    """Position `p`'s view of its decode rings for one step, the same
+    for every layer: rows at `pos` ((B,)), rings of `size` slots of
+    which the position holds `slots` (all of them, or with flash decode
+    the 'model' rank's contiguous share). Holds `pos`, RoPE's tables at
+    `pos` (`common.rope_tables`), the write index `at` of each row's
+    slot `pos % size` among the position's slots, `own` (with flash
+    decode: whether the position holds that slot; else None) and
+    `valid` (B, slots), `decode_attention`'s validity rule on them."""
+    lo = lay.rank(p) * slots if slots < size else 0
+    slot = pos % size
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    own = None
+    if slots < size:
+        own = (slot >= lo) & (slot < lo + slots)
+        slot = (slot - lo).clamp(0, slots - 1)
+    return {"pos": pos, "at": (rows, slot), "own": own,
+            "rope": common.rope_tables(pos[:, None], cfg.hd, cfg.rope_theta,
+                                       device=pos.device),
+            "valid": _valid(cfg, pos, size,
+                            lo + torch.arange(slots, device=pos.device))}
+
+
+def decode_attention_mesh(p, cfg: ArchConfig, lay, xs, kvs, rings):
+    """`decode_attention` on a decode mesh (`tp.Layout(decode=True)`): xs
+    holds each position's normed (B_loc, 1, d) token, kvs each position's
+    views of one layer's cache (`transformer.init_cache_mesh`), rings
+    each position's `decode_ring`. Every row's new K and V go to its
+    ring slot. Returns per position (B_loc, 1, d), equal over each
+    'model' group.
+
+      * 'model' of 1: each position runs `decode_attention` on its rows.
+      * Flash decode (the position holds a share of the ring's slots,
+        `tp.Layout.ring_split`): position r of a 'model' group of m
+        holds slots [r * size / m, (r + 1) * size / m), and only the
+        position holding a row's slot writes it. Each position projects
+        q, k and v whole and attends with every head over its own slots
+        under `decode_attention`'s validity rule. The partials combine
+        by all-reduces over 'model' (`mesh.all_reduce`, f32): the max of
+        the logits, then the sum of exp(logit - max), then the weights
+        normalized by it and rounded to v's dtype (as `sdpa` rounds its
+        softmax), times v, summed. Three small all-reduces (B_loc x Hq x
+        (1 + 1 + hd) f32) carry what an all-gather of every position's
+        (max, sum, output) would carry m times over.
+      * Otherwise every position keeps the whole ring (the reference's
+        replication) and writes every row.
+
+    Either way wo's rows split by head over 'model' where 'model'
+    divides the heads (`lay.split`), as in training, and the partial
+    products close with `tp.sum_model`; without flash decode a position
+    also projects and attends only its q heads (k and v are projected
+    whole: its ring holds every head)."""
+    if lay.n_model == 1:
+        return [decode_attention(p, cfg, x, kv, r["pos"])
+                for x, kv, r in zip(xs, kvs, rings)]
+    hq, hd = cfg.n_heads, cfg.hd
+    split = lay.split(hq)
+    hl = hq // lay.n_model if split else hq
+    flash = rings[0]["own"] is not None
+    outs = _flash_out(p, cfg, lay, xs, kvs, rings) if flash else []
+    hs = []
+    for i, x in enumerate(xs):
+        h0 = lay.rank(i) * hl if split else 0
+        if flash:
+            hs.append(outs[i][..., h0 * hd:(h0 + hl) * hd])
+            continue
+        hs.append(_replicated_out(p, cfg, x, kvs[i], rings[i], h0, hl))
+    return tp.out_proj_rs(lay, hs, p["wo"], split=split)
+
+
+def _flash_out(p, cfg: ArchConfig, lay, xs, kvs, rings):
+    """Flash decode's attention output (B_loc, 1, Hq * hd) of every head,
+    whole on each position (`decode_attention_mesh`)."""
+    mesh, reg = lay.mesh, lay.registry
+    B, hq, hd = xs[0].shape[0], cfg.n_heads, cfg.hd
+    g = hq // cfg.n_kv_heads
+    logits, vs = [], []
+    for x, kv, r in zip(xs, kvs, rings):
+        q, k_new, v_new = project_qkv(p, cfg, x, None)
+        q, k_new = (common.rotate(t, *r["rope"]) for t in (q, k_new))
+        _store(kv, r["at"], (k_new[:, 0], v_new[:, 0]), r["own"])
+        k, v = _read(kv, x.dtype)
+        qg = q.reshape(B, 1, cfg.n_kv_heads, g, hd)
+        lg = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) \
+            / (hd ** 0.5)
+        logits.append(torch.where(r["valid"][:, None, None, None, :], lg,
+                                  torch.full_like(lg, -1e30)))
+        vs.append(v)
+    top = mesh_mod.all_reduce(mesh, [lg.amax(dim=-1, keepdim=True)
+                                     for lg in logits], "model", "max",
+                              registry=reg)
+    es = [torch.exp(lg - m) for lg, m in zip(logits, top)]
+    tot = mesh_mod.all_reduce(mesh, [e.sum(dim=-1, keepdim=True)
+                                     for e in es], "model", "sum",
+                              registry=reg)
+    parts = [torch.einsum("bhgqk,bkhd->bqhgd", (e / s).to(v.dtype).float(),
+                          v.float()) for e, s, v in zip(es, tot, vs)]
+    outs = mesh_mod.all_reduce(mesh, parts, "model", "sum", registry=reg)
+    return [o.reshape(B, 1, hq * hd).to(x.dtype) for o, x in zip(outs, xs)]
+
+
+def _replicated_out(p, cfg: ArchConfig, x, kv, ring, h0: int, hl: int):
+    """The attention output (B, 1, hl * hd) of q heads [h0, h0 + hl) over
+    a whole ring, the new token's k and v (every head) written first."""
+    B, hd = x.shape[0], cfg.hd
+    q = common.rotate(project_q(p, cfg, x, heads=(h0, hl)), *ring["rope"])
+    k_new, v_new = cross_kv(p, cfg, x)
+    k_new = common.rotate(k_new, *ring["rope"])
+    _store(kv, ring["at"], (k_new[:, 0], v_new[:, 0]))
+    k, v = _kv_heads(cfg, *_read(kv, x.dtype), h0, hl)
+    return sdpa(q, k, v, ring["valid"][:, None, :], cfg).reshape(
+        B, 1, hl * hd)

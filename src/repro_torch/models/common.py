@@ -62,11 +62,19 @@ def rope_freqs(hd: int, theta: float, device=None):
 
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, device=x.device)          # (hd/2,)
+    return rotate(x, *rope_tables(positions, x.shape[-1], theta,
+                                  device=x.device))
+
+
+def rope_tables(positions, hd: int, theta: float, device=None):
+    """RoPE's (cos, sin), each (..., S, 1, hd/2), at `positions`."""
+    freqs = rope_freqs(hd, theta, device=device)            # (hd/2,)
     ang = positions[..., None].float() * freqs              # (..., S, hd/2)
-    cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, hd/2)
-    sin = torch.sin(ang)[..., None, :]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def rotate(x, cos, sin):
+    """x (..., S, H, hd) rotated by RoPE tables (`rope_tables`)."""
     x1, x2 = x.float().chunk(2, dim=-1)
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin

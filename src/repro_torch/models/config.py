@@ -10,10 +10,11 @@ of the recurrent families, the label owner's KV cache width, and the
 training mesh (`mesh`, `seq_shard`, `dp_only`, with the reference's
 defaults and its `axis_names`, `batch_axes` and `has_model_axis`) with
 `registry`, the run's registry its collectives count into (the port's
-own field). Serving takes its mesh as an argument, as the reference's
-does (`runtime.engine.run_streaming(mesh=)`), not from `Runtime`;
-`flash_decode`, a decode-cache sharding knob that only the reference's
-dry run reads on a mesh, waits for the port's dry run."""
+own field). The arena's serving takes its mesh as an argument, as the
+reference's does (`runtime.engine.run_streaming(mesh=)`), not from
+`Runtime`; the whole-batch serve step (`launch.steps.make_serve_step`)
+takes it from `Runtime.mesh`, where `flash_decode` shards its KV cache
+over 'model' along the ring's slots."""
 from __future__ import annotations
 
 import dataclasses
@@ -137,8 +138,14 @@ class Runtime:
     seq_shard: bool = True          # Megatron sequence parallelism: the
                                     # residual is sharded over 'model' along
                                     # the sequence at layer boundaries
+    flash_decode: bool = True       # shard decode KV caches over 'model'
+                                    # on the SEQUENCE dim (GQA head counts
+                                    # can't split a 16-way axis;
+                                    # replication costs 16x memory); read
+                                    # by the meshed serve step only
     dp_only: bool = False           # the 'model' axis joins the batch axes;
-                                    # no tensor parallelism
+                                    # no tensor parallelism (and no flash
+                                    # decode)
     registry: Any = None            # the run's MetricsRegistry: collective
                                     # bytes under a mesh
 

@@ -43,7 +43,8 @@ def mlp_mesh(p, cfg: ArchConfig, lay, xs, *, gated=False):
     d) input gathered to full S: with ff split over 'model'
     (`lay.split(d_ff)`) a position takes its ff/model columns of w_gate
     and w_up and `tp.out_proj_rs` reduce-scatters its partial w_down
-    product along the sequence (`src/repro/models/mlp.py:40-47`); else
+    product along the sequence (`src/repro/models/mlp.py:40-47`; on a
+    decode layout it sums them over 'model'); else
     every position computes the MLP whole and keeps its chunk. `gated`
     (the vlm's cross MLP) scales each position's chunk by the scalar
     tanh(p["gate"])."""

@@ -207,7 +207,12 @@ def moe_mesh(p, cfg: ArchConfig, lay, xs):
     else a psum; the balance loss is averaged over the batch axes. Without
     tensor parallelism (no 'model' axis, or `dp_only`) every position
     runs every expert on its shard. Returns (per position y, aux of
-    position 0: every position holds the same)."""
+    position 0: every position holds the same).
+
+    On a decode layout (`lay.decode`) each row is its own group of one
+    token, as `moe(per_row=True)` routes it, no expert weight is gathered
+    over 'data', the partial outputs are all-reduced over 'model', and
+    the balance loss is neither reduced nor returned (None)."""
     mesh, reg = lay.mesh, lay.registry
     E = cfg.n_experts
     if E % lay.n_model:
@@ -215,14 +220,16 @@ def moe_mesh(p, cfg: ArchConfig, lay, xs):
                          f"{lay.n_model}")
     e_loc = E // lay.n_model
     B, S, d = xs[0].shape
-    C = _capacity(B * S, cfg, lay.rt.moe_capacity)
+    G = B * S if lay.decode else 1
+    C = _capacity(B * S // G, cfg, lay.rt.moe_capacity)
     ws = []
     for i in range(mesh.size):
         lo = lay.rank(i) * e_loc
         ws.append([p[n][lo:lo + e_loc] for n in ("w_gate", "w_up",
                                                  "w_down")])
     n_data = mesh.shape.get("data", 1)
-    if lay.n_model > 1 and n_data > 1 and d % n_data == 0:
+    if (lay.n_model > 1 and n_data > 1 and d % n_data == 0
+            and not lay.decode):
         # the experts' 'data' shards (d of w_gate and w_up, d of w_down)
         c = d // n_data
         for j, axis in enumerate((1, 1, 2)):
@@ -234,7 +241,7 @@ def moe_mesh(p, cfg: ArchConfig, lay, xs):
                 w[j] = g
     ys, auxes = [], []
     for i, x in enumerate(xs):
-        y, aux = _experts(p, cfg, x.reshape(B * S, d), 1, C,
+        y, aux = _experts(p, cfg, x.reshape(B * S, d), G, C,
                           lay.rank(i) * e_loc, ws[i])
         ys.append(y.reshape(B, S, d))
         auxes.append(aux)
@@ -242,6 +249,8 @@ def moe_mesh(p, cfg: ArchConfig, lay, xs):
         ys = (mesh_mod.reduce_scatter(mesh, ys, "model", dim=1, registry=reg)
               if lay.seq else mesh_mod.all_reduce(mesh, ys, "model", "sum",
                                                   registry=reg))
+    if lay.decode:
+        return ys, None
     axes = lay.rt.batch_axes
     if axes and mesh.group_size(axes) > 1:
         auxes = mesh_mod.all_reduce(mesh, auxes, axes, "sum", registry=reg)

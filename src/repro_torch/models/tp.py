@@ -20,6 +20,17 @@ rule does not hold (the reference's `usable` fall-backs) every position
 computes the projection whole and keeps its own chunk of the sequence.
 A per-row statistic over a width split over 'model' (Mamba2's gated RMS
 norm over its heads' channels) is summed over the group by `sum_model`.
+
+Decode (`Layout(..., decode=True)`, the whole-batch serve step): one
+token a row has no sequence to shard, so the residual is whole on every
+'model' position of a batch shard, a projection over heads or ff columns
+that 'model' divides splits as in training, and its partial products
+close with `sum_model` instead of a reduce-scatter; no weight is
+gathered over 'data'. A batch that the batch axes do not divide stays
+whole on them (the reference's `_sanitize_spec`): every shard then
+holds every row. With `Runtime.flash_decode` each 'model' position of a
+shard holds a contiguous 1/model of every KV ring's slots
+(`Layout.ring_split`).
 The parameters stay whole, one tensor a leaf: a position's shard is a
 slice of it, so autograd's accumulation into the leaf is the
 data-parallel gradient sum, which moves no bytes between positions of
@@ -36,16 +47,19 @@ INT32_MAX = torch.iinfo(torch.int32).max
 
 
 class Layout:
-    """How one training step of (B, S) tokens lies on `rt.mesh`.
+    """How one training step of (B, S) tokens, or one decode step of B
+    rows, lies on `rt.mesh`.
 
     `groups[b]` are the positions of batch shard b (its 'model' group, or
     the one position under `dp_only` or without a 'model' axis), shards in
     the batch's row order; `reps[b]` is the shard's first position, where
     a computation that runs once a shard (the cut codec, the lm head and
     the loss) runs. Every position must lie on one device: the
-    parameters stay whole there."""
+    parameters stay whole there. `decode`: one token a row (see the
+    module docstring); `whole` then says whether every shard holds the
+    whole batch."""
 
-    def __init__(self, rt, batch: int, seq: int):
+    def __init__(self, rt, batch: int, seq: int, *, decode: bool = False):
         mesh = rt.mesh
         if len(set(mesh.devices)) != 1:
             raise ValueError("the training mesh keeps whole parameters on "
@@ -58,12 +72,15 @@ class Layout:
                        else [[p] for p in range(mesh.size)])
         self.reps = [g[0] for g in self.groups]
         self.shard_of = {p: b for b, g in enumerate(self.groups) for p in g}
-        if batch % len(self.groups):
+        self.decode = decode
+        self.whole = decode and batch % len(self.groups) != 0
+        if batch % len(self.groups) and not decode:
             raise ValueError(f"batch {batch} does not split over "
                              f"{len(self.groups)} batch shards of {mesh}")
-        self.b_loc = batch // len(self.groups)
-        self.seq = self.n_model > 1 and rt.seq_shard and seq % self.n_model \
-            == 0
+        self.b_loc = batch if self.whole else batch // len(self.groups)
+        self.seq = (not decode and self.n_model > 1 and rt.seq_shard
+                    and seq % self.n_model == 0)
+        self.flash = decode and rt.flash_decode and self.n_model > 1
         axes = rt.batch_axes or ()
         # the batch shards as a mesh over `batch_axes` (position b = shard
         # b, on its representative's device), for the pod ring
@@ -72,7 +89,10 @@ class Layout:
 
     def shard_batch(self, batch):
         """The batch dict split along its rows into one dict a batch
-        shard, shards in row order, each a view of its rows."""
+        shard, shards in row order, each a view of its rows (the whole
+        batch for every shard when `whole`)."""
+        if self.whole:
+            return [batch] * len(self.groups)
         b = self.b_loc
         return [{k: v[i * b:(i + 1) * b] for k, v in batch.items()}
                 for i in range(len(self.groups))]
@@ -83,10 +103,18 @@ class Layout:
         return self.mesh.coord(p, "model") if self.n_model > 1 else 0
 
     def split(self, n: int) -> bool:
-        """Whether a projection over `n` heads or ff columns splits over
-        'model' (the reference's `out_proj_rs` rule, with the sequence
-        sharded at the layer boundary)."""
-        return self.seq and n % self.n_model == 0
+        """Whether a projection over `n` heads or ff columns (or the
+        decode head's vocab) splits over 'model' (the reference's
+        `out_proj_rs` rule, with the sequence sharded at the layer
+        boundary; in decode wherever 'model' divides `n`)."""
+        return ((self.seq or self.decode and self.n_model > 1)
+                and n % self.n_model == 0)
+
+    def ring_split(self, size: int) -> bool:
+        """Whether a decode KV ring of `size` slots splits over 'model'
+        (flash decode, `size` divisible); else every position keeps the
+        whole ring, the reference's replication."""
+        return self.flash and size % self.n_model == 0
 
     def local_seq(self, p: int, y):
         """Position `p`'s chunk of the sequence (dim 1) of a whole
@@ -126,11 +154,15 @@ def out_proj_rs(lay: Layout, hs, w, *, split: bool,
     when `split`, else all of them; w: the whole (N, d) weight. Returns
     per position (B_loc, S/model, d): the partial products over the local
     shard reduce-scattered along the sequence (`out_proj_rs_local`), or,
-    without `split`, the whole product's chunk of the sequence."""
+    without `split`, the whole product's chunk of the sequence. In
+    decode the partial products are summed over 'model' (`sum_model`)."""
     if not split:
         return [lay.local_seq(p, h @ w.to(h.dtype)) for p, h in
                 enumerate(hs)]
     n = w.shape[0] // lay.n_model
+    if lay.decode:
+        return sum_model(lay, [h @ w[lay.rank(p) * n:(lay.rank(p) + 1) * n]
+                               .to(h.dtype) for p, h in enumerate(hs)])
     return out_proj_rs_local(
         lay, hs, [w[lay.rank(p) * n:(lay.rank(p) + 1) * n]
                   for p in range(len(hs))], w_spec=w_spec)

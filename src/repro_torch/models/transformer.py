@@ -35,6 +35,14 @@ attention's and cross attention's q heads, the MLP's and the channel
 mix's ff columns, the moe's experts, Mamba2's and the RWKV6 time mix's
 heads. Whisper's encoder runs on the mesh too, its frames sharded along
 F (`run_encoder_mesh`).
+
+`decode_step` is the whole batch's one-token step over `init_cache`.
+On a decode mesh (`tp.Layout(decode=True)`, the dense and moe families)
+every position holds its batch shard's rows whole and its cache
+(`init_cache_mesh`; with flash decode a 1/model share of each ring's
+slots), and `decode_layers_mesh` splits attention, the MLP and the
+experts over 'model', each closed by a sum (`lm_head_decode_mesh`: the
+vocab split over 'model').
 """
 from __future__ import annotations
 
@@ -593,3 +601,106 @@ def decode_layers(params, cfg: ArchConfig, x, cache: Dict[str, Any],
                 kv_cache=_site_kv(cache, layer))
         x = x + _ffn(pl, cfg, DECODE_RT, x, per_row=True)[0]
     return x
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ArchConfig, token, cache: Dict[str, Any]):
+    """The whole batch's one-token step without a cut: token (B, 1) ->
+    (logits (B, 1, V), cache): `embed`, `decode_layers(0, L)`, the final
+    norm and the lm head, then every row's position advances by one (the
+    reference's `decode_step`, whose rows share one scalar position;
+    here every row of `cache["pos"]` starts and stays at the same one).
+    The cache (`init_cache`) is written IN PLACE and returned, where the
+    reference returns a new one."""
+    check_family(cfg)
+    x = decode_layers(params, cfg, embed(params, cfg, token), cache, 0,
+                      cfg.n_layers)
+    cache["pos"] += 1
+    return lm_head(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# The decode mesh (`tp.Layout(decode=True)`): the dense and moe families.
+# ---------------------------------------------------------------------------
+
+DECODE_MESH_FAMILIES = ("dense", "moe")
+
+
+def check_decode_mesh(cfg: ArchConfig):
+    """Raise for a family the decode mesh does not run yet."""
+    check_family(cfg)
+    if cfg.family not in DECODE_MESH_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family on a decode mesh: ROADMAP Queue 1 "
+            f"item 8a-iii (the decode mesh runs {DECODE_MESH_FAMILIES})")
+
+
+def init_cache_mesh(cfg: ArchConfig, lay, max_len: int, bits: int = 16):
+    """Each position's decode cache on a decode layout `lay`
+    (`tp.Layout(decode=True)`), on its device: "pos" (B_loc,) and "kv",
+    every layer's ring for the shard's B_loc rows, as `init_cache` lays
+    it out, and "size", the ring's slots (an int). With flash decode
+    (`lay.ring_split(size)`) position r of a 'model' group of m holds
+    slots [r * size / m, (r + 1) * size / m); else every position holds
+    the whole ring. Layers [0, cut) hold the shard's own rows, layers
+    [cut, L) the rows the cut hands it (another pod's, on the pod ring:
+    `split.model.decode_step`)."""
+    check_decode_mesh(cfg)
+    size = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+    slots = size // lay.n_model if lay.ring_split(size) else size
+    out = []
+    for dev in lay.mesh.devices:
+        out.append({"pos": torch.zeros((lay.b_loc,), dtype=torch.int64,
+                                       device=dev),
+                    "kv": attention.init_kv_cache(cfg, lay.b_loc,
+                                                  cfg.n_layers, slots, dev,
+                                                  bits=bits),
+                    "size": size})
+    return out
+
+
+def decode_layers_mesh(params, cfg: ArchConfig, lay, xs, caches, lo: int,
+                       hi: int):
+    """`decode_layers` on a decode mesh: xs holds each position's (B_loc,
+    1, d) residual, whole (equal over each 'model' group), caches each
+    position's (`init_cache_mesh`). Attention is
+    `attention.decode_attention_mesh`, the MLP `mlp.mlp_mesh` and the
+    experts `moe.moe_mesh` (each row its own group), their partial
+    outputs summed over 'model'. With a 'model' of 1 every position
+    computes what `decode_layers` computes on its rows."""
+    check_decode_mesh(cfg)
+    rings = [attention.decode_ring(cfg, lay, p, c["pos"], c["size"],
+                                   c["kv"]["k"].shape[3])
+             for p, c in enumerate(caches)]
+    for layer in range(lo, hi):
+        pl = layer_params(params, layer)
+        xs = _plus(xs, attention.decode_attention_mesh(
+            pl["attn"], cfg, lay, [_norm(cfg, x, pl["attn"]["norm"])
+                                   for x in xs],
+            [attention.layer_kv(c["kv"], layer) for c in caches], rings))
+        if cfg.family == "moe":
+            ys, _ = moe.moe_mesh(pl["moe"], cfg, lay,
+                                 [_norm(cfg, x, pl["moe"]["norm"])
+                                  for x in xs])
+        else:
+            ys = mlp.mlp_mesh(pl["mlp"], cfg, lay,
+                              [_norm(cfg, x, pl["mlp"]["norm"]) for x in xs])
+        xs = _plus(xs, ys)
+    return xs
+
+
+def lm_head_decode_mesh(params, cfg: ArchConfig, lay, xs):
+    """The final norm and the lm head on every position of a decode mesh:
+    its 'model' shard of the padded vocab (columns [r * V / m, (r + 1) *
+    V / m) at 'model' index r) where 'model' divides it (`lay.split`),
+    else every column. Returns each position's (B_loc, 1, V or V / m)
+    logits."""
+    V = cfg.padded_vocab
+    c = V // lay.n_model if lay.split(V) else V
+    out = []
+    for p, x in enumerate(xs):
+        r = lay.rank(p) if lay.split(V) else 0
+        h = final_norm(params, cfg, x)
+        out.append(h @ params["unembed"][:, r * c:(r + 1) * c].to(h.dtype))
+    return out

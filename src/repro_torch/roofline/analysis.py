@@ -13,8 +13,10 @@ from a compiled program (`from_compiled`, with `roofline/hlo.py`); the
 port has no compiled program yet, so the dataclass is filled by hand.
 `serving_collective_costs` predicts the collective bytes that one
 sharded arena step counts (`repro_torch.mesh.collective_bytes`) exactly,
-and `training_collective_costs` those of one training step on a mesh
-(`launch.steps.make_train_step` with `Runtime.mesh`), the port's own.
+`training_collective_costs` those of one training step on a mesh
+(`launch.steps.make_train_step` with `Runtime.mesh`), and
+`decode_collective_costs` those of one whole-batch decode step on a mesh
+(`launch.steps.make_serve_step` with `Runtime.mesh`), the port's own.
 """
 from __future__ import annotations
 
@@ -382,6 +384,63 @@ def training_collective_costs(cfg, batch: int, seq: int, mesh_axes, *,
         per_op["collective-permute"] += b * S * (leaf + grad * a)
         if cfg.family == "audio":
             per_op["collective-permute"] += 2 * b * cfg.n_frames * d * a
+    per_op = {op: float(nb) for op, nb in per_op.items() if nb}
+    total = sum(RING_FACTOR.get(op, 1.0) * nb for op, nb in per_op.items())
+    return per_op, total
+
+
+def decode_collective_costs(cfg, batch: int, max_len: int, mesh_axes, *,
+                            flash_decode: bool = True, dp_only: bool = False,
+                            act_bytes: int = 4, argmax: bool = True):
+    """Per-op raw collective bytes of one whole-batch decode step on a
+    mesh (`split.model.decode_mesh`, the dense and moe families;
+    `repro_torch.mesh` convention: each collective's per-device output,
+    once a collective) and their total under `RING_FACTOR`.
+
+    With M = 'model' (1 under `dp_only`), P = 'pod', a batch shard of
+    b = batch / (positions / M) rows (b = batch where that does not
+    divide: the batch stays whole), a ring of size = min(max_len,
+    sliding_window) slots, flash decode where `flash_decode`, M > 1 and
+    M divides size; activation bytes a; every collective over 'model'
+    moves nothing when M is 1:
+
+      * each layer's attention: with flash decode three f32 all-reduces
+        of the partials, b x Hq x 4 (the max), b x Hq x 4 (the sum) and
+        b x Hq x hd x 4 (the output); and where M divides Hq the output
+        projection's partial products summed (all-reduce b x d x a);
+      * each layer's MLP, where M divides d_ff, or moe combine (its
+        experts over 'model'): an all-reduce of b x d x a;
+      * the cut, with a 'pod' axis and `transfer_over_pod`: the payload
+        leaves' collective-permute, b tokens of
+        `split.protocol.pod_leaf_sizes`;
+      * with `argmax` (`launch.steps.make_serve_step`; `decode_step`
+        returns the logits), where M divides the padded vocab, the
+        vocab-parallel argmax's f32 max and s32 min all-reduces (b x 4
+        each), and on the pod ring the tokens' way back, a
+        collective-permute of b x 4 (s32)."""
+    sizes = dict(mesh_axes)
+    m = sizes["model"] if "model" in sizes and not dp_only else 1
+    n_pod = sizes.get("pod", 1)
+    shards = math.prod(sizes.values()) // m
+    b = batch // shards if batch % shards == 0 else batch
+    d, a, hq, L = cfg.d_model, act_bytes, cfg.n_heads, cfg.n_layers
+    size = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+    per_op = Counter()
+    if m > 1:
+        if flash_decode and size % m == 0:
+            per_op["all-reduce"] += L * b * hq * (2 + cfg.hd) * 4
+        if hq % m == 0:
+            per_op["all-reduce"] += L * b * d * a
+        if cfg.family == "moe" or cfg.d_ff % m == 0:
+            per_op["all-reduce"] += L * b * d * a
+        if argmax and cfg.padded_vocab % m == 0:
+            per_op["all-reduce"] += 2 * b * 4
+    cut = cfg.split is not None and cfg.split.cut_layer > 0
+    if cut and n_pod > 1 and cfg.split.transfer_over_pod:
+        per_op["collective-permute"] += b * protocol.pod_leaf_sizes(cfg)[0]
+        if argmax:
+            per_op["collective-permute"] += b * 4
     per_op = {op: float(nb) for op, nb in per_op.items() if nb}
     total = sum(RING_FACTOR.get(op, 1.0) * nb for op, nb in per_op.items())
     return per_op, total

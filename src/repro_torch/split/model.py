@@ -8,8 +8,19 @@ same forward of every family runs over one tensor per mesh position
 (`models.tp.Layout`): the embedding, the vlm's patches or whisper's
 encoder (`transformer.make_extras_mesh`), the bottom layers, the cut
 (`protocol.cut_boundary_mesh`), the top layers and the lm head.
+
+`decode_step` is the whole batch's one-token step with a cache: bottom
+layers, the cut's payload at inference (RandTopK encodes as TopK), top
+layers, every generated token; on a decode mesh (`Runtime.mesh`, the
+dense and moe families) over one tensor per position
+(`tp.Layout(decode=True)`), where `next_tokens` takes the greedy tokens
+from the vocab-parallel head and brings them back to the batch's rows.
 """
 from __future__ import annotations
+
+import dataclasses
+
+import torch
 
 from repro_torch import mesh as mesh_mod
 from repro_torch.models import tp, transformer
@@ -89,3 +100,98 @@ def _extras_of_rows(cfg: ArchConfig, lay, extras, shards, origin):
         lay.mesh, extras["enc_out"], "pod",
         protocol.pod_ring_perm(lay.mesh.shape["pod"]),
         registry=lay.registry)}
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ArchConfig, rt: Runtime, token, cache):
+    """One token of every row through the split model: token (B, 1) ->
+    (logits (B, 1, V), cache). With no split, or a cut at 0, it is
+    `transformer.decode_step`; else `decode_layers` over [0, cut), the
+    cut's payload encoded and decoded with `rt.training` off (RandTopK
+    as the deterministic TopK, the reference's `rt_inf`), then [cut, L)
+    and the head. Every row sits at the same position; the cache
+    (`transformer.init_cache`, or `transformer.init_cache_mesh` on a
+    mesh) is written IN PLACE and returned, where the reference returns
+    a new one.
+
+    On a mesh (`rt.mesh`; dense and moe) the logits are each batch
+    shard's vocab shards put together in the batch's row order, the
+    caller's view of a vocab-sharded result (no collective);
+    `launch.steps.make_serve_step` takes its tokens from the shards."""
+    if rt.mesh is not None:
+        lay, logits, origin = decode_mesh(params, cfg, rt, token, cache)
+        split = lay.split(cfg.padded_vocab)
+        rows = [None] * len(lay.groups)
+        for b, group in enumerate(lay.groups):
+            rows[origin[b]] = torch.cat([logits[p] for p in (
+                group if split else group[:1])], dim=-1)
+        return (rows[0] if lay.whole else torch.cat(rows)), cache
+    if cfg.split is None or cfg.split.cut_layer <= 0:
+        return transformer.decode_step(params, cfg, token, cache)
+    cut = _cut(cfg)
+    x = transformer.embed(params, cfg, token)
+    x = transformer.decode_layers(params, cfg, x, cache, 0, cut)
+    x, _ = protocol.cut_boundary(x, cfg, dataclasses.replace(
+        rt, training=False), None)
+    x = transformer.decode_layers(params, cfg, x, cache, cut, cfg.n_layers)
+    cache["pos"] += 1
+    return transformer.lm_head(params, cfg, x), cache
+
+
+def decode_layout(cfg: ArchConfig, rt: Runtime, batch: int):
+    """The decode mesh's layout of `batch` rows on `rt.mesh`: the
+    training mesh's `tp.Layout` with one token a row, at inference."""
+    transformer.check_decode_mesh(cfg)
+    return tp.Layout(dataclasses.replace(rt, training=False, seq_shard=False),
+                     batch, 1, decode=True)
+
+
+@torch.no_grad()
+def decode_mesh(params, cfg: ArchConfig, rt: Runtime, token, caches):
+    """`decode_step` on a decode mesh: each position embeds its batch
+    shard's tokens (every row where the batch stays whole), runs the
+    bottom layers, the cut (`protocol.cut_boundary_mesh`: the TopK codec
+    once a batch shard, the payload over the pod ring with
+    `transfer_over_pod`), the top layers against the caches of the rows
+    it now holds, and its share of the head. Returns (the layout, each
+    position's logits (`transformer.lm_head_decode_mesh`), origin:
+    origin[b] is the batch shard whose rows shard b's logits are)."""
+    lay = decode_layout(cfg, rt, token.shape[0])
+    shards = lay.shard_batch({"tokens": token})
+    xs = [transformer.embed(params, cfg, shards[lay.shard_of[p]]["tokens"])
+          for p in range(lay.mesh.size)]
+    origin = list(range(len(shards)))
+    if cfg.split is None or cfg.split.cut_layer <= 0:
+        xs = transformer.decode_layers_mesh(params, cfg, lay, xs, caches, 0,
+                                            cfg.n_layers)
+    else:
+        cut = _cut(cfg)
+        xs = transformer.decode_layers_mesh(params, cfg, lay, xs, caches, 0,
+                                            cut)
+        xs, _, origin = protocol.cut_boundary_mesh(xs, cfg, lay, None)
+        xs = transformer.decode_layers_mesh(params, cfg, lay, xs, caches,
+                                            cut, cfg.n_layers)
+    for c in caches:
+        c["pos"] += 1
+    return lay, transformer.lm_head_decode_mesh(params, cfg, lay, xs), origin
+
+
+def next_tokens(cfg: ArchConfig, lay, logits, origin):
+    """The greedy next token of every row, (B,) int64 in the batch's row
+    order, from each position's last-token logits (B_loc, V or V / m):
+    the exact argmax over a vocab split over 'model'
+    (`tp.vocab_parallel_argmax`: an f32 max and an s32 min all-reduce),
+    then, where the pod ring moved the rows at the cut, each shard's
+    tokens back to the shard whose rows they are (a collective-permute
+    along 'pod', the ring's inverse), so no row takes another's token."""
+    if lay.split(cfg.padded_vocab):
+        toks = tp.vocab_parallel_argmax(lay.mesh, logits, "model",
+                                        registry=lay.registry)
+    else:
+        toks = [torch.argmax(lg, dim=-1).to(torch.int32) for lg in logits]
+    toks = [toks[r] for r in lay.reps]
+    if origin != list(range(len(origin))):
+        toks = mesh_mod.permute(
+            lay.shards, toks, "pod", protocol.pod_ring_perm(
+                lay.mesh.shape["pod"], inverse=True), registry=lay.registry)
+    return (toks[0] if lay.whole else torch.cat(toks)).long()
