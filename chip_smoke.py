@@ -20,6 +20,9 @@
     python3 chip_smoke.py --phase servestep   # kernel checks + the
                                               # whole-batch serve step,
                                               # mesh-less and on meshes
+    python3 chip_smoke.py --phase familystep  # kernel checks + the serve
+                                              # step of zamba2, rwkv6, the
+                                              # vlm and whisper on meshes
     python3 chip_smoke.py --phase probe       # build + `probe_kernels`
     python3 chip_smoke.py --phase ab --parent DIR   # probes, P C C P
     python3 chip_smoke.py --phase predict     # CPU: phase 11's reports
@@ -75,8 +78,9 @@ Phases, each fatal on failure:
      the serving
      client's whole codec per token (host clock around
      `client_encode_device` + `sections_to_bytes`) with its launches;
-  3. serve yi-6b at full width (d 4096, bf16, random weights from a seed)
-     through `runtime.engine.run_streaming` with `randtopk --k 64`, the cut
+  3. serve yi-6b at full width (d 4096, bf16, random weights from a seed),
+     depth cut from 32 to 16 layers (`--layers`), through
+     `runtime.engine.run_streaming` with `randtopk --k 64`, the cut
      at n_layers // 2: the launch counts (zeroed just before) must show
      every kernel ran, the fused encode once per client token (and once
      for the engine's warm-up step) and no top-k, encode_rows or
@@ -142,8 +146,8 @@ Phases, each fatal on failure:
      run's registry bytes agree with its byte accounting; and a traced
      clean run gives one `client.encode` and one `server.queue_wait`
      span a step, with their median host ms;
- 11. open-loop serving of yi-6b at full width (depth cut from 32 to 16
-     layers, cut at 8, bf16; the reports do not depend on the depth):
+ 11. open-loop serving of yi-6b at full width (depth cut from 32 to 8
+     layers, cut at 4, bf16; the reports do not depend on the depth):
      (a) 6 clients x (4 + 8) tokens, randtopk k 64, max_batch 4, at
      capacity 2 with the kernels and with the plain versions and at
      capacity 6: equal tokens, evictions and readmissions > 0 in both
@@ -178,10 +182,11 @@ Phases, each fatal on failure:
      kernels with their median ms and peak memory;
  13. the recurrent families and the int8 KV arena at full width
      (`--phase recurrent`), random bf16 weights from a seed, randtopk
-     k 64: serve zamba2-7b (depth cut from 81 to 24 Mamba2 layers, d
-     3584, a shared attention block after every 6th: cut 12, 2 sites
-     below it and 2 above) and
-     rwkv6-1.6b (24 layers, d 2048, cut 12) through `run_streaming` with
+     k 64: serve zamba2-7b (depth cut from 81 to 12 Mamba2 layers, d
+     3584, a shared attention block after every 6th: cut 6, 1 site
+     below it and 1 above) and
+     rwkv6-1.6b (depth cut from 24 to 12 layers, d 2048, cut 6) through
+     `run_streaming` with
      2 clients x (4 + 8) tokens, with the kernels and with the plain
      versions: equal tokens, 352 and 344 payload B a token, one fused
      encode per served token and one flush decode per flush group; a
@@ -192,7 +197,7 @@ Phases, each fatal on failure:
      plain tokens, and its token agreement with the 16-bit run (reported,
      not gated); then train zamba2-7b at full width with its depth cut
      from 81 to 12 layers (cut 6, one site on each side) and rwkv6-1.6b
-     FULL (cut 12), batch 4 x seq 256, randtopk k 64 alpha 0.1, AdamW:
+     (24 to 12, cut 6), batch 4 x seq 256, randtopk k 64 alpha 0.1, AdamW:
      two plain first steps equal each other and the kernels' first step
      bit for bit, 3 kernel steps with their median ms, the busy share of
      a traced fourth step, and peak memory;
@@ -266,8 +271,9 @@ Phases, each fatal on failure:
      'model' position holds 8 of the ring's slots) and without (the
      ring replicated), and at (2, 2, 2) (the pod ring at the cut); yi-6b
      at all 32 layers at mesh=None (16 tokens); granite-moe-1b-a400m
-     FULL at mesh=None and (1, 4) (its 32 experts over 'model'; 24
-     tokens over a 16-slot ring); every position on the one card.
+     at full width, depth cut from 24 to 12 layers (cut 6), at mesh=None
+     and (1, 4) (its 32 experts over 'model'; 24 tokens over a 16-slot
+     ring); every position on the one card.
      Fatal: the cut's TopK mask and sparse decode once a batch shard a
      token and no other launch, counted collective bytes
      = `analysis.decode_collective_costs` every token, tokens in the
@@ -279,14 +285,31 @@ Phases, each fatal on failure:
      and the share of tokens equal to mesh=None's, tokens/s (the median
      of 3 runs of 16 tokens after the checked run), device ms a token
      and the busy share of a device-only trace of 4, peak GiB and
-     launches a token.
+     launches a token;
+ 18. the serve step of the hybrid, ssm, vlm and audio families on the
+     decode mesh (`--phase familystep`): B 8, 24 greedy tokens over a
+     16-slot ring, randtopk k 64, bf16, each model at full width:
+     whisper-tiny FULL at mesh=None (kernels and plain versions, tokens
+     and first logits bit for bit), (1, 4) (its 6 heads whole, its 1500
+     frames' cross KV 375 a position) and (2, 2, 2) (its encoder output
+     crossing the pod ring to the top layers' cross KV); zamba2-7b (depth
+     cut from 81 to 12, cut 6: its 112 Mamba2 heads 28 a position),
+     rwkv6-1.6b (24 to 6, cut 3: 32 WKV heads, 8 a position) and
+     llama-3.2-vision-90b (100 to 10, cut 5, gates 0.5: its 1601 patches'
+     cross KV whole, its self KV ring split) at mesh=None and (1, 4),
+     flash decode on; the checks and prints of phase 17 (the cut's
+     kernels alone, counted bytes = the closed forms, the cache's too,
+     first steps against mesh=None's), and each model's f32
+     conditioning (its first step's logits under a 1e-7 relative weight
+     perturbation): where it amplifies more than a thousandfold (rwkv6)
+     the f32 gate is 10 times it and the bf16 identity step reported.
 
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, for the serve's two kernels
 plus the loadgen phase's kernel runs, plus the families, recurrent,
 multimodal and mesh phases' serves, live checks and training, plus the
-train mesh phase's kernel steps and the serve step phase's kernel runs,
-plus the fedtrain phase's chaos runs and
+train mesh phase's kernel steps and the serve step and family step
+phases' kernel runs, plus the fedtrain phase's chaos runs and
 launch.train's resumed checkpoint run, or in its check's own loop for the
 five no path runs, its largest difference from its plain version,
 the CUDA-event times of kernel, plain version and library call at its
@@ -2711,7 +2734,7 @@ LG_CLIENTS, LG_PROMPT, LG_GEN = 6, 4, 8     # (a), (b): 6 x (4 + 8) tokens
 # yi-6b's depth in the phase, cut from 32 so that the whole run stays
 # within its time: a report is virtual time, a function of the seed, the
 # vocabulary and the wire bytes, not of the depth (`loadgen_prediction`)
-LG_LAYERS = 16
+LG_LAYERS = 8
 LG_RATES = {"static": (12.0, 24.0),          # the reference's `_mini`
             # raised from (12, 24), where the ladder moved 6 times but
             # reached only (32, 8) at d 4096 (`--phase predict`), until a
@@ -3161,15 +3184,16 @@ def families_phase(dev, card):
 
 
 # the recurrent families: (arch, d, payload B a token at randtopk k 64,
-# serving depth (None: full)). zamba2's depth is cut from 81 to 24 at full
-# width (cut 12: shared-attention sites after layers 5 and 11 below the
-# cut, 17 and 23 above it) to keep the whole run inside its time
-REC_SERVES = (("zamba2-7b", D_ZAMBA, 352, 24),
-              ("rwkv6-1.6b", D_RWKV, 344, None))
+# serving depth (None: full)). zamba2's depth is cut from 81 to 12 at full
+# width (cut 6: a shared-attention site after layer 5 below the cut, one
+# after layer 11 above it) and rwkv6's from 24 to 12 (cut 6) to keep the
+# whole run inside its time
+REC_SERVES = (("zamba2-7b", D_ZAMBA, 352, 12),
+              ("rwkv6-1.6b", D_RWKV, 344, 12))
 # (arch, layers (None: full depth), cut): zamba2's 81 layers hold 13.5 GB
 # of bf16 weights, and with f32 AdamW moments leave no room for the
 # activations at batch 4 x seq 256, so its training depth is cut to 12
-REC_TRAIN = (("zamba2-7b", 12, 6), ("rwkv6-1.6b", None, 12))
+REC_TRAIN = (("zamba2-7b", 12, 6), ("rwkv6-1.6b", 12, 6))
 REC_INT8 = "yi-6b"
 
 
@@ -3313,16 +3337,16 @@ def _train_through_codec(dev, arch, layers, cut, card, smoke=False,
 def recurrent_phase(dev, card):
     """Phase 13: the recurrent families and the int8 KV arena at full
     width, random bf16 weights from a seed, randtopk k 64 at the cut. Serve
-    zamba2-7b (depth cut to 24 layers, d 3584, cut 12) and rwkv6-1.6b (24,
-    d 2048, cut 12) through `run_streaming`, 2 clients x (4 + 8) tokens,
+    zamba2-7b (depth cut to 12 layers, d 3584, cut 6) and rwkv6-1.6b (12,
+    d 2048, cut 6) through `run_streaming`, 2 clients x (4 + 8) tokens,
     with the kernels and with the plain versions (equal tokens, 352 and 344 payload
     B a token, one fused encode per served token and one flush decode per
     flush group), and a traced third run for the busy share; rwkv6 again
     at capacity 1 (evictions > 0, the clean run's tokens). Serve yi-6b
     with `kv_cache_bits=8` (the arena int8, the clients 16-bit), kernels
     and plain (equal tokens), and report its token agreement with the
-    16-bit run. Train zamba2 (depth cut to 12, cut 6) and rwkv6 (24, cut
-    12): first steps bit for bit against the plain versions, 3 steps.
+    16-bit run. Train zamba2 (depth cut to 12, cut 6) and rwkv6 (12, cut
+    6): first steps bit for bit against the plain versions, 3 steps.
     Returns the kernels' launches of the serves and the training runs."""
     import collections
 
@@ -4217,6 +4241,9 @@ STEP_TOKENS = 48              # from an empty cache: the 32-slot ring wraps
 # 4 slots a position at (1, 4)): the phase's time
 STEP_TOKENS_FULL = 16
 STEP_MOE_TOKENS, STEP_MOE_MAX_LEN = 24, 16
+# granite-moe's depth, cut from 24 to 12 (cut 6) to keep the whole run
+# within its time: its (1, 4) run is host-bound at ~21-26 tokens/s
+STEP_MOE_LAYERS = 12
 STEP_TIMED, STEP_REPS = 16, 3  # tokens a timed run, runs (after the 48)
 STEP_TRACED = 4               # tokens of the device-only trace
 STEP_LAYERS = TRAIN_LAYERS    # yi-6b's depth, as the train mesh phase's
@@ -4242,19 +4269,27 @@ def _bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
-def _step_cache(cfg, rt, batch, dev, max_len):
+def _step_cache(cfg, rt, batch, dev, max_len, params=None, side=None):
     """An empty decode cache for `rt` (`init_cache`, or each position's
-    `init_cache_mesh` on a mesh)."""
+    `split.model.init_decode_cache` on a mesh), the vlm's and whisper's
+    cross KV of the rows' `side` inputs (patches, frames) from
+    `params`."""
+    import torch
     from repro_torch.models import transformer
     from repro_torch.split import model as split_model
 
     if rt.mesh is None:
-        return transformer.init_cache(cfg, batch, max_len, device=dev)
-    return transformer.init_cache_mesh(
-        cfg, split_model.decode_layout(cfg, rt, batch), max_len)
+        with torch.no_grad():
+            extras = (transformer.make_extras(params, cfg, rt, side)
+                      if side else None)
+        return transformer.init_cache(cfg, batch, max_len, device=dev,
+                                      params=params, extras=extras)
+    return split_model.init_decode_cache(
+        params, cfg, split_model.decode_layout(cfg, rt, batch), max_len,
+        side=side)
 
 
-def _first_logits(cfg, params, dev, mesh, flash, prompts):
+def _first_logits(cfg, params, dev, mesh, flash, prompts, side=None):
     """The first step's logits (`split.model.decode_step` from an empty
     cache), f32 on the host."""
     from repro_torch.models.config import Runtime
@@ -4262,17 +4297,19 @@ def _first_logits(cfg, params, dev, mesh, flash, prompts):
 
     rt = Runtime(training=False, mesh=mesh, flash_decode=flash)
     return split_model.decode_step(params, cfg, rt, prompts, _step_cache(
-        cfg, rt, prompts.shape[0], dev, STEP_MAX_LEN))[0].float().cpu()
+        cfg, rt, prompts.shape[0], dev, STEP_MAX_LEN, params,
+        side))[0].float().cpu()
 
 
 def _step_run(cfg, params, dev, label, mesh, flash, card, prompts,
-              tokens=STEP_TOKENS, max_len=STEP_MAX_LEN):
+              tokens=STEP_TOKENS, max_len=STEP_MAX_LEN, side=None):
     """`tokens` greedy tokens of `make_serve_step` from an empty cache
-    of `max_len` slots (launch counts zeroed just before): the codec's
-    kernels once a
+    of `max_len` slots (of the rows' `side` inputs; launch counts zeroed
+    just before): the codec's kernels once a
     batch shard a token and no other launch (none with the plain
     versions), counted collective bytes = `decode_collective_costs`
-    (bf16) every token, tokens in the vocabulary; then tokens/s as the
+    (bf16) every token and the cache's = `decode_cache_collective_costs`,
+    tokens in the vocabulary; then tokens/s as the
     median of `STEP_REPS` timed runs of `STEP_TIMED` tokens, device ms a
     token and the busy share from a device-only trace of `STEP_TRACED`,
     peak GiB of the first run. Returns (tokens (B, tokens) on the
@@ -4288,9 +4325,13 @@ def _step_run(cfg, params, dev, label, mesh, flash, card, prompts,
 
     t_run = time.perf_counter()
     B = prompts.shape[0]
-    reg = MetricsRegistry()
+    reg, cache_reg = MetricsRegistry(), MetricsRegistry()
     rt = Runtime(training=False, mesh=mesh, flash_decode=flash, registry=reg)
+    cache_rt = dataclasses.replace(rt, registry=cache_reg)
     serve = steps.make_serve_step(cfg, rt)
+
+    def new_cache():
+        return _step_cache(cfg, cache_rt, B, dev, max_len, params, side)
 
     def decode(n, cache):
         t, out = prompts, []
@@ -4300,7 +4341,9 @@ def _step_run(cfg, params, dev, label, mesh, flash, card, prompts,
         return torch.cat(out, 1)
 
     base = held_gib(dev)
-    cache = _step_cache(cfg, rt, B, dev, max_len)
+    cache = new_cache()
+    built = {k: float(v) for k, v in
+             collective_bytes(cache_reg.snapshot()).items()}
     torch.cuda.synchronize()
     _lib.reset_launch_counts()
     toks = decode(tokens, cache)
@@ -4325,6 +4368,12 @@ def _step_run(cfg, params, dev, label, mesh, flash, card, prompts,
             fail(f"serve step {label}: {tokens} tokens counted collective "
                  f"bytes {got}, {tokens} x {per_tok} expected "
                  f"(decode_collective_costs)")
+        want = analysis.decode_cache_collective_costs(
+            cfg, B, mesh.shape, act_bytes=cfg.adtype().itemsize)[0]
+        if built != want:
+            fail(f"serve step {label}: the cache's counted collective "
+                 f"bytes {built}, {want} expected "
+                 f"(decode_cache_collective_costs)")
     toks = toks.cpu()
     if toks.shape != (B, tokens) or int(toks.min()) < 0 \
             or int(toks.max()) >= cfg.padded_vocab:
@@ -4332,14 +4381,14 @@ def _step_run(cfg, params, dev, label, mesh, flash, card, prompts,
              f"shape or range")
     times = []
     for _ in range(STEP_REPS):
-        cache = _step_cache(cfg, rt, B, dev, max_len)
+        cache = new_cache()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         decode(STEP_TIMED, cache)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     tps = B * STEP_TIMED / statistics.median(times)
-    cache = _step_cache(cfg, rt, B, dev, max_len)
+    cache = new_cache()
     tr = traced(lambda: decode(STEP_TRACED, cache), cpu=False)
     dev_tok = "not measured" if tr[1] is None else \
         f"{tr[1] / STEP_TRACED:.3f}"
@@ -4352,59 +4401,104 @@ def _step_run(cfg, params, dev, label, mesh, flash, card, prompts,
           f"({n_shards} batch shard(s)); collective bytes a token "
           f"{per_tok or 'none'}"
           + (" = decode_collective_costs" if per_tok else "")
+          + (f", the cache's {built} = decode_cache_collective_costs"
+             if built else "")
           + f"; the run's wall {time.perf_counter() - t_run:.1f} s; {card}")
     del cache, tr
     return toks, counts, tps
 
 
-def _first_step_gates(cfg, params, dev, prompts):
-    """The first step's logits at mesh=None, for `_step_against_none`:
-    through the identity codec in bf16, and through randtopk in bf16 and
-    (the weights upcast) in f32. Returns (a function of (mesh, flash)
-    giving the same three, mesh=None's three)."""
-    from repro_torch.optim.adamw import tree_map
+def _upcast_in_place(tree):
+    """Every leaf of the nested dict `tree` replaced by its f32 copy, one
+    at a time, so the old leaf is freed before the next is made."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _upcast_in_place(v)
+        else:
+            tree[k] = v.float()
+
+
+def _first_step_gates(cfg, params, dev, prompts, meshes, side=None):
+    """The first step's logits (`_first_logits`) at mesh=None and at each
+    (label, mesh, flash) of `meshes`, for `_step_against_none`: through
+    the identity codec and through randtopk in bf16, then, the weights
+    upcast, through randtopk in f32. The upcast is IN PLACE, leaf by
+    leaf (the vlm's 10 layers hold ~21 GB in bf16, ~43 GB in f32): the
+    caller's `params` are f32 afterwards. Returns {None or label: the
+    three}."""
+    import torch
 
     ident = cfg.with_(split=dataclasses.replace(cfg.split,
                                                 compressor="identity"))
     f32 = cfg.with_(param_dtype="float32", dtype="float32")
-    p32 = tree_map(lambda t: t.float(), params)
+    runs = [(None, None, True)] + list(meshes)
+    out = {label: {"identity bf16": _first_logits(
+        ident, params, dev, mesh, flash, prompts, side),
+                   "randtopk bf16": _first_logits(
+        cfg, params, dev, mesh, flash, prompts, side)}
+           for label, mesh, flash in runs}
+    _upcast_in_place(params)
+    torch.cuda.empty_cache()
+    side32 = side and {k: v.float() for k, v in side.items()}
+    for label, mesh, flash in runs:
+        out[label]["randtopk f32"] = _first_logits(f32, params, dev, mesh,
+                                                   flash, prompts, side32)
+    return out
 
-    def three(mesh, flash):
-        return {"identity bf16": _first_logits(ident, params, dev, mesh,
-                                               flash, prompts),
-                "randtopk bf16": _first_logits(cfg, params, dev, mesh,
-                                               flash, prompts),
-                "randtopk f32": _first_logits(f32, p32, dev, mesh, flash,
-                                              prompts)}
 
-    return three, three(None, True)
+def _f32_conditioning(cfg, params, dev, prompts, side=None):
+    """The first step's f32 conditioning at mesh=None through randtopk:
+    the largest change of its logits when every weight is scaled by 1 +
+    `COND_REL` N(0, 1) (a seeded draw), about what summing in another
+    order does to them. The weights (f32, `_first_step_gates`) are
+    perturbed IN PLACE: call it last."""
+    import torch
+
+    f32 = cfg.with_(param_dtype="float32", dtype="float32")
+    side32 = side and {k: v.float() for k, v in side.items()}
+    before = _first_logits(f32, params, dev, None, True, prompts, side32)
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def perturb(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                perturb(v)
+            else:
+                v.add_(v * torch.randn(v.shape, generator=g, device=dev),
+                       alpha=COND_REL)
+    perturb(params)
+    after = _first_logits(f32, params, dev, None, True, prompts, side32)
+    return float((after - before).abs().max())
 
 
-def _step_against_none(label, toks, got, ref_toks, ref):
+def _step_against_none(label, toks, got, ref_toks, ref,
+                       f32_atol=STEP_F32_ATOL, bf16_gated=True):
     """Fatal: the first step's logits off mesh=None's by more than
     `STEP_ULPS` bf16 ulps of mesh=None's largest |logit| through the
-    identity codec in bf16, or by more than `STEP_F32_ATOL` through
-    randtopk in f32. Reported: the bf16 randtopk first step and the
+    identity codec in bf16 (where `bf16_gated`), or by more than
+    `f32_atol` through randtopk in f32. Reported: the bf16 randtopk
+    first step (and the identity one where not gated) and the
     share of the run's tokens equal to mesh=None's. In bf16 the cut's
-    TopK (k 64 of 4096) flips elements near its boundary when a mesh
+    TopK (k 64 of d) flips elements near its boundary when a mesh
     sums in another order (the same flips moved PR 24-25's bf16 mesh
     losses), and a flipped token changes every later one of its row."""
     diffs = {k: float((got[k] - ref[k]).abs().max()) for k in ref}
     tol = STEP_ULPS * _bf16_ulp(float(ref["identity bf16"].abs().max()))
     agree = float((toks == ref_toks).float().mean())
     print(f"    {label} against mesh=None, first-step logits max |diff|: "
-          f"identity bf16 {diffs['identity bf16']:.4g} (gate {tol:.4g} = "
-          f"{STEP_ULPS} bf16 ulps of max |logit| "
+          f"identity bf16 {diffs['identity bf16']:.4g} ("
+          + ("gate" if bf16_gated else "reported; the gate would be")
+          + f" {tol:.4g} = {STEP_ULPS} bf16 ulps of max |logit| "
           f"{float(ref['identity bf16'].abs().max()):.4g}), randtopk f32 "
-          f"{diffs['randtopk f32']:.4g} (gate {STEP_F32_ATOL}), randtopk "
+          f"{diffs['randtopk f32']:.4g} (gate {f32_atol}), randtopk "
           f"bf16 {diffs['randtopk bf16']:.4g} (reported); tokens equal "
           f"{agree * 100:.2f}% of {toks.numel()}, rows equal throughout "
           f"{int((toks == ref_toks).all(1).sum())} of {toks.shape[0]}")
-    if not (diffs["identity bf16"] <= tol
-            and diffs["randtopk f32"] <= STEP_F32_ATOL):
+    if not ((diffs["identity bf16"] <= tol or not bf16_gated)
+            and diffs["randtopk f32"] <= f32_atol):
         fail(f"serve step {label}: first-step logits off mesh=None's by "
              f"{diffs}; gates identity bf16 {tol}, randtopk f32 "
-             f"{STEP_F32_ATOL}")
+             f"{f32_atol}")
 
 
 def servestep_phase(dev, card):
@@ -4417,8 +4511,9 @@ def servestep_phase(dev, card):
     logits bit for bit, the plain run launches nothing), then at each of
     `STEP_MESHES`, every position on the one card; yi-6b at all 32
     layers at mesh=None (`STEP_TOKENS_FULL` tokens); and
-    granite-moe-1b-a400m FULL at mesh=None and (1, 4)
-    (`STEP_MOE_TOKENS` over a `STEP_MOE_MAX_LEN`-slot ring). Each mesh's
+    granite-moe-1b-a400m (`STEP_MOE_LAYERS` of its 24 layers) at
+    mesh=None and (1, 4) (`STEP_MOE_TOKENS` over a
+    `STEP_MOE_MAX_LEN`-slot ring). Each mesh's
     first step against mesh=None's
     (`_step_against_none`) and counted collective bytes =
     `decode_collective_costs`. Returns the kernel runs' launches."""
@@ -4440,27 +4535,20 @@ def servestep_phase(dev, card):
           f"position on the one card; {card}")
     params = transformer.init_model(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    ref_toks, counts, _ = _step_run(cfg, params, dev, "mesh=None, kernels",
-                                    None, True, card, prompts)
+    ref_toks, counts = _kernels_are_plain(cfg, params, dev, card, prompts,
+                                          STEP_TOKENS, STEP_MAX_LEN)
     total.update(counts)
-    plain = cfg.with_(split=dataclasses.replace(cfg.split, backend="torch"))
-    p_toks, _, _ = _step_run(plain, params, dev, "mesh=None, plain "
-                             "versions", None, True, card, prompts)
-    first, ref = _first_step_gates(cfg, params, dev, prompts)
-    p_first = _first_logits(plain, params, dev, None, True, prompts)
-    if not (torch.equal(p_toks, ref_toks)
-            and torch.equal(p_first, ref["randtopk bf16"])):
-        fail("serve step mesh=None: the plain versions' tokens or first "
-             "logits differ from the kernels'")
-    print(f"    the plain versions' {STEP_TOKENS} tokens and first logits "
-          f"= the kernels', bit for bit")
-    for label, shape, flash in STEP_MESHES:
-        mesh = _train_mesh(shape, dev)
-        toks, counts, _ = _step_run(cfg, params, dev, label, mesh, flash,
-                                    card, prompts)
+    meshes = [(label, _train_mesh(shape, dev), flash)
+              for label, shape, flash in STEP_MESHES]
+    runs = {}
+    for label, mesh, flash in meshes:
+        runs[label], counts, _ = _step_run(cfg, params, dev, label, mesh,
+                                           flash, card, prompts)
         total.update(counts)
-        _step_against_none(label, toks, first(mesh, flash), ref_toks, ref)
-    del params, first, ref
+    gates = _first_step_gates(cfg, params, dev, prompts, meshes)
+    for label, toks in runs.items():
+        _step_against_none(label, toks, gates[label], ref_toks, gates[None])
+    del params, gates
     held_gib(dev)
     full = _train_cfg("randtopk", layers=None, cut=0)
     params = transformer.init_model(
@@ -4472,8 +4560,9 @@ def servestep_phase(dev, card):
     total.update(counts)
     del params
     held_gib(dev)
-    mcfg = _train_cfg("randtopk", layers=None, cut=0, arch=FAM_TRAIN)
-    print(f"  {FAM_TRAIN} FULL: {mcfg.n_layers} layers (cut at "
+    mcfg = _train_cfg("randtopk", layers=STEP_MOE_LAYERS, cut=0,
+                      arch=FAM_TRAIN)
+    print(f"  {FAM_TRAIN}: {mcfg.n_layers} layers (cut at "
           f"{mcfg.split.cut_layer}), {mcfg.n_experts} experts")
     params = transformer.init_model(
         mcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -4483,16 +4572,166 @@ def servestep_phase(dev, card):
                                     f"{FAM_TRAIN} mesh=None", None, True,
                                     card, m_prompts, **moe_kw)
     total.update(counts)
-    first, ref = _first_step_gates(mcfg, params, dev, m_prompts)
     label = f"{FAM_TRAIN} (1, 4) flash"
     mesh = _train_mesh((1, 4), dev)
     toks, counts, _ = _step_run(mcfg, params, dev, label, mesh, True, card,
                                 m_prompts, **moe_kw)
     total.update(counts)
-    _step_against_none(label, toks, first(mesh, True), ref_toks, ref)
-    del params, first, ref
+    gates = _first_step_gates(mcfg, params, dev, m_prompts,
+                              [(label, mesh, True)])
+    _step_against_none(label, toks, gates[label], ref_toks, gates[None])
+    del params, gates
     held_gib(dev)
     print(f"serve step phase wall: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def _kernels_are_plain(cfg, params, dev, card, prompts, tokens, max_len,
+                       side=None):
+    """`_step_run` at mesh=None with the kernels, then with the plain
+    versions: the same tokens and first-step logits, bit for bit, and no
+    launch in the plain run. Returns (the kernels' tokens, their launch
+    counts)."""
+    import torch
+
+    kw = dict(tokens=tokens, max_len=max_len, side=side)
+    ref_toks, counts, _ = _step_run(cfg, params, dev, f"{cfg.name} "
+                                    "mesh=None, kernels", None, True, card,
+                                    prompts, **kw)
+    plain = cfg.with_(split=dataclasses.replace(cfg.split, backend="torch"))
+    p_toks, _, _ = _step_run(plain, params, dev, f"{cfg.name} mesh=None, "
+                             "plain versions", None, True, card, prompts,
+                             **kw)
+    first = _first_logits(cfg, params, dev, None, True, prompts, side)
+    p_first = _first_logits(plain, params, dev, None, True, prompts, side)
+    if not (torch.equal(p_toks, ref_toks) and torch.equal(p_first, first)):
+        fail(f"serve step {cfg.name} mesh=None: the plain versions' tokens "
+             f"or first logits differ from the kernels'")
+    print(f"    the plain versions' {tokens} tokens and first logits = the "
+          f"kernels', bit for bit")
+    return ref_toks, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the hybrid, ssm, vlm and audio families on the decode mesh
+# ---------------------------------------------------------------------------
+
+# (arch, layers (None: full), the decode meshes, with flash decode): each
+# at full width, its depth cut as the recurrent and multimodal phases cut
+# it (zamba2 81 -> 12, one shared-attention site each side of cut 6;
+# rwkv6 24 -> 6, cut 3; the vlm 100 -> 10, one cross layer each side of
+# cut 5; whisper FULL, cut 2)
+FAMSTEP_RUNS = (
+    ("whisper-tiny", None, (("(1, 4) flash", (1, 4)),
+                            ("(2, 2, 2) flash", (2, 2, 2)))),
+    ("zamba2-7b", 12, (("(1, 4) flash", (1, 4)),)),
+    ("rwkv6-1.6b", 6, (("(1, 4) flash", (1, 4)),)),
+    ("llama-3.2-vision-90b", 10, (("(1, 4) flash", (1, 4)),)),
+)
+FAMSTEP_PLAIN = "whisper-tiny"     # the model whose plain versions run too
+FAMSTEP_TOKENS, FAMSTEP_MAX_LEN = 24, 16       # the 16-slot ring wraps
+# A model is ill-conditioned at its first step when a COND_REL relative
+# weight perturbation moves its f32 logits by more than COND_AMP times
+# COND_REL of their largest |logit| (`_f32_conditioning`). Its f32 gate is
+# then COND_FACTOR times that move, and its bf16 identity first step is
+# reported, not gated: bf16 rounding (2^-9 relative) amplified a
+# thousandfold moves the logits by their own size. rwkv6 at 6 layers
+# (full width, random weights) moves them 3.2e-3 of a largest |logit| of
+# 4.3 (an amplification of 7500; the per-head group norm of the first
+# token's rank-one WKV output, s v, divides by |s|), so a mesh's other
+# summation order moves them as far: 2.5e-3 at (1, 4) on the CPU through
+# the identity codec, 5.2e-3 on the card through randtopk. The vlm, zamba2
+# and whisper amplify 29x or less.
+COND_REL, COND_AMP, COND_FACTOR = 1e-7, 1000, 10
+
+
+def familystep_phase(dev, card):
+    """Phase 18: the whole-batch serve step (`make_serve_step`) of the
+    hybrid, ssm, vlm and audio families on the decode mesh, B
+    `STEP_BATCH`, `FAMSTEP_TOKENS` greedy tokens over a
+    `FAMSTEP_MAX_LEN`-slot ring from an empty cache, randtopk k 64 (TopK
+    at inference), bf16, random weights from a seed, each model of
+    `FAMSTEP_RUNS` at full width at mesh=None and its meshes, every
+    position on the one card; the vlm's gates at 0.5 and its caches of
+    the rows' patches (B x 1601 x 8192), whisper's of their frames' (B x
+    1500 x 384) encoder output. Each run through `_step_run` (the cut's
+    kernels once a batch shard a token and nothing else, counted bytes =
+    the closed forms, tokens in the vocabulary; tokens/s, device ms,
+    busy, peak), each mesh's first step against mesh=None's
+    (`_step_against_none`), and for `FAMSTEP_PLAIN` the plain versions
+    at mesh=None bit for bit. Returns the kernel runs' launches."""
+    import collections
+
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import tree_leaves
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    print(f"family step phase: B {STEP_BATCH}, a ring of {FAMSTEP_MAX_LEN} "
+          f"slots, {FAMSTEP_TOKENS} tokens from an empty cache, randtopk "
+          f"k={K} (TopK at inference), bf16; every mesh position on the "
+          f"one card; {card}")
+    kw = dict(tokens=FAMSTEP_TOKENS, max_len=FAMSTEP_MAX_LEN)
+    for arch, layers, shapes in FAMSTEP_RUNS:
+        t0 = time.perf_counter()
+        cfg = _train_cfg("randtopk", layers=layers, cut=0, arch=arch)
+        params = transformer.init_model(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        g = torch.Generator(device=dev).manual_seed(3)
+        prompts = torch.randint(0, cfg.vocab, (STEP_BATCH, 1), generator=g,
+                                device=dev)
+        side = None
+        if cfg.family in ("vlm", "audio"):
+            name = "patches" if cfg.family == "vlm" else "frames"
+            n = transformer.cross_tokens(cfg)
+            side = {name: (torch.randn((STEP_BATCH, n, cfg.d_model),
+                                       generator=g, device=dev)
+                           * 0.02).to(cfg.adtype())}
+        if cfg.family == "vlm":
+            _set_gates(params, 0.5)
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        print(f"  {arch} ({cfg.family}): {cfg.n_layers} layers (cut at "
+              f"{cfg.split.cut_layer}), d_model {cfg.d_model}, "
+              f"{n_params:,} params"
+              + (f", {name} {tuple(side[name].shape)}" if side else "")
+              + (", gates 0.5" if cfg.family == "vlm" else ""))
+        if arch == FAMSTEP_PLAIN:
+            ref_toks, counts = _kernels_are_plain(cfg, params, dev, card,
+                                                  prompts, side=side, **kw)
+        else:
+            ref_toks, counts, _ = _step_run(
+                cfg, params, dev, f"{arch} mesh=None", None, True, card,
+                prompts, side=side, **kw)
+        total.update(counts)
+        meshes = [(f"{arch} {label}", _train_mesh(shape, dev), True)
+                  for label, shape in shapes]
+        runs = {}
+        for label, mesh, flash in meshes:
+            runs[label], counts, _ = _step_run(
+                cfg, params, dev, label, mesh, flash, card, prompts,
+                side=side, **kw)
+            total.update(counts)
+        gates = _first_step_gates(cfg, params, dev, prompts, meshes, side)
+        cond = _f32_conditioning(cfg, params, dev, prompts, side)
+        amp = cond / (COND_REL * float(
+            gates[None]["randtopk f32"].abs().max()))
+        well = amp <= COND_AMP
+        f32_atol = STEP_F32_ATOL if well else COND_FACTOR * cond
+        print(f"    {arch}: the f32 first step's conditioning {cond:.4g} "
+              f"(max |logit change| at mesh=None under a {COND_REL} "
+              f"relative weight perturbation; amplification {amp:.4g}, "
+              f"ill-conditioned above {COND_AMP}): the f32 gate "
+              f"{f32_atol:.4g}" + ("" if well else
+                                  f" = {COND_FACTOR} x it, the bf16 "
+                                  f"identity first step reported"))
+        for label, toks in runs.items():
+            _step_against_none(label, toks, gates[label], ref_toks,
+                               gates[None], f32_atol, well)
+        del params, gates, side
+        held_gib(dev)
+        print(f"  {arch}: {time.perf_counter() - t0:.1f} s")
+    print(f"family step phase wall: {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -4501,21 +4740,24 @@ def main(argv=None) -> int:
     ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
                                         "fedtrain", "loadgen", "families",
                                         "recurrent", "multimodal", "mesh",
-                                        "trainmesh", "servestep", "probe",
-                                        "ab", "predict"),
+                                        "trainmesh", "servestep",
+                                        "familystep", "probe", "ab",
+                                        "predict"),
                     default="all",
                     help="kernels: build + kernel checks + codec probes; "
                          "serve / train / fedtrain / loadgen / families / "
                          "recurrent / multimodal / mesh / trainmesh / "
-                         "servestep: the "
+                         "servestep / familystep: the "
                          "checks, "
                          "probes and one path; probe: build + `probe_kernels` "
                          "alone; ab: `probe` in turns on a parent tree's "
                          "package and this one (--parent); predict: the "
                          "loadgen phase's reports computed on the CPU "
                          "(checks no card, exits 3)")
-    ap.add_argument("--layers", type=int, default=32,
-                    help="serving depth of yi-6b (width is never cut)")
+    ap.add_argument("--layers", type=int, default=16,
+                    help="serving depth of yi-6b, 16 of its 32 layers by "
+                         "default to keep the whole run within its time "
+                         "(width is never cut)")
     ap.add_argument("--src", help="import repro_torch from this directory "
                                   "(a parent tree's src/) for --phase probe")
     ap.add_argument("--parent", help="the parent tree's root for --phase ab")
@@ -4671,6 +4913,14 @@ def main(argv=None) -> int:
                                   "flash and replicated, (2, 2, 2); yi-6b "
                                   "32 layers; granite-moe at mesh=None "
                                   "and (1, 4))")
+    if args.phase in ("all", "familystep"):
+        counts = familystep_phase(dev, card)
+        for n in launches:
+            if counts[n]:
+                add(n, counts[n], "the family step phase's kernel runs "
+                                  "(whisper at mesh=None, (1, 4) and (2, "
+                                  "2, 2); zamba2, rwkv6 and the vlm at "
+                                  "mesh=None and (1, 4))")
 
     for r in records:
         r["launches"] = launches[r["name"]]

@@ -69,8 +69,8 @@ def make_serve_step(cfg: ArchConfig, rt: Runtime) -> Callable:
     """(params, cache, token (B, 1)) -> (next token (B, 1) int64, cache):
     one greedy token of every row with a cache (`split.model.decode_step`,
     the cache written in place), the argmax of the last logits over the
-    padded vocab. On a mesh (`rt.mesh`, a cache of
-    `transformer.init_cache_mesh`) the argmax is the vocab-parallel one
+    padded vocab. On a mesh (`rt.mesh`, every family, a cache of
+    `split.model.init_decode_cache`) the argmax is the vocab-parallel one
     and the tokens come back in the batch's row order
     (`split.model.next_tokens`)."""
 

@@ -15,6 +15,10 @@ decoder's over the encoder output) has no RoPE and sees every key: q
 comes from the residual, k and v from the tokens or from a `cross_kv`
 cache computed once per session. A gated block scales its output by
 `tanh(gate)`, a 0-d weight that starts at 0.
+
+On a decode mesh (`decode_attention_mesh`, `cross_decode_mesh`) flash
+decode splits a KV ring's slots, and a cross KV's tokens, over 'model'
+and combines the partial softmaxes by all-reduces (`_flash_combine`).
 """
 from __future__ import annotations
 
@@ -435,21 +439,39 @@ def decode_attention_mesh(p, cfg: ArchConfig, lay, xs, kvs, rings):
 def _flash_out(p, cfg: ArchConfig, lay, xs, kvs, rings):
     """Flash decode's attention output (B_loc, 1, Hq * hd) of every head,
     whole on each position (`decode_attention_mesh`)."""
-    mesh, reg = lay.mesh, lay.registry
-    B, hq, hd = xs[0].shape[0], cfg.n_heads, cfg.hd
-    g = hq // cfg.n_kv_heads
-    logits, vs = [], []
+    qs, ks, vs, valids = [], [], [], []
     for x, kv, r in zip(xs, kvs, rings):
         q, k_new, v_new = project_qkv(p, cfg, x, None)
         q, k_new = (common.rotate(t, *r["rope"]) for t in (q, k_new))
         _store(kv, r["at"], (k_new[:, 0], v_new[:, 0]), r["own"])
         k, v = _read(kv, x.dtype)
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+        valids.append(r["valid"])
+    return _flash_combine(cfg, lay, qs, ks, vs, valids)
+
+
+def _flash_combine(cfg: ArchConfig, lay, qs, ks, vs, valids=None):
+    """Every head of each position's q (B_loc, 1, Hq, hd) over its share
+    of the keys, k and v (B_loc, n, Hkv, hd), where `valids` ((B_loc, n)
+    bool a position) says which it sees (all without them), combined over
+    'model' into the whole attention output (B_loc, 1, Hq * hd) on every
+    position: the f32 max of the logits, the sum of exp(logit - max), and
+    the weights normalized by it and rounded to v's dtype (as `sdpa`
+    rounds its softmax) times v, each by an all-reduce."""
+    mesh, reg = lay.mesh, lay.registry
+    B, hq, hd = qs[0].shape[0], cfg.n_heads, cfg.hd
+    g = hq // cfg.n_kv_heads
+    logits = []
+    for i, (q, k) in enumerate(zip(qs, ks)):
         qg = q.reshape(B, 1, cfg.n_kv_heads, g, hd)
         lg = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) \
             / (hd ** 0.5)
-        logits.append(torch.where(r["valid"][:, None, None, None, :], lg,
-                                  torch.full_like(lg, -1e30)))
-        vs.append(v)
+        if valids is not None:
+            lg = torch.where(valids[i][:, None, None, None, :], lg,
+                             torch.full_like(lg, -1e30))
+        logits.append(lg)
     top = mesh_mod.all_reduce(mesh, [lg.amax(dim=-1, keepdim=True)
                                      for lg in logits], "model", "max",
                               registry=reg)
@@ -460,7 +482,7 @@ def _flash_out(p, cfg: ArchConfig, lay, xs, kvs, rings):
     parts = [torch.einsum("bhgqk,bkhd->bqhgd", (e / s).to(v.dtype).float(),
                           v.float()) for e, s, v in zip(es, tot, vs)]
     outs = mesh_mod.all_reduce(mesh, parts, "model", "sum", registry=reg)
-    return [o.reshape(B, 1, hq * hd).to(x.dtype) for o, x in zip(outs, xs)]
+    return [o.reshape(B, 1, hq * hd).to(q.dtype) for o, q in zip(outs, qs)]
 
 
 def _replicated_out(p, cfg: ArchConfig, x, kv, ring, h0: int, hl: int):
@@ -474,3 +496,44 @@ def _replicated_out(p, cfg: ArchConfig, x, kv, ring, h0: int, hl: int):
     k, v = _kv_heads(cfg, *_read(kv, x.dtype), h0, hl)
     return sdpa(q, k, v, ring["valid"][:, None, :], cfg).reshape(
         B, 1, hl * hd)
+
+
+def cross_decode_mesh(p, cfg: ArchConfig, lay, xs, kvs, split_n: bool, *,
+                      gated=False):
+    """`cross_attention` of one token over a cross KV cache on a decode
+    mesh (`tp.Layout(decode=True)`): xs holds each position's normed
+    (B_loc, 1, d) token, whole over its 'model' group, kvs each
+    position's (k, v) (B_loc, n, Hkv, hd) of the cache
+    (`transformer.init_cache_mesh`), which the step reads and never
+    writes. Returns per position (B_loc, 1, d), equal over each group.
+
+      * `split_n`, the N tokens split over 'model' (`tp.Layout.
+        ring_split(N)`, n = N / model): each position attends with every head over its share
+        of the tokens, every one visible, and the partials combine as
+        flash decode's (`_flash_combine`: three f32 all-reduces).
+      * Otherwise every position holds all N tokens and attends its q
+        heads over them, with the k and v heads those read
+        (`_kv_heads`).
+
+    Either way wo's rows split by head over 'model' where 'model'
+    divides the heads, closed with `tp.sum_model` (`tp.out_proj_rs`),
+    and `gated` (the vlm) scales the result by tanh(p["gate"])."""
+    hq, hd = cfg.n_heads, cfg.hd
+    split = lay.split(hq)
+    hl = hq // lay.n_model if split else hq
+    if split_n:
+        outs = _flash_combine(cfg, lay, [project_q(p, cfg, x) for x in xs],
+                              [k for k, _ in kvs], [v for _, v in kvs])
+    hs = []
+    for i, (x, (k, v)) in enumerate(zip(xs, kvs)):
+        h0 = lay.rank(i) * hl if split else 0
+        if split_n:
+            hs.append(outs[i][..., h0 * hd:(h0 + hl) * hd])
+            continue
+        q = project_q(p, cfg, x, heads=(h0, hl) if split else None)
+        k, v = _kv_heads(cfg, k, v, h0, hl)
+        mask = torch.ones((1, 1, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        hs.append(sdpa(q, k, v, mask, cfg).reshape(x.shape[0], 1, hl * hd))
+    ys = tp.out_proj_rs(lay, hs, p["wo"], split=split)
+    return [common.tanh_gate(p, y) for y in ys] if gated else ys

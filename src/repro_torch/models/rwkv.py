@@ -14,7 +14,10 @@ On a training mesh (`models.tp.Layout`) the time mix splits its heads
 over 'model' and reduce-scatters `w_out` (`rwkv_time_mix_mesh`, the
 reference's `src/repro/models/rwkv.py:199-201`), and the channel mix
 splits `w_k`'s columns by d_ff and reduce-scatters `w_v` (`:210-213`,
-`rwkv_channel_mix_mesh`).
+`rwkv_channel_mix_mesh`). On a decode mesh (`rwkv_decode_mesh`) a
+position keeps the state `S` of its heads only, as the reference's
+`cache_spec` lays it over 'model', and both mixes close with a sum over
+the group.
 """
 from __future__ import annotations
 
@@ -222,17 +225,20 @@ def rwkv_channel_mix(p, x, x_prev=None):
     return r * vv
 
 
-def rwkv_channel_mix_mesh(p, cfg: ArchConfig, lay, xs):
+def rwkv_channel_mix_mesh(p, cfg: ArchConfig, lay, xs, x_prevs=None):
     """`rwkv_channel_mix` on a mesh (`tp.Layout`), xs each position's
-    normed (B_loc, S, d) input gathered to full S: with d_ff split over
-    'model' (`lay.split(d_ff)`) a position takes its columns of `w_k`
-    and `tp.out_proj_rs` reduce-scatters its `w_v` rows' product; the
-    receptance runs on the position's chunk of the sequence only."""
+    normed (B_loc, S, d) input gathered to full S (x_prevs: each
+    position's token shift, as `rwkv_channel_mix`'s x_prev): with d_ff
+    split over 'model' (`lay.split(d_ff)`) a position takes its columns
+    of `w_k` and `tp.out_proj_rs` reduce-scatters (on a decode layout
+    sums) its `w_v` rows' product; the receptance runs on the position's
+    chunk of the sequence only."""
     split = lay.split(cfg.d_ff)
     n = cfg.d_ff // lay.n_model
     kks, rs = [], []
     for i, x in enumerate(xs):
-        xk, xr = _channel_inputs(p, x)
+        xk, xr = _channel_inputs(p, x, None if x_prevs is None
+                                 else x_prevs[i])
         c = slice(lay.rank(i) * n, (lay.rank(i) + 1) * n) if split \
             else slice(None)
         kks.append(torch.square(F.relu(xk @ p["w_k"][:, c].to(x.dtype))))
@@ -242,13 +248,15 @@ def rwkv_channel_mix_mesh(p, cfg: ArchConfig, lay, xs):
     return [r * vv for r, vv in zip(rs, vvs)]
 
 
-def init_rwkv_cache(cfg: ArchConfig, rows: int, n_layers: int, device=None):
-    """Decode state of `rows` sessions: S (rows, L, H, 64, 64) f32 and the
-    last normed time-mix and channel-mix inputs x_tm, x_cm (rows, L, d) in
-    the activation dtype."""
+def init_rwkv_cache(cfg: ArchConfig, rows: int, n_layers: int, device=None,
+                    heads: int = None):
+    """Decode state of `rows` sessions: S (rows, L, H, 64, 64) f32 (H =
+    `heads`, a decode mesh position's share, or d / 64) and the last
+    normed time-mix and channel-mix inputs x_tm, x_cm (rows, L, d) in the
+    activation dtype."""
     d = cfg.d_model
     return {
-        "S": torch.zeros((rows, n_layers, d // HD, HD, HD),
+        "S": torch.zeros((rows, n_layers, heads or d // HD, HD, HD),
                          dtype=torch.float32, device=device),
         "x_tm": torch.zeros((rows, n_layers, d), dtype=cfg.adtype(),
                             device=device),
@@ -272,3 +280,43 @@ def rwkv_decode(p_time, p_chan, x_tok, S, x_tm, x_cm):
     h2 = common.rms_norm(x1, p_chan["norm"]["scale"])
     x2 = x1 + rwkv_channel_mix(p_chan, h2, x_cm)
     return x2, S_new, h[:, -1], h2[:, -1]
+
+
+def rwkv_decode_mesh(p_time, p_chan, cfg: ArchConfig, lay, xs, Ss, x_tms,
+                     x_cms):
+    """`rwkv_decode` on a decode mesh (`tp.Layout(decode=True)`): xs holds
+    each position's (B_loc, 1, d) residual, whole over its 'model' group,
+    Ss, x_tms and x_cms its state of one layer. With the d / 64 heads
+    split over 'model' (`lay.split`) position r of a group of m steps
+    heads [r * H / m, (r + 1) * H / m): their columns of r, k, v, g and
+    of the decay's second LoRA matrix, their `u`, their WKV state S
+    (`init_rwkv_cache(heads=)`) and their `ln_x` channels (the group norm
+    is per head: no collective); `w_out`'s partial products are summed
+    (`tp.out_proj_rs`). The channel mix splits `w_k`'s columns by d_ff
+    where 'model' divides it, `w_v`'s partial products summed, and runs
+    the receptance whole. The norms and the token shifts x_tm and x_cm
+    are whole. With a 'model' of 1 every position runs `rwkv_decode`.
+    Returns (xs', S', x_tm', x_cm') a position."""
+    if lay.n_model == 1:
+        outs = [rwkv_decode(p_time, p_chan, *a)
+                for a in zip(xs, Ss, x_tms, x_cms)]
+        return tuple(list(t) for t in zip(*outs))
+    split = lay.split(cfg.d_model // HD)
+    hl = cfg.d_model // HD // lay.n_model if split else cfg.d_model // HD
+    hs, S_new, ys = [], [], []
+    for i, (x, S, x_tm) in enumerate(zip(xs, Ss, x_tms)):
+        h0 = lay.rank(i) * hl if split else 0
+        h = common.rms_norm(x, p_time["norm"]["scale"])
+        r, k, v, g, w = time_mix_inputs(p_time, h, x_tm, heads=(h0, hl))
+        S1, out = wkv_step(S, r[:, 0], k[:, 0], v[:, 0], w[:, 0],
+                           p_time["u"][h0:h0 + hl].float())
+        ys.append(_wkv_gated(p_time, out[:, None], g, x.dtype,
+                             slice(h0 * HD, (h0 + hl) * HD)))
+        hs.append(h)
+        S_new.append(S1)
+    x1s = [x + y for x, y in zip(xs, tp.out_proj_rs(lay, ys, p_time["w_out"],
+                                                    split=split))]
+    h2s = [common.rms_norm(x1, p_chan["norm"]["scale"]) for x1 in x1s]
+    ys = rwkv_channel_mix_mesh(p_chan, cfg, lay, h2s, x_cms)
+    return ([x1 + y for x1, y in zip(x1s, ys)], S_new,
+            [h[:, -1] for h in hs], [h2[:, -1] for h2 in h2s])

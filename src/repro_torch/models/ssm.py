@@ -22,7 +22,10 @@ over 'model' as the reference shards the inner width
 (`src/repro/models/ssm.py:113`): a position runs the SSD loop over its
 heads' channels, the gated RMS norm sums its squares over the group
 (`tp.sum_model`), and the output projection reduce-scatters
-(`tp.out_proj_rs`).
+(`tp.out_proj_rs`). On a decode mesh (`mamba_decode_mesh`) a position
+keeps the state `h` of its heads only, as the reference's `cache_spec`
+lays it over 'model', and steps them the same way, `w_out`'s partial
+products summed over the group.
 """
 from __future__ import annotations
 
@@ -189,53 +192,101 @@ def mamba_mesh(p, cfg: ArchConfig, lay, xs):
     hl = cfg.ssm_heads // lay.n_model
     heads = [(lay.rank(i) * hl, hl) for i in range(len(xs))]
     gs = [_gated(p, cfg, rt, x, h) for x, h in zip(xs, heads)]
+    return tp.out_proj_rs(lay, _split_norm(p, cfg, lay, gs, heads),
+                          p["w_out"], split=True)
+
+
+def _split_norm(p, cfg: ArchConfig, lay, gs, heads):
+    """The gated RMS norm of each position's heads' channels gs (B_loc,
+    S, hl * P): the mean square over the whole d_inner from the group's
+    f32 sum of squares (`tp.sum_model`, (B_loc, S, 1) a position), then
+    the heads' slice of `norm_g`."""
     ssq = tp.sum_model(lay, [torch.sum(torch.square(g.float()), dim=-1,
                                        keepdim=True) for g in gs])
-    hs = [(g.float() * torch.rsqrt(s / cfg.d_inner + 1e-6)
-           * scale[_channels(cfg, h)].float()).to(g.dtype)
-          for g, s, h in zip(gs, ssq, heads)]
-    return tp.out_proj_rs(lay, hs, p["w_out"], split=True)
+    return [(g.float() * torch.rsqrt(s / cfg.d_inner + 1e-6)
+             * p["norm_g"]["scale"][_channels(cfg, h)].float()).to(g.dtype)
+            for g, s, h in zip(gs, ssq, heads)]
 
 
 def init_mamba_cache(cfg: ArchConfig, rows: int, n_layers: int,
-                     device=None):
+                     device=None, heads: int = None):
     """Decode state of `rows` sessions: h (rows, L, H, P, N) f32 and the
     conv history (rows, L, K - 1, di + 2N) in the activation dtype (the
-    reference's per-session leaves without their batch axis of 1)."""
-    di, N, H, Pd, K = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
-                       cfg.ssm_head_dim, cfg.ssm_conv)
+    reference's per-session leaves without their batch axis of 1). With
+    `heads` = hl (a decode mesh position's share, `mamba_decode_mesh`)
+    h holds hl heads and the history the hl * P x channels those heads
+    convolve, then the per-token b and c columns, whole."""
+    N, Pd, K = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_conv
+    H = cfg.ssm_heads if heads is None else heads
     return {
         "h": torch.zeros((rows, n_layers, H, Pd, N), dtype=torch.float32,
                          device=device),
-        "conv": torch.zeros((rows, n_layers, K - 1, di + 2 * N),
+        "conv": torch.zeros((rows, n_layers, K - 1, H * Pd + 2 * N),
                             dtype=cfg.adtype(), device=device),
     }
 
 
-def mamba_decode(p, cfg: ArchConfig, x_tok, h, conv):
-    """One-step recurrence of x_tok (B, 1, d) (normed) against one layer's
-    state h (B, H, P, N) and conv (B, K - 1, di + 2N). Returns (y (B, 1, d),
-    h', conv'); the caller writes the new state."""
+def _decode_gated(p, cfg: ArchConfig, x_tok, h, conv, heads=None):
+    """The one-step recurrence of heads (h0, hl) (all without `heads`)
+    against their state h (B, hl, P, N) and conv history (B, K - 1,
+    hl * P + 2N). Returns (y * silu(z) (B, 1, hl * P) in x_tok's dtype,
+    the gated norm's input; h'; conv')."""
     B = x_tok.shape[0]
-    di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
-    xs, z, b, c, dt = project(p, cfg, x_tok)
-    u = torch.cat([xs, b, c], dim=-1)                      # (B, 1, di+2N)
+    N, Pd = cfg.ssm_state, cfg.ssm_head_dim
+    h0, H = heads or (0, cfg.ssm_heads)
+    c = _channels(cfg, (h0, H))
+    di = H * Pd
+    xs, z, b, cm, dt = project(p, cfg, x_tok, heads)
+    u = torch.cat([xs, b, cm], dim=-1)                     # (B, 1, di+2N)
     hist = torch.cat([conv, u], dim=1)                     # (B, K, di+2N)
-    w = torch.cat([p["conv_x"], p["conv_b"], p["conv_c"]], dim=-1)
+    w = torch.cat([p["conv_x"][:, c], p["conv_b"], p["conv_c"]], dim=-1)
     conv_out = F.silu(torch.einsum("bkc,kc->bc", hist.float(), w.float()))
     xs1, b1, c1 = conv_out[:, :di], conv_out[:, di:di + N], \
         conv_out[:, di + N:]
     new_conv = hist[:, 1:].to(conv.dtype)
 
-    A = -torch.exp(p["A_log"].float())
+    A = -torch.exp(p["A_log"][h0:h0 + H].float())
     dt1 = dt[:, 0]                                         # (B, H)
     a = torch.exp(dt1 * A)                                 # (B, H)
     xh = xs1.reshape(B, H, Pd)
     h_new = h * a[:, :, None, None] + (dt1[:, :, None] * xh)[..., None] \
         * b1[:, None, None, :]
     y = torch.einsum("bn,bhpn->bhp", c1, h_new)
-    y = y + p["D"].float()[None, :, None] * xh
+    y = y + p["D"][h0:h0 + H].float()[None, :, None] * xh
     y = y.reshape(B, 1, di).to(x_tok.dtype)
-    y = common.rms_norm(y * F.silu(z), p["norm_g"]["scale"])
+    return y * F.silu(z), h_new, new_conv
+
+
+def mamba_decode(p, cfg: ArchConfig, x_tok, h, conv):
+    """One-step recurrence of x_tok (B, 1, d) (normed) against one layer's
+    state h (B, H, P, N) and conv (B, K - 1, di + 2N). Returns (y (B, 1, d),
+    h', conv'); the caller writes the new state."""
+    g, h_new, new_conv = _decode_gated(p, cfg, x_tok, h, conv)
+    y = common.rms_norm(g, p["norm_g"]["scale"])
     return y @ p["w_out"].to(x_tok.dtype), h_new, new_conv
+
+
+def mamba_decode_mesh(p, cfg: ArchConfig, lay, xs, hs, convs):
+    """`mamba_decode` on a decode mesh (`tp.Layout(decode=True)`): xs
+    holds each position's normed (B_loc, 1, d) token, whole over its
+    'model' group, hs and convs its state of one layer. With the heads
+    split over 'model' (`lay.split(ssm_heads)`) position r of a group of
+    m steps heads [r * H / m, (r + 1) * H / m): their columns of `w_xz`
+    and `w_dt`, their x columns of the conv history (`init_mamba_cache(
+    heads=)`; `w_bc` and the b and c columns are per token and run
+    whole), `A_log`, `D`; the gated norm's sum of squares over d_inner is
+    the group's (`tp.sum_model` of (B_loc, 1, 1) f32) and `w_out`'s
+    partial products are summed (`tp.out_proj_rs`). Else every position
+    runs `mamba_decode` whole on whole state. Returns (each position's
+    y (B_loc, 1, d), h', conv')."""
+    if not lay.split(cfg.ssm_heads):
+        outs = [mamba_decode(p, cfg, x, h, c)
+                for x, h, c in zip(xs, hs, convs)]
+        return tuple(list(t) for t in zip(*outs))
+    hl = cfg.ssm_heads // lay.n_model
+    heads = [(lay.rank(i) * hl, hl) for i in range(len(xs))]
+    gs, h_new, c_new = zip(*[_decode_gated(p, cfg, x, h, c, hd) for
+                             x, h, c, hd in zip(xs, hs, convs, heads)])
+    ys = tp.out_proj_rs(lay, _split_norm(p, cfg, lay, gs, heads),
+                        p["w_out"], split=True)
+    return ys, list(h_new), list(c_new)

@@ -21,16 +21,17 @@ computes the projection whole and keeps its own chunk of the sequence.
 A per-row statistic over a width split over 'model' (Mamba2's gated RMS
 norm over its heads' channels) is summed over the group by `sum_model`.
 
-Decode (`Layout(..., decode=True)`, the whole-batch serve step): one
-token a row has no sequence to shard, so the residual is whole on every
-'model' position of a batch shard, a projection over heads or ff columns
-that 'model' divides splits as in training, and its partial products
-close with `sum_model` instead of a reduce-scatter; no weight is
-gathered over 'data'. A batch that the batch axes do not divide stays
-whole on them (the reference's `_sanitize_spec`): every shard then
-holds every row. With `Runtime.flash_decode` each 'model' position of a
-shard holds a contiguous 1/model of every KV ring's slots
-(`Layout.ring_split`).
+Decode (`Layout(..., decode=True)`, the whole-batch serve step of
+every family): one token a row has no sequence to shard, so the
+residual is whole on every 'model' position of a batch shard, a
+projection over heads, ff columns or Mamba2 and RWKV6 state heads that
+'model' divides splits as in training, and its partial products close
+with `sum_model` instead of a reduce-scatter; no weight is gathered over
+'data'. A batch that the batch axes do not divide stays whole on them
+(the reference's `_sanitize_spec`): every shard then holds every row.
+With `Runtime.flash_decode` each 'model' position of a shard holds a
+contiguous 1/model of every KV ring's slots and of every cross KV's N
+tokens, where 'model' divides them (`flash_split`, `Layout.ring_split`).
 The parameters stay whole, one tensor a leaf: a position's shard is a
 slice of it, so autograd's accumulation into the leaf is the
 data-parallel gradient sum, which moves no bytes between positions of
@@ -111,10 +112,10 @@ class Layout:
                 and n % self.n_model == 0)
 
     def ring_split(self, size: int) -> bool:
-        """Whether a decode KV ring of `size` slots splits over 'model'
-        (flash decode, `size` divisible); else every position keeps the
-        whole ring, the reference's replication."""
-        return self.flash and size % self.n_model == 0
+        """Whether a decode KV of `size` slots or tokens (a ring, or a
+        cross KV's N tokens) splits over 'model' (`flash_split`); else
+        every position keeps all of it, the reference's replication."""
+        return flash_split(self.flash, self.n_model, size)
 
     def local_seq(self, p: int, y):
         """Position `p`'s chunk of the sequence (dim 1) of a whole
@@ -124,6 +125,16 @@ class Layout:
             return y
         c = y.shape[1] // self.n_model
         return y[:, self.rank(p) * c:(self.rank(p) + 1) * c]
+
+
+def flash_split(flash: bool, n_model: int, size: int) -> bool:
+    """The flash-decode rule, one for the cache, the step and
+    `roofline.analysis.decode_collective_costs`: a decode KV of `size`
+    slots or tokens splits over a 'model' axis of `n_model` positions,
+    a contiguous 1/n_model a position, with flash decode on, more than
+    one position and `size` divisible (the reference's `_sanitize_spec`
+    keeps a dimension the axis does not divide whole)."""
+    return flash and n_model > 1 and size % n_model == 0
 
 
 def gather_seq_local(mesh, blocks, axis_name: str = "model",

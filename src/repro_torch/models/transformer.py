@@ -37,12 +37,13 @@ heads. Whisper's encoder runs on the mesh too, its frames sharded along
 F (`run_encoder_mesh`).
 
 `decode_step` is the whole batch's one-token step over `init_cache`.
-On a decode mesh (`tp.Layout(decode=True)`, the dense and moe families)
-every position holds its batch shard's rows whole and its cache
-(`init_cache_mesh`; with flash decode a 1/model share of each ring's
-slots), and `decode_layers_mesh` splits attention, the MLP and the
-experts over 'model', each closed by a sum (`lm_head_decode_mesh`: the
-vocab split over 'model').
+On a decode mesh (`tp.Layout(decode=True)`, every family) every position
+holds its batch shard's rows whole and its cache (`init_cache_mesh`:
+with flash decode a 1/model share of each ring's slots and of each cross
+KV's tokens; its heads' share of the Mamba2 and RWKV6 state), and
+`decode_layers_mesh` splits attention, cross attention, the MLP, the
+experts and the Mamba2 and RWKV6 heads over 'model', each closed by a
+sum (`lm_head_decode_mesh`: the vocab split over 'model').
 """
 from __future__ import annotations
 
@@ -464,26 +465,42 @@ def cross_entropy(logits, labels):
     return torch.mean(lse - gold)
 
 
+def cross_tokens(cfg: ArchConfig) -> int:
+    """N, the tokens a cross KV holds: the vlm's image patches, whisper's
+    encoder frames."""
+    return cfg.n_image_tokens if cfg.family == "vlm" else cfg.n_frames
+
+
+def _sites_below_cut(cfg: ArchConfig) -> int:
+    """How many cross sites lie below the split's cut (every site without
+    a cut): the vlm's site s closes group s, whisper's is layer s."""
+    cut = (cfg.split.cut_layer if cfg.split is not None
+           and cfg.split.cut_layer > 0 else cfg.n_layers)
+    return cut // cfg.cross_attn_every if cfg.family == "vlm" else cut
+
+
 @torch.no_grad()
-def _cross_kv_cache(params, cfg: ArchConfig, rows: int, extras, device):
-    """(rows, sites, 2, 1, N, Hkv, hd): each cross site's (k, v) of the
-    rows' image patches (vlm) or encoder output (audio), zeros when
-    `extras` holds none, as in the reference; the reference's per-session
-    (sites, 2, 1, N, Hkv, hd) leaf stacked over rows."""
+def _cross_kv_cache(params, cfg: ArchConfig, rows: int, extras, device,
+                    top=None, part=slice(None)):
+    """(rows, sites, 2, 1, n, Hkv, hd): each cross site's (k, v) of the
+    rows' image patches (vlm) or encoder output (audio), tokens `part` of
+    the N, zeros when `extras` holds none, as in the reference; the
+    reference's per-session (sites, 2, 1, N, Hkv, hd) leaf stacked over
+    rows. The sites above the cut (`_sites_below_cut`) read `top`'s
+    tokens where given (the rows a decode mesh's cut hands over)."""
     if params is None:
         raise ValueError(f"the {cfg.family} cache needs the weights "
                          f"(params=): its cross-attention KV comes from them")
-    if cfg.family == "vlm":
-        stack, sub, key, n = "cross_layers", "attn", "patches", \
-            cfg.n_image_tokens
-    else:
-        stack, sub, key, n = "layers", "cross", "enc_out", cfg.n_frames
-    tokens = (extras or {}).get(key)
-    if tokens is None:
-        tokens = torch.zeros((rows, n, cfg.d_model), dtype=cfg.adtype(),
-                             device=device)
+    stack, sub, key = (("cross_layers", "attn", "patches")
+                       if cfg.family == "vlm" else
+                       ("layers", "cross", "enc_out"))
+    zeros = torch.zeros((rows, cross_tokens(cfg), cfg.d_model),
+                        dtype=cfg.adtype(), device=device)
+    below = _sites_below_cut(cfg)
     sites = []
     for s in range(params[stack][sub]["wk"].shape[0]):
+        src = extras if s < below or top is None else top
+        tokens = (src or {}).get(key, zeros)[:, part]
         k, v = attention.cross_kv(layer_params(params, s, stack)[sub], cfg,
                                   tokens)
         sites.append(torch.stack([k, v], dim=1)[:, :, None])
@@ -515,18 +532,26 @@ def init_cache(cfg: ArchConfig, rows: int, max_len: int, device=None,
     if cfg.family == "ssm":
         cache["rwkv"] = rwkv.init_rwkv_cache(cfg, rows, L, device)
         return cache
-    n_kv = L
     if cfg.family == "hybrid":
         cache["mamba"] = ssm.init_mamba_cache(cfg, rows, L, device)
-        n_kv = sum(s >= 0 for s in attn_sites(cfg))
-    elif cfg.family == "vlm":
-        n_kv = L - L // cfg.cross_attn_every
-    cache["kv"] = attention.init_kv_cache(cfg, rows, n_kv, max_len, device,
-                                          bits=bits)
+    cache["kv"] = attention.init_kv_cache(cfg, rows, _kv_rings(cfg),
+                                          max_len, device, bits=bits)
     if cfg.family in ("vlm", "audio"):
         cache["cross_kv"] = _cross_kv_cache(params, cfg, rows, extras,
                                             device)
     return cache
+
+
+def _kv_rings(cfg: ArchConfig) -> int:
+    """The KV rings a decode cache holds: zamba2's one a shared-attention
+    site, the vlm's one a self layer, rwkv6 none, else one a layer."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return sum(s >= 0 for s in attn_sites(cfg))
+    if cfg.family == "vlm":
+        return cfg.n_layers - cfg.n_layers // cfg.cross_attn_every
+    return cfg.n_layers
 
 
 # decode routes each row alone: a capacity of 1 whatever the factor
@@ -620,72 +645,158 @@ def decode_step(params, cfg: ArchConfig, token, cache: Dict[str, Any]):
 
 
 # ---------------------------------------------------------------------------
-# The decode mesh (`tp.Layout(decode=True)`): the dense and moe families.
+# The decode mesh (`tp.Layout(decode=True)`): every family.
 # ---------------------------------------------------------------------------
 
-DECODE_MESH_FAMILIES = ("dense", "moe")
-
-
 def check_decode_mesh(cfg: ArchConfig):
-    """Raise for a family the decode mesh does not run yet."""
+    """Raise for a config the decode mesh does not run: an unknown family,
+    or a vlm whose cut is not whole groups (`blocks`)."""
     check_family(cfg)
-    if cfg.family not in DECODE_MESH_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family on a decode mesh: ROADMAP Queue 1 "
-            f"item 8a-iii (the decode mesh runs {DECODE_MESH_FAMILIES})")
+    if cfg.split is not None and cfg.split.cut_layer > 0:
+        blocks(cfg, 0, cfg.split.cut_layer)
 
 
-def init_cache_mesh(cfg: ArchConfig, lay, max_len: int, bits: int = 16):
+@torch.no_grad()
+def init_cache_mesh(cfg: ArchConfig, lay, max_len: int, bits: int = 16, *,
+                    params=None, extras=None, top_extras=None):
     """Each position's decode cache on a decode layout `lay`
-    (`tp.Layout(decode=True)`), on its device: "pos" (B_loc,) and "kv",
-    every layer's ring for the shard's B_loc rows, as `init_cache` lays
-    it out, and "size", the ring's slots (an int). With flash decode
-    (`lay.ring_split(size)`) position r of a 'model' group of m holds
-    slots [r * size / m, (r + 1) * size / m); else every position holds
-    the whole ring. Layers [0, cut) hold the shard's own rows, layers
-    [cut, L) the rows the cut hands it (another pod's, on the pod ring:
+    (`tp.Layout(decode=True)`), on its device, as `init_cache` lays it
+    out for the shard's B_loc rows, "size" the ring's slots (an int):
+
+      * "kv": the rings of every attention layer or site (`init_cache`).
+        With flash decode (`lay.ring_split(size)`) position r of a 'model'
+        group of m holds slots [r * size / m, (r + 1) * size / m); else
+        every position holds the whole ring.
+      * "mamba" (hybrid) and "rwkv" (ssm): with the heads split over
+        'model' (`lay.split`) each position's heads only
+        (`ssm.init_mamba_cache(heads=)`, `rwkv.init_rwkv_cache(heads=)`),
+        else every head; the token shifts whole.
+      * "cross_kv" (vlm, audio; `params` needed): (B_loc, sites, 2, 1, n,
+        Hkv, hd), every cross site's k and v of position r's tokens
+        [r * n, (r + 1) * n) with the N tokens split (`lay.ring_split(N)`,
+        n = N / m), else of all N, from `extras` (`make_extras_mesh`'s,
+        each position's own rows) below the cut and `top_extras` (the
+        rows the cut hands the position, `split.model.
+        init_decode_cache`) above it; zeros without them.
+
+    Layers [0, cut) hold the shard's own rows, layers [cut, L) the rows
+    the cut hands it (another pod's, on the pod ring:
     `split.model.decode_step`)."""
     check_decode_mesh(cfg)
+    L, m = cfg.n_layers, lay.n_model
     size = min(max_len, cfg.sliding_window) if cfg.sliding_window \
         else max_len
-    slots = size // lay.n_model if lay.ring_split(size) else size
+    slots = size // m if lay.ring_split(size) else size
+    n_kv = _kv_rings(cfg)
     out = []
-    for dev in lay.mesh.devices:
-        out.append({"pos": torch.zeros((lay.b_loc,), dtype=torch.int64,
-                                       device=dev),
-                    "kv": attention.init_kv_cache(cfg, lay.b_loc,
-                                                  cfg.n_layers, slots, dev,
-                                                  bits=bits),
-                    "size": size})
+    for p, dev in enumerate(lay.mesh.devices):
+        c = {"pos": torch.zeros((lay.b_loc,), dtype=torch.int64,
+                                device=dev), "size": size}
+        if n_kv:
+            c["kv"] = attention.init_kv_cache(cfg, lay.b_loc, n_kv, slots,
+                                              dev, bits=bits)
+        if cfg.family == "hybrid":
+            H = cfg.ssm_heads
+            c["mamba"] = ssm.init_mamba_cache(
+                cfg, lay.b_loc, L, dev, heads=H // m if lay.split(H) else H)
+        elif cfg.family == "ssm":
+            H = cfg.d_model // rwkv.HD
+            c["rwkv"] = rwkv.init_rwkv_cache(
+                cfg, lay.b_loc, L, dev, heads=H // m if lay.split(H) else H)
+        elif cfg.family in ("vlm", "audio"):
+            N = cross_tokens(cfg)
+            n = N // m if lay.ring_split(N) else N
+            r = lay.rank(p) if n < N else 0
+            c["cross_kv"] = _cross_kv_cache(
+                params, cfg, lay.b_loc, _at(extras, p), dev,
+                _at(top_extras, p), slice(r * n, (r + 1) * n))
+        out.append(c)
     return out
+
+
+def _at(extras, p: int):
+    """Position `p`'s entries of per-position extras (None stays None)."""
+    return extras and {k: v[p] for k, v in extras.items()}
 
 
 def decode_layers_mesh(params, cfg: ArchConfig, lay, xs, caches, lo: int,
                        hi: int):
     """`decode_layers` on a decode mesh: xs holds each position's (B_loc,
     1, d) residual, whole (equal over each 'model' group), caches each
-    position's (`init_cache_mesh`). Attention is
-    `attention.decode_attention_mesh`, the MLP `mlp.mlp_mesh` and the
-    experts `moe.moe_mesh` (each row its own group), their partial
-    outputs summed over 'model'. With a 'model' of 1 every position
-    computes what `decode_layers` computes on its rows."""
+    position's (`init_cache_mesh`). It walks `blocks(cfg, lo, hi)` as
+    `decode_layers` does: attention is `attention.decode_attention_mesh`,
+    cross attention `attention.cross_decode_mesh` over the cache's cross
+    KV, the MLP `mlp.mlp_mesh` (gated in the vlm's cross layers), the
+    experts `moe.moe_mesh` (each row its own group), Mamba2
+    `ssm.mamba_decode_mesh` (then zamba2's shared attention and MLP at a
+    site) and RWKV6 `rwkv.rwkv_decode_mesh`, their partial outputs summed
+    over 'model'; each layer's new recurrent state is written for every
+    row. With a 'model' of 1 every position computes what
+    `decode_layers` computes on its rows."""
     check_decode_mesh(cfg)
-    rings = [attention.decode_ring(cfg, lay, p, c["pos"], c["size"],
-                                   c["kv"]["k"].shape[3])
-             for p, c in enumerate(caches)]
-    for layer in range(lo, hi):
+    rings = ([attention.decode_ring(cfg, lay, p, c["pos"], c["size"],
+                                    c["kv"]["k"].shape[3])
+              for p, c in enumerate(caches)] if "kv" in caches[0] else None)
+    split_n = (cfg.family in ("vlm", "audio")
+               and lay.ring_split(cross_tokens(cfg)))
+    sites = attn_sites(cfg) if cfg.family == "hybrid" else None
+
+    def normed(p):
+        return [_norm(cfg, x, p) for x in xs]
+
+    def attend(pa, kv_index):
+        return attention.decode_attention_mesh(
+            pa, cfg, lay, normed(pa["norm"]),
+            [attention.layer_kv(c["kv"], kv_index) for c in caches], rings)
+
+    def cross(pa, site, gated=False):
+        return attention.cross_decode_mesh(
+            pa, cfg, lay, normed(pa["norm"]),
+            [_site_kv(c, site) for c in caches], split_n, gated=gated)
+
+    for kind, layer in blocks(cfg, lo, hi):
+        if kind == "cross":
+            pl = layer_params(params, layer, "cross_layers")
+            xs = _plus(xs, cross(pl["attn"], layer, gated=True))
+            xs = _plus(xs, mlp.mlp_mesh(pl["mlp"], cfg, lay,
+                                        normed(pl["mlp"]["norm"]),
+                                        gated=True))
+            continue
         pl = layer_params(params, layer)
-        xs = _plus(xs, attention.decode_attention_mesh(
-            pl["attn"], cfg, lay, [_norm(cfg, x, pl["attn"]["norm"])
-                                   for x in xs],
-            [attention.layer_kv(c["kv"], layer) for c in caches], rings))
+        if cfg.family == "ssm":
+            sts = [c["rwkv"] for c in caches]
+            xs, *new = rwkv.rwkv_decode_mesh(
+                pl["time"], pl["chan"], cfg, lay, xs,
+                *([st[n][:, layer] for st in sts]
+                  for n in ("S", "x_tm", "x_cm")))
+            for name, vals in zip(("S", "x_tm", "x_cm"), new):
+                for st, val in zip(sts, vals):
+                    _write_rows(st[name], layer, val, None)
+            continue
+        if cfg.family == "hybrid":
+            mcs = [c["mamba"] for c in caches]
+            ys, hs, convs = ssm.mamba_decode_mesh(
+                pl, cfg, lay, normed(pl["norm"]),
+                [mc["h"][:, layer] for mc in mcs],
+                [mc["conv"][:, layer] for mc in mcs])
+            for mc, h, conv in zip(mcs, hs, convs):
+                _write_rows(mc["h"], layer, h, None)
+                _write_rows(mc["conv"], layer, conv, None)
+            xs = _plus(xs, ys)
+            if sites[layer] >= 0:
+                xs = _plus(xs, attend(params["shared_attn"], sites[layer]))
+                sm = params["shared_mlp"]
+                xs = _plus(xs, mlp.mlp_mesh(sm, cfg, lay,
+                                            normed(sm["norm"])))
+            continue
+        xs = _plus(xs, attend(pl["attn"], layer))
+        if cfg.family == "audio":
+            xs = _plus(xs, cross(pl["cross"], layer))
         if cfg.family == "moe":
             ys, _ = moe.moe_mesh(pl["moe"], cfg, lay,
-                                 [_norm(cfg, x, pl["moe"]["norm"])
-                                  for x in xs])
+                                 normed(pl["moe"]["norm"]))
         else:
-            ys = mlp.mlp_mesh(pl["mlp"], cfg, lay,
-                              [_norm(cfg, x, pl["mlp"]["norm"]) for x in xs])
+            ys = mlp.mlp_mesh(pl["mlp"], cfg, lay, normed(pl["mlp"]["norm"]))
         xs = _plus(xs, ys)
     return xs
 

@@ -16,7 +16,9 @@ sharded arena step counts (`repro_torch.mesh.collective_bytes`) exactly,
 `training_collective_costs` those of one training step on a mesh
 (`launch.steps.make_train_step` with `Runtime.mesh`), and
 `decode_collective_costs` those of one whole-batch decode step on a mesh
-(`launch.steps.make_serve_step` with `Runtime.mesh`), the port's own.
+(`launch.steps.make_serve_step` with `Runtime.mesh`) and
+`decode_cache_collective_costs` those of building its cache, the port's
+own.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import math
 from collections import Counter
 from typing import Dict
 
+from repro_torch.models import tp
 from repro_torch.split import protocol
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W power limit
@@ -393,23 +396,36 @@ def decode_collective_costs(cfg, batch: int, max_len: int, mesh_axes, *,
                             flash_decode: bool = True, dp_only: bool = False,
                             act_bytes: int = 4, argmax: bool = True):
     """Per-op raw collective bytes of one whole-batch decode step on a
-    mesh (`split.model.decode_mesh`, the dense and moe families;
-    `repro_torch.mesh` convention: each collective's per-device output,
-    once a collective) and their total under `RING_FACTOR`.
+    mesh (`split.model.decode_mesh`, every family; `repro_torch.mesh`
+    convention: each collective's per-device output, once a collective)
+    and their total under `RING_FACTOR`.
 
     With M = 'model' (1 under `dp_only`), P = 'pod', a batch shard of
     b = batch / (positions / M) rows (b = batch where that does not
     divide: the batch stays whole), a ring of size = min(max_len,
-    sliding_window) slots, flash decode where `flash_decode`, M > 1 and
-    M divides size; activation bytes a; every collective over 'model'
-    moves nothing when M is 1:
+    sliding_window) slots, a cross KV of N tokens (the vlm's patches,
+    whisper's frames), flash decode over a KV where `flash_decode`,
+    M > 1 and M divides its slots or tokens (`tp.flash_split`);
+    activation bytes a; every collective over 'model' moves nothing when
+    M is 1:
 
-      * each layer's attention: with flash decode three f32 all-reduces
-        of the partials, b x Hq x 4 (the max), b x Hq x 4 (the sum) and
-        b x Hq x hd x 4 (the output); and where M divides Hq the output
-        projection's partial products summed (all-reduce b x d x a);
-      * each layer's MLP, where M divides d_ff, or moe combine (its
-        experts over 'model'): an all-reduce of b x d x a;
+      * attention (dense and moe layers, the vlm's self layers, zamba2's
+        shared block at each site, whisper's self attention): with flash
+        decode three f32 all-reduces of the partials, b x Hq x 4 (the
+        max), b x Hq x 4 (the sum) and b x Hq x hd x 4 (the output); and
+        where M divides Hq the output projection's partial products
+        summed (all-reduce b x d x a);
+      * cross attention (the vlm's cross layers, whisper's every layer):
+        the same terms with flash decode over the N tokens;
+      * each MLP (gated or not, zamba2's shared one at each site) where M
+        divides d_ff, and each moe combine (its experts over 'model'): an
+        all-reduce of b x d x a;
+      * each Mamba2 layer (hybrid) where M divides `ssm_heads`: the gated
+        norm's sum of squares (an f32 all-reduce of b x 4) and `w_out`'s
+        partial products (b x d x a);
+      * each RWKV6 layer (ssm): the time mix's `w_out` where M divides
+        its d / 64 heads and the channel mix's `w_v` where M divides
+        d_ff, b x d x a each;
       * the cut, with a 'pod' axis and `transfer_over_pod`: the payload
         leaves' collective-permute, b tokens of
         `split.protocol.pod_leaf_sizes`;
@@ -417,23 +433,54 @@ def decode_collective_costs(cfg, batch: int, max_len: int, mesh_axes, *,
         returns the logits), where M divides the padded vocab, the
         vocab-parallel argmax's f32 max and s32 min all-reduces (b x 4
         each), and on the pod ring the tokens' way back, a
-        collective-permute of b x 4 (s32)."""
+        collective-permute of b x 4 (s32).
+
+    A cache's own collectives (whisper's encoder output over the pod
+    ring) are `decode_cache_collective_costs`'."""
     sizes = dict(mesh_axes)
     m = sizes["model"] if "model" in sizes and not dp_only else 1
     n_pod = sizes.get("pod", 1)
-    shards = math.prod(sizes.values()) // m
-    b = batch // shards if batch % shards == 0 else batch
+    b = _decode_rows(batch, sizes, m)
     d, a, hq, L = cfg.d_model, act_bytes, cfg.n_heads, cfg.n_layers
     size = min(max_len, cfg.sliding_window) if cfg.sliding_window \
         else max_len
     per_op = Counter()
-    if m > 1:
-        if flash_decode and size % m == 0:
-            per_op["all-reduce"] += L * b * hq * (2 + cfg.hd) * 4
+
+    def attention(n, kv):
+        if tp.flash_split(flash_decode, m, kv):
+            per_op["all-reduce"] += n * b * hq * (2 + cfg.hd) * 4
         if hq % m == 0:
-            per_op["all-reduce"] += L * b * d * a
-        if cfg.family == "moe" or cfg.d_ff % m == 0:
-            per_op["all-reduce"] += L * b * d * a
+            per_op["all-reduce"] += n * b * d * a
+
+    def proj(n, width):
+        if width % m == 0:
+            per_op["all-reduce"] += n * b * d * a
+
+    if m > 1:
+        if cfg.family == "hybrid":
+            sites = sum((i + 1) % cfg.attn_every == 0 for i in range(L))
+            if cfg.ssm_heads % m == 0:
+                per_op["all-reduce"] += L * (b * 4 + b * d * a)
+            attention(sites, size)
+            proj(sites, cfg.d_ff)
+        elif cfg.family == "ssm":
+            proj(L, d // 64)
+            proj(L, cfg.d_ff)
+        elif cfg.family == "vlm":
+            n_cross = L // cfg.cross_attn_every
+            attention(L - n_cross, size)
+            attention(n_cross, cfg.n_image_tokens)
+            proj(L, cfg.d_ff)           # every layer, self or cross
+        elif cfg.family == "audio":
+            attention(L, size)
+            attention(L, cfg.n_frames)
+            proj(L, cfg.d_ff)
+        else:
+            attention(L, size)
+            if cfg.family == "moe":
+                per_op["all-reduce"] += L * b * d * a
+            else:
+                proj(L, cfg.d_ff)
         if argmax and cfg.padded_vocab % m == 0:
             per_op["all-reduce"] += 2 * b * 4
     cut = cfg.split is not None and cfg.split.cut_layer > 0
@@ -441,6 +488,39 @@ def decode_collective_costs(cfg, batch: int, max_len: int, mesh_axes, *,
         per_op["collective-permute"] += b * protocol.pod_leaf_sizes(cfg)[0]
         if argmax:
             per_op["collective-permute"] += b * 4
+    return _with_total(per_op)
+
+
+def decode_cache_collective_costs(cfg, batch: int, mesh_axes, *,
+                                  dp_only: bool = False, act_bytes: int = 4):
+    """Per-op raw collective bytes of building a decode mesh's cache
+    (`split.model.init_decode_cache` with the batch's side inputs) and
+    their total under `RING_FACTOR`: with a cut, a 'pod' axis and
+    `transfer_over_pod`, whisper's encoder output crosses the pod ring
+    with its rows to the top layers' cross KV, a collective-permute of
+    b x F x d x a (b as in `decode_collective_costs`); whisper's encoder
+    runs whole on every position (`seq_shard` off) and the vlm's patches
+    are read where they are, so nothing else moves."""
+    sizes = dict(mesh_axes)
+    m = sizes["model"] if "model" in sizes and not dp_only else 1
+    per_op = Counter()
+    cut = cfg.split is not None and cfg.split.cut_layer > 0
+    if (cfg.family == "audio" and cut and sizes.get("pod", 1) > 1
+            and cfg.split.transfer_over_pod):
+        per_op["collective-permute"] += (_decode_rows(batch, sizes, m)
+                                         * cfg.n_frames * cfg.d_model
+                                         * act_bytes)
+    return _with_total(per_op)
+
+
+def _decode_rows(batch: int, sizes, m: int) -> int:
+    """A decode batch shard's rows: batch / (positions / M), or the whole
+    batch where that does not divide."""
+    shards = math.prod(sizes.values()) // m
+    return batch // shards if batch % shards == 0 else batch
+
+
+def _with_total(per_op):
     per_op = {op: float(nb) for op, nb in per_op.items() if nb}
-    total = sum(RING_FACTOR.get(op, 1.0) * nb for op, nb in per_op.items())
-    return per_op, total
+    return per_op, sum(RING_FACTOR.get(op, 1.0) * nb
+                       for op, nb in per_op.items())

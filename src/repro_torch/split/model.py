@@ -11,10 +11,11 @@ encoder (`transformer.make_extras_mesh`), the bottom layers, the cut
 
 `decode_step` is the whole batch's one-token step with a cache: bottom
 layers, the cut's payload at inference (RandTopK encodes as TopK), top
-layers, every generated token; on a decode mesh (`Runtime.mesh`, the
-dense and moe families) over one tensor per position
-(`tp.Layout(decode=True)`), where `next_tokens` takes the greedy tokens
-from the vocab-parallel head and brings them back to the batch's rows.
+layers, every generated token; on a decode mesh (`Runtime.mesh`, every
+family) over one tensor per position (`tp.Layout(decode=True)`, the
+cache from `init_decode_cache`), where `next_tokens` takes the greedy
+tokens from the vocab-parallel head and brings them back to the batch's
+rows.
 """
 from __future__ import annotations
 
@@ -114,9 +115,9 @@ def decode_step(params, cfg: ArchConfig, rt: Runtime, token, cache):
     mesh) is written IN PLACE and returned, where the reference returns
     a new one.
 
-    On a mesh (`rt.mesh`; dense and moe) the logits are each batch
-    shard's vocab shards put together in the batch's row order, the
-    caller's view of a vocab-sharded result (no collective);
+    On a mesh (`rt.mesh`, a cache of `init_decode_cache`) the logits are
+    each batch shard's vocab shards put together in the batch's row
+    order, the caller's view of a vocab-sharded result (no collective);
     `launch.steps.make_serve_step` takes its tokens from the shards."""
     if rt.mesh is not None:
         lay, logits, origin = decode_mesh(params, cfg, rt, token, cache)
@@ -147,13 +148,44 @@ def decode_layout(cfg: ArchConfig, rt: Runtime, batch: int):
 
 
 @torch.no_grad()
+def init_decode_cache(params, cfg: ArchConfig, lay, max_len: int,
+                      bits: int = 16, side=None):
+    """Each position's decode cache on the decode layout `lay`
+    (`transformer.init_cache_mesh`), its cross KV (vlm, audio) of the
+    rows the position holds at each layer. `side`: the batch's side
+    inputs, the vlm's {"patches": (B, N, d)} or whisper's {"frames":
+    (B, F, d)} (zeros without them, as `init_cache` serves).
+
+    Layers [0, cut) hold the shard's own rows: their extras are
+    `transformer.make_extras_mesh`'s (whisper's encoder runs here, once,
+    on the mesh: `run_encoder_mesh`, with `seq_shard` off every position
+    encodes its shard's frames whole). Layers [cut, L) hold the rows the
+    pod ring hands over (`protocol.cut_origin`): the vlm reads their
+    patches where they are, batch data, and whisper's encoder output
+    crosses the ring with them (`_extras_of_rows`, a collective-permute
+    counted into `lay.registry`: the cache's bytes,
+    `roofline.analysis.decode_cache_collective_costs`, not a step's)."""
+    extras = top = None
+    if side:
+        shards = lay.shard_batch(side)
+        extras = transformer.make_extras_mesh(params, cfg, lay, shards)
+        top = _extras_of_rows(cfg, lay, extras, shards,
+                              protocol.cut_origin(cfg, lay))
+    return transformer.init_cache_mesh(cfg, lay, max_len, bits,
+                                       params=params, extras=extras,
+                                       top_extras=top)
+
+
+@torch.no_grad()
 def decode_mesh(params, cfg: ArchConfig, rt: Runtime, token, caches):
     """`decode_step` on a decode mesh: each position embeds its batch
     shard's tokens (every row where the batch stays whole), runs the
     bottom layers, the cut (`protocol.cut_boundary_mesh`: the TopK codec
     once a batch shard, the payload over the pod ring with
     `transfer_over_pod`), the top layers against the caches of the rows
-    it now holds, and its share of the head. Returns (the layout, each
+    it now holds (`init_decode_cache`: their KV and recurrent state, the
+    cross KV of their patches or encoder output), and its share of the
+    head. Returns (the layout, each
     position's logits (`transformer.lm_head_decode_mesh`), origin:
     origin[b] is the batch shard whose rows shard b's logits are)."""
     lay = decode_layout(cfg, rt, token.shape[0])

@@ -228,14 +228,26 @@ def cut_boundary_mesh(xs, cfg: ArchConfig, lay, generator):
     perm = pod_ring_perm(n_pod) if (cfg.split.transfer_over_pod
                                     and n_pod > 1) else None
     ys = _Transport.apply(comp, draws, lay.rt.training, lay, perm, *rows)
-    origin = list(range(len(rows)))
-    if perm is not None:
-        sm = lay.shards
-        for b in range(len(rows)):
-            origin[sm.shift(b, "pod", (sm.coord(b, "pod") + 1) % n_pod)] = b
     out = [lay.local_seq(p, ys[lay.shard_of[p]])
            for p in range(lay.mesh.size)]
-    return out, torch.stack(pens).mean(), origin
+    return out, torch.stack(pens).mean(), cut_origin(cfg, lay)
+
+
+def cut_origin(cfg: ArchConfig, lay):
+    """origin[b]: the batch shard whose rows shard b holds after the cut
+    (`cut_boundary_mesh`): with `transfer_over_pod` and a 'pod' axis of
+    more than one the ring hands pod i's rows to pod i + 1, else every
+    shard keeps its own. A decode cache's top layers are built for these
+    rows (`split.model.init_decode_cache`)."""
+    n_pod = lay.mesh.shape.get("pod", 1)
+    origin = list(range(len(lay.groups)))
+    if cfg.split is None or cfg.split.cut_layer <= 0 or n_pod == 1 \
+            or not cfg.split.transfer_over_pod:
+        return origin
+    sm = lay.shards
+    for b in range(len(origin)):
+        origin[sm.shift(b, "pod", (sm.coord(b, "pod") + 1) % n_pod)] = b
+    return origin
 
 
 def wire_bytes_per_step(cfg: ArchConfig, batch: int, seq: int,

@@ -20,7 +20,9 @@ qwen3-8b (qk-norm) and granite-moe-1b-a400m (its 4 experts over
   * B 1 on a 'data' axis of 2 stays whole; the pod ring returns each
     row its own token; flash decode writes a token's K and V only on the
     position whose slots hold its ring slot.
-  * The hybrid, ssm, vlm and audio families raise NotImplementedError.
+
+The hybrid, ssm, vlm and audio families on the decode mesh:
+`tests/test_torch_decode_mesh_families.py`.
 """
 import numpy as np
 import pytest
@@ -268,16 +270,3 @@ def test_decode_collective_costs_by_hand():
         cfg, B, MAX_LEN, {"data": 1, "model": 4}, flash_decode=False,
         argmax=False)
     assert per_op == {"all-reduce": float(2 * 2 * 4 * 256 * 4)}
-
-
-@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b",
-                                  "llama-3.2-vision-90b", "whisper-tiny"])
-def test_other_families_raise(arch):
-    cfg = configs.get(arch, smoke=True)
-    rt = Runtime(training=False, mesh=_mesh((1, 2)))
-    with pytest.raises(NotImplementedError, match="item 8a-iii"):
-        split_model.decode_layout(cfg, rt, B)
-    with pytest.raises(NotImplementedError, match="item 8a-iii"):
-        steps.make_serve_step(cfg, rt)(None, [], torch.zeros((B, 1)))
-    with pytest.raises(NotImplementedError, match="item 8a-iii"):
-        split_model.decode_step(None, cfg, rt, torch.zeros((B, 1)), [])
