@@ -23,6 +23,10 @@
     python3 chip_smoke.py --phase familystep  # kernel checks + the serve
                                               # step of zamba2, rwkv6, the
                                               # vlm and whisper on meshes
+    python3 chip_smoke.py --phase dryrun      # kernel checks + the dry
+                                              # run's counts on the card
+    python3 chip_smoke.py --phase examples    # kernel checks + the
+                                              # examples on the card
     python3 chip_smoke.py --phase probe       # build + `probe_kernels`
     python3 chip_smoke.py --phase ab --parent DIR   # probes, P C C P
     python3 chip_smoke.py --phase predict     # CPU: phase 11's reports
@@ -79,7 +83,7 @@ Phases, each fatal on failure:
      client's whole codec per token (host clock around
      `client_encode_device` + `sections_to_bytes`) with its launches;
   3. serve yi-6b at full width (d 4096, bf16, random weights from a seed),
-     depth cut from 32 to 16 layers (`--layers`), through
+     depth cut from 32 to 8 layers (`--layers`), through
      `runtime.engine.run_streaming` with `randtopk --k 64`, the cut
      at n_layers // 2: the launch counts (zeroed just before) must show
      every kernel ran, the fused encode once per client token (and once
@@ -192,7 +196,8 @@ Phases, each fatal on failure:
      encode per served token and one flush decode per flush group; a
      traced third run for the busy share; rwkv6 again at capacity 1
      (every switch evicts the row's WKV state to the host): evictions > 0
-     and the clean run's tokens; yi-6b FULL with `kv_cache_bits=8`: the
+     and the clean run's tokens; yi-6b at full width with its depth cut
+     from 32 to 8 layers (cut 4) and `kv_cache_bits=8`: the
      arena's caches built int8 and the clients' 16-bit, kernel tokens =
      plain tokens, and its token agreement with the 16-bit run (reported,
      not gated); then train zamba2-7b at full width with its depth cut
@@ -221,8 +226,8 @@ Phases, each fatal on failure:
      gates nonzero after its first step. The kernel checks cover d 8192
      and 384 (bf16) and the vlm SMOKE's 256 (f32);
  15. serving on a device mesh (`--phase mesh`): yi-6b at full width
-     (padded vocab 64000), depth cut from 32 to 16 layers (cut 8, so
-     that the whole run stays near half its time limit with phase 16),
+     (padded vocab 64000), depth cut from 32 to 8 layers (cut 4, so
+     that the whole run stays within its time with phases 19 and 20),
      random bf16 weights from a seed, 4
      clients x (4 + 4) tokens, randtopk k 64, through
      `run_streaming(mesh=)` at `mesh=None` and at `make_serving_mesh(1)`,
@@ -245,9 +250,10 @@ Phases, each fatal on failure:
      (d 4096, 32 heads, 4 KV heads, d_ff 11008, vocab 64000), depth cut
      to 8 layers (cut 4), batch 4 x seq 256, randtopk k 64, bf16, AdamW,
      remat, random weights from a seed, at mesh=None, (1, 1), (2, 4) and
-     (2, 2, 2) ('pod', 'data', 'model'), and granite-moe-1b-a400m FULL
-     (24 layers, cut 12, 32 experts over 'model') at (1, 4); zamba2-7b
-     (12 layers, cut 6) and rwkv6-1.6b (6, cut 3) at full width at
+     (2, 2, 2) ('pod', 'data', 'model'), and granite-moe-1b-a400m at
+     full width with its depth cut from 24 to 12 layers (cut 6, 32
+     experts over 'model') at (1, 4); zamba2-7b (12 layers, cut 6) and
+     rwkv6-1.6b (4, cut 2) at full width at
      mesh=None and (2, 2), whisper-tiny FULL at mesh=None, (2, 2) (its
      heads split) and (1, 4) (whole), the vlm SMOKE in f32 at mesh=None
      and (2, 2, 2); every
@@ -302,14 +308,34 @@ Phases, each fatal on failure:
      first steps against mesh=None's), and each model's f32
      conditioning (its first step's logits under a 1e-7 relative weight
      perturbation): where it amplifies more than a thousandfold (rwkv6)
-     the f32 gate is 10 times it and the bf16 identity step reported.
+     the f32 gate is 10 times it and the bf16 identity step reported;
+ 19. the dry run against the card (`--phase dryrun`): yi-6b at full
+     width, depth cut to 5 (cut 2), trained B 8 x S 256 at (2, 2, 2),
+     and cut to 4 decoding B 8 over a 32-slot ring at (1, 4) with flash
+     decode; whisper-tiny FULL decoding at (2, 2, 2) (its encoder output
+     crossing the pod ring when the cache is built); each counted on
+     the `meta` device by `launch.dryrun.count_one`, directly and solved
+     from smaller depths (`dryrun.depths`, `extrapolate`: equal in
+     FLOPs, bytes, arguments and collective bytes), then run on the card
+     under the same counter (`roofline.program.count_program`) with a
+     registry: FLOPs and collective bytes per op (the cache's too) equal
+     the meta count, the codec's kernels launched; printed: the meta
+     peak (arguments + counted) against `max_memory_allocated`, meta's
+     bytes (plain codec) against the card's (kernels), and one card's
+     roofline terms against the step's median ms;
+ 20. the examples on the card (`--phase examples`): each
+     `examples/torch_*.py`'s `main()` in this process at its defaults
+     (the multipod dry run at (2, 2, 2) on the decode step, on meta),
+     launch counts zeroed before each: the lines the reference's
+     example tests assert, its path's kernels launched, its wall.
 
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, for the serve's two kernels
 plus the loadgen phase's kernel runs, plus the families, recurrent,
 multimodal and mesh phases' serves, live checks and training, plus the
 train mesh phase's kernel steps and the serve step and family step
-phases' kernel runs, plus the fedtrain phase's chaos runs and
+phases' kernel runs, plus the dry run phase's card steps and the
+examples, plus the fedtrain phase's chaos runs and
 launch.train's resumed checkpoint run, or in its check's own loop for the
 five no path runs, its largest difference from its plain version,
 the CUDA-event times of kernel, plain version and library call at its
@@ -3195,6 +3221,7 @@ REC_SERVES = (("zamba2-7b", D_ZAMBA, 352, 12),
 # activations at batch 4 x seq 256, so its training depth is cut to 12
 REC_TRAIN = (("zamba2-7b", 12, 6), ("rwkv6-1.6b", 12, 6))
 REC_INT8 = "yi-6b"
+REC_INT8_LAYERS = 8           # of 32 (cut 4): the whole run's time limit
 
 
 def _busy_text(tr) -> str:
@@ -3343,7 +3370,8 @@ def recurrent_phase(dev, card):
     B a token, one fused encode per served token and one flush decode per
     flush group), and a traced third run for the busy share; rwkv6 again
     at capacity 1 (evictions > 0, the clean run's tokens). Serve yi-6b
-    with `kv_cache_bits=8` (the arena int8, the clients 16-bit), kernels
+    (`REC_INT8_LAYERS` of its 32 layers) with `kv_cache_bits=8` (the
+    arena int8, the clients 16-bit), kernels
     and plain (equal tokens), and report its token agreement with the
     16-bit run. Train zamba2 (depth cut to 12, cut 6) and rwkv6 (12, cut
     6): first steps bit for bit against the plain versions, 3 steps.
@@ -3402,7 +3430,7 @@ def recurrent_phase(dev, card):
         del params, tr
         torch.cuda.empty_cache()
 
-    cfg16 = configs.get(REC_INT8)
+    cfg16 = configs.with_layers(configs.get(REC_INT8), REC_INT8_LAYERS)
     cfg8 = cfg16.with_(kv_cache_bits=8)
     base = held_gib(dev)
     params = transformer.init_model(
@@ -3428,7 +3456,7 @@ def recurrent_phase(dev, card):
     r16, _, _ = serve(cfg16, params, "randtopk", **kw)
     agree = float(np.mean(r8["tokens"] == r16["tokens"]))
     peak = peak_gib(dev, base)
-    print(f"  {REC_INT8} FULL with kv_cache_bits=8 ({cfg8.n_layers} layers, "
+    print(f"  {REC_INT8} with kv_cache_bits=8 ({cfg8.n_layers} layers, "
           f"cut at {cfg8.n_layers // 2}; caches built (rows, bits) "
           f"{sorted(set(built))}): kernel tokens = plain tokens "
           f"({r8['tokens'].tolist()}); {r8['tokens_per_s']} tokens/s "
@@ -3641,7 +3669,7 @@ def multimodal_phase(dev, card):
 # ---------------------------------------------------------------------------
 
 MESH_ARCH, MESH_NB = "yi-6b", 352            # full width
-MESH_LAYERS = 16              # of 32 (cut 8): the whole run's time limit
+MESH_LAYERS = 8               # of 32 (cut 4): the whole run's time limit
 MESH_GEN = 4                  # at 8 the phase took 190 s on an H100
                               # and the whole run passed 700 s
 # (label, make_serving_mesh arguments): every position on the one card
@@ -3779,8 +3807,8 @@ def _mesh_gap(cfg, params, ref, got, kw):
 
 
 def mesh_phase(dev, card):
-    """Phase 15: yi-6b at full width, 16 of its 32 layers (d 4096, padded
-    vocab 64000, cut 8; `MESH_LAYERS`), random bf16 weights from a seed,
+    """Phase 15: yi-6b at full width, 8 of its 32 layers (d 4096, padded
+    vocab 64000, cut 4; `MESH_LAYERS`), random bf16 weights from a seed,
     served through `run_streaming` at `mesh=None` and on
     `make_serving_mesh` meshes whose positions all share the one card,
     4 clients x (4 + 4) tokens, randtopk k 64. Fatal:
@@ -3923,17 +3951,19 @@ TRAINMESH_STEPS = 4           # kernel steps a mesh, after one plain step
 TRAINMESH_SHAPES = (("(1, 1)", (1, 1)), ("(2, 4)", (2, 4)),
                     ("(2, 2, 2)", (2, 2, 2)))
 TRAINMESH_MOE = ("(1, 4)", (1, 4))
+TRAINMESH_MOE_LAYERS = 12     # granite-moe's, of 24 (cut 6): the run's time
 # the other families on the training mesh, randtopk at cut_for's cut:
 # (arch, depth (None: the config's), SMOKE, meshes after mesh=None).
 # zamba2 and rwkv6 at full width with their depth cut (zamba2 12, cut 6,
-# a shared-attention site on each side; rwkv6 6, cut 3: its 24 layers
-# took 2.36-2.71 s a step mesh-less, host-bound); whisper-tiny FULL, its
+# a shared-attention site on each side; rwkv6 4, cut 2: its 24 layers
+# took 2.36-2.71 s a step mesh-less, host-bound, and 6 at (2, 2) 31 s of
+# the phase); whisper-tiny FULL, its
 # 6 heads split at 'model' 2 and whole at 4 (d_ff split); the vlm at
 # SMOKE in f32 (10 full-width layers need ~128 GB with AdamW) on the pod
 # ring
 TRAINMESH_FAMILIES = (
     ("zamba2-7b", 12, False, (("(2, 2)", (2, 2)),)),
-    ("rwkv6-1.6b", 6, False, (("(2, 2)", (2, 2)),)),
+    ("rwkv6-1.6b", 4, False, (("(2, 2)", (2, 2)),)),
     ("whisper-tiny", None, False, (("(2, 2)", (2, 2)), ("(1, 4)", (1, 4)))),
     ("llama-3.2-vision-90b", None, True, (("(2, 2, 2)", (2, 2, 2)),)),
 )
@@ -4108,9 +4138,10 @@ def trainmesh_phase(dev, card):
     11008, vocab 64000), depth cut to 8 layers (cut 4), batch 4 x seq 256,
     randtopk k 64 alpha 0.1, bf16, AdamW, remat, random weights from a
     seed, at mesh=None, (1, 1), (2, 4) and (2, 2, 2) ('pod', 'data',
-    'model'); granite-moe-1b-a400m FULL (24 layers, cut 12, 32 experts)
-    at (1, 4); then `TRAINMESH_FAMILIES`: zamba2-7b (12 layers) and
-    rwkv6-1.6b (6) at full width at mesh=None and (2, 2), whisper-tiny
+    'model'); granite-moe-1b-a400m at full width, `TRAINMESH_MOE_LAYERS`
+    of its 24 layers (32 experts) at (1, 4); then `TRAINMESH_FAMILIES`:
+    zamba2-7b (12 layers) and rwkv6-1.6b (4) at full width at mesh=None
+    and (2, 2), whisper-tiny
     FULL at mesh=None, (2, 2) and (1, 4), the vlm SMOKE in f32 at
     mesh=None and (2, 2, 2). Fatal: at every mesh the kernels' first step
     = the plain versions' bit for bit (loss, aux, grad norm, every updated weight);
@@ -4165,8 +4196,9 @@ def trainmesh_phase(dev, card):
     torch.cuda.empty_cache()
 
     label, shape = TRAINMESH_MOE
-    mcfg = _train_cfg("randtopk", layers=None, cut=0, arch=FAM_TRAIN)
-    print(f"  {FAM_TRAIN} FULL: {mcfg.n_layers} layers (cut at "
+    mcfg = _train_cfg("randtopk", layers=TRAINMESH_MOE_LAYERS, cut=0,
+                      arch=FAM_TRAIN)
+    print(f"  {FAM_TRAIN}: {mcfg.n_layers} layers (cut at "
           f"{mcfg.split.cut_layer}), {mcfg.n_experts} experts over 'model' "
           f"{shape[-1]}, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}")
     params = transformer.init_model(
@@ -4269,35 +4301,16 @@ def _bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
-def _step_cache(cfg, rt, batch, dev, max_len, params=None, side=None):
-    """An empty decode cache for `rt` (`init_cache`, or each position's
-    `split.model.init_decode_cache` on a mesh), the vlm's and whisper's
-    cross KV of the rows' `side` inputs (patches, frames) from
-    `params`."""
-    import torch
-    from repro_torch.models import transformer
-    from repro_torch.split import model as split_model
-
-    if rt.mesh is None:
-        with torch.no_grad():
-            extras = (transformer.make_extras(params, cfg, rt, side)
-                      if side else None)
-        return transformer.init_cache(cfg, batch, max_len, device=dev,
-                                      params=params, extras=extras)
-    return split_model.init_decode_cache(
-        params, cfg, split_model.decode_layout(cfg, rt, batch), max_len,
-        side=side)
-
-
 def _first_logits(cfg, params, dev, mesh, flash, prompts, side=None):
     """The first step's logits (`split.model.decode_step` from an empty
     cache), f32 on the host."""
+    from repro_torch.launch.specs import decode_cache
     from repro_torch.models.config import Runtime
     from repro_torch.split import model as split_model
 
     rt = Runtime(training=False, mesh=mesh, flash_decode=flash)
-    return split_model.decode_step(params, cfg, rt, prompts, _step_cache(
-        cfg, rt, prompts.shape[0], dev, STEP_MAX_LEN, params,
+    return split_model.decode_step(params, cfg, rt, prompts, decode_cache(
+        cfg, rt, params, prompts.shape[0], STEP_MAX_LEN, dev,
         side))[0].float().cpu()
 
 
@@ -4317,6 +4330,7 @@ def _step_run(cfg, params, dev, label, mesh, flash, card, prompts,
     import torch
     from repro_torch.kernels import _lib
     from repro_torch.launch import steps
+    from repro_torch.launch.specs import decode_cache
     from repro_torch.mesh import collective_bytes
     from repro_torch.models.config import Runtime
     from repro_torch.obs.registry import MetricsRegistry
@@ -4331,7 +4345,7 @@ def _step_run(cfg, params, dev, label, mesh, flash, card, prompts,
     serve = steps.make_serve_step(cfg, rt)
 
     def new_cache():
-        return _step_cache(cfg, cache_rt, B, dev, max_len, params, side)
+        return decode_cache(cfg, cache_rt, params, B, max_len, dev, side)
 
     def decode(n, cache):
         t, out = prompts, []
@@ -4735,27 +4749,271 @@ def familystep_phase(dev, card):
     return total
 
 
+# phase 19: the dry run's counts against the card
+# ---------------------------------------------------------------------------
+
+# (label, arch, depth (None: the config's), kind, mesh, B, S or ring
+# slots): yi-6b at full width trained at (2, 2, 2) (depth 5: its bytes
+# grow as the depth's square, so training is solved from 2, 3 and 4) and
+# decoding B 8 over a 32-slot ring at (1, 4) with flash decode (depth 4,
+# solved from 2 and 3); whisper-tiny FULL decoding at (2, 2, 2), its
+# encoder output crossing the pod ring when the cache is built
+DRY_CASES = (
+    ("yi-6b train", "yi-6b", 5, "train", (2, 2, 2), 8, 256),
+    ("yi-6b decode", "yi-6b", 4, "decode", (1, 4), STEP_BATCH, STEP_MAX_LEN),
+    ("whisper-tiny decode", "whisper-tiny", None, "decode", (2, 2, 2),
+     STEP_BATCH, STEP_MAX_LEN),
+)
+DRY_REPS = 3                  # timed steps on the card after the counted one
+DRY_PATH = {"train": TRAIN_PATH_KERNELS["randtopk"], "decode": STEP_PATH}
+
+
+def _card_step(cfg, shape, mesh, dev, reg, cache_reg):
+    """The dry run's step on the card: its arguments (random weights and
+    batch from a seed; `count_one`'s `Runtime`) and a `run()` of one
+    step."""
+    import torch
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.launch import steps
+    from repro_torch.launch.specs import decode_cache
+    from repro_torch.models import transformer
+    from repro_torch.models.config import Runtime
+    from repro_torch.optim.adamw import adamw_init
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    params = transformer.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    if shape.kind == "train":
+        rt = Runtime(mesh=mesh, training=True, registry=reg)
+        state = [params, adamw_init(params)]
+        batch = make_lm_batch(g, cfg, shape.batch, shape.seq, device=dev)
+        step = steps.make_train_step(cfg, rt)
+        draws = torch.Generator(device=dev).manual_seed(2)
+
+        def run():
+            state[0], state[1], _ = step(state[0], state[1], batch, draws)
+        return run
+    rt = Runtime(mesh=mesh, training=False, seq_shard=False, registry=reg)
+    side = None
+    if cfg.family == "audio":
+        side = {"frames": (torch.randn((shape.batch, cfg.n_frames,
+                                        cfg.d_model), generator=g,
+                                       device=dev) * 0.02).to(cfg.adtype())}
+    cache = decode_cache(cfg, dataclasses.replace(rt, registry=cache_reg),
+                         params, shape.batch, shape.seq, dev, side)
+    token = torch.randint(0, cfg.vocab, (shape.batch, 1), generator=g,
+                          device=dev, dtype=torch.int32)
+    serve = steps.make_serve_step(cfg, rt)
+    return lambda: serve(params, cache, token)
+
+
+def _dry_case(label, arch, layers, kind, mesh_shape, B, S, dev, card):
+    """Count one case on `meta` (directly, and solved from smaller
+    depths: equal, or fatal), then run it on the card under the same
+    counter with a registry: FLOPs and collective bytes per op equal the
+    meta count (fatal); printed: the peak against the card's, the bytes
+    (plain codec on meta, kernels on the card) and the roofline terms of
+    one card holding every position against the step's median ms.
+    Returns the card step's launches."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline.program import (collective_stats,
+                                              count_program)
+
+    t0 = time.perf_counter()
+    cfg = _train_cfg("randtopk", layers=layers, cut=0, arch=arch)
+    shape = specs.ShapeSpec(label, kind, S, B)
+    train = kind == "train"
+    meta_mesh = _train_mesh(mesh_shape, "meta")
+    meta = dryrun.count_one(cfg, shape, meta_mesh)
+    ds = dryrun.depths(cfg, train)
+    solved = dryrun.extrapolate(cfg, {
+        d: dryrun.count_one(dryrun.at_depth(cfg, d), shape, meta_mesh)
+        for d in ds}, train)
+    for what, a, b in (("flops", solved.counts.flops, meta.counts.flops),
+                       ("bytes", solved.counts.bytes, meta.counts.bytes),
+                       ("args", solved.args_bytes, meta.args_bytes),
+                       ("collectives", solved.counts.collectives,
+                        meta.counts.collectives),
+                       ("cache collectives", solved.cache_collectives,
+                        meta.cache_collectives)):
+        if a != b:
+            fail(f"dry run {label}: {what} solved from depths {ds} "
+                 f"{a} != the direct count at {cfg.n_layers}'s {b}")
+    t_meta = time.perf_counter() - t0
+    base = held_gib(dev)
+    reg, cache_reg = MetricsRegistry(), MetricsRegistry()
+    run = _card_step(cfg, shape, _train_mesh(mesh_shape, dev), dev, reg,
+                     cache_reg)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    with count_program(reg) as got:
+        run()
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base * 2**30
+    if got.flops != meta.counts.flops:
+        fail(f"dry run {label}: the card's FLOPs {got.flops} != meta's "
+             f"{meta.counts.flops}")
+    if got.collectives != meta.counts.collectives:
+        fail(f"dry run {label}: the card's collective bytes "
+             f"{got.collectives.per_op_bytes} != meta's "
+             f"{meta.counts.collectives.per_op_bytes}")
+    built = collective_stats(cache_reg).per_op_bytes
+    if built != meta.cache_collectives.per_op_bytes:
+        fail(f"dry run {label}: the card's cache collective bytes {built} "
+             f"!= meta's {meta.cache_collectives.per_op_bytes}")
+    missing = [n for n in DRY_PATH[kind] if not counts[n]]
+    if missing:
+        fail(f"dry run {label}: no launch of {missing} on the card")
+    times = []
+    for _ in range(DRY_REPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    roof = analysis.from_program(
+        meta.counts, arch=arch, shape=label, mesh_desc=str(mesh_shape),
+        chips=1, args_bytes=meta.args_bytes)
+    print(f"  {label} ({cfg.n_layers} layers, {mesh_shape}, B {B}, "
+          f"{'S' if train else 'ring'} {S}): FLOPs {got.flops} = meta's; "
+          f"collective bytes {got.collectives.per_op_bytes} = meta's"
+          + (f", the cache's {built} = meta's" if built else "")
+          + f"; depths {ds} solved = the direct count at {cfg.n_layers} "
+          f"(flops, bytes, args, collectives); bytes: meta (plain codec) "
+          f"{meta.counts.bytes} / card (kernels) {got.bytes} = "
+          f"{meta.counts.bytes / got.bytes:.4f}; peak: meta args "
+          f"{meta.args_bytes} + {meta.counts.peak} = "
+          f"{roof.peak_memory:.0f} B against the card's "
+          f"max_memory_allocated {peak:.0f} B = "
+          f"{roof.peak_memory / peak:.4f}; one card's roofline: compute "
+          f"{roof.t_compute * 1e3:.4f} ms, memory "
+          f"{roof.t_memory * 1e3:.4f} ms, collective "
+          f"{roof.t_collective * 1e3:.4f} ms ({roof.bottleneck}) against "
+          f"the step's median {statistics.median(times):.3f} ms "
+          f"({[round(t, 3) for t in times]}); launches "
+          f"{ {n: c for n, c in counts.items() if c} }; meta counts "
+          f"{t_meta:.1f} s, the case {time.perf_counter() - t0:.1f} s; "
+          f"{card}")
+    del run
+    return counts
+
+
+def dryrun_phase(dev, card):
+    """Phase 19: the dry run (`launch.dryrun.count_one`) held against the
+    card, for each of `DRY_CASES` (`_dry_case`). Returns the card steps'
+    launches."""
+    import collections
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    print(f"dry run phase: each case counted on meta, then run on the card "
+          f"under the same counter; every mesh position on the one card; "
+          f"{card}")
+    for case in DRY_CASES:
+        total.update(_dry_case(*case, dev, card))
+        held_gib(dev)
+    print(f"dry run phase wall: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+# phase 20: the examples on the card
+# ---------------------------------------------------------------------------
+
+# (example, main()'s keywords, the lines `tests/test_examples.py` asserts
+# of the reference's, the kernels its path must launch); every one at its
+# defaults (the reference's sizes) but the multipod dry run, which counts
+# the qwen3-8b decode step at (2, 2, 2) on meta instead of the train step
+# at (2, 16, 16) (~15 minutes of host time)
+EXAMPLES = (
+    ("quickstart", {}, ("compressed size", "greedy decode"),
+     TRAIN_PATH_KERNELS["randtopk"] + STEP_PATH),
+    ("two_party_vfl", {}, ("randtopk", "size_reduction"), ()),
+    ("streaming_clients", {}, ("identity", "randtopk", "tok/s"),
+     PATH_KERNELS["randtopk"]),
+    ("fedtrain_two_party", {}, ("randtopk", "B/step up", "B/step down",
+                                "test acc"), FED_KERNELS["randtopk"]),
+    ("multipod_dryrun", {"shape": "decode_32k", "mesh": (2, 2, 2)},
+     ("summary:", "'bottleneck':"), ()),
+)
+
+
+def examples_phase(dev, card):
+    """Phase 20: each `examples/torch_*.py`'s `main()` in this process on
+    the card (launch counts zeroed just before each): the lines the
+    reference's example tests assert (fatal), the kernels of its path
+    launched (fatal), its wall and output. Returns the launches."""
+    import collections
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+    from repro_torch.kernels import _lib
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    print(f"examples phase: examples/torch_*.py's main() on the card; "
+          f"{card}")
+    for name, kw, lines, path in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"torch_{name}", os.path.join(ROOT, "examples",
+                                          f"torch_{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        if "mesh" in kw:
+            kw = dict(kw, mesh=_train_mesh(kw["mesh"], "meta"))
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _lib.launch_counts()
+        out = buf.getvalue()
+        print("\n".join("    | " + ln for ln in out.strip().splitlines()))
+        absent = [ln for ln in lines if ln not in out]
+        if absent:
+            fail(f"example {name}: {absent} not printed")
+        missing = [n for n in path if not counts[n]]
+        if missing:
+            fail(f"example {name}: no launch of {missing}")
+        print(f"  {name}: {wall:.1f} s; the asserted lines {list(lines)} "
+              f"printed; launches { {n: c for n, c in counts.items() if c} }")
+        total.update(counts)
+        held_gib(dev)
+    print(f"examples phase wall: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
                                         "fedtrain", "loadgen", "families",
                                         "recurrent", "multimodal", "mesh",
                                         "trainmesh", "servestep",
-                                        "familystep", "probe", "ab",
+                                        "familystep", "dryrun",
+                                        "examples", "probe", "ab",
                                         "predict"),
                     default="all",
                     help="kernels: build + kernel checks + codec probes; "
                          "serve / train / fedtrain / loadgen / families / "
                          "recurrent / multimodal / mesh / trainmesh / "
-                         "servestep / familystep: the "
+                         "servestep / familystep / dryrun / examples: the "
                          "checks, "
                          "probes and one path; probe: build + `probe_kernels` "
                          "alone; ab: `probe` in turns on a parent tree's "
                          "package and this one (--parent); predict: the "
                          "loadgen phase's reports computed on the CPU "
                          "(checks no card, exits 3)")
-    ap.add_argument("--layers", type=int, default=16,
-                    help="serving depth of yi-6b, 16 of its 32 layers by "
+    ap.add_argument("--layers", type=int, default=8,
+                    help="serving depth of yi-6b, 8 of its 32 layers by "
                          "default to keep the whole run within its time "
                          "(width is never cut)")
     ap.add_argument("--src", help="import repro_torch from this directory "
@@ -4921,6 +5179,21 @@ def main(argv=None) -> int:
                                   "(whisper at mesh=None, (1, 4) and (2, "
                                   "2, 2); zamba2, rwkv6 and the vlm at "
                                   "mesh=None and (1, 4))")
+    if args.phase in ("all", "dryrun"):
+        counts = dryrun_phase(dev, card)
+        for n in launches:
+            if counts[n]:
+                add(n, counts[n], "the dry run phase's card steps (yi-6b 5 "
+                                  "layers trained at (2, 2, 2) and 4 "
+                                  "decoding at (1, 4), whisper decoding at "
+                                  "(2, 2, 2))")
+    if args.phase in ("all", "examples"):
+        counts = examples_phase(dev, card)
+        for n in launches:
+            if counts[n]:
+                add(n, counts[n], "the examples phase (quickstart, "
+                                  "two_party_vfl, streaming_clients, "
+                                  "fedtrain_two_party)")
 
     for r in records:
         r["launches"] = launches[r["name"]]

@@ -1,0 +1,327 @@
+"""Production-mesh dry run: count every (architecture x input shape) on the
+production meshes, print memory and cost, and emit roofline rows. The
+port's `src/repro/launch/dryrun.py`.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b \
+        --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --json out.json
+
+The reference lowers and compiles each step through XLA on 512 fake
+devices and reads the compiled program. The port has no compiler: it runs
+the step itself on the `meta` device (nothing is allocated, no card is
+touched) over `make_production_mesh(devices="meta")`, (16, 16) or (2, 16,
+16), and counts what runs (`roofline.program.count_program`).
+
+The single controller walks every position, so a full-depth walk at
+(16, 16) costs minutes. `count_combo` counts a few small depths instead
+(`depths`) and solves exactly for a constant part, one part per kind of
+layer and, in training, a part in the square of the stacked depth
+(`kinds`), evaluated at the configuration's depth: the port's
+counterpart of the reference's loop trip counts (`hlo.py:86-100`).
+FLOPs, bytes, collective bytes and the arguments' bytes come out exact;
+the peak may not (remat holds one layer's recompute at a time).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import traceback
+from fractions import Fraction
+from typing import Dict, List
+
+import torch
+from torch.utils._pytree import tree_leaves
+
+import repro_torch.configs as configs
+from repro_torch.launch import specs as specs_mod
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.steps import make_serve_step, make_train_step
+from repro_torch.models.config import Runtime, SplitConfig
+from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.roofline import analysis
+from repro_torch.roofline.program import (CollectiveStats, ProgramCounts,
+                                          collective_stats, count_program)
+from repro_torch.split import model as split_model
+from repro_torch.testing.clock import SYSTEM_CLOCK, Clock
+
+_cut_for = configs.cut_for
+
+
+def build_config(arch: str, shape_name: str, *, split: str = None, k: int = 64,
+                 alpha: float = 0.1, cut: int = -1):
+    cfg = configs.get(arch)
+    shape = specs_mod.SHAPES[shape_name]
+    cfg = specs_mod.adapt_config(cfg, shape)
+    if split:
+        cut_layer = cut if cut > 0 else _cut_for(cfg)
+        cfg = cfg.with_(split=SplitConfig(
+            cut_layer=cut_layer, compressor=split, k=k, alpha=alpha))
+    return cfg, shape
+
+
+@dataclasses.dataclass
+class Counted:
+    """One step's counts (`ProgramCounts`), its arguments' bytes (every
+    position's, on the one device) and, for decode, the collective bytes
+    of building its cache (whisper's encoder output over the pod ring),
+    apart from the step's."""
+
+    counts: ProgramCounts
+    args_bytes: int
+    cache_collectives: CollectiveStats
+
+
+def _storage_bytes(tree) -> int:
+    seen = {}
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st._cdata] = st.nbytes()
+    return sum(seen.values())
+
+
+def count_one(cfg, shape, mesh) -> Counted:
+    """Run one (cfg, shape, mesh) step on `meta` under `count_program`, in
+    place of the reference's `lower_one`, with its `Runtime` defaults:
+    training through `make_train_step` (sequence parallelism on), prefill
+    through `split.model.forward` without autograd, decode through
+    `make_serve_step` (flash decode on, sequence parallelism off). A batch
+    the batch axes do not divide (long_500k's B 1) stays whole on them,
+    and a KV that 'model' does not divide (the vlm's 1601 patches) whole
+    on every position (`tp.Layout`, `tp.flash_split`)."""
+    rt = Runtime(mesh=mesh, training=(shape.kind == "train"),
+                 seq_shard=(shape.kind != "decode"),
+                 registry=MetricsRegistry())
+    cache_reg = MetricsRegistry()
+    if shape.kind == "train":
+        args = specs_mod.train_specs(cfg, shape)
+        step = make_train_step(cfg, rt)
+        draws = torch.Generator().manual_seed(0)   # RandTopK's, on the CPU
+        run = lambda: step(*args, draws)  # noqa: E731
+    elif shape.kind == "prefill":
+        args = (specs_mod.abstract_params(cfg),
+                specs_mod.batch_specs(cfg, shape))
+
+        @torch.no_grad()
+        def run():
+            return split_model.forward(args[0], cfg, rt, args[1])[0]
+    else:
+        args = specs_mod.decode_specs(
+            cfg, shape, dataclasses.replace(rt, registry=cache_reg))
+        step = make_serve_step(cfg, rt)
+        run = lambda: step(*args)  # noqa: E731
+    with count_program(rt.registry) as counts:
+        run()
+    return Counted(counts, _storage_bytes(args), collective_stats(cache_reg))
+
+
+# --------------------------------------------------------------------------
+# Depth: a few small depths, solved for the configuration's
+# --------------------------------------------------------------------------
+
+def kinds(cfg, n_layers: int, train: bool) -> List[int]:
+    """The terms a count at `n_layers` layers is a sum of, each a
+    multiple of: 1 (the constant part: embedding, head, cut, optimizer
+    of the unstacked leaves, whisper's encoder), then one entry per kind
+    of layer, the vlm's groups of `cross_attn_every` (self layers and a
+    cross layer), zamba2's Mamba2 layers without a shared-attention site
+    and with one (the shared block), the layers elsewhere; and for a
+    training step the square of the stacked depth (the groups for the
+    vlm): autograd hands each layer's view of a stacked parameter a
+    zero-filled gradient of the whole stack and adds it, so those bytes
+    grow as the depth's square."""
+    if cfg.family == "vlm":
+        n = n_layers // cfg.cross_attn_every
+        row = [1, n]
+    elif cfg.family == "hybrid":
+        n, sites = n_layers, n_layers // cfg.attn_every
+        row = [1, n_layers - sites, sites]
+    else:
+        n = n_layers
+        row = [1, n_layers]
+    return row + [n * n] if train else row
+
+
+def depths(cfg, train: bool) -> List[int]:
+    """The smallest depths whose `kinds` rows are independent, as many as
+    the terms: from 2 layers a step (the cut needs a layer on each side),
+    for the vlm from two whole groups a group at a time (its cut is whole
+    groups). The dense family trains at 2, 3, 4 and serves at 2, 3;
+    zamba2 (a site every 6th layer) trains at 2, 3, 4, 6."""
+    step = cfg.cross_attn_every if cfg.family == "vlm" else 1
+    n_terms = len(kinds(cfg, 2 * step, train))
+    out, n = [], 2 * step
+    while len(out) < n_terms:
+        if _rank([kinds(cfg, d, train) for d in out + [n]]) > len(out):
+            out.append(n)
+        n += step
+    return out
+
+
+def at_depth(cfg, n_layers: int):
+    """`cfg` cut to `n_layers`, its cut (if any) at `configs.cut_for`."""
+    out = cfg.with_(n_layers=n_layers)
+    if cfg.split is not None and cfg.split.cut_layer > 0:
+        out = out.with_(split=dataclasses.replace(
+            cfg.split, cut_layer=_cut_for(out)))
+    return out
+
+
+def _values(c: Counted) -> Dict[str, int]:
+    out = {"flops": c.counts.flops, "bytes": c.counts.bytes,
+           "peak": c.counts.peak, "args": c.args_bytes}
+    for pre, stats in (("coll:", c.counts.collectives),
+                       ("cache:", c.cache_collectives)):
+        out.update({pre + op: int(b) for op, b in stats.per_op_bytes.items()})
+    return out
+
+
+def _eliminate(rows):
+    """Rows reduced over Fractions (Gauss-Jordan); returns them with the
+    pivot columns."""
+    a = [[Fraction(v) for v in r] for r in rows]
+    pivots, i = [], 0
+    for col in range(len(a[0]) if a else 0):
+        piv = next((j for j in range(i, len(a)) if a[j][col] != 0), None)
+        if piv is None:
+            continue
+        a[i], a[piv] = a[piv], a[i]
+        for j in range(len(a)):
+            if j != i and a[j][col] != 0:
+                f = a[j][col] / a[i][col]
+                a[j] = [x - f * y for x, y in zip(a[j], a[i])]
+        pivots.append(col)
+        i += 1
+    return a, pivots
+
+
+def _rank(rows) -> int:
+    return len(_eliminate([r + [0] for r in rows])[1]) if rows else 0
+
+
+def _solve(rows, rhs):
+    """x with rows x = rhs, exactly (square, independent rows)."""
+    a, _ = _eliminate([r + [b] for r, b in zip(rows, rhs)])
+    return [a[i][-1] / a[i][i] for i in range(len(rows))]
+
+
+def extrapolate(cfg, counted: Dict[int, Counted], train: bool) -> Counted:
+    """The counts at `cfg.n_layers` from counts at the depths of
+    `counted` (`depths(cfg, train)`): exact for every count but the peak,
+    which is rounded. Raises if a count that must be exact does not come
+    out whole (a term `kinds` lacks: a counting fault)."""
+    ds = sorted(counted)
+    rows = [kinds(cfg, d, train) for d in ds]
+    vals = [_values(counted[d]) for d in ds]
+    target = kinds(cfg, cfg.n_layers, train)
+    out = {}
+    for key in set().union(*vals):
+        coef = _solve(rows, [v.get(key, 0) for v in vals])
+        x = sum(c * t for c, t in zip(coef, target))
+        if key != "peak" and x.denominator != 1:
+            raise ValueError(f"{key} is not a sum of {len(rows)} terms of "
+                             f"the depth: {x} at {cfg.n_layers} from "
+                             f"depths {ds}")
+        out[key] = round(x)
+
+    def ops(pre):
+        return CollectiveStats({k[len(pre):]: float(v)
+                                for k, v in out.items()
+                                if k.startswith(pre) and v})
+    return Counted(ProgramCounts(flops=out["flops"], bytes=out["bytes"],
+                                 peak=out["peak"],
+                                 collectives=ops("coll:")),
+                   out["args"], ops("cache:"))
+
+
+def count_combo(cfg, shape, mesh) -> Counted:
+    """`count_one` at `depths` and `extrapolate`d to the configuration's
+    depth, or counted directly where that depth is no deeper than
+    them."""
+    train = shape.kind == "train"
+    ds = depths(cfg, train)
+    if cfg.n_layers <= max(ds):
+        return count_one(cfg, shape, mesh)
+    return extrapolate(cfg, {d: count_one(at_depth(cfg, d), shape, mesh)
+                             for d in ds}, train)
+
+
+def run_combo(arch: str, shape_name: str, *, multi_pod=False, split=None,
+              k=64, alpha=0.1, clock: Clock = SYSTEM_CLOCK, mesh=None):
+    """`clock` (`testing.clock`) feeds the count-time report, injectable
+    so tests can pin the printed timing. `mesh`: a `meta` mesh to count
+    on instead of the production one."""
+    cfg, shape = build_config(arch, shape_name, split=split, k=k, alpha=alpha)
+    if mesh is None:
+        mesh = make_production_mesh(multi_pod=multi_pod, devices="meta")
+    chips = mesh.size
+    t0 = clock.monotonic()
+    got = count_combo(cfg, shape, mesh)
+    dt = clock.monotonic() - t0
+    tokens = shape.batch * (shape.seq if shape.kind != "decode" else 1)
+    mf = analysis.model_flops(cfg, tokens=tokens,
+                              training=(shape.kind == "train"))
+    roof = analysis.from_program(
+        got.counts, arch=arch, shape=shape_name,
+        mesh_desc="x".join(map(str, mesh.shape.values())), chips=chips,
+        model_flops=mf, args_bytes=got.args_bytes)
+    print(f"== {arch} x {shape_name} mesh={roof.mesh} "
+          f"(count {dt:.1f}s) ==")
+    print(f"  memory: args={got.args_bytes / 1e9:.2f}GB "
+          f"peak={roof.peak_memory / 1e9:.2f}GB (one device holding "
+          f"every position: no per-chip figure)")
+    r = roof.row()
+    print(f"  cost: flops={r['hlo_flops']:.3e} "
+          f"model_flops={r['model_flops']:.3e} "
+          f"useful={r['useful_ratio']:.2f} bytes={roof.hlo_bytes:.3e}")
+    print(f"  roofline: compute={r['t_compute_s']*1e3:.2f}ms "
+          f"memory={r['t_memory_s']*1e3:.2f}ms "
+          f"collective={r['t_collective_s']*1e3:.2f}ms "
+          f"-> {r['bottleneck']}-bound")
+    print("  collectives: " + ", ".join(
+        f"{op}={b/1e9:.2f}GB" for op, b in r["coll_detail"].items()))
+    return roof
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--split", default=None,
+                    help="cut-layer compressor (randtopk/topk/...)")
+    ap.add_argument("--k", type=int, default=64)
+    ap.add_argument("--alpha", type=float, default=0.1)
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args(argv)
+
+    if args.all:
+        combos = [(a, s) for a in configs.ARCHS for s in specs_mod.SHAPES]
+    else:
+        combos = [(args.arch, args.shape)]
+
+    rows, failures = [], []
+    for arch, shape in combos:
+        try:
+            roof = run_combo(arch, shape, multi_pod=args.multi_pod,
+                             split=args.split, k=args.k, alpha=args.alpha)
+            rows.append(roof.row())
+        except Exception as e:  # noqa: BLE001
+            traceback.print_exc()
+            failures.append((arch, shape, f"{type(e).__name__}: {e}"))
+
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"rows": rows, "failures": failures}, f, indent=1)
+    print(f"\n{len(rows)} OK, {len(failures)} FAILED")
+    for a, s, e in failures:
+        print(f"  FAIL {a} x {s}: {e}")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

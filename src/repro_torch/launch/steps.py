@@ -47,15 +47,20 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, *, lr=3e-4,
                     weight_decay=0.0) -> Callable:
     """(params, opt_state, batch, generator) -> (params, opt_state,
     metrics): one AdamW step on the split model; `generator` feeds the
-    cut's RandTopK draws."""
+    cut's RandTopK draws. A parameter group the loss cannot reach
+    (`_unreached_groups`) takes a zero gradient, as `jax.grad` gives; any
+    other leaf the loss does not reach raises (a wiring fault)."""
+    unreached = _unreached_groups(cfg)
 
     def step(params, opt_state, batch, generator):
         params = tree_map(lambda p: p.detach().requires_grad_(True), params)
         total, (ce, aux) = loss_fn(params, cfg, rt, batch, generator)
         leaves = tree_leaves(params)
-        grads = torch.autograd.grad(total, leaves)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
         it = iter(grads)
-        grads = tree_map(lambda _: next(it), params)
+        grads = {name: tree_map(lambda p, name=name: _grad_of(
+            next(it), p, name, unreached), sub)
+            for name, sub in params.items()}
         new_params, new_opt, gnorm = adamw_update(
             params, grads, opt_state, lr=lr, weight_decay=weight_decay)
         metrics = {"loss": total.detach(), "ce": ce.detach(),
@@ -63,6 +68,25 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, *, lr=3e-4,
         return new_params, new_opt, metrics
 
     return step
+
+
+def _unreached_groups(cfg: ArchConfig) -> frozenset:
+    """The top-level parameter groups the loss does not reach: zamba2's
+    shared block at a depth without a shared-attention site (the dry
+    run's small depths, `launch.dryrun.depths`)."""
+    if cfg.family == "hybrid" and not any(
+            s >= 0 for s in transformer.attn_sites(cfg)):
+        return frozenset({"shared_attn", "shared_mlp"})
+    return frozenset()
+
+
+def _grad_of(g, p, group, unreached):
+    if g is not None:
+        return g
+    if group not in unreached:
+        raise RuntimeError(f"the loss does not reach a leaf of {group!r} "
+                           f"{tuple(p.shape)}")
+    return torch.zeros_like(p)
 
 
 def make_serve_step(cfg: ArchConfig, rt: Runtime) -> Callable:

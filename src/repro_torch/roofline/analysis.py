@@ -10,7 +10,8 @@ The closed forms (`active_param_count`, `model_flops`,
 `serving_collective_costs`, `serving_collective_slack`) and the bands
 are the reference's, number for number. The reference fills `Roofline`
 from a compiled program (`from_compiled`, with `roofline/hlo.py`); the
-port has no compiled program yet, so the dataclass is filled by hand.
+port has no compiler, so `from_program` fills it from a counted run
+(`roofline/program.py`, the dry run's `launch/dryrun.py`).
 `serving_collective_costs` predicts the collective bytes that one
 sharded arena step counts (`repro_torch.mesh.collective_bytes`) exactly,
 `training_collective_costs` those of one training step on a mesh
@@ -58,7 +59,8 @@ class Roofline:
     coll_bytes: float         # per-chip link bytes
     coll_detail: Dict[str, float]
     model_flops: float = 0.0  # 6*N*D (or 6*N_active*D)
-    peak_memory: float = 0.0  # per-device bytes
+    peak_memory: float = 0.0  # bytes (from_program: one device, every
+                              # position)
 
     @property
     def t_compute(self) -> float:
@@ -94,6 +96,24 @@ class Roofline:
             "peak_mem_gb": self.peak_memory / 1e9,
             "coll_detail": self.coll_detail,
         }
+
+
+def from_program(counts, *, arch: str, shape: str, mesh_desc: str,
+                 chips: int, model_flops: float = 0.0,
+                 args_bytes: int = 0) -> Roofline:
+    """A `Roofline` from a counted run (`roofline.program.ProgramCounts`):
+    the port's counterpart of the reference's `from_compiled`, which has
+    none (no compiled program). `hlo_flops` and `hlo_bytes` are the
+    whole program's (the single controller runs every position), the
+    collective bytes are per device. `peak_memory` is `args_bytes` plus
+    the counted peak: ONE device holding every position, not a per-chip
+    figure, which waits for positions on several cards (ROADMAP 8c)."""
+    return Roofline(
+        arch=arch, shape=shape, mesh=mesh_desc, chips=chips,
+        hlo_flops=float(counts.flops), hlo_bytes=float(counts.bytes),
+        coll_bytes=counts.collectives.total_link_bytes,
+        coll_detail=counts.collectives.raw_bytes,
+        model_flops=model_flops, peak_memory=float(args_bytes + counts.peak))
 
 
 # --------------------------------------------------------------------------
