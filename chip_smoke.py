@@ -27,6 +27,8 @@
                                               # run's counts on the card
     python3 chip_smoke.py --phase examples    # kernel checks + the
                                               # examples on the card
+    python3 chip_smoke.py --phase experiments # kernel checks + the
+                                              # paper's experiments, short
     python3 chip_smoke.py --phase probe       # build + `probe_kernels`
     python3 chip_smoke.py --phase ab --parent DIR   # probes, P C C P
     python3 chip_smoke.py --phase predict     # CPU: phase 11's reports
@@ -202,7 +204,7 @@ Phases, each fatal on failure:
      plain tokens, and its token agreement with the 16-bit run (reported,
      not gated); then train zamba2-7b at full width with its depth cut
      from 81 to 12 layers (cut 6, one site on each side) and rwkv6-1.6b
-     (24 to 12, cut 6), batch 4 x seq 256, randtopk k 64 alpha 0.1, AdamW:
+     (24 to 6, cut 3), batch 4 x seq 256, randtopk k 64 alpha 0.1, AdamW:
      two plain first steps equal each other and the kernels' first step
      bit for bit, 3 kernel steps with their median ms, the busy share of
      a traced fourth step, and peak memory;
@@ -327,7 +329,20 @@ Phases, each fatal on failure:
      `examples/torch_*.py`'s `main()` in this process at its defaults
      (the multipod dry run at (2, 2, 2) on the decode step, on meta),
      launch counts zeroed before each: the lines the reference's
-     example tests assert, its path's kernels launched, its wall.
+     example tests assert, its path's kernels launched, its wall;
+ 21. the paper's experiments on the card (`--phase experiments`,
+     `repro_torch.experiments`): the kernels at the shapes the sections
+     give them that phase 2 does not hold (top-k at k 2-13 on 128, 4000
+     and 20000 rows of d 128 and 600, and 256 x 1024 k 16; the Eq. 7
+     mask at those k on 128 rows; table 2's seven codecs through the
+     fused encode, the wire body byte for byte; the quant decodes of table 3's quant
+     and the combined section's randtopk_quant rows) against their plain
+     versions; then, launch counts zeroed, table 2 in full (analytic =
+     measured for all seven codecs), fig 2 in full (topk stuck,
+     randtopk escaped) and table 3's high level (k 3: randtopk, topk,
+     size_reduction) for one epoch with the kernels and with the plain
+     versions from the same generators: final loss, test accuracy and
+     every trained tensor bit for bit; the phase's wall.
 
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, for the serve's two kernels
@@ -335,7 +350,8 @@ plus the loadgen phase's kernel runs, plus the families, recurrent,
 multimodal and mesh phases' serves, live checks and training, plus the
 train mesh phase's kernel steps and the serve step and family step
 phases' kernel runs, plus the dry run phase's card steps and the
-examples, plus the fedtrain phase's chaos runs and
+examples, plus the experiments phase's sections,
+plus the fedtrain phase's chaos runs and
 launch.train's resumed checkpoint run, or in its check's own loop for the
 five no path runs, its largest difference from its plain version,
 the CUDA-event times of kernel, plain version and library call at its
@@ -3218,8 +3234,10 @@ REC_SERVES = (("zamba2-7b", D_ZAMBA, 352, 12),
               ("rwkv6-1.6b", D_RWKV, 344, 12))
 # (arch, layers (None: full depth), cut): zamba2's 81 layers hold 13.5 GB
 # of bf16 weights, and with f32 AdamW moments leave no room for the
-# activations at batch 4 x seq 256, so its training depth is cut to 12
-REC_TRAIN = (("zamba2-7b", 12, 6), ("rwkv6-1.6b", 12, 6))
+# activations at batch 4 x seq 256, so its training depth is cut to 12;
+# rwkv6's (host-bound, ~2.5 s a step at 12 layers) to 6, cut 3, to keep
+# the whole run inside its time
+REC_TRAIN = (("zamba2-7b", 12, 6), ("rwkv6-1.6b", 6, 3))
 REC_INT8 = "yi-6b"
 REC_INT8_LAYERS = 8           # of 32 (cut 4): the whole run's time limit
 
@@ -4992,6 +5010,143 @@ def examples_phase(dev, card):
     return total
 
 
+EXP_TOPK_KS = (2, 3, 4, 5, 6, 7, 9, 12, 13)   # tables 3 and 7, combined,
+                                               # fedtrain's schedule
+EXP_LEVEL = ("randtopk", "topk", "size_reduction")    # table 3 at k 3
+
+
+def _exp_kernel_checks(dev, g):
+    """Phase 21's kernels against their plain versions at the shapes the
+    experiments give them. Returns the number of cases."""
+    import torch
+    from repro_torch.core import compressors as C, selection
+    from repro_torch.experiments import table2_sizes
+    from repro_torch.kernels.randtopk import ops, ref
+
+    n = 0
+    shapes = [(rows, d, k) for d, ks in ((128, EXP_TOPK_KS), (600, (2, 9)))
+              for k in ks for rows in (128, 4000, 20000)] + [(256, 1024, 16)]
+    for rows, d, k in shapes:
+        x = torch.relu(torch.randn((rows, d), generator=g, device=dev))
+        for xx in (x, torch.round(x * 2) / 2):     # post-ReLU, with ties
+            mk, tk = ops.topk_mask_threshold(xx, k)
+            mp, tp = ref.topk_mask_threshold(xx, k)
+            if not torch.equal(mk, mp) or not torch.equal(tk, tp):
+                fail(f"experiments: topk kernel != plain at {rows} x {d} "
+                     f"k {k}")
+            n += 1
+        if rows != 128:
+            continue
+        gum = selection.gumbel_noise(g, x.shape, device=dev)
+        m = torch.randint(0, min(k, d - k) + 1, (rows, 1), generator=g,
+                          device=dev)
+        if not torch.equal(ops.randtopk_mask(x, gum, m, k),
+                           ref.randtopk_mask(x, gum, m, k)):
+            fail(f"experiments: randtopk kernel != plain at {rows} x {d} "
+                 f"k {k}")
+        n += 1
+    x = torch.randn((64, 128), generator=g, device=dev)
+    for method, kw in table2_sizes.CODECS:
+        meta, got = table2_sizes.wire_bytes(C.make_compressor(method, **kw), x)
+        plain_meta, plain = table2_sizes.wire_bytes(
+            C.make_compressor(method, backend="torch", **kw), x)
+        if meta != plain_meta or got != plain:
+            fail(f"experiments: table 2's {method} wire body differs: "
+                 f"{meta}, {len(got)} B with the fused kernel, "
+                 f"{plain_meta}, {len(plain)} B with the plain version")
+        n += 1
+    for rows in (128, 4000, 20000):
+        o = torch.relu(torch.randn((rows, 128), generator=g, device=dev))
+        for comp in (C.Quantization(bits=4), C.RandTopKQuant(k=7, bits=8),
+                     C.RandTopKQuant(k=12, bits=4)):
+            p = comp.encode(o)
+            got = C.payload_to_dense(p)
+            plain = C.payload_to_dense(p, backend="torch")
+            if not torch.equal(got, plain):
+                fail(f"experiments: decode_rows != plain for {comp.name} "
+                     f"at {rows} x 128: {max_diff(got, plain)}")
+            n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+def experiments_phase(dev, card):
+    """Phase 21: the experiments' kernels at their shapes, then table 2,
+    fig 2 and table 3's high level on the card. Returns the launches of
+    the sections' run."""
+    import torch
+    from repro_torch.experiments import common, fig2_toy, table2_sizes
+    from repro_torch.kernels import _lib
+    from repro_torch.split import tabular
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(21)
+    t0 = time.perf_counter()
+    n = _exp_kernel_checks(dev, g)
+    print(f"experiments phase: {card}; {n} kernel cases at the sections' "
+          f"shapes equal to the plain versions in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    for name, main in (("table2", table2_sizes.main),
+                       ("fig2", fig2_toy.main)):
+        t0 = time.perf_counter()
+        lines = []
+        main(emit=lines.append)
+        torch.cuda.synchronize()
+        print("\n".join("    | " + ln for ln in lines))
+        bad = [ln for ln in lines if ln.endswith(",False")]
+        if bad:
+            fail(f"experiments {name}: {bad}")
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    ds = common.dataset()
+    for method in EXP_LEVEL:
+        kw = dict(k=3, alpha=0.1) if method == "randtopk" else dict(k=3)
+        runs = {}
+        for backend in ("cuda", "torch"):
+            t0 = time.perf_counter()
+            before = _lib.launch_counts()
+            runs[backend] = r = tabular.train(
+                common.spec(method, backend=backend, **kw), ds, epochs=1,
+                seed=0, device=dev)
+            torch.cuda.synchronize()
+            r["wall_s"] = time.perf_counter() - t0
+            r["launched"] = {k: c - before[k]
+                             for k, c in _lib.launch_counts().items()
+                             if c - before[k]}
+        kern, plain = runs["cuda"], runs["torch"]
+        if plain["launched"]:
+            fail(f"experiments table3 {method}: the plain run launched "
+                 f"{plain['launched']}")
+        off = [f"{part}.{n}" for part in ("bottom", "top")
+               for n in kern[part]
+               if not torch.equal(kern[part][n], plain[part][n])]
+        if off or kern["final_loss"] != plain["final_loss"] or \
+                kern["test_acc"] != plain["test_acc"]:
+            fail(f"experiments table3 {method}: kernels differ from the "
+                 f"plain versions: loss {kern['final_loss']} vs "
+                 f"{plain['final_loss']}, acc {kern['test_acc']} vs "
+                 f"{plain['test_acc']}, tensors {off}")
+        want = {"randtopk": ("randtopk_mask", "topk_mask_threshold"),
+                "topk": ("topk_mask_threshold",)}.get(method, ())
+        missing = [k for k in want if not kern["launched"].get(k)]
+        if missing:
+            fail(f"experiments table3 {method}: no launch of {missing}")
+        print(f"  table3 high {method} (k 3, 1 epoch = {kern['steps']} "
+              f"steps): final loss {kern['final_loss']}, test acc "
+              f"{kern['test_acc']}, every trained tensor equal to the "
+              f"plain run's; {kern['compressed_size_pct']:.2f}% size; wall "
+              f"{kern['wall_s']:.2f} s kernels, {plain['wall_s']:.2f} s "
+              f"plain; launches {kern['launched']}")
+    counts = _lib.launch_counts()
+    for name in ("encode_sections", "topk_mask_threshold"):
+        if not counts[name]:
+            fail(f"experiments: no launch of {name} in the sections")
+    held_gib(dev)
+    print(f"experiments phase wall: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "serve", "train",
@@ -4999,13 +5154,15 @@ def main(argv=None) -> int:
                                         "recurrent", "multimodal", "mesh",
                                         "trainmesh", "servestep",
                                         "familystep", "dryrun",
-                                        "examples", "probe", "ab",
+                                        "examples", "experiments", "probe",
+                                        "ab",
                                         "predict"),
                     default="all",
                     help="kernels: build + kernel checks + codec probes; "
                          "serve / train / fedtrain / loadgen / families / "
                          "recurrent / multimodal / mesh / trainmesh / "
-                         "servestep / familystep / dryrun / examples: the "
+                         "servestep / familystep / dryrun / examples / "
+                         "experiments: the "
                          "checks, "
                          "probes and one path; probe: build + `probe_kernels` "
                          "alone; ab: `probe` in turns on a parent tree's "
@@ -5194,6 +5351,13 @@ def main(argv=None) -> int:
                 add(n, counts[n], "the examples phase (quickstart, "
                                   "two_party_vfl, streaming_clients, "
                                   "fedtrain_two_party)")
+
+    if args.phase in ("all", "experiments"):
+        counts = experiments_phase(dev, card)
+        for n in launches:
+            if counts[n]:
+                add(n, counts[n], "the experiments phase (table 2, fig 2, "
+                                  "table 3's high level with the kernels)")
 
     for r in records:
         r["launches"] = launches[r["name"]]

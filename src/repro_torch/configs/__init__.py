@@ -41,6 +41,11 @@ def get(name: str, *, smoke: bool = False):
     return mod.SMOKE if smoke else mod.FULL
 
 
+def all_archs():
+    """Every architecture's FULL config, in `ARCHS` order."""
+    return [get(a) for a in ARCHS]
+
+
 def with_layers(cfg, layers=None):
     """`cfg` with its depth cut to `layers` (None: as it is); a vlm's depth
     must be whole groups of `cross_attn_every` layers."""

@@ -251,11 +251,31 @@ def payload_nbytes(p: Payload) -> int:
     return len(encode_payload(p))
 
 
+FLOAT_BITS = 32  # N in the paper
+
+
+def payload_bits_per_instance(meta: PayloadMeta) -> float:
+    """Analytic forward wire bits per instance for a payload kind, the
+    codec-side counterpart of `table2_row`."""
+    kind, d, k, r = meta.kind, meta.d, meta.k, index_bits(meta.d)
+    if kind == "dense":
+        return d * FLOAT_BITS
+    if kind == "slice":
+        return k * FLOAT_BITS
+    if kind == "sparse":
+        return k * (FLOAT_BITS + r)
+    if kind == "mask":
+        return k * FLOAT_BITS + 8 * mask_row_nbytes(d)
+    if kind == "quant":
+        return d * meta.bits + 2 * FLOAT_BITS
+    if kind == "sparse_quant":
+        return k * (meta.bits + r) + 2 * FLOAT_BITS
+    raise ValueError(kind)
+
+
 # ---------------------------------------------------------------------------
 # Table-2 analytic sizes (relative to d * 32 bits), per instance.
 # ---------------------------------------------------------------------------
-
-FLOAT_BITS = 32  # N in the paper
 
 
 def table2_row(method: str, d: int, *, k: float = 0, bits: int = 0) -> dict:

@@ -19,18 +19,25 @@ The single controller walks every position, so a full-depth walk at
 layer and, in training, a part in the square of the stacked depth
 (`kinds`), evaluated at the configuration's depth: the port's
 counterpart of the reference's loop trip counts (`hlo.py:86-100`).
-FLOPs, bytes, collective bytes and the arguments' bytes come out exact;
-the peak may not (remat holds one layer's recompute at a time).
+The recurrent families' training and prefill steps also walk their scans
+chunk by chunk (Mamba2's SSD, RWKV6's WKV), so there `count_combo` counts
+a few sequence lengths as well (`seq_points`, whole multiples of the
+chunk) and solves over the length the same way (`seq_terms`); where
+zamba2's shared attention runs in query chunks at the shape's length, the
+lengths are counted in query chunks too, of a few sizes. FLOPs,
+bytes, collective bytes and the arguments' bytes come out exact; the peak
+may not (remat holds one layer's recompute at a time).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import sys
 import traceback
 from fractions import Fraction
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 from torch.utils._pytree import tree_leaves
@@ -83,7 +90,8 @@ def _storage_bytes(tree) -> int:
     return sum(seen.values())
 
 
-def count_one(cfg, shape, mesh) -> Counted:
+def count_one(cfg, shape, mesh,
+              attn_chunk: int = Runtime.attn_chunk) -> Counted:
     """Run one (cfg, shape, mesh) step on `meta` under `count_program`, in
     place of the reference's `lower_one`, with its `Runtime` defaults:
     training through `make_train_step` (sequence parallelism on), prefill
@@ -91,10 +99,11 @@ def count_one(cfg, shape, mesh) -> Counted:
     `make_serve_step` (flash decode on, sequence parallelism off). A batch
     the batch axes do not divide (long_500k's B 1) stays whole on them,
     and a KV that 'model' does not divide (the vlm's 1601 patches) whole
-    on every position (`tp.Layout`, `tp.flash_split`)."""
+    on every position (`tp.Layout`, `tp.flash_split`). `attn_chunk`:
+    the query chunk of attention (`Runtime.attn_chunk`)."""
     rt = Runtime(mesh=mesh, training=(shape.kind == "train"),
                  seq_shard=(shape.kind != "decode"),
-                 registry=MetricsRegistry())
+                 attn_chunk=attn_chunk, registry=MetricsRegistry())
     cache_reg = MetricsRegistry()
     if shape.kind == "train":
         args = specs_mod.train_specs(cfg, shape)
@@ -208,23 +217,19 @@ def _solve(rows, rhs):
     return [a[i][-1] / a[i][i] for i in range(len(rows))]
 
 
-def extrapolate(cfg, counted: Dict[int, Counted], train: bool) -> Counted:
-    """The counts at `cfg.n_layers` from counts at the depths of
-    `counted` (`depths(cfg, train)`): exact for every count but the peak,
-    which is rounded. Raises if a count that must be exact does not come
-    out whole (a term `kinds` lacks: a counting fault)."""
-    ds = sorted(counted)
-    rows = [kinds(cfg, d, train) for d in ds]
-    vals = [_values(counted[d]) for d in ds]
-    target = kinds(cfg, cfg.n_layers, train)
+def _combine(rows, counted: List[Counted], target, what: str) -> Counted:
+    """The counts at the term values `target` from `counted`, counted at
+    the term values `rows`: exact for every count but the peak, which is
+    rounded. Raises if a count that must be exact does not come out whole
+    (a term the rows lack: a counting fault); `what` names the solve."""
+    vals = [_values(c) for c in counted]
     out = {}
     for key in set().union(*vals):
         coef = _solve(rows, [v.get(key, 0) for v in vals])
         x = sum(c * t for c, t in zip(coef, target))
         if key != "peak" and x.denominator != 1:
             raise ValueError(f"{key} is not a sum of {len(rows)} terms of "
-                             f"the depth: {x} at {cfg.n_layers} from "
-                             f"depths {ds}")
+                             f"the {what}: {x}")
         out[key] = round(x)
 
     def ops(pre):
@@ -237,16 +242,122 @@ def extrapolate(cfg, counted: Dict[int, Counted], train: bool) -> Counted:
                    out["args"], ops("cache:"))
 
 
-def count_combo(cfg, shape, mesh) -> Counted:
+def extrapolate(cfg, counted: Dict[int, Counted], train: bool) -> Counted:
+    """The counts at `cfg.n_layers` from counts at the depths of
+    `counted` (`depths(cfg, train)`), by `_combine`."""
+    ds = sorted(counted)
+    return _combine([kinds(cfg, d, train) for d in ds],
+                    [counted[d] for d in ds],
+                    kinds(cfg, cfg.n_layers, train),
+                    f"depth: at {cfg.n_layers} from depths {ds}")
+
+
+# --------------------------------------------------------------------------
+# Sequence length: the recurrent scans' chunks, solved the same way
+# --------------------------------------------------------------------------
+
+def scan_chunk(cfg) -> int:
+    """The chunk length of the family's recurrent scan (`Runtime`
+    defaults, as `count_one` runs them), 0 where it has none."""
+    rt = Runtime()
+    return {"hybrid": rt.ssm_chunk, "ssm": rt.rwkv_chunk}.get(cfg.family, 0)
+
+
+def chunked(cfg, seq: int, attn_chunk: int) -> bool:
+    """Whether zamba2's shared attention attends `seq` tokens one query
+    chunk of `attn_chunk` at a time (`attention._attend`) rather than
+    whole."""
+    return (cfg.family == "hybrid" and seq > attn_chunk
+            and seq % attn_chunk == 0)
+
+
+def seq_terms(cfg, seq: int, train: bool,
+              attn_chunk: int = Runtime.attn_chunk) -> List[int]:
+    """The terms a training or prefill count at `seq` tokens is a sum of,
+    each a multiple of: 1 (the parameters, the optimizer and every
+    per-row op), the length (every per-token op; a scan's chunks, the
+    same work each at a whole multiple of the chunk) and the length's
+    square where attention runs (zamba2's shared block: the scores and
+    the causal mask) or in training: the backward of each chunk's slice
+    of the sequence is a zero-filled gradient of the whole sequence
+    (autograd), added to the others, as the depth's square in `kinds`.
+    Where the attention runs in n = seq / `attn_chunk` query chunks
+    (`chunked`), a chunk's work is a part in chunk x seq (its scores and
+    mask, so seq^2 over the chunks), one in the chunk (its output, which
+    `torch.cat` copies: seq), one in seq (`sdpa` reads the whole k and v
+    in every chunk, through their f32 copies and the products' layout
+    copies; in training each chunk's backward also hands q its slice's
+    gradient as a zero-filled whole and adds its k and v gradients,
+    whole, to the others') and a constant: so n and seq x n are terms of
+    their own."""
+    row = [1, seq]
+    if train or cfg.family == "hybrid":
+        row.append(seq * seq)
+    if chunked(cfg, seq, attn_chunk):
+        n = seq // attn_chunk
+        row += [n, seq * n]
+    return row
+
+
+def seq_points(cfg, mesh, seq: int, train: bool,
+               attn_chunk: int = Runtime.attn_chunk) -> List[Tuple[int, int]]:
+    """(length, query chunk) pairs to count at, as many as `seq_terms`
+    has terms at `seq`: lengths whole multiples of the scan's chunk that
+    'model' also divides (the sequence is sharded over it), from two
+    chunks (a single chunk adds no slice gradients, which puts it off the
+    terms' curve). Where the attention at `seq` is `chunked`, every pair
+    is too, so that each count runs the program the solve extrapolates:
+    the smallest lengths, each split into 2, 3, ... query chunks, that
+    add a term's worth (a length gives two); else each length runs its
+    attention whole (a chunk no shorter than it)."""
+    unit = math.lcm(scan_chunk(cfg), mesh.shape.get("model", 1))
+    n_terms = len(seq_terms(cfg, seq, train, attn_chunk))
+    if not chunked(cfg, seq, attn_chunk):
+        return [(unit * i, max(attn_chunk, unit * i))
+                for i in range(2, n_terms + 2)]
+    out, s = [], 2 * unit
+    while len(out) < n_terms:
+        for n in range(2, s // 2 + 1):
+            if len(out) < n_terms and s % n == 0 and _rank(
+                    [seq_terms(cfg, l, train, c) for l, c in out]
+                    + [seq_terms(cfg, s, train, s // n)]) > len(out):
+                out.append((s, s // n))
+        s += unit
+    return out
+
+
+def count_depths(cfg, shape, mesh,
+                 attn_chunk: int = Runtime.attn_chunk) -> Counted:
     """`count_one` at `depths` and `extrapolate`d to the configuration's
     depth, or counted directly where that depth is no deeper than
     them."""
     train = shape.kind == "train"
     ds = depths(cfg, train)
     if cfg.n_layers <= max(ds):
-        return count_one(cfg, shape, mesh)
-    return extrapolate(cfg, {d: count_one(at_depth(cfg, d), shape, mesh)
+        return count_one(cfg, shape, mesh, attn_chunk)
+    return extrapolate(cfg, {d: count_one(at_depth(cfg, d), shape, mesh,
+                                          attn_chunk)
                              for d in ds}, train)
+
+
+def count_combo(cfg, shape, mesh,
+                attn_chunk: int = Runtime.attn_chunk) -> Counted:
+    """`count_depths`, and for a recurrent family's training or prefill
+    step longer than its `seq_points` that at each of them, solved for
+    `shape.seq` over `seq_terms` (the peak rounded, as in
+    `extrapolate`)."""
+    if not scan_chunk(cfg) or shape.kind == "decode":
+        return count_depths(cfg, shape, mesh, attn_chunk)
+    train = shape.kind == "train"
+    points = seq_points(cfg, mesh, shape.seq, train, attn_chunk)
+    if shape.seq <= max(s for s, _ in points):
+        return count_depths(cfg, shape, mesh, attn_chunk)
+    return _combine(
+        [seq_terms(cfg, s, train, c) for s, c in points],
+        [count_depths(cfg, dataclasses.replace(shape, seq=s), mesh, c)
+         for s, c in points],
+        seq_terms(cfg, shape.seq, train, attn_chunk),
+        f"sequence: at {shape.seq} from (length, chunk) {points}")
 
 
 def run_combo(arch: str, shape_name: str, *, multi_pod=False, split=None,

@@ -75,9 +75,9 @@ from repro_torch.checkpoint import store
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models import transformer
+from repro_torch.models import common, transformer
 from repro_torch.models.config import Runtime, SplitConfig
-from repro_torch.optim.adamw import adamw_init, tree_leaves
+from repro_torch.optim.adamw import adamw_init
 from repro_torch.runtime.engine import resolve_device
 from repro_torch.split import protocol
 
@@ -135,8 +135,8 @@ def main(argv=None):
     params = transformer.init_model(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
     opt = adamw_init(params)
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    print(f"arch={cfg.name} layers={cfg.n_layers} params={n_params:,} "
+    print(f"arch={cfg.name} layers={cfg.n_layers} "
+          f"params={common.count_params(params):,} "
           f"device={dev} mesh={mesh} split={cfg.split}")
     if cfg.split:
         analytic = protocol.wire_bytes_per_step(cfg, args.batch, args.seq,

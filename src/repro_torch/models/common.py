@@ -1,8 +1,9 @@
 """Shared layers: RMS and layer norm, RoPE, sinusoidal positions,
-initializers."""
+initializers, the parameter count."""
 from __future__ import annotations
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 
 def normal_init(generator: torch.Generator, shape, dtype, scale=0.02,
@@ -11,6 +12,11 @@ def normal_init(generator: torch.Generator, shape, dtype, scale=0.02,
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
     return (w.mul_(scale)).to(dtype)
+
+
+def count_params(tree) -> int:
+    """The number of elements over every tensor leaf of `tree`."""
+    return sum(t.numel() for t in tree_leaves(tree))
 
 
 def init_norm(d, dtype, device=None, kind="rms", lead=()):

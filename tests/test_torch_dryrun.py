@@ -42,12 +42,14 @@ import torch
 
 import repro.configs as jconfigs
 from repro.launch import specs as jspecs
+from repro.models import common as jcommon
 from repro.models import transformer as jtr
 from repro.models.config import Runtime as JRuntime
 from repro.roofline import analysis as janalysis
 from repro_torch import configs
 from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.common import count_params
 from repro_torch.models.config import SplitConfig
 from repro_torch.roofline import analysis
 from repro_torch.roofline.program import CollectiveStats, ProgramCounts, \
@@ -141,6 +143,12 @@ def test_abstract_params_equal_the_reference(arch):
     assert _leaf_shapes(got) == _leaf_shapes(want)
     assert all(t.device.type == "meta"
                for t in torch.utils._pytree.tree_leaves(got))
+    assert count_params(got) == jcommon.count_params(want)
+
+
+def test_all_archs_equal_the_reference():
+    assert [c.name for c in configs.all_archs()] == \
+        [c.name for c in jconfigs.all_archs()]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -417,3 +425,73 @@ def test_main_names_each_failure(monkeypatch):
         "yi-6b", "train_4k"))
     with contextlib.redirect_stdout(io.StringIO()):
         assert dryrun.main(["--arch", "yi-6b", "--shape", "train_4k"]) == 0
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("zamba2-7b", "train"), ("zamba2-7b", "prefill"),
+    ("rwkv6-1.6b", "train"), ("rwkv6-1.6b", "prefill")])
+def test_sequence_solve_is_exact(arch, kind):
+    """A recurrent family's count solved from `seq_points` (whole
+    multiples of its scan's chunk, zamba2's attention whole) equals the
+    direct count one chunk length further, in FLOPs, bytes, the
+    arguments' bytes and collective bytes, SMOKE at (2, 2)."""
+    mesh = _meta_mesh((2, 2))
+    cfg = _split(configs.get(arch, smoke=True), 1)
+    train = kind == "train"
+    unit = dryrun.scan_chunk(cfg)
+    n = 3 if train or arch == "zamba2-7b" else 2
+    shape = specs.ShapeSpec("s", kind, unit * (n + 2), 4)
+    points = dryrun.seq_points(cfg, mesh, shape.seq, train)
+    assert [s for s, _ in points] == [unit * (i + 2) for i in range(n)]
+    assert not any(dryrun.chunked(cfg, *p) for p in points)
+    _assert_solved_is_direct(cfg, shape, mesh)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_sequence_solve_is_exact_across_attention_chunks(kind):
+    """Where zamba2's shared attention runs in query chunks at the
+    shape's length (`attention._attend`), every length the solve counts
+    runs in query chunks too, and the solved count equals the direct
+    one: SMOKE in bf16 (the production dtype: `sdpa`'s f32 copies of k
+    and v come once a chunk) at (2, 2), 640 tokens in five chunks of
+    128, from lengths of 256-512 in chunks of 64-256."""
+    mesh = _meta_mesh((2, 2))
+    cfg = _split(configs.get("zamba2-7b", smoke=True), 1).with_(
+        param_dtype="bfloat16", dtype="bfloat16")
+    train = kind == "train"
+    shape = specs.ShapeSpec("s", kind, 640, 4)
+    assert dryrun.chunked(cfg, 640, 128)
+    points = dryrun.seq_points(cfg, mesh, 640, train, 128)
+    assert points == [(256, 128), (256, 64), (384, 192), (384, 128),
+                      (512, 256)]
+    assert all(dryrun.chunked(cfg, *p) for p in points)
+    _assert_solved_is_direct(cfg, shape, mesh, 128)
+
+
+def _assert_solved_is_direct(cfg, shape, mesh, *chunk):
+    got = dryrun.count_combo(cfg, shape, mesh, *chunk)
+    want = dryrun.count_depths(cfg, shape, mesh, *chunk)
+    assert got.counts.flops == want.counts.flops
+    assert got.counts.bytes == want.counts.bytes
+    assert got.args_bytes == want.args_bytes
+    assert got.counts.collectives == want.counts.collectives
+    assert got.counts.collectives.per_op_bytes
+
+
+def test_sequence_lengths_at_the_production_mesh():
+    mesh = make_mesh((16, 16), MESH[-2:], devices="meta")
+    zamba, rwkv = configs.get("zamba2-7b"), configs.get("rwkv6-1.6b")
+    chunked = [(256, 128), (256, 64), (384, 192), (384, 128), (512, 256)]
+    assert dryrun.seq_points(zamba, mesh, 4096, True) == chunked
+    assert dryrun.seq_points(zamba, mesh, 32768, False) == chunked
+    assert dryrun.seq_points(zamba, mesh, 1536, False) == [
+        (256, 1024), (384, 1024), (512, 1024)]
+    assert dryrun.seq_points(rwkv, mesh, 4096, True) == [
+        (32, 1024), (48, 1024), (64, 1024)]
+    assert dryrun.seq_points(rwkv, mesh, 32768, False) == [
+        (32, 1024), (48, 1024)]
+    assert dryrun.scan_chunk(configs.get("yi-6b")) == 0
+    assert dryrun.seq_terms(rwkv, 4096, False) == [1, 4096]
+    assert dryrun.seq_terms(rwkv, 4096, True) == [1, 4096, 4096 ** 2]
+    assert dryrun.seq_terms(zamba, 4096, False) == [
+        1, 4096, 4096 ** 2, 4, 4 * 4096]
