@@ -29,6 +29,9 @@
                                               # examples on the card
     python3 chip_smoke.py --phase experiments # kernel checks + the
                                               # paper's experiments, short
+    python3 chip_smoke.py --phase procs       # kernel checks + yi-6b and
+                                              # granite-moe trained with
+                                              # one process a position
     python3 chip_smoke.py --phase probe       # build + `probe_kernels`
     python3 chip_smoke.py --phase ab --parent DIR   # probes, P C C P
     python3 chip_smoke.py --phase predict     # CPU: phase 11's reports
@@ -152,8 +155,8 @@ Phases, each fatal on failure:
      run's registry bytes agree with its byte accounting; and a traced
      clean run gives one `client.encode` and one `server.queue_wait`
      span a step, with their median host ms;
- 11. open-loop serving of yi-6b at full width (depth cut from 32 to 8
-     layers, cut at 4, bf16; the reports do not depend on the depth):
+ 11. open-loop serving of yi-6b at full width (depth cut from 32 to 4
+     layers, cut at 2, bf16; the reports do not depend on the depth):
      (a) 6 clients x (4 + 8) tokens, randtopk k 64, max_batch 4, at
      capacity 2 with the kernels and with the plain versions and at
      capacity 6: equal tokens, evictions and readmissions > 0 in both
@@ -169,7 +172,12 @@ Phases, each fatal on failure:
      switches > 0 with the 4-bit rung reached, one fused encode per
      served token and one flush decode per (flush, meta) group; (d) a
      traced closed-loop `launch/serve --trace`: spans nest, each span's
-     count and median host ms;
+     count and median host ms; (e) the trace gate
+     (`repro_torch.testing.trace_smoke`, the reference's
+     `scripts/trace_smoke.py`) on the card: qwen3-8b SMOKE under its
+     seeded open-loop scenario with chaos, traced twice: the two files
+     byte-identical, schema-valid, spans nested, the seven lifecycle
+     spans and the admission, ARQ and QoS instants present;
  12. the qk-norm dense and mixture-of-experts families at full width
      (`--phase families`), random bf16 weights from a seed: serve
      granite-moe-1b-a400m (24 layers, d 1024), qwen3-8b (36, qk-norm),
@@ -228,8 +236,8 @@ Phases, each fatal on failure:
      gates nonzero after its first step. The kernel checks cover d 8192
      and 384 (bf16) and the vlm SMOKE's 256 (f32);
  15. serving on a device mesh (`--phase mesh`): yi-6b at full width
-     (padded vocab 64000), depth cut from 32 to 8 layers (cut 4, so
-     that the whole run stays within its time with phases 19 and 20),
+     (padded vocab 64000), depth cut from 32 to 4 layers (cut 2, so
+     that the whole run stays within its time with phases 19-22),
      random bf16 weights from a seed, 4
      clients x (4 + 4) tokens, randtopk k 64, through
      `run_streaming(mesh=)` at `mesh=None` and at `make_serving_mesh(1)`,
@@ -250,12 +258,12 @@ Phases, each fatal on failure:
      and the busy share of a traced pod-mesh run;
  16. training on a device mesh (`--phase trainmesh`): yi-6b at full width
      (d 4096, 32 heads, 4 KV heads, d_ff 11008, vocab 64000), depth cut
-     to 8 layers (cut 4), batch 4 x seq 256, randtopk k 64, bf16, AdamW,
+     to 4 layers (cut 2), batch 4 x seq 256, randtopk k 64, bf16, AdamW,
      remat, random weights from a seed, at mesh=None, (1, 1), (2, 4) and
      (2, 2, 2) ('pod', 'data', 'model'), and granite-moe-1b-a400m at
-     full width with its depth cut from 24 to 12 layers (cut 6, 32
+     full width with its depth cut from 24 to 6 layers (cut 3, 32
      experts over 'model') at (1, 4); zamba2-7b (12 layers, cut 6) and
-     rwkv6-1.6b (4, cut 2) at full width at
+     rwkv6-1.6b (2, cut 1) at full width at
      mesh=None and (2, 2), whisper-tiny FULL at mesh=None, (2, 2) (its
      heads split) and (1, 4) (whole), the vlm SMOKE in f32 at mesh=None
      and (2, 2, 2); every
@@ -273,13 +281,13 @@ Phases, each fatal on failure:
      `launch.steps.make_serve_step`): B 8 rows, 48 greedy tokens from an
      empty cache over a 32-slot KV ring (it wraps), randtopk k 64 (TopK
      at inference), bf16, random weights from a seed: yi-6b at full
-     width, depth cut to 8 layers (cut 4), at mesh=None with the kernels
+     width, depth cut to 4 layers (cut 2), at mesh=None with the kernels
      and with the plain versions (tokens and first logits bit for bit,
      the plain run launches nothing), at (1, 4) with flash decode (each
      'model' position holds 8 of the ring's slots) and without (the
      ring replicated), and at (2, 2, 2) (the pod ring at the cut); yi-6b
      at all 32 layers at mesh=None (16 tokens); granite-moe-1b-a400m
-     at full width, depth cut from 24 to 12 layers (cut 6), at mesh=None
+     at full width, depth cut from 24 to 6 layers (cut 3), at mesh=None
      and (1, 4) (its 32 experts over 'model'; 24 tokens over a 16-slot
      ring); every position on the one card.
      Fatal: the cut's TopK mask and sparse decode once a batch shard a
@@ -342,13 +350,30 @@ Phases, each fatal on failure:
      randtopk escaped) and table 3's high level (k 3: randtopk, topk,
      size_reduction) for one epoch with the kernels and with the plain
      versions from the same generators: final loss, test accuracy and
-     every trained tensor bit for bit; the phase's wall.
+     every trained tensor bit for bit; the phase's wall;
+ 22. the training mesh across processes (`--phase procs`,
+     `launch.mesh.spawn`, `mesh.ProcessMesh`): yi-6b at full width, 2
+     of its 32 layers (cut 1), at (2, 2), and granite-moe-1b-a400m at
+     full width, 4 of its 24 layers (cut 2), at (1, 4); batch 4 x seq
+     256, randtopk k 64, bf16, AdamW, remat; one process a position, the
+     four sharing the card over gloo (each collective's tensors through
+     host memory), after the single controller's first step on the same
+     mesh: the processes' first-step loss and aux bit for bit, grad norm
+     within 1e-3, rank 0's summed gradient (its first moment) within
+     5e-2 of the single controller's, leaf by leaf in the 2-norm, rank
+     0's updated weights within 2 lr + 1 bf16 ulp and at most 2% of them
+     off by more than 1 ulp;
+     weights equal on every rank after step 2; every rank's counted
+     collective bytes = `training_collective_costs`; the codec kernels
+     once a process a step; each rank's step ms, the gradient sum's ms
+     and peak.
 
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, for the serve's two kernels
 plus the loadgen phase's kernel runs, plus the families, recurrent,
 multimodal and mesh phases' serves, live checks and training, plus the
-train mesh phase's kernel steps and the serve step and family step
+train mesh phase's kernel steps, plus the procs phase's processes, and
+the serve step and family step
 phases' kernel runs, plus the dry run phase's card steps and the
 examples, plus the experiments phase's sections,
 plus the fedtrain phase's chaos runs and
@@ -365,6 +390,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2775,8 +2801,9 @@ def fedtrain_phase(dev):
 LG_CLIENTS, LG_PROMPT, LG_GEN = 6, 4, 8     # (a), (b): 6 x (4 + 8) tokens
 # yi-6b's depth in the phase, cut from 32 so that the whole run stays
 # within its time: a report is virtual time, a function of the seed, the
-# vocabulary and the wire bytes, not of the depth (`loadgen_prediction`)
-LG_LAYERS = 8
+# vocabulary and the wire bytes, not of the depth (`loadgen_prediction`);
+# 8, then 4 to pay for the procs phase
+LG_LAYERS = 4
 LG_RATES = {"static": (12.0, 24.0),          # the reference's `_mini`
             # raised from (12, 24), where the ladder moved 6 times but
             # reached only (32, 8) at d 4096 (`--phase predict`), until a
@@ -2899,8 +2926,9 @@ def loadgen_phase(dev, card):
     versions, against 6 slots; (b) chaos: the same clients under seeded
     faults with ARQ; (c) the load generator, static and QoS, each with the
     kernels and then the plain versions: equal reports; (d) a traced
-    closed-loop `launch/serve --trace`. Returns the kernels' launches in
-    (c), to add to the `kernels` line."""
+    closed-loop `launch/serve --trace`; (e) the trace gate on the card
+    (`trace_smoke_on_card`). Returns the kernels' launches in (c), to
+    add to the `kernels` line."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -3025,8 +3053,28 @@ def loadgen_phase(dev, card):
           f"the spans; {card}): " + "; ".join(
               f"{n} x{len(v)} {statistics.median(v):.4f}"
               for n, v in sorted(spans.items())))
+    trace_smoke_on_card(dev, card)
     print(f"loadgen phase wall: {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def trace_smoke_on_card(dev, card):
+    """(e) The trace gate (`repro_torch.testing.trace_smoke`, the port's
+    `scripts/trace_smoke.py`) on the card: qwen3-8b SMOKE under the
+    seeded open-loop scenario with chaos, traced twice. Fatal: the two
+    files differ, the schema or the span nesting fails, or a lifecycle
+    span or the admission, ARQ or QoS instant is missing."""
+    from repro_torch.testing import trace_smoke
+
+    t0 = time.perf_counter()
+    problems, blob = trace_smoke.run(device=dev)
+    if problems:
+        fail(f"trace smoke on the card: {problems}")
+    events = json.loads(blob)["traceEvents"]
+    print(f"trace smoke on the card: {len(events)} events, two runs "
+          f"byte-identical, schema, nesting, the 7 lifecycle spans and the "
+          f"admission, ARQ and QoS instants present; "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -3687,7 +3735,8 @@ def multimodal_phase(dev, card):
 # ---------------------------------------------------------------------------
 
 MESH_ARCH, MESH_NB = "yi-6b", 352            # full width
-MESH_LAYERS = 8               # of 32 (cut 4): the whole run's time limit
+MESH_LAYERS = 4               # of 32 (cut 2): the whole run's time limit
+                              # (8 until the procs phase came)
 MESH_GEN = 4                  # at 8 the phase took 190 s on an H100
                               # and the whole run passed 700 s
 # (label, make_serving_mesh arguments): every position on the one card
@@ -3825,8 +3874,8 @@ def _mesh_gap(cfg, params, ref, got, kw):
 
 
 def mesh_phase(dev, card):
-    """Phase 15: yi-6b at full width, 8 of its 32 layers (d 4096, padded
-    vocab 64000, cut 4; `MESH_LAYERS`), random bf16 weights from a seed,
+    """Phase 15: yi-6b at full width, 4 of its 32 layers (d 4096, padded
+    vocab 64000, cut 2; `MESH_LAYERS`), random bf16 weights from a seed,
     served through `run_streaming` at `mesh=None` and on
     `make_serving_mesh` meshes whose positions all share the one card,
     4 clients x (4 + 4) tokens, randtopk k 64. Fatal:
@@ -3965,23 +4014,26 @@ def mesh_phase(dev, card):
 # ---------------------------------------------------------------------------
 
 TRAINMESH_STEPS = 4           # kernel steps a mesh, after one plain step
+# yi-6b's depth on the training meshes: 4 of its 32 layers (cut 2), cut
+# from 8 to pay for the procs phase within the run's time
+TRAINMESH_LAYERS, TRAINMESH_CUT = 4, 2
 # (label, shape): ('data', 'model'), or ('pod', 'data', 'model') for three
 TRAINMESH_SHAPES = (("(1, 1)", (1, 1)), ("(2, 4)", (2, 4)),
                     ("(2, 2, 2)", (2, 2, 2)))
 TRAINMESH_MOE = ("(1, 4)", (1, 4))
-TRAINMESH_MOE_LAYERS = 12     # granite-moe's, of 24 (cut 6): the run's time
+TRAINMESH_MOE_LAYERS = 6      # granite-moe's, of 24 (cut 3): the run's time
 # the other families on the training mesh, randtopk at cut_for's cut:
 # (arch, depth (None: the config's), SMOKE, meshes after mesh=None).
 # zamba2 and rwkv6 at full width with their depth cut (zamba2 12, cut 6,
-# a shared-attention site on each side; rwkv6 4, cut 2: its 24 layers
-# took 2.36-2.71 s a step mesh-less, host-bound, and 6 at (2, 2) 31 s of
-# the phase); whisper-tiny FULL, its
+# a shared-attention site on each side; rwkv6 2, cut 1: its 24 layers
+# took 2.36-2.71 s a step mesh-less, host-bound, 6 at (2, 2) 31 s of
+# the phase and 4 21.8 s); whisper-tiny FULL, its
 # 6 heads split at 'model' 2 and whole at 4 (d_ff split); the vlm at
 # SMOKE in f32 (10 full-width layers need ~128 GB with AdamW) on the pod
 # ring
 TRAINMESH_FAMILIES = (
     ("zamba2-7b", 12, False, (("(2, 2)", (2, 2)),)),
-    ("rwkv6-1.6b", 4, False, (("(2, 2)", (2, 2)),)),
+    ("rwkv6-1.6b", 2, False, (("(2, 2)", (2, 2)),)),
     ("whisper-tiny", None, False, (("(2, 2)", (2, 2)), ("(1, 4)", (1, 4)))),
     ("llama-3.2-vision-90b", None, True, (("(2, 2, 2)", (2, 2, 2)),)),
 )
@@ -4153,12 +4205,12 @@ def _mesh_forward_f32(cfg, params, batch, dev):
 def trainmesh_phase(dev, card):
     """Phase 16: split training on a device mesh whose positions all share
     the one card. yi-6b at full width (d 4096, 32 heads, 4 KV heads, d_ff
-    11008, vocab 64000), depth cut to 8 layers (cut 4), batch 4 x seq 256,
+    11008, vocab 64000), depth cut to 4 layers (cut 2), batch 4 x seq 256,
     randtopk k 64 alpha 0.1, bf16, AdamW, remat, random weights from a
     seed, at mesh=None, (1, 1), (2, 4) and (2, 2, 2) ('pod', 'data',
     'model'); granite-moe-1b-a400m at full width, `TRAINMESH_MOE_LAYERS`
     of its 24 layers (32 experts) at (1, 4); then `TRAINMESH_FAMILIES`:
-    zamba2-7b (12 layers) and rwkv6-1.6b (4) at full width at mesh=None
+    zamba2-7b (12 layers) and rwkv6-1.6b (2) at full width at mesh=None
     and (2, 2), whisper-tiny
     FULL at mesh=None, (2, 2) and (1, 4), the vlm SMOKE in f32 at
     mesh=None and (2, 2, 2). Fatal: at every mesh the kernels' first step
@@ -4174,9 +4226,9 @@ def trainmesh_phase(dev, card):
 
     t_phase = time.perf_counter()
     total = collections.Counter()
-    cfg = _train_cfg("randtopk")
+    cfg = _train_cfg("randtopk", layers=TRAINMESH_LAYERS, cut=TRAINMESH_CUT)
     print(f"train mesh phase: yi-6b at full width, {cfg.n_layers} layers "
-          f"(cut at {TRAIN_CUT}), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+          f"(cut at {TRAINMESH_CUT}), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
           f"randtopk k={K}, bf16, AdamW, remat; every mesh position on the "
           f"one card; {card}")
     params = transformer.init_model(
@@ -4281,6 +4333,343 @@ def _family_mesh_runs(arch, layers, smoke, meshes, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 22: the training mesh across processes
+# ---------------------------------------------------------------------------
+
+# (arch, depth, cut, mesh): yi-6b at full width, 2 of its 32 layers (cut
+# 1): the whole parameters and their f32 moments in each of the 4
+# processes that share the card (about 0.87 B parameters, some 13 GB a
+# process); granite-moe-1b-a400m at full width, 4 of its 24 layers (cut
+# 2), its 32 experts over 'model' 4
+PROCS_RUNS = (("yi-6b", 2, 1, (2, 2)), (FAM_TRAIN, 4, 2, (1, 4)))
+PROCS_WORLD = 4               # the processes, one set for both configs
+PROCS_STEPS = 3               # steps a process mesh; the median of 2-N
+PROCS_TIMEOUT_S = 600         # the processes' join
+# the grad norm of the processes' first step against the single
+# controller's: the processes add the bf16 gradients of the positions
+# in position order, the single controller's autograd in its own order
+PROCS_GNORM_RTOL = 1e-3
+# rank 0's summed gradient against the single controller's, each leaf's
+# 2-norm of the difference over its own: AdamW's first moment after step
+# 1 is 0.1 g (clipped alike), so it carries the gradient itself, where
+# the first update is about lr sign(g) and hides a wrong sum. On the card
+# the two sides' bf16 gradients come out of kernels that reduce in other
+# orders: an element passes through up to 5 bf16 roundings a side (its
+# position's gradient, then up to 4 adds), each off by 2^-8 relative at
+# most, so 10 x 2^-8 = 3.9e-2 bounds the difference where the terms do
+# not cancel (measured: 7.3e-3 the median leaf, 1.06e-2 the largest).
+# A sum that drops a position's term is off by 0.5 or more, a negated
+# or misplaced one by 1 or more.
+PROCS_GRAD_RTOL = 5e-2
+# the share of rank 0's updated weights more than 1 bf16 ulp off the
+# single controller's (0.151% yi, 0.660% moe measured, none over 1 ulp):
+# where |w| < 2^-4 a negated gradient moves a weight by 2 lr, over 2 ulps,
+# a zeroed one by lr, over 1 ulp
+PROCS_ULP_SHARE = 0.02
+
+
+def _procs_rank(rank, dev, single_paths):
+    """One process of the procs phase: each of `PROCS_RUNS` in turn
+    (`_procs_run`), the card's memory freed between them. Returns each
+    run's results."""
+    import torch
+
+    out = []
+    for run, path in zip(PROCS_RUNS, single_paths):
+        out.append(_procs_run(rank, dev, *run, path))
+        torch.cuda.empty_cache()
+    return out
+
+
+def _procs_run(rank, dev, arch, layers, cut, shape, single_path):
+    """One config of the procs phase in one process: its training at the
+    process's position of the process mesh, `PROCS_STEPS` steps from the
+    seeds the single controller used (launch counts zeroed just before).
+    Rank 0 holds its first step's updated weights and first moment
+    against the single controller's (`single_path`). Returns the metrics,
+    counted bytes, launches, step ms and each step's gradient sum ms
+    (synchronized around it), peak, set-up s and the digests of the
+    weights after step 2."""
+    import hashlib
+
+    import torch
+    from repro_torch import mesh as mesh_mod
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.config import Runtime
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+
+    t_enter = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _train_cfg("randtopk", layers=layers, cut=cut, arch=arch)
+    mesh = make_process_mesh(shape, ("data", "model"), dev)
+    params = transformer.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, device=str(dev))
+    batches = [pipe.next_batch(i) for i in range(PROCS_STEPS)]
+    reg = MetricsRegistry()
+    step = steps.make_train_step(cfg, Runtime(mesh=mesh, training=True,
+                                              registry=reg))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p, opt = params, adamw_init(params)
+    out = {"sum_ms": []}
+    summed = mesh_mod.sum_processes
+
+    def timed_sum(mesh_, ts):
+        # each step's gradient sum, timed where the step calls it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summed(mesh_, ts)
+        torch.cuda.synchronize()
+        out["sum_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    mesh_mod.sum_processes = timed_sum
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t_enter
+    torch.cuda.reset_peak_memory_stats(dev)
+    _lib.reset_launch_counts()
+    times = []
+    for i in range(PROCS_STEPS):
+        t0 = time.perf_counter()
+        p, opt, m = step(p, opt, batches[i], gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out["metrics"] = {k: float(v) for k, v in m.items()}
+            out["bytes1"] = mesh_mod.collective_bytes(reg.snapshot())
+            if rank == 0:
+                out["vs_single"] = _against_single(p, opt["mu"],
+                                                   single_path, dev)
+        if i == 1:
+            out["digests"] = [hashlib.sha256(
+                t.detach().cpu().contiguous().view(-1).view(torch.uint8)
+                .numpy().tobytes()).hexdigest() for t in tree_leaves(p)]
+        out.setdefault("losses", []).append(float(m["loss"]))
+    out["launches"] = _lib.launch_counts()
+    out["bytes"] = mesh_mod.collective_bytes(reg.snapshot())
+    out["times"] = times
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    mesh_mod.sum_processes = summed
+    return out
+
+
+def _against_single(params, mu, path, dev):
+    """Each updated weight and first moment against the single
+    controller's, saved at `path`: (leaf, max |diff|, elements that
+    differ, elements, elements off by more than 1 bf16 ulp of the single
+    controller's weight, by more than 2 lr + 1 ulp, the first moment's
+    2-norm of the difference over its own)."""
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+
+    lr = 3e-4                  # make_train_step's default
+    ref = torch.load(path, map_location="cpu", mmap=True)
+    out = []
+    for name, a, b, m, n in zip(_leaf_names(params), tree_leaves(params),
+                                tree_leaves(ref["params"]), tree_leaves(mu),
+                                tree_leaves(ref["mu"])):
+        stats = [0.0, 0, a.numel(), 0, 0]
+        sq = [0.0, 0.0]        # sum (m - n)^2, sum n^2, in f64
+        # 2^26 elements at a time: the f32 temporaries stay small
+        for x, y, u, v in zip(a.reshape(-1).split(1 << 26),
+                              b.reshape(-1).split(1 << 26),
+                              m.reshape(-1).split(1 << 26),
+                              n.reshape(-1).split(1 << 26)):
+            y = y.to(dev).float()
+            diff = (x.float() - y).abs()
+            # 1 bf16 ulp of |y| in [2^(e-1), 2^e): 2^(e-8)
+            bf16_ulp = torch.ldexp(torch.ones_like(y),
+                                   torch.frexp(y)[1] - 8)
+            stats[0] = max(stats[0], float(diff.max()))
+            stats[1] += int((diff > 0).sum())
+            stats[3] += int((diff > bf16_ulp).sum())
+            stats[4] += int((diff > 2 * lr + bf16_ulp).sum())
+            v = v.to(dev).double()
+            sq[0] += float(torch.sum(torch.square(u.double() - v)))
+            sq[1] += float(torch.sum(torch.square(v)))
+        out.append((name, *stats, math.sqrt(sq[0] / sq[1]) if sq[1]
+                    else math.sqrt(sq[0])))
+    return out
+
+
+def procs_phase(dev, card):
+    """Phase 22: the training mesh across processes (`launch.mesh.spawn`,
+    `mesh.ProcessMesh`): for each of `PROCS_RUNS` the single
+    controller's first step on the same mesh on the card; then
+    `PROCS_WORLD` processes, one a position, sharing the card over gloo
+    (each collective's tensors through host memory), run each config
+    `PROCS_STEPS` steps from the same seeds (`_procs_rank`). Fatal: a
+    process's failure, and `_procs_checks`. Returns the processes'
+    launches summed."""
+    import collections
+
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh, spawn
+    from repro_torch.mesh import collective_bytes
+    from repro_torch.models import transformer
+    from repro_torch.models.config import Runtime
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.roofline import analysis
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    singles, wants = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"single{i}.pt")
+                 for i in range(len(PROCS_RUNS))]
+        for (arch, layers, cut, shape), path in zip(PROCS_RUNS, paths):
+            cfg = _train_cfg("randtopk", layers=layers, cut=cut, arch=arch)
+            wants.append({k: float(v) for k, v in
+                          analysis.training_collective_costs(
+                              cfg, TRAIN_BATCH, TRAIN_SEQ,
+                              {"data": shape[0], "model": shape[1]},
+                              act_bytes=cfg.adtype().itemsize,
+                              param_bytes=cfg.pdtype().itemsize)[0].items()})
+            params = transformer.init_model(
+                cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+            batch = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                  device=str(dev)).next_batch(0)
+            reg = MetricsRegistry()
+            p1, opt, m = steps.make_train_step(cfg, Runtime(
+                mesh=make_mesh(shape, ("data", "model"), devices=dev),
+                training=True, registry=reg))(
+                params, adamw_init(params), batch,
+                torch.Generator(device=dev).manual_seed(1))
+            singles.append({k: float(v) for k, v in m.items()})
+            got = {k: float(v) for k, v in
+                   collective_bytes(reg.snapshot()).items()}
+            if got != wants[-1]:
+                fail(f"procs {arch} {shape}: the single controller counted "
+                     f"{got}, training_collective_costs {wants[-1]}")
+            torch.save({"params": _to(p1, "cpu"),
+                        "mu": _to(opt["mu"], "cpu")}, path)
+            del params, p1, opt, m, batch
+        print(f"procs phase: this process holds {held_gib(dev):.2f} GiB of "
+              f"the card before the spawn; {card}")
+        # each process's allocator grows its segments in place, so that
+        # the four hold no reserved but unallocated blocks
+        saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t0 = time.perf_counter()
+        try:
+            ranks = spawn(_procs_rank, PROCS_WORLD, (paths,), device=dev,
+                          timeout=PROCS_TIMEOUT_S, store_dir=tmp)
+        finally:
+            if saved is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+        spawn_s = time.perf_counter() - t0
+    failed = []
+    for j, (arch, layers, cut, shape) in enumerate(PROCS_RUNS):
+        # every config's readings are printed before a failure ends the run
+        try:
+            total.update(_procs_checks(arch, layers, shape, singles[j],
+                                       wants[j], [r[j] for r in ranks],
+                                       card))
+        except SystemExit as e:
+            print(e)
+            failed.append(str(e).removeprefix("chip_smoke: FAILED: "))
+    if failed:
+        fail("; ".join(failed))
+    print(f"  {PROCS_WORLD} processes, spawn to results {spawn_s:.1f} s; "
+          f"procs phase wall: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def _procs_checks(arch, layers, shape, single, want, ranks, card):
+    """The fatal checks of one config's processes against the single
+    controller's first step (`single`) and `training_collective_costs`
+    (`want`): the first step's loss and aux bit for bit, its grad norm
+    within `PROCS_GNORM_RTOL`, rank 0's summed gradient within
+    `PROCS_GRAD_RTOL` leaf by leaf, its updated weights within 2 lr + 1
+    bf16 ulp and at most `PROCS_ULP_SHARE` of them off by more than 1
+    ulp; the weights equal on every rank after step 2; the counted
+    bytes; the codec kernels (randtopk_mask, decode_rows, scatter_rows)
+    once a process a step (every position of a batch shard runs the
+    codec on equal rows); finite losses. Prints each rank's step ms.
+    Returns the launches summed over the processes."""
+    import collections
+
+    total = collections.Counter()
+    label = f"procs {arch} {layers} layers {shape}"
+    for r, got in enumerate(ranks):
+        g = got["metrics"]
+        if g["loss"] != single["loss"] or g["aux"] != single["aux"]:
+            fail(f"{label} rank {r}: first step loss {g['loss']} aux "
+                 f"{g['aux']}, the single controller's {single['loss']} "
+                 f"{single['aux']}")
+        if abs(g["grad_norm"] - single["grad_norm"]) > \
+                PROCS_GNORM_RTOL * abs(single["grad_norm"]):
+            fail(f"{label} rank {r}: grad norm {g['grad_norm']}, the "
+                 f"single controller's {single['grad_norm']}")
+        if ({k: float(v) for k, v in got["bytes1"].items()} != want
+                or {k: float(v) for k, v in got["bytes"].items()}
+                != {k: v * PROCS_STEPS for k, v in want.items()}):
+            fail(f"{label} rank {r}: counted {got['bytes1']} in the first "
+                 f"step, {got['bytes']} in {PROCS_STEPS}; "
+                 f"training_collective_costs {want} a step")
+        wrong = {n: got["launches"][n] for n in TRAIN_PATH_KERNELS["randtopk"]
+                 if got["launches"][n] != PROCS_STEPS}
+        if wrong:
+            fail(f"{label} rank {r}: launches {wrong}, one a step of each "
+                 f"expected")
+        if got["digests"] != ranks[0]["digests"]:
+            fail(f"{label}: rank {r}'s weights after step 2 differ from "
+                 f"rank 0's")
+        if not all(math.isfinite(v) for v in got["losses"]):
+            fail(f"{label} rank {r}: losses {got['losses']}")
+        total.update({n: got["launches"][n]
+                      for n in TRAIN_PATH_KERNELS["randtopk"]})
+    vs = ranks[0]["vs_single"]
+    n_el = sum(v[3] for v in vs)
+    share = sum(v[4] for v in vs) / n_el
+    worst = max(vs, key=lambda v: v[6])
+    print(f"  {label}, {len(ranks)} processes sharing the card over gloo: "
+          f"first step loss {single['loss']} aux {single['aux']} = the "
+          f"single controller's bit for bit on every rank; grad norm "
+          f"{[g['metrics']['grad_norm'] for g in ranks]} (single "
+          f"{single['grad_norm']}); rank 0's summed gradient (first "
+          f"moment) off the single controller's by {worst[6]:.3g} at most "
+          f"({worst[0]}; 2-norm of the difference over its own, limit "
+          f"{PROCS_GRAD_RTOL}), median leaf "
+          f"{statistics.median(v[6] for v in vs):.3g}; rank 0's updated "
+          f"weights: {sum(v[2] for v in vs)} of {n_el} elements differ "
+          f"({sum(v[2] for v in vs) / n_el:.4%}; max |diff| "
+          f"{max(v[1] for v in vs):.3g}; {sum(1 for v in vs if v[2])} of "
+          f"{len(vs)} leaves), {share:.4%} by more than 1 ulp (limit "
+          f"{PROCS_ULP_SHARE:.0%}), {sum(v[5] for v in vs)} by more than "
+          f"2 lr + 1 ulp; weights equal on every rank after step 2; "
+          f"collective bytes a step {want} on every rank; codec launches a "
+          f"process {PROCS_STEPS} of each in {PROCS_STEPS} steps")
+    off = [v for v in vs if v[5] or v[6] > PROCS_GRAD_RTOL]
+    if off:
+        fail(f"{label}: rank 0's first step off the single controller's "
+             f"(leaf, max |diff|, differing, elements, over 1 ulp, over 2 "
+             f"lr + 1 ulp, the first moment's relative 2-norm): {off}")
+    if share > PROCS_ULP_SHARE:
+        fail(f"{label}: {share:.4%} of rank 0's first-step weights more "
+             f"than 1 bf16 ulp off the single controller's")
+    for r, got in enumerate(ranks):
+        print(f"    rank {r}: losses {got['losses']}; step ms "
+              f"{[round(t, 1) for t in got['times']]}, median of steps "
+              f"2-{PROCS_STEPS} {statistics.median(got['times'][1:]):.1f} "
+              f"ms, of it the gradient sum "
+              f"{[round(t, 1) for t in got['sum_ms']]} ms; peak "
+              f"{got['peak_gib']:.2f} GiB; set-up (mesh, weights, batches) "
+              f"{got['setup_s']:.1f} s; {card}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 17: the whole-batch serve step
 # ---------------------------------------------------------------------------
 
@@ -4291,12 +4680,14 @@ STEP_TOKENS = 48              # from an empty cache: the 32-slot ring wraps
 # 4 slots a position at (1, 4)): the phase's time
 STEP_TOKENS_FULL = 16
 STEP_MOE_TOKENS, STEP_MOE_MAX_LEN = 24, 16
-# granite-moe's depth, cut from 24 to 12 (cut 6) to keep the whole run
-# within its time: its (1, 4) run is host-bound at ~21-26 tokens/s
-STEP_MOE_LAYERS = 12
+# granite-moe's depth, cut from 24 to 12 (cut 6) and then to 6 (cut 3)
+# to keep the whole run within its time: its (1, 4) run is host-bound
+# (20.4 s of the phase at 12 layers)
+STEP_MOE_LAYERS = 6
 STEP_TIMED, STEP_REPS = 16, 3  # tokens a timed run, runs (after the 48)
 STEP_TRACED = 4               # tokens of the device-only trace
-STEP_LAYERS = TRAIN_LAYERS    # yi-6b's depth, as the train mesh phase's
+STEP_LAYERS = 4               # yi-6b's depth (cut 2), cut from 8 for the
+                              # run's time: its (2, 2, 2) run took 18.2 s
 # the cut at inference: the TopK mask, then the sparse payload's decode,
 # once a batch shard a token
 STEP_PATH = ("topk_mask_threshold", "decode_rows")
@@ -5154,7 +5545,8 @@ def main(argv=None) -> int:
                                         "recurrent", "multimodal", "mesh",
                                         "trainmesh", "servestep",
                                         "familystep", "dryrun",
-                                        "examples", "experiments", "probe",
+                                        "examples", "experiments", "procs",
+                                        "probe",
                                         "ab",
                                         "predict"),
                     default="all",
@@ -5162,7 +5554,7 @@ def main(argv=None) -> int:
                          "serve / train / fedtrain / loadgen / families / "
                          "recurrent / multimodal / mesh / trainmesh / "
                          "servestep / familystep / dryrun / examples / "
-                         "experiments: the "
+                         "experiments / procs: the "
                          "checks, "
                          "probes and one path; probe: build + `probe_kernels` "
                          "alone; ab: `probe` in turns on a parent tree's "
@@ -5252,6 +5644,13 @@ def main(argv=None) -> int:
         launches[name] += n
         sources[name].append(source)
 
+    # first, while this process holds next to nothing of the card: its
+    # four processes need some 70 GB of it
+    if args.phase in ("all", "procs"):
+        for n, c in procs_phase(dev, card).items():
+            add(n, c, "the procs phase's processes (yi-6b 2 layers at (2, "
+                      "2) and granite-moe 4 layers at (1, 4), one process "
+                      "a position)")
     if args.phase in ("all", "serve"):
         t0 = time.perf_counter()
         counts = serve_phase(dev, args.layers)
@@ -5324,7 +5723,7 @@ def main(argv=None) -> int:
         for n in launches:
             if counts[n]:
                 add(n, counts[n], "the serve step phase's kernel runs "
-                                  "(yi-6b 8 layers at mesh=None, (1, 4) "
+                                  "(yi-6b 4 layers at mesh=None, (1, 4) "
                                   "flash and replicated, (2, 2, 2); yi-6b "
                                   "32 layers; granite-moe at mesh=None "
                                   "and (1, 4))")

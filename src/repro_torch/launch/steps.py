@@ -9,7 +9,11 @@ as consumed.
 On a training mesh (`Runtime.mesh`) the parameters stay whole, one tensor
 a leaf, and each position takes its shard as a slice: autograd's
 accumulation into the leaf is the data-parallel gradient sum, so AdamW
-and the global grad norm are the mesh-less ones. The serve step
+and the global grad norm are the mesh-less ones. On a process mesh
+(`mesh.ProcessMesh`, dense and moe) every process holds the whole
+parameters and differentiates its own position's share of the loss
+(`_loss_procs`), then sums the gradients over the processes in position
+order, so every process applies the same update. The serve step
 (`make_serve_step`) is one greedy token of the whole batch with a KV
 cache, the reference's `make_serve_step`.
 """
@@ -19,6 +23,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import mesh as mesh_mod
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig, Runtime
 from repro_torch.optim.adamw import adamw_update, tree_leaves, tree_map
@@ -31,7 +36,7 @@ def loss_fn(params, cfg: ArchConfig, rt: Runtime, batch, generator):
     """Cross entropy + AUX_WEIGHT * aux. On a mesh the loss runs once a
     batch shard, on the logits of its rows against its own labels
     (wherever the pod ring took the rows), and the shards' means are
-    averaged."""
+    averaged. A process mesh takes `_loss_procs`."""
     logits, aux = split_model.forward(params, cfg, rt, batch,
                                       generator=generator)
     if rt.mesh is None:
@@ -43,24 +48,84 @@ def loss_fn(params, cfg: ArchConfig, rt: Runtime, batch, generator):
     return ce + AUX_WEIGHT * aux, (ce, aux)
 
 
+def _loss_procs(params, cfg: ArchConfig, rt: Runtime, batch, generator):
+    """The loss on a process mesh: (objective, total, ce, aux).
+
+    total, ce and aux are the single controller's values, bit for bit,
+    on every process: each shard's cross entropy and L1 penalty are read
+    at its representative (an all-gather of the scalars, not counted) and
+    averaged in shard order. `objective` is this process's share of the
+    loss for autograd: its shard's cross entropy and penalty over the
+    shard count where the process is the shard's representative, and the
+    layers' balance loss at position 0, where the single controller reads
+    each; elsewhere the same terms times 0, so that every process runs
+    every backward collective. The processes' gradients of their
+    objectives sum to the single controller's gradient."""
+    mesh = rt.mesh
+    lay, logits, aux, pen = split_model.forward_mesh(params, cfg, rt, batch,
+                                                     generator)
+    labels = batch["labels"].split(lay.b_loc)
+    (c, lg), = [(c, lg) for c, lg in enumerate(logits) if lg is not None]
+    ce = transformer.cross_entropy(lg, labels[c])
+    if pen is None:
+        pen = torch.zeros((), dtype=torch.float32, device=ce.device)
+    (p,) = mesh.local
+    # (ce, pen, the row shard c) in f64, which holds each exactly
+    vals = mesh_mod.gather_values(mesh, torch.stack(
+        [ce.detach().double(), pen.detach().double(),
+         torch.tensor(float(c), dtype=torch.float64, device=ce.device)]))
+    n = len(lay.groups)
+    ces = [None] * n
+    for r in lay.reps:
+        ces[int(vals[r][2])] = vals[r][0].to(ce.dtype)
+    ce_all = torch.stack(ces).mean()
+    aux_all = aux.detach()
+    if cfg.split is not None and cfg.split.cut_layer > 0:
+        aux_all = aux_all + torch.stack(
+            [vals[r][1].to(pen.dtype) for r in lay.reps]).mean()
+    total = ce_all + AUX_WEIGHT * aux_all
+    rep = 1.0 if p in lay.reps else 0.0
+    objective = (rep * (ce + AUX_WEIGHT * pen) / n
+                 + (1.0 if p == 0 else 0.0) * AUX_WEIGHT * aux)
+    return objective, total, ce_all, aux_all
+
+
 def make_train_step(cfg: ArchConfig, rt: Runtime, *, lr=3e-4,
                     weight_decay=0.0) -> Callable:
     """(params, opt_state, batch, generator) -> (params, opt_state,
     metrics): one AdamW step on the split model; `generator` feeds the
     cut's RandTopK draws. A parameter group the loss cannot reach
     (`_unreached_groups`) takes a zero gradient, as `jax.grad` gives; any
-    other leaf the loss does not reach raises (a wiring fault)."""
+    other leaf the loss does not reach raises (a wiring fault). On a
+    process mesh each process differentiates its share of the loss
+    (`_loss_procs`) and the gradients are summed over the processes in
+    position order (`mesh.sum_processes`) before AdamW."""
     unreached = _unreached_groups(cfg)
+    procs = rt.mesh is not None and rt.mesh.procs
 
     def step(params, opt_state, batch, generator):
         params = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        total, (ce, aux) = loss_fn(params, cfg, rt, batch, generator)
+        if procs:
+            objective, total, ce, aux = _loss_procs(params, cfg, rt, batch,
+                                                    generator)
+        else:
+            total, (ce, aux) = loss_fn(params, cfg, rt, batch, generator)
+            objective = total
         leaves = tree_leaves(params)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = torch.autograd.grad(objective, leaves, allow_unused=True)
         it = iter(grads)
         grads = {name: tree_map(lambda p, name=name: _grad_of(
             next(it), p, name, unreached), sub)
             for name, sub in params.items()}
+        if procs:
+            # summed in place a leaf at a time, so that each process's own
+            # gradient is freed as its sum is made
+            del it
+            flat = tree_leaves(grads)
+            del grads
+            mesh_mod.sum_processes(rt.mesh, flat)
+            it = iter(flat)
+            grads = tree_map(lambda _: next(it), params)
         new_params, new_opt, gnorm = adamw_update(
             params, grads, opt_state, lr=lr, weight_decay=weight_decay)
         metrics = {"loss": total.detach(), "ce": ce.detach(),

@@ -40,6 +40,14 @@
     python -m repro_torch.launch.train --arch rwkv6-1.6b --layers 6 \
         --steps 5 --batch 4 --seq 256 --split randtopk --k 64 --mesh 2,2
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
+        --smoke --device cpu --steps 5 --split randtopk --k 16 \
+        --mesh 2,2 --procs
+
+    python -m repro_torch.launch.train --arch yi-6b --layers 8 \
+        --steps 10 --batch 4 --seq 256 --split randtopk --k 64 \
+        --mesh 2,2 --procs --devices cuda:0,cuda:1,cuda:2,cuda:3
+
 Runs a real training loop: synthetic token batches drawn on the device,
 the split model with the cut-layer codec at `--cut` (default n_layers // 2;
 for the vlm rounded down to whole groups of `cross_attn_every` layers, at
@@ -61,10 +69,17 @@ the reference takes it (`launch.mesh.make_mesh`): the batch splits over
 mix's ff columns, Mamba2's and RWKV6's heads, whisper's encoder over its
 frames) and the moe's expert parallelism (`models.tp`). Every position
 lies on the one device of `--device`; the parameters stay whole there.
+With `--procs` (the dense and moe families) one process drives each
+position (`launch.mesh.spawn`, over gloo: several processes share the
+card, or the CPU with `--device cpu`), each holding the whole
+parameters; rank 0 prints and checkpoints, and the step is the single
+controller's (`launch.steps`). `--devices` gives one card a process
+over NCCL instead (not yet run: it needs as many cards as positions).
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
@@ -73,7 +88,7 @@ import torch
 from repro_torch import configs
 from repro_torch.checkpoint import store
 from repro_torch.data.pipeline import TokenPipeline
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import make_mesh, make_process_mesh, spawn
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import common, transformer
 from repro_torch.models.config import Runtime, SplitConfig
@@ -118,31 +133,58 @@ def main(argv=None):
                     help="torch device (default: the card; 'cpu' on purpose)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default=None, help="e.g. 2,4 for (data,model)")
+    ap.add_argument("--procs", action="store_true",
+                    help="one process a mesh position (dense and moe)")
+    ap.add_argument("--devices", default=None,
+                    help="with --procs: one card a position over NCCL, "
+                         "e.g. cuda:0,cuda:1")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
-
+    shape = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else ()
+    axes = ("data", "model")[:len(shape)]
+    if args.procs:
+        if not shape:
+            raise SystemExit("--procs needs --mesh")
+        devices = args.devices.split(",") if args.devices else None
+        # no join limit: the process group's catches a hung collective
+        spawn(_rank_main, math.prod(shape), (args, shape, axes, devices),
+              device=None if devices else resolve_device(args.device),
+              devices=devices, timeout=None)
+        return None
+    if args.devices:
+        raise SystemExit("--devices needs --procs")
     dev = resolve_device(args.device)
+    return _train(args, dev, make_mesh(shape, axes, devices=dev)
+                  if shape else None)
+
+
+def _rank_main(rank, dev, args, shape, axes, devices):
+    """One process of `--procs`: the run on its position of the process
+    mesh (every position on `dev`, or one of `devices` each); rank 0
+    prints and checkpoints."""
+    _train(args, dev, make_process_mesh(shape, axes, devices or dev),
+           lead=rank == 0)
+
+
+def _train(args, dev, mesh, lead=True):
+    write = print if lead else (lambda *a, **kw: None)
     cfg = build(args.arch, smoke=args.smoke, layers=args.layers,
                 split=args.split, k=args.k, alpha=args.alpha, cut=args.cut,
                 backend=args.backend)
-    mesh = None
-    if args.mesh:
-        shape = tuple(int(x) for x in args.mesh.split(","))
-        mesh = make_mesh(shape, ("data", "model")[:len(shape)], devices=dev)
     rt = Runtime(mesh=mesh, training=True)
     params = transformer.init_model(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
     opt = adamw_init(params)
-    print(f"arch={cfg.name} layers={cfg.n_layers} "
+    write(f"arch={cfg.name} layers={cfg.n_layers} "
           f"params={common.count_params(params):,} "
           f"device={dev} mesh={mesh} split={cfg.split}")
     if cfg.split:
         analytic = protocol.wire_bytes_per_step(cfg, args.batch, args.seq,
                                                 training=True)
         measured = protocol.measured_payload_bytes(cfg, args.batch, args.seq)
-        print(f"cut-layer wire/step: {analytic:.0f} B analytic (fwd+bwd), "
+        write(f"cut-layer wire/step: {analytic:.0f} B analytic (fwd+bwd), "
               f"{measured} B measured fwd payload (dense fwd would be "
               f"{args.batch * args.seq * cfg.d_model * 4} B)")
 
@@ -161,22 +203,22 @@ def main(argv=None):
             gen.set_state(store.restore(rng_dir, last,
                                         {"gen": gen.get_state()})["gen"])
             start = last
-            print(f"restored step {last}")
+            write(f"restored step {last}")
     t0 = time.perf_counter()
     for step in range(start, args.steps):
         params, opt, metrics = step_fn(params, opt, pipe.next_batch(step),
                                        gen)
         if step % args.log_every == 0 or step == args.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
-            print(f"step {step:5d} loss={m['loss']:.4f} ce={m['ce']:.4f} "
+            write(f"step {step:5d} loss={m['loss']:.4f} ce={m['ce']:.4f} "
                   f"aux={m['aux']:.4f} gnorm={m['grad_norm']:.2f} "
                   f"({time.perf_counter() - t0:.1f}s)")
-        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+        if lead and args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             store.save(args.ckpt_dir, step + 1, params)
             store.save(opt_dir, step + 1, opt)
             store.save(rng_dir, step + 1, {"gen": gen.get_state()})
     if dev.type == "cuda":
-        print(f"peak device memory: "
+        write(f"peak device memory: "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return params
 

@@ -31,13 +31,31 @@ nothing and is not counted. `collective_bytes(snap)` reads the counter
 back from a registry snapshot; `roofline.analysis.
 serving_collective_costs`, `training_collective_costs` and
 `decode_collective_costs` predict it.
+
+A `ProcessMesh` is the same mesh with one process a position, as
+PyTorch reaches several cards: `torch.distributed`'s rank r drives
+position r (`launch.mesh.spawn` starts the processes). A per-position
+list then holds a tensor only at the process's own position (`local`)
+and None at every other, the one rule every mesh loop follows (`pmap`,
+`Mesh.each`, `first`). Its collectives run over one `torch.distributed`
+group a group of positions, made once a mesh on every rank in the same
+order, with the transposes above as their backward. A reduction
+all-gathers the group's pieces and adds them in group order, as `_sum`
+does, so a process mesh computes what the single controller computes,
+bit for bit, and counts each collective once into its registry, as
+the single controller does. Under gloo (the CPU, or several processes
+sharing one card) the tensors cross as bytes through host memory; under
+NCCL (one card a process) they cross on the cards. Neither the staging
+nor a gather that stands in for a reduction is counted.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Dict, List, Sequence
 
 import torch
+import torch.distributed as dist
 
 COUNTER = "collective_bytes_total"
 
@@ -49,9 +67,25 @@ def collective_bytes(snapshot: dict) -> Dict[str, int]:
     return {row["labels"]["op"]: row["value"] for row in series}
 
 
-def _count(registry, op: str, t: torch.Tensor) -> None:
+def _count(registry, op: str, ts) -> None:
     if registry is not None:
+        t = first(ts)
         registry.counter(COUNTER, op=op).inc(t.numel() * t.element_size())
+
+
+def first(xs):
+    """The first tensor of a per-position list: position 0's on the single
+    controller, the process's own on a process mesh."""
+    return next(x for x in xs if x is not None)
+
+
+def pmap(fn, *lists):
+    """[fn(p, *entries) for each position p], over the positions whose
+    entry of the first list is a tensor (every position on the single
+    controller, the process's own on a process mesh); None at the
+    others."""
+    return [None if items[0] is None else fn(p, *items)
+            for p, items in enumerate(zip(*lists))]
 
 
 def _device(d) -> torch.device:
@@ -77,9 +111,19 @@ class Mesh:
         if len(self.devices) != self.size:
             raise ValueError(f"{len(self.devices)} devices for a mesh of "
                              f"{self.size} positions")
+        # the positions this process drives: every one
+        self.local = tuple(range(self.size))
+
+    procs = False
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
+
+    def each(self, fn) -> list:
+        """[fn(p)] at the positions this process drives, None at the
+        others."""
+        return [fn(p) if p in self.local else None
+                for p in range(self.size)]
 
     def coord(self, pos: int, axis: str) -> int:
         """Position `pos`'s index along `axis`."""
@@ -111,6 +155,121 @@ class Mesh:
         return pos + (to - self.coord(pos, axis)) * self._stride(axis)
 
 
+class ProcessMesh(Mesh):
+    """A mesh of one process a position: `torch.distributed` is
+    initialised with one rank a position, and rank r drives position r
+    (`local`) on `devices[r]`. Every rank makes the mesh alike, in the
+    same order as its other process meshes: the mesh makes a process
+    group for every group of positions along every set of axes.
+    `staged`: under gloo a card's tensors cross through host memory."""
+
+    procs = True
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str], devices):
+        super().__init__(shape, axes, devices)
+        if not dist.is_initialized():
+            raise ValueError("a process mesh needs torch.distributed "
+                             "initialised (launch.mesh.spawn)")
+        if dist.get_world_size() != self.size:
+            raise ValueError(f"{dist.get_world_size()} processes for a mesh "
+                             f"of {self.size} positions")
+        self.rank = dist.get_rank()
+        self.local = (self.rank,)
+        self.device = self.devices[self.rank]
+        self.backend = dist.get_backend()
+        self.staged = self.backend == "gloo" and self.device.type == "cuda"
+        self.process_groups: Dict[tuple, object] = {}
+        names = self.axis_names
+        for n in range(1, len(names) + 1):
+            for axes_ in itertools.combinations(names, n):
+                for g in self.groups(axes_):
+                    if len(g) > 1 and tuple(g) not in self.process_groups:
+                        self.process_groups[tuple(g)] = dist.new_group(g)
+
+    def __repr__(self) -> str:
+        return f"ProcessMesh({self.shape}, rank={self.rank})"
+
+
+def _wire(mesh: ProcessMesh, x):
+    """Contiguous `x` as the backend moves it: on the host as bytes under
+    gloo (a card's tensor staged), as it is under NCCL."""
+    wire = x.cpu() if mesh.staged else x
+    return wire.reshape(-1).view(torch.uint8) if mesh.backend == "gloo" \
+        else wire
+
+
+def _unwire(w, dtype, shape, device):
+    """A received wire buffer as a tensor of `dtype` and `shape` on
+    `device`."""
+    return w.view(dtype).reshape(shape).to(device)
+
+
+def _fetch(mesh: ProcessMesh, group, t):
+    """The tensors like `t` that the positions of `group` (ascending, this
+    process's among them) hold, in group order: all-gathered over the
+    group's processes."""
+    src = t.detach().contiguous()
+    if len(group) == 1:
+        return [src]
+    wire = _wire(mesh, src)
+    bufs = [torch.empty_like(wire) for _ in group]
+    dist.all_gather(bufs, wire, group=mesh.process_groups[tuple(group)])
+    return [_unwire(b, src.dtype, src.shape, src.device) for b in bufs]
+
+
+def _exchange(mesh: ProcessMesh, t, dst: int, src: int):
+    """Send `t` to position `dst` and receive a tensor like it from
+    position `src`."""
+    if dst == mesh.rank:
+        return t
+    x = t.detach().contiguous()
+    wire = _wire(mesh, x)
+    buf = torch.empty_like(wire)
+    for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, wire, dst),
+                                     dist.P2POp(dist.irecv, buf, src)]):
+        w.wait()
+    return _unwire(buf, x.dtype, x.shape, x.device)
+
+
+def gather_values(mesh: ProcessMesh, t) -> list:
+    """Every position's tensor like `t` (a loss value, a metric), in
+    position order, with no gradient and not counted: the bookkeeping a
+    single controller does on one device."""
+    return _fetch(mesh, list(range(mesh.size)), t)
+
+
+def sum_processes(mesh: ProcessMesh, ts: list) -> None:
+    """Each tensor of the list `ts` replaced by its sum over the processes
+    in position order, the same sum on every rank (the data-parallel
+    gradient sum that a single controller's autograd makes in the leaf;
+    not counted). A reduce-scatter and an all-gather: rank r receives
+    every process's r-th of the flattened tensor (an all-to-all), adds
+    them in position order, and the sums are all-gathered, so each rank
+    receives twice (world - 1) / world of the tensor where an all-gather
+    of the whole would move world - 1 times it. One tensor at a time, the
+    tensor it replaces dropped from the list."""
+    world = mesh.size
+    if world == 1:
+        return
+    group = mesh.process_groups[tuple(range(world))]
+    for i, t in enumerate(ts):
+        flat = t.detach().reshape(-1)
+        n = flat.numel()
+        c = -(-n // world)
+        wire = _wire(mesh, torch.nn.functional.pad(flat, (0, c * world - n)))
+        got = torch.empty_like(wire)
+        dist.all_to_all_single(got, wire, group=group)
+        mine = None
+        for piece in got.chunk(world):     # position q's r-th, in order
+            piece = _unwire(piece, t.dtype, (c,), t.device)
+            mine = piece if mine is None else mine + piece
+        sums = torch.empty_like(wire)
+        dist.all_gather(list(sums.chunk(world)), _wire(mesh, mine),
+                        group=group)
+        ts[i] = _unwire(sums, t.dtype, (c * world,), t.device)[:n] \
+            .reshape(t.shape)
+
+
 def _axes(axis):
     return (axis,) if isinstance(axis, str) else tuple(axis)
 
@@ -129,17 +288,46 @@ class _Collective(torch.autograd.Function):
         return (None, None, *ctx.transpose(list(gs)))
 
 
-def _apply(run, transpose, xs):
-    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-        return list(_Collective.apply(run, transpose, *xs))
-    return run(list(xs))
+def _apply(mesh: Mesh, run, transpose, xs):
+    """`run` over the per-position list xs, under autograd with
+    `transpose` as its backward; the autograd node holds the process's
+    own positions' tensors."""
+    loc = mesh.local
+
+    def local(fn):
+        def go(ts):
+            full: List = [None] * mesh.size
+            for p, t in zip(loc, ts):
+                full[p] = t
+            out = fn(full)
+            return [out[p] for p in loc]
+        return go
+
+    ins = [xs[p] for p in loc]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in ins):
+        outs = _Collective.apply(local(run), local(transpose), *ins)
+    else:
+        outs = local(run)(ins)
+    full: List = [None] * mesh.size
+    for p, t in zip(loc, outs):
+        full[p] = t
+    return full
+
+
+def _group_of(mesh: Mesh, axis, pos: int) -> List[int]:
+    return next(g for g in mesh.groups(axis) if pos in g)
 
 
 def _per_group(mesh: Mesh, axis, xs, combine):
     """`combine(list of the group's tensors on one device)` for each group
     along `axis`, computed once per device of the group and handed to
-    every member on it."""
+    every member on it; on a process mesh each process fetches its
+    group's tensors and combines them itself."""
     out: List = [None] * mesh.size
+    if mesh.procs:
+        for p in mesh.local:
+            out[p] = combine(_fetch(mesh, _group_of(mesh, axis, p), xs[p]))
+        return out
     for group in mesh.groups(axis):
         done: Dict[torch.device, torch.Tensor] = {}
         for p in group:
@@ -159,40 +347,53 @@ def _sum(ts):
 
 def _gather(mesh, xs, axis, dim, registry):
     out = _per_group(mesh, axis, xs, lambda ts: torch.cat(ts, dim))
-    _count(registry, "all-gather", out[0])
+    _count(registry, "all-gather", out)
     return out
 
 
 def _scatter(mesh, xs, axis, dim, registry):
     out: List = [None] * mesh.size
     for group in mesh.groups(axis):
+        mine = [p for p in group if p in mesh.local]
+        if not mine:
+            continue
         n = len(group)
-        size = xs[group[0]].shape[dim]
+        size = xs[mine[0]].shape[dim]
         if size % n:
             raise ValueError(f"reduce-scatter of {size} along dim {dim} "
                              f"over a group of {n}")
         c = size // n
+        whole = (_fetch(mesh, group, xs[mine[0]]) if mesh.procs
+                 else [xs[q] for q in group])
         for i, p in enumerate(group):
-            dev = mesh.devices[p]
-            out[p] = _sum([xs[q].narrow(dim, i * c, c).to(dev)
-                           for q in group])
-    _count(registry, "reduce-scatter", out[0])
+            if p in mine:
+                dev = mesh.devices[p]
+                out[p] = _sum([x.narrow(dim, i * c, c).to(dev)
+                               for x in whole])
+    _count(registry, "reduce-scatter", out)
     return out
 
 
 def _reduce(mesh, xs, axis, registry):
     out = _per_group(mesh, axis, xs, _sum)
-    _count(registry, "all-reduce", out[0])
+    _count(registry, "all-reduce", out)
     return out
 
 
 def _permute(mesh, xs, axis, perm, registry):
     dst_of = dict(perm)
     out: List = [None] * mesh.size
-    for p in range(mesh.size):
-        q = mesh.shift(p, axis, dst_of[mesh.coord(p, axis)])
-        out[q] = xs[p].to(mesh.devices[q])
-    _count(registry, "collective-permute", out[0])
+    if mesh.procs:
+        src_of = {dst: src for src, dst in perm}
+        for p in mesh.local:
+            c = mesh.coord(p, axis)
+            out[p] = _exchange(mesh, xs[p], mesh.shift(p, axis, dst_of[c]),
+                               mesh.shift(p, axis, src_of[c]))
+    else:
+        for p in range(mesh.size):
+            q = mesh.shift(p, axis, dst_of[mesh.coord(p, axis)])
+            out[q] = xs[p].to(mesh.devices[q])
+    _count(registry, "collective-permute", out)
     return out
 
 
@@ -202,7 +403,7 @@ def all_gather(mesh: Mesh, xs, axis: str, dim: int = 0, registry=None):
     reduce-scatter of the gradients."""
     if mesh.group_size(axis) == 1:
         return list(xs)
-    return _apply(lambda ts: _gather(mesh, ts, axis, dim, registry),
+    return _apply(mesh, lambda ts: _gather(mesh, ts, axis, dim, registry),
                   lambda gs: _scatter(mesh, gs, axis, dim, registry), xs)
 
 
@@ -213,7 +414,7 @@ def reduce_scatter(mesh: Mesh, xs, axis: str, dim: int = 0, registry=None):
     of the gradients."""
     if mesh.group_size(axis) == 1:
         return list(xs)
-    return _apply(lambda ts: _scatter(mesh, ts, axis, dim, registry),
+    return _apply(mesh, lambda ts: _scatter(mesh, ts, axis, dim, registry),
                   lambda gs: _gather(mesh, gs, axis, dim, registry), xs)
 
 
@@ -225,7 +426,7 @@ def all_reduce(mesh: Mesh, xs, axis, op: str, registry=None):
     if mesh.group_size(axis) == 1:
         return list(xs)
     if op == "sum":
-        return _apply(lambda ts: _reduce(mesh, ts, axis, registry),
+        return _apply(mesh, lambda ts: _reduce(mesh, ts, axis, registry),
                       lambda gs: _reduce(mesh, gs, axis, registry), xs)
     fn = {"max": torch.maximum, "min": torch.minimum}[op]
 
@@ -236,7 +437,7 @@ def all_reduce(mesh: Mesh, xs, axis, op: str, registry=None):
         return acc
 
     out = _per_group(mesh, axis, xs, combine)
-    _count(registry, "all-reduce", out[0])
+    _count(registry, "all-reduce", out)
     return out
 
 
@@ -248,5 +449,5 @@ def permute(mesh: Mesh, xs, axis: str, perm, registry=None):
     if mesh.shape[axis] == 1:
         return list(xs)
     back = [(dst, src) for src, dst in perm]
-    return _apply(lambda ts: _permute(mesh, ts, axis, perm, registry),
+    return _apply(mesh, lambda ts: _permute(mesh, ts, axis, perm, registry),
                   lambda gs: _permute(mesh, gs, axis, back, registry), xs)

@@ -237,9 +237,9 @@ def _attention_mesh(p, cfg: ArchConfig, lay, xs, kv_tokens, *, causal,
     hl = cfg.n_heads // lay.n_model if split else cfg.n_heads
     kvs = kv_tokens or [None] * len(xs)
     return tp.out_proj_rs(
-        lay, [_heads_out(p, cfg, lay.rt, x, lay.rank(i) * hl if split
-                         else 0, hl, kv_tokens=kv, causal=causal, rope=rope)
-              for i, (x, kv) in enumerate(zip(xs, kvs))], p["wo"],
+        lay, mesh_mod.pmap(lambda i, x, kv: _heads_out(
+            p, cfg, lay.rt, x, lay.rank(i) * hl if split else 0, hl,
+            kv_tokens=kv, causal=causal, rope=rope), xs, kvs), p["wo"],
         split=split)
 
 

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import mesh as mesh_mod
 from repro_torch.models import common, tp
 from repro_torch.models.config import ArchConfig
 
@@ -50,11 +51,14 @@ def mlp_mesh(p, cfg: ArchConfig, lay, xs, *, gated=False):
     tanh(p["gate"])."""
     split = lay.split(cfg.d_ff)
     n = cfg.d_ff // lay.n_model if split else cfg.d_ff
-    hs = []
-    for i, x in enumerate(xs):
+
+    def hidden(i, x):
         c = slice(lay.rank(i) * n, (lay.rank(i) + 1) * n) if split \
             else slice(None)
-        hs.append(torch.nn.functional.silu(x @ p["w_gate"][:, c].to(
-            x.dtype)) * (x @ p["w_up"][:, c].to(x.dtype)))
-    ys = tp.out_proj_rs(lay, hs, p["w_down"], split=split)
-    return [common.tanh_gate(p, y) for y in ys] if gated else ys
+        return torch.nn.functional.silu(x @ p["w_gate"][:, c].to(
+            x.dtype)) * (x @ p["w_up"][:, c].to(x.dtype))
+
+    ys = tp.out_proj_rs(lay, mesh_mod.pmap(hidden, xs), p["w_down"],
+                        split=split)
+    return mesh_mod.pmap(lambda _, y: common.tanh_gate(p, y), ys) if gated \
+        else ys

@@ -207,7 +207,8 @@ def moe_mesh(p, cfg: ArchConfig, lay, xs):
     else a psum; the balance loss is averaged over the batch axes. Without
     tensor parallelism (no 'model' axis, or `dp_only`) every position
     runs every expert on its shard. Returns (per position y, aux of
-    position 0: every position holds the same).
+    position 0, or of the process's own position on a process mesh:
+    every position holds the same).
 
     On a decode layout (`lay.decode`) each row is its own group of one
     token, as `moe(per_row=True)` routes it, no expert weight is gathered
@@ -219,14 +220,12 @@ def moe_mesh(p, cfg: ArchConfig, lay, xs):
         raise ValueError(f"{E} experts do not divide over 'model' "
                          f"{lay.n_model}")
     e_loc = E // lay.n_model
-    B, S, d = xs[0].shape
+    B, S, d = mesh_mod.first(xs).shape
     G = B * S if lay.decode else 1
     C = _capacity(B * S // G, cfg, lay.rt.moe_capacity)
-    ws = []
-    for i in range(mesh.size):
-        lo = lay.rank(i) * e_loc
-        ws.append([p[n][lo:lo + e_loc] for n in ("w_gate", "w_up",
-                                                 "w_down")])
+    ws = mesh_mod.pmap(lambda i, _: [
+        p[n][lay.rank(i) * e_loc:(lay.rank(i) + 1) * e_loc]
+        for n in ("w_gate", "w_up", "w_down")], xs)
     n_data = mesh.shape.get("data", 1)
     if (lay.n_model > 1 and n_data > 1 and d % n_data == 0
             and not lay.decode):
@@ -234,17 +233,16 @@ def moe_mesh(p, cfg: ArchConfig, lay, xs):
         c = d // n_data
         for j, axis in enumerate((1, 1, 2)):
             got = mesh_mod.all_gather(
-                mesh, [w[j].narrow(axis, mesh.coord(i, "data") * c, c)
-                       for i, w in enumerate(ws)], "data", dim=axis,
-                registry=reg)
+                mesh, mesh_mod.pmap(lambda i, w: w[j].narrow(
+                    axis, mesh.coord(i, "data") * c, c), ws), "data",
+                dim=axis, registry=reg)
             for w, g in zip(ws, got):
-                w[j] = g
-    ys, auxes = [], []
-    for i, x in enumerate(xs):
-        y, aux = _experts(p, cfg, x.reshape(B * S, d), G, C,
-                          lay.rank(i) * e_loc, ws[i])
-        ys.append(y.reshape(B, S, d))
-        auxes.append(aux)
+                if w is not None:
+                    w[j] = g
+    out = mesh_mod.pmap(lambda i, x, w: _experts(
+        p, cfg, x.reshape(B * S, d), G, C, lay.rank(i) * e_loc, w), xs, ws)
+    ys = mesh_mod.pmap(lambda _, o: o[0].reshape(B, S, d), out)
+    auxes = mesh_mod.pmap(lambda _, o: o[1], out)
     if lay.n_model > 1:
         ys = (mesh_mod.reduce_scatter(mesh, ys, "model", dim=1, registry=reg)
               if lay.seq else mesh_mod.all_reduce(mesh, ys, "model", "sum",
@@ -254,5 +252,6 @@ def moe_mesh(p, cfg: ArchConfig, lay, xs):
     axes = lay.rt.batch_axes
     if axes and mesh.group_size(axes) > 1:
         auxes = mesh_mod.all_reduce(mesh, auxes, axes, "sum", registry=reg)
-        auxes = [a / mesh.group_size(axes) for a in auxes]
-    return ys, auxes[0]
+        auxes = mesh_mod.pmap(lambda _, a: a / mesh.group_size(axes),
+                              auxes)
+    return ys, mesh_mod.first(auxes)

@@ -36,6 +36,16 @@ The parameters stay whole, one tensor a leaf: a position's shard is a
 slice of it, so autograd's accumulation into the leaf is the
 data-parallel gradient sum, which moves no bytes between positions of
 one device and is not counted.
+
+On a process mesh (`mesh.ProcessMesh`, one process a position, the
+dense and moe training step) every process keeps the whole parameters
+and runs its own position; the lists hold a tensor at that position
+only. What runs once a batch shard on the single controller (the cut
+codec, the lm head and the loss, at `reps[b]`) runs at every position
+of the shard, on inputs equal to the representative's, so no row moves
+for it (`Layout.held`); `launch.steps` weighs the copies so that only
+the representative's reaches the gradient, and sums the processes'
+gradients (the data-parallel sum, not counted either).
 """
 from __future__ import annotations
 
@@ -62,10 +72,15 @@ class Layout:
 
     def __init__(self, rt, batch: int, seq: int, *, decode: bool = False):
         mesh = rt.mesh
-        if len(set(mesh.devices)) != 1:
+        if mesh.procs and decode:
+            raise ValueError("the decode mesh runs under one controller; "
+                             "across processes it waits for ROADMAP item "
+                             "8c")
+        if not mesh.procs and len(set(mesh.devices)) != 1:
             raise ValueError("the training mesh keeps whole parameters on "
                              "one device: every position must lie on it "
-                             "(several cards wait for ROADMAP item 8c)")
+                             "(several cards take a process mesh, "
+                             "launch.mesh.spawn)")
         self.rt, self.mesh, self.registry = rt, mesh, rt.registry
         tp = rt.has_model_axis and not rt.dp_only
         self.n_model = mesh.shape["model"] if tp else 1
@@ -84,9 +99,22 @@ class Layout:
         self.flash = decode and rt.flash_decode and self.n_model > 1
         axes = rt.batch_axes or ()
         # the batch shards as a mesh over `batch_axes` (position b = shard
-        # b, on its representative's device), for the pod ring
-        self.shards = Mesh([mesh.shape[a] for a in axes], axes,
-                           [mesh.devices[r] for r in self.reps])
+        # b, on its representative's device), for the pod ring; a process
+        # mesh runs the ring over its own positions (`protocol`)
+        self.shards = None if mesh.procs else Mesh(
+            [mesh.shape[a] for a in axes], axes,
+            [mesh.devices[r] for r in self.reps])
+
+    def held(self):
+        """(shard b, the position that runs its once-a-shard work: the cut
+        codec, the lm head and the loss) for each batch shard this process
+        runs: every shard at its representative on the single controller,
+        the process's own shard at its own position on a process mesh
+        (every position of a shard runs the work on equal inputs, so no
+        row moves)."""
+        if self.mesh.procs:
+            return [(self.shard_of[p], p) for p in self.mesh.local]
+        return list(enumerate(self.reps))
 
     def shard_batch(self, batch):
         """The batch dict split along its rows into one dict a batch
@@ -168,15 +196,16 @@ def out_proj_rs(lay: Layout, hs, w, *, split: bool,
     without `split`, the whole product's chunk of the sequence. In
     decode the partial products are summed over 'model' (`sum_model`)."""
     if not split:
-        return [lay.local_seq(p, h @ w.to(h.dtype)) for p, h in
-                enumerate(hs)]
+        return mesh_mod.pmap(lambda p, h: lay.local_seq(p, h @ w.to(h.dtype)),
+                             hs)
     n = w.shape[0] // lay.n_model
     if lay.decode:
         return sum_model(lay, [h @ w[lay.rank(p) * n:(lay.rank(p) + 1) * n]
                                .to(h.dtype) for p, h in enumerate(hs)])
     return out_proj_rs_local(
-        lay, hs, [w[lay.rank(p) * n:(lay.rank(p) + 1) * n]
-                  for p in range(len(hs))], w_spec=w_spec)
+        lay, hs, lay.mesh.each(
+            lambda p: w[lay.rank(p) * n:(lay.rank(p) + 1) * n]),
+        w_spec=w_spec)
 
 
 def out_proj_rs_local(lay: Layout, hs, ws, *, w_spec=("model", "data")):
@@ -189,13 +218,13 @@ def out_proj_rs_local(lay: Layout, hs, ws, *, w_spec=("model", "data")):
     mesh = lay.mesh
     if "data" in w_spec and mesh.shape.get("data", 1) > 1:
         axis, n_data = w_spec.index("data"), mesh.shape["data"]
-        if ws[0].shape[axis] % n_data == 0:
-            c = ws[0].shape[axis] // n_data
+        if mesh_mod.first(ws).shape[axis] % n_data == 0:
+            c = mesh_mod.first(ws).shape[axis] // n_data
             ws = mesh_mod.all_gather(
-                mesh, [w.narrow(axis, mesh.coord(p, "data") * c, c)
-                       for p, w in enumerate(ws)], "data", dim=axis,
-                registry=lay.registry)
-    ys = [h @ w.to(h.dtype) for h, w in zip(hs, ws)]
+                mesh, mesh_mod.pmap(lambda p, w: w.narrow(
+                    axis, mesh.coord(p, "data") * c, c), ws), "data",
+                dim=axis, registry=lay.registry)
+    ys = mesh_mod.pmap(lambda p, h, w: h @ w.to(h.dtype), hs, ws)
     return mesh_mod.reduce_scatter(mesh, ys, "model", dim=1,
                                    registry=lay.registry)
 

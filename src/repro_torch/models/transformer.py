@@ -52,6 +52,7 @@ from typing import Any, Dict, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import mesh as mesh_mod
 from repro_torch.models import attention, common, mlp, moe, rwkv, ssm, tp
 from repro_torch.models.config import ArchConfig, Runtime
 
@@ -315,19 +316,20 @@ def forward(params, cfg: ArchConfig, rt: Runtime, batch):
 def embed_mesh(params, cfg: ArchConfig, lay, shards):
     """Each position's embedded tokens: its batch shard's rows (`shards`,
     one batch dict a shard), its chunk of the sequence."""
-    return [embed(params, cfg, lay.local_seq(
-        p, shards[lay.shard_of[p]]["tokens"])) for p in range(lay.mesh.size)]
+    return lay.mesh.each(lambda p: embed(params, cfg, lay.local_seq(
+        p, shards[lay.shard_of[p]]["tokens"])))
 
 
 def _normed(cfg: ArchConfig, lay, xs, p):
     """Every position's residual normed, then gathered to full S
     (`tp.gather_seq`, after the norm, as
     `src/repro/models/transformer.py:131-146`)."""
-    return tp.gather_seq(lay, [_norm(cfg, x, p) for x in xs])
+    return tp.gather_seq(lay, mesh_mod.pmap(lambda _, x: _norm(cfg, x, p),
+                                            xs))
 
 
 def _plus(xs, ys):
-    return [x + y for x, y in zip(xs, ys)]
+    return mesh_mod.pmap(lambda _, x, y: x + y, xs, ys)
 
 
 def _dense_mesh(pl, cfg: ArchConfig, lay, xs):
@@ -399,7 +401,8 @@ def apply_layers_mesh(params, cfg: ArchConfig, lay, xs, extras, lo: int,
     channel mix are not trailing: the gate's and the receptance's
     products save the reduce-scattered chunk."""
     check_family(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    aux = torch.zeros((), dtype=torch.float32,
+                      device=mesh_mod.first(xs).device)
     for block in blocks(cfg, lo, hi):
         xs, a = _remat(lay.rt, _block_fwd_mesh, params, block, cfg, lay, xs,
                        extras)
@@ -451,10 +454,12 @@ def make_extras_mesh(params, cfg: ArchConfig, lay, shards) -> dict:
 
 def lm_head_mesh(params, cfg: ArchConfig, lay, xs):
     """The final norm on every position, gathered to full S; the lm head
-    then runs once a batch shard, on its representative's rows. Returns
-    one (B_loc, S, V) logits tensor a shard."""
-    h = tp.gather_seq(lay, [final_norm(params, cfg, x) for x in xs])
-    return [h[r] @ params["unembed"].to(h[r].dtype) for r in lay.reps]
+    then runs once a batch shard, on its representative's rows (on a
+    process mesh at every position of the shard, `tp.Layout.held`).
+    Returns one (B_loc, S, V) logits tensor a shard of `lay.held()`."""
+    h = tp.gather_seq(lay, mesh_mod.pmap(
+        lambda _, x: final_norm(params, cfg, x), xs))
+    return [h[p] @ params["unembed"].to(h[p].dtype) for _, p in lay.held()]
 
 
 def cross_entropy(logits, labels):

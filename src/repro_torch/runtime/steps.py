@@ -141,6 +141,9 @@ def _make_sharded_arena_step(cfg: ArchConfig, cut: int, mesh,
     Positions on the device the params lie on read them in place (the
     column slices are views of the one `unembed`); a position on another
     device reads a copy made there once per params object."""
+    if mesh.procs:
+        raise ValueError("the sharded arena runs under one controller; "
+                         "across processes it waits for ROADMAP item 8c")
     n = mesh.size
     n_model = mesh.shape["model"]
     n_pod = mesh.shape.get("pod", 1)

@@ -38,9 +38,11 @@ def forward(params, cfg: ArchConfig, rt: Runtime, batch, *, generator=None):
     its noise from `generator` once per forward. On a mesh, logits is a
     list of each batch shard's (B_loc, S, V) logits in the batch's row
     order (`tp.Layout.shard_batch`), wherever the pod ring computed
-    them."""
+    them; on a process mesh only the process's own shard has logits and
+    its penalty is that shard's (`launch.steps` forms the loss)."""
     if rt.mesh is not None:
-        return _forward_mesh(params, cfg, rt, batch, generator)
+        _, logits, aux, pen = forward_mesh(params, cfg, rt, batch, generator)
+        return logits, (aux if pen is None else aux + pen)
     if cfg.split is None or cfg.split.cut_layer <= 0:
         return transformer.forward(params, cfg, rt, batch)
     cut = _cut(cfg)
@@ -60,12 +62,26 @@ def _cut(cfg: ArchConfig) -> int:
     return cut
 
 
-def _forward_mesh(params, cfg: ArchConfig, rt: Runtime, batch, generator):
+#: the families a process mesh trains (`forward_mesh`)
+PROCESS_FAMILIES = ("dense", "moe")
+
+
+def forward_mesh(params, cfg: ArchConfig, rt: Runtime, batch, generator):
+    """`forward` on a mesh, its loss terms apart: (the layout, logits,
+    aux, pen). logits: one entry a batch shard, the logits of its rows
+    (None where the process does not run them, `tp.Layout.held`); aux:
+    the layers' balance loss (every position holds the same); pen: the
+    cut's L1 penalty, the mean over the shards the process runs
+    (`protocol.cut_boundary_mesh`), or None without a cut."""
+    if rt.mesh.procs and cfg.family not in PROCESS_FAMILIES:
+        raise ValueError(f"a process mesh trains the {PROCESS_FAMILIES} "
+                         f"families; {cfg.family!r} across processes waits "
+                         f"for ROADMAP item 8c")
     lay = tp.Layout(rt, *batch["tokens"].shape)
     shards = lay.shard_batch(batch)
     extras = transformer.make_extras_mesh(params, cfg, lay, shards)
     xs = transformer.embed_mesh(params, cfg, lay, shards)
-    origin = list(range(len(shards)))
+    origin, pen = list(range(len(shards))), None
     if cfg.split is None or cfg.split.cut_layer <= 0:
         xs, aux = transformer.apply_layers_mesh(params, cfg, lay, xs, extras,
                                                 0, cfg.n_layers)
@@ -78,11 +94,12 @@ def _forward_mesh(params, cfg: ArchConfig, rt: Runtime, batch, generator):
         extras = _extras_of_rows(cfg, lay, extras, shards, origin)
         xs, aux2 = transformer.apply_layers_mesh(params, cfg, lay, xs,
                                                  extras, cut, cfg.n_layers)
-        aux = aux1 + aux2 + pen
+        aux = aux1 + aux2
     logits = [None] * len(shards)
-    for b, lg in enumerate(transformer.lm_head_mesh(params, cfg, lay, xs)):
+    for (b, _), lg in zip(lay.held(),
+                          transformer.lm_head_mesh(params, cfg, lay, xs)):
         logits[origin[b]] = lg
-    return logits, aux
+    return lay, logits, aux, pen
 
 
 def _extras_of_rows(cfg: ArchConfig, lay, extras, shards, origin):

@@ -117,14 +117,14 @@ def _grad_from_wire(kind: str, gw, idx_local, d: int, backend=None):
 class _Transport(torch.autograd.Function):
     """encode -> decode with the payload-typed backward wire, the
     reference's `_transport` custom VJP, over one or more batch shards
-    (xs): each shard's rows encoded with its `draws` entry (a generator,
-    or `selection.Draws`), the payload leaves moved over the shards along
-    'pod' by `perm` on a mesh (`lay`; one collective-permute a leaf, as
-    the reference's `_transfer_payload` sends leaf by leaf) and decoded
-    where they arrive; in the backward the gradient leaves go back by the
-    inverse permutation before they are scattered onto the feature
-    owner's support. Without `perm` the far side's support is the local
-    one."""
+    (xs, those the process runs: `tp.Layout.held`): each shard's rows
+    encoded with its `draws` entry (a generator, or `selection.Draws`),
+    the payload leaves moved over the shards along 'pod' by `perm` on a
+    mesh (`lay`; one collective-permute a leaf, as the reference's
+    `_transfer_payload` sends leaf by leaf) and decoded where they
+    arrive; in the backward the gradient leaves go back by the inverse
+    permutation before they are scattered onto the feature owner's
+    support. Without `perm` the far side's support is the local one."""
 
     @staticmethod
     def forward(ctx, comp, draws, training, lay, perm, *xs):
@@ -148,12 +148,26 @@ class _Transport(torch.autograd.Function):
         gws = [_grad_to_wire(ctx.kind, g, i, ctx.k)
                for g, i in zip(gs, idx_far)]
         if ctx.perm is not None:
-            back = [(dst, src) for src, dst in ctx.perm]
-            gws = mesh_mod.permute(ctx.lay.shards, gws, "pod", back,
-                                   registry=ctx.lay.registry)
+            gws = _ring_permute(ctx.lay, gws,
+                                [(dst, src) for src, dst in ctx.perm])
         return (None,) * 5 + tuple(
             _grad_from_wire(ctx.kind, gw, i, ctx.d, ctx.backend)
             for gw, i in zip(gws, idx_local))
+
+
+def _ring_permute(lay, ts, perm):
+    """ts, one tensor a batch shard the process runs (`tp.Layout.held`),
+    permuted over the shards along 'pod' by `perm`: over the shards mesh
+    on the single controller; on a process mesh each position sends its
+    shard's copy to the position of the next pod with its other
+    coordinates (one collective-permute either way)."""
+    if not lay.mesh.procs:
+        return mesh_mod.permute(lay.shards, ts, "pod", perm,
+                                registry=lay.registry)
+    (p,) = lay.mesh.local
+    got = mesh_mod.permute(lay.mesh, lay.mesh.each(lambda _: ts[0]), "pod",
+                           perm, registry=lay.registry)
+    return [got[p]]
 
 
 def _pod_send(lay, ps, perm):
@@ -162,9 +176,8 @@ def _pod_send(lay, ps, perm):
     if perm is None:
         return ps
     names = [n for n, _ in ps[0].wire_leaves()]
-    moved = {n: mesh_mod.permute(lay.shards,
-                                 [dict(p.wire_leaves())[n] for p in ps],
-                                 "pod", perm, registry=lay.registry)
+    moved = {n: _ring_permute(lay, [dict(p.wire_leaves())[n] for p in ps],
+                              perm)
              for n in names}
     return [p.with_leaves(**{n: moved[n][b] for n in names})
             for b, p in enumerate(ps)]
@@ -184,11 +197,13 @@ def cut_boundary(x, cfg: ArchConfig, rt: Runtime, generator) -> tuple:
     return y, pen
 
 
-def _shard_draws(comp, rows, generator, training: bool):
-    """RandTopK's draws for every shard's rows (B_loc, S, d): drawn for
-    all B rows at once in the mesh-less step's order and sliced by shard,
-    so each shard's mask is the mesh-less one; the generator itself for
-    a codec that draws nothing."""
+def _shard_draws(comp, rows, shards, n: int, generator, training: bool):
+    """RandTopK's draws for the rows (B_loc, S, d) of batch shards
+    `shards` of n: drawn for all B rows at once in the mesh-less step's
+    order and sliced by shard, so each shard's mask is the mesh-less one
+    (on a process mesh every process draws the whole batch's from its
+    own generator, seeded alike); the generator itself for a codec that
+    draws nothing."""
     k, d = getattr(comp, "k", 0), rows[0].shape[-1]
     if not (training and isinstance(comp, compressors.RandTopK) and k < d):
         return [generator] * len(rows)
@@ -197,39 +212,46 @@ def _shard_draws(comp, rows, generator, training: bool):
                          "torch.Generator")
     b = rows[0].shape[0]
     full = selection.draw(generator, comp.alpha, k,
-                          (b * len(rows),) + tuple(rows[0].shape[1:]),
+                          (b * n,) + tuple(rows[0].shape[1:]),
                           device=rows[0].device)
     return [selection.Draws(full.counts[i * b:(i + 1) * b],
                             full.noise[i * b:(i + 1) * b])
-            for i in range(len(rows))]
+            for i in shards]
 
 
 def cut_boundary_mesh(xs, cfg: ArchConfig, lay, generator):
     """`cut_boundary` on a training mesh (`tp.Layout`): xs holds each
     position's cut activation. The activation is gathered to full S
     (`tp.gather_seq`); the codec runs once a batch shard, on its
-    representative's rows, with RandTopK's draws sliced from the
-    mesh-less step's (`_shard_draws`); with `transfer_over_pod` and a
-    'pod' axis of more than one the payload leaves cross to the next pod
+    representative's rows (on a process mesh at every position of the
+    shard, on its equal gathered rows with equal draws,
+    `tp.Layout.held`), with RandTopK's draws sliced from the mesh-less
+    step's (`_shard_draws`); with `transfer_over_pod` and a 'pod' axis
+    of more than one the payload leaves cross to the next pod
     (`pod_ring_perm`). Every position of the shard that receives a
     payload takes its chunk of the decoded rows.
 
-    Returns (xs, l1_penalty, origin): origin[b] is the batch shard whose
+    Returns (xs, l1_penalty, origin): the penalty is the mean over the
+    shards the process runs (every shard's on the single controller, its
+    own shard's on a process mesh); origin[b] is the batch shard whose
     rows shard b now holds. The reference sends the rows but not their
     labels, so its pod mesh trains each row against another row's labels
     (ROADMAP Queue 3); the caller scores shard b against origin[b]'s
     labels, so the loss is the mesh-less loss."""
     comp = make_cut_compressor(cfg.split)
     gathered = tp.gather_seq(lay, xs)
-    rows = [gathered[r] for r in lay.reps]
+    held = lay.held()
+    rows = [gathered[p] for _, p in held]
     pens = [comp.loss_penalty(x.reshape(-1, x.shape[-1])) for x in rows]
-    draws = _shard_draws(comp, rows, generator, lay.rt.training)
+    draws = _shard_draws(comp, rows, [b for b, _ in held], len(lay.groups),
+                         generator, lay.rt.training)
     n_pod = lay.mesh.shape.get("pod", 1)
     perm = pod_ring_perm(n_pod) if (cfg.split.transfer_over_pod
                                     and n_pod > 1) else None
     ys = _Transport.apply(comp, draws, lay.rt.training, lay, perm, *rows)
-    out = [lay.local_seq(p, ys[lay.shard_of[p]])
-           for p in range(lay.mesh.size)]
+    decoded = {b: y for (b, _), y in zip(held, ys)}
+    out = lay.mesh.each(lambda p: lay.local_seq(p,
+                                                decoded[lay.shard_of[p]]))
     return out, torch.stack(pens).mean(), cut_origin(cfg, lay)
 
 
@@ -244,9 +266,10 @@ def cut_origin(cfg: ArchConfig, lay):
     if cfg.split is None or cfg.split.cut_layer <= 0 or n_pod == 1 \
             or not cfg.split.transfer_over_pod:
         return origin
-    sm = lay.shards
-    for b in range(len(origin)):
-        origin[sm.shift(b, "pod", (sm.coord(b, "pod") + 1) % n_pod)] = b
+    m = lay.mesh
+    for b, r in enumerate(lay.reps):
+        origin[lay.shard_of[m.shift(r, "pod",
+                                    (m.coord(r, "pod") + 1) % n_pod)]] = b
     return origin
 
 

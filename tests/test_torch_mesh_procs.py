@@ -1,0 +1,391 @@
+"""The training mesh across processes (`mesh.ProcessMesh`,
+`launch.mesh.spawn`) on the CPU over gloo, against the single
+controller and the JAX package.
+
+Each mesh is spawned once (4 processes at (2, 2) and at ('pod', 'data',
+'model') (2, 1, 2), 2 at (1, 2)), every process on one torch thread, the
+rendezvous through a file under the test's temporary directory, the
+process group's time limit 60 s and the join's 240 s. In each:
+
+  * the four collectives and their backward along every axis (and a
+    pair of axes) equal the single-controller `Mesh`'s, bit for bit,
+    and so do the bytes they count (a permute along an axis of one
+    position, and any collective over a group of one, is the identity);
+  * yi-6b SMOKE and granite-moe-1b-a400m SMOKE in f32, cut at layer 1,
+    randtopk k 16 alpha 0.3, moe capacity 8.0, batch 8 x seq 16, from
+    the reference's weights (`models.convert`) with the reference's
+    RandTopK draws for the whole batch handed to every process: the
+    first step's loss equals the single controller's on the same mesh
+    bit for bit and lies within 2e-4 of the reference's mesh-less loss
+    (tests/test_distributed.py:52; for the moe its balance loss is the
+    mean over the batch shards of each shard's, as
+    tests/test_torch_train_mesh_parity.py computes it); the gradients
+    summed over the processes lie within rtol 1e-5, atol 1e-6 of the
+    single controller's; the parameters are equal on every rank after
+    two steps; every rank counts the single controller's collective
+    bytes.
+
+A family the process mesh does not train, and the decode mesh, raise a
+`ValueError` naming ROADMAP item 8c in the process, which fails
+`spawn` with the process's traceback.
+"""
+from __future__ import annotations
+
+import contextlib
+import copy
+import tempfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+from repro.core import selection as jsel
+from repro.launch import steps as jsteps
+from repro.models import transformer as jtr
+from repro.models.config import Runtime as JRuntime
+from repro.models.config import SplitConfig as JSplitConfig
+from repro.split import protocol as jprotocol
+from repro_torch import configs
+from repro_torch import mesh as mesh_mod
+from repro_torch.checkpoint import store
+from repro_torch.core import selection
+from repro_torch.launch import steps
+from repro_torch.launch import train as train_cli
+from repro_torch.launch.mesh import (backend_for, make_mesh,
+                                     make_process_mesh, spawn)
+from repro_torch.models import convert
+from repro_torch.models.config import Runtime, SplitConfig
+from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.optim.adamw import adamw_init, tree_leaves
+from repro_torch.split import model as split_model
+
+ARCHS = ["yi-6b", "granite-moe-1b-a400m"]
+B, S, K, ALPHA, LR = 8, 16, 16, 0.3, 1e-3
+AXES2, AXES3 = ("data", "model"), ("pod", "data", "model")
+MESHES = {"2x2": ((2, 2), AXES2), "1x2": ((1, 2), AXES2),
+          "2x1x2": ((2, 1, 2), AXES3)}
+OPS = ["all_gather", "reduce_scatter", "all_reduce", "permute"]
+JOIN_S = 240
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@contextlib.contextmanager
+def _draws(draws):
+    """RandTopK's draws for the whole batch: the reference's, as data."""
+    m, g = draws
+    saved = selection.binomial_nontop_count, selection.gumbel_noise
+    selection.binomial_nontop_count = lambda *a, **kw: torch.from_numpy(
+        m.copy())
+    selection.gumbel_noise = lambda *a, **kw: torch.from_numpy(g.copy())
+    try:
+        yield
+    finally:
+        selection.binomial_nontop_count, selection.gumbel_noise = saved
+
+
+def _cfg(arch):
+    return configs.get(arch, smoke=True).with_(split=SplitConfig(
+        cut_layer=1, compressor="randtopk", k=K, alpha=ALPHA))
+
+
+def _reference(arch):
+    """The reference's weights (converted), batch, draws, mesh-less cross
+    entropy and, by the number of batch shards, the balance loss."""
+    split = dict(cut_layer=1, compressor="randtopk", k=K, alpha=ALPHA)
+    jcfg = jconfigs.get(arch, smoke=True).with_(split=JSplitConfig(**split))
+    cfg = _cfg(arch)
+    jp = jtr.init_model(jax.random.key(0), jcfg)
+    params = convert.params_from_jax(jax.tree.map(np.asarray, jp), cfg,
+                                     "cpu")
+    rng = np.random.RandomState(11)
+    tok = rng.randint(0, cfg.vocab, (B, S)).astype(np.int32)
+    lab = np.roll(tok, -1, axis=1)
+    key = jax.random.key(7)
+    kb, kg = jax.random.split(key)
+    d = cfg.d_model
+    draws = (np.asarray(jsel.binomial_nontop_count(kb, ALPHA, K, d, (B, S))),
+             np.asarray(jax.random.gumbel(kg, (B, S, d), dtype=jnp.float32)))
+    jrt = JRuntime(training=True, moe_capacity=8.0)
+    jb = {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab)}
+    _, (ce, aux) = jax.jit(lambda p, b: jsteps.loss_fn(
+        p, jcfg, jrt, b, key))(jp, jb)
+    auxes = {1: float(aux)}
+    if cfg.family == "moe":
+        cut, L = jcfg.split.cut_layer, jcfg.n_layers
+
+        @jax.jit
+        def two_shards(tokens):
+            x = jtr.embed(jp, jcfg, jrt, tokens)
+            xb, _ = jtr.apply_layers(jp, jcfg, jrt, x, {}, 0, cut)
+            y, _ = jprotocol.cut_boundary(xb, jcfg, jrt, key)
+            out = []
+            for b in range(2):
+                rows = slice(b * B // 2, (b + 1) * B // 2)
+                _, a1 = jtr.apply_layers(jp, jcfg, jrt, x[rows], {}, 0, cut)
+                _, a2 = jtr.apply_layers(jp, jcfg, jrt, y[rows], {}, cut, L)
+                out.append(a1 + a2)
+            return jnp.mean(jnp.stack(out))
+
+        auxes[2] = float(two_shards(jb["tokens"]))
+    return {"params": params, "draws": draws, "ce": float(ce),
+            "aux": auxes if cfg.family == "moe" else {1: 0.0, 2: 0.0},
+            "batch": {"tokens": torch.from_numpy(tok).long(),
+                      "labels": torch.from_numpy(lab).long()}}
+
+
+def _xs(n):
+    g = torch.Generator().manual_seed(0)
+    return [torch.randn((4, 4, 6), generator=g, dtype=torch.float64)
+            for _ in range(n)]
+
+
+def _collectives(mesh, xs):
+    """Each collective along every axis and ('pod' or 'data', 'model'):
+    each position's output and input gradient, under a loss that weighs
+    position p by p + 1, and the bytes counted."""
+    reg, out = MetricsRegistry(), {}
+    axes = list(mesh.axis_names) + [(mesh.axis_names[0], "model")]
+    for axis in axes:
+        for op in OPS:
+            if op == "permute" and not isinstance(axis, str):
+                continue
+            n = mesh.group_size(axis)
+            fn = {"all_gather": lambda a: mesh_mod.all_gather(
+                      mesh, a, axis, dim=1, registry=reg),
+                  "reduce_scatter": lambda a: mesh_mod.reduce_scatter(
+                      mesh, a, axis, dim=1, registry=reg),
+                  "all_reduce": lambda a: mesh_mod.all_reduce(
+                      mesh, a, axis, "sum", registry=reg),
+                  "permute": lambda a: mesh_mod.permute(
+                      mesh, a, axis, [(i, (i + 1) % n) for i in range(n)],
+                      registry=reg)}[op]
+            ins = mesh_mod.pmap(
+                lambda _, x: x.clone().requires_grad_(True), xs)
+            ys = fn(ins)
+            sum(y.sum() * (p + 1) for p, y in enumerate(ys)
+                if y is not None).backward()
+            out[op, axis] = (mesh_mod.pmap(lambda _, y: y.detach(), ys),
+                             mesh_mod.pmap(lambda _, x: x.grad, ins))
+    return out, mesh_mod.collective_bytes(reg.snapshot())
+
+
+def _grads(cfg, params, rt, batch, procs):
+    params = {k: v for k, v in copy.deepcopy(params).items()}
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    if procs:
+        objective = steps._loss_procs(params, cfg, rt, batch,
+                                      torch.Generator())[0]
+        grads = list(torch.autograd.grad(objective, leaves))
+        mesh_mod.sum_processes(rt.mesh, grads)
+        return grads
+    total, _ = steps.loss_fn(params, cfg, rt, batch, torch.Generator())
+    return list(torch.autograd.grad(total, leaves))
+
+
+def _train(cfg, params, mesh, batch, draws, procs):
+    """The gradients, then two training steps: (grads, first step's
+    metrics, its collective bytes, the parameters after each step)."""
+    with _draws(draws):
+        grads = _grads(cfg, params, Runtime(mesh=mesh, moe_capacity=8.0),
+                       batch, procs)
+        reg = MetricsRegistry()
+        step = steps.make_train_step(cfg, Runtime(
+            mesh=mesh, moe_capacity=8.0, registry=reg), lr=LR)
+        p, o, m = step(copy.deepcopy(params), adamw_init(params), batch,
+                       torch.Generator())
+        first = {k: float(v) for k, v in m.items()}
+        counted = mesh_mod.collective_bytes(reg.snapshot())
+        p1 = [t.detach().clone() for t in tree_leaves(p)]
+        p, _, _ = step(p, o, batch, torch.Generator())
+    return {"grads": grads, "metrics": first, "bytes": counted,
+            "step1": p1, "step2": [t.detach() for t in tree_leaves(p)]}
+
+
+def _rank(rank, dev, shape, axes, refs):
+    torch.set_num_threads(1)
+    mesh = make_process_mesh(shape, axes, dev)
+    out = {"collectives": _collectives(mesh, mesh.each(
+        lambda p: _xs(mesh.size)[p]))}
+    for arch, ref in refs.items():
+        out[arch] = _train(_cfg(arch), ref["params"], mesh, ref["batch"],
+                           ref["draws"], procs=True)
+        if rank:   # every rank's sum is the same: rank 0 carries it
+            out[arch]["grads"] = None
+    return out
+
+
+@pytest.fixture(scope="module")
+def refs():
+    return {arch: _reference(arch) for arch in ARCHS}
+
+
+@pytest.fixture(scope="module", params=list(MESHES))
+def run(request, refs, tmp_path_factory):
+    shape, axes = MESHES[request.param]
+    ranks = spawn(_rank, int(np.prod(shape)), (shape, axes, {
+        a: {k: r[k] for k in ("params", "batch", "draws")}
+        for a, r in refs.items()}), device="cpu", timeout=JOIN_S,
+        store_dir=tmp_path_factory.mktemp("store"))
+    mesh = make_mesh(shape, axes, devices="cpu")
+    single = {"collectives": _collectives(mesh, _xs(mesh.size))}
+    for arch, r in refs.items():
+        single[arch] = _train(_cfg(arch), r["params"], mesh, r["batch"],
+                              r["draws"], procs=False)
+    return {"id": request.param, "ranks": ranks, "single": single,
+            "shards": shape[0] * (shape[1] if len(shape) == 3 else 1)}
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_collectives_match_the_single_controller(run, op):
+    want, want_bytes = run["single"]["collectives"]
+    seen = 0
+    for rank, got in enumerate(run["ranks"]):
+        outs, counted = got["collectives"]
+        assert counted == want_bytes
+        for (o, axis), (ys, gs) in outs.items():
+            if o != op:
+                continue
+            seen += 1
+            assert torch.equal(ys[rank], want[o, axis][0][rank]), axis
+            assert torch.equal(gs[rank], want[o, axis][1][rank]), axis
+            assert all(y is None for p, y in enumerate(ys) if p != rank)
+    assert seen
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_first_step_loss_equals_the_single_controller(run, arch):
+    want = run["single"][arch]["metrics"]
+    for got in run["ranks"]:
+        m = got[arch]["metrics"]
+        assert m["loss"] == want["loss"]
+        assert m["ce"] == want["ce"] and m["aux"] == want["aux"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_first_step_loss_is_the_reference_mesh_less_loss(run, refs, arch):
+    ref = refs[arch]
+    want = ref["ce"] + steps.AUX_WEIGHT * ref["aux"][run["shards"]]
+    for got in run["ranks"]:
+        m = got[arch]["metrics"]
+        assert abs(m["ce"] - ref["ce"]) <= 2e-4
+        assert abs(m["loss"] - want) <= 2e-4
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gradients_match_the_single_controller(run, arch):
+    got, want = run["ranks"][0][arch]["grads"], run["single"][arch]["grads"]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_parameters_are_equal_across_ranks(run, arch):
+    first = run["ranks"][0][arch]
+    for got in run["ranks"][1:]:
+        for a, b in zip(got[arch]["step2"], first["step2"]):
+            assert torch.equal(a, b)
+    # one step's weights against the single controller's, by the rule of
+    # tests/test_torch_train_mesh_parity.py
+    for a, b in zip(first["step1"], run["single"][arch]["step1"]):
+        diff = (a - b).abs()
+        assert float(diff.max()) <= 2 * LR
+        close = diff <= 1e-5 * b.abs() + 1e-2 * LR
+        assert float(close.float().mean()) >= 1 - 1e-4
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_rank_counts_the_single_controllers_bytes(run, arch):
+    want = run["single"][arch]["bytes"]
+    assert want
+    for got in run["ranks"]:
+        assert got[arch]["bytes"] == want
+
+
+def test_train_cli_procs_is_the_single_controller_run(capfd, monkeypatch,
+                                                      tmp_path):
+    """`launch/train --mesh 1,2 --procs` trains what `--mesh 1,2` trains:
+    the same logged losses and, after two steps, checkpointed weights
+    (rank 0's) within the weight rule above (the processes sum the
+    gradients in another order)."""
+    argv = ["--arch", "yi-6b", "--smoke", "--device", "cpu", "--steps",
+            "2", "--batch", "4", "--seq", "8", "--split", "randtopk", "--k",
+            "16", "--mesh", "1,2", "--log-every", "1", "--ckpt-every", "2"]
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")   # the processes' threads
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))  # the store
+    single = train_cli.main(argv + ["--ckpt-dir", str(tmp_path / "one")])
+    single_log = capfd.readouterr().out
+    assert train_cli.main(argv + ["--procs", "--ckpt-dir",
+                                  str(tmp_path / "procs")]) is None
+    procs_log = capfd.readouterr().out
+
+    def losses(log):
+        return [ln.split("(")[0] for ln in log.splitlines()
+                if ln.startswith("step")]
+
+    assert len(losses(single_log)) == 2
+    assert losses(procs_log) == losses(single_log)
+    assert "ProcessMesh" in procs_log
+    procs = store.restore(str(tmp_path / "procs"), 2, single)
+    for a, b in zip(tree_leaves(procs), tree_leaves(single)):
+        diff = (a - b.detach()).abs()
+        assert float(diff.max()) <= 2 * 2 * 3e-4
+
+
+def test_backend_choice():
+    """gloo for a shared device; NCCL only for one distinct card a
+    process; any other choice raises before a process starts."""
+    assert backend_for(2, "cpu") == ("gloo", [torch.device("cpu")] * 2)
+    cards = ["cuda:0", "cuda:1"]
+    assert backend_for(2, devices=cards) == (
+        "nccl", [torch.device(c) for c in cards])
+    for devices in (["cuda:0", "cuda:0"], ["cuda:0"], ["cpu", "cpu"]):
+        with pytest.raises(ValueError, match="distinct cards"):
+            backend_for(2, devices=devices)
+    with pytest.raises(ValueError, match="not both"):
+        backend_for(2, "cpu", cards)
+
+
+@pytest.mark.parametrize("extra", [["--procs", "--devices", "cpu,cpu"],
+                                   ["--devices", "cuda:0,cuda:1"]])
+def test_train_cli_devices_refused(extra):
+    """`--devices` takes distinct cards and only with `--procs`; both
+    refusals come before any process or model is made."""
+    argv = ["--arch", "yi-6b", "--smoke", "--steps", "1", "--mesh", "1,2"]
+    with pytest.raises((ValueError, SystemExit), match="distinct cards|"
+                       "needs --procs"):
+        train_cli.main(argv + extra)
+
+
+def _refused(rank, dev, what):
+    torch.set_num_threads(1)
+    mesh = make_process_mesh((1, 2), AXES2, dev)
+    if what == "family":
+        cfg = configs.get("rwkv6-1.6b", smoke=True).with_(split=SplitConfig(
+            cut_layer=1, compressor="randtopk", k=K))
+        from repro_torch.models import transformer
+        params = transformer.init_model(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+        tok = torch.zeros((2, 4), dtype=torch.long)
+        steps.make_train_step(cfg, Runtime(mesh=mesh))(
+            params, adamw_init(params), {"tokens": tok, "labels": tok},
+            torch.Generator())
+    else:
+        split_model.decode_layout(_cfg("yi-6b"), Runtime(mesh=mesh), 2)
+
+
+@pytest.mark.parametrize("what", ["family", "decode"])
+def test_what_a_process_mesh_does_not_run_raises(tmp_path, what):
+    with pytest.raises(RuntimeError, match="ValueError.*ROADMAP item 8c"):
+        spawn(_refused, 2, (what,), device="cpu", timeout=JOIN_S,
+              store_dir=tmp_path)
