@@ -258,7 +258,7 @@ Phases, each fatal on failure:
      and the busy share of a traced pod-mesh run;
  16. training on a device mesh (`--phase trainmesh`): yi-6b at full width
      (d 4096, 32 heads, 4 KV heads, d_ff 11008, vocab 64000), depth cut
-     to 4 layers (cut 2), batch 4 x seq 256, randtopk k 64, bf16, AdamW,
+     to 2 layers (cut 1), batch 4 x seq 256, randtopk k 64, bf16, AdamW,
      remat, random weights from a seed, at mesh=None, (1, 1), (2, 4) and
      (2, 2, 2) ('pod', 'data', 'model'), and granite-moe-1b-a400m at
      full width with its depth cut from 24 to 6 layers (cut 3, 32
@@ -281,12 +281,12 @@ Phases, each fatal on failure:
      `launch.steps.make_serve_step`): B 8 rows, 48 greedy tokens from an
      empty cache over a 32-slot KV ring (it wraps), randtopk k 64 (TopK
      at inference), bf16, random weights from a seed: yi-6b at full
-     width, depth cut to 4 layers (cut 2), at mesh=None with the kernels
+     width, depth cut to 2 layers (cut 1), at mesh=None with the kernels
      and with the plain versions (tokens and first logits bit for bit,
      the plain run launches nothing), at (1, 4) with flash decode (each
      'model' position holds 8 of the ring's slots) and without (the
      ring replicated), and at (2, 2, 2) (the pod ring at the cut); yi-6b
-     at all 32 layers at mesh=None (16 tokens); granite-moe-1b-a400m
+     at 16 of its 32 layers at mesh=None (16 tokens); granite-moe-1b-a400m
      at full width, depth cut from 24 to 6 layers (cut 3), at mesh=None
      and (1, 4) (its 32 experts over 'model'; 24 tokens over a 16-slot
      ring); every position on the one card.
@@ -310,7 +310,7 @@ Phases, each fatal on failure:
      frames' cross KV 375 a position) and (2, 2, 2) (its encoder output
      crossing the pod ring to the top layers' cross KV); zamba2-7b (depth
      cut from 81 to 12, cut 6: its 112 Mamba2 heads 28 a position),
-     rwkv6-1.6b (24 to 6, cut 3: 32 WKV heads, 8 a position) and
+     rwkv6-1.6b (24 to 2, cut 1: 32 WKV heads, 8 a position) and
      llama-3.2-vision-90b (100 to 10, cut 5, gates 0.5: its 1601 patches'
      cross KV whole, its self KV ring split) at mesh=None and (1, 4),
      flash decode on; the checks and prints of phase 17 (the cut's
@@ -351,22 +351,32 @@ Phases, each fatal on failure:
      size_reduction) for one epoch with the kernels and with the plain
      versions from the same generators: final loss, test accuracy and
      every trained tensor bit for bit; the phase's wall;
- 22. the training mesh across processes (`--phase procs`,
-     `launch.mesh.spawn`, `mesh.ProcessMesh`): yi-6b at full width, 2
-     of its 32 layers (cut 1), at (2, 2), and granite-moe-1b-a400m at
-     full width, 4 of its 24 layers (cut 2), at (1, 4); batch 4 x seq
-     256, randtopk k 64, bf16, AdamW, remat; one process a position, the
-     four sharing the card over gloo (each collective's tensors through
-     host memory), after the single controller's first step on the same
+ 22. the training mesh and the decode mesh across processes (`--phase
+     procs`, `launch.mesh.spawn`, `mesh.ProcessMesh`; `PROCS_RUNS`,
+     `PROCS_DECODE`): training yi-6b at full width, 2 of its 32 layers
+     (cut 1), at (2, 2), granite-moe-1b-a400m at full width, 4 of its 24
+     layers (cut 2), and zamba2-7b, 6 of 81 (cut 3), at (1, 4),
+     rwkv6-1.6b, 2 of 24 (cut 1), whisper-tiny FULL (its frames) and
+     llama-3.2-vision-90b SMOKE (its patches) at (2, 2); batch 4 x seq
+     256, randtopk k 64, AdamW, remat; one process a position, the four
+     sharing the card over gloo (each collective's tensors through host
+     memory), after the single controller's first step on the same
      mesh: the processes' first-step loss and aux bit for bit, grad norm
      within 1e-3, rank 0's summed gradient (its first moment) within
      5e-2 of the single controller's, leaf by leaf in the 2-norm, rank
-     0's updated weights within 2 lr + 1 bf16 ulp and at most 2% of them
-     off by more than 1 ulp;
-     weights equal on every rank after step 2; every rank's counted
-     collective bytes = `training_collective_costs`; the codec kernels
-     once a process a step; each rank's step ms, the gradient sum's ms
-     and peak.
+     0's updated weights within 2 lr + half a bf16 ulp of each side and
+     at most 2% of them off by more than 1 ulp; weights equal on every
+     rank after step 2; every rank's counted collective bytes =
+     `training_collective_costs`; the codec kernels once a process a
+     step; each rank's step ms, the gradient sum's ms and peak. Then the
+     serve step of six families (yi-6b 4 layers and zamba2 6 at (1, 4),
+     granite-moe 6, rwkv6 2 and the vlm SMOKE at (2, 2), whisper FULL at
+     ('pod', 'data', 'model') (2, 1, 2)), B 8, 8 tokens over a 32-slot
+     ring, flash decode: every token and each position's logits equal
+     the single controller's decode mesh bit for bit, counted bytes =
+     `decode_collective_costs` (whisper's cache =
+     `decode_cache_collective_costs`), the cut's kernels once a process
+     a token; each rank's step ms and tokens/s.
 
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, for the serve's two kernels
@@ -4014,9 +4024,10 @@ def mesh_phase(dev, card):
 # ---------------------------------------------------------------------------
 
 TRAINMESH_STEPS = 4           # kernel steps a mesh, after one plain step
-# yi-6b's depth on the training meshes: 4 of its 32 layers (cut 2), cut
-# from 8 to pay for the procs phase within the run's time
-TRAINMESH_LAYERS, TRAINMESH_CUT = 4, 2
+# yi-6b's depth on the training meshes: 2 of its 32 layers (cut 1), cut
+# from 8 to 4 and then to 2 to pay for the procs phase within the run's
+# time
+TRAINMESH_LAYERS, TRAINMESH_CUT = 2, 1
 # (label, shape): ('data', 'model'), or ('pod', 'data', 'model') for three
 TRAINMESH_SHAPES = (("(1, 1)", (1, 1)), ("(2, 4)", (2, 4)),
                     ("(2, 2, 2)", (2, 2, 2)))
@@ -4025,7 +4036,8 @@ TRAINMESH_MOE_LAYERS = 6      # granite-moe's, of 24 (cut 3): the run's time
 # the other families on the training mesh, randtopk at cut_for's cut:
 # (arch, depth (None: the config's), SMOKE, meshes after mesh=None).
 # zamba2 and rwkv6 at full width with their depth cut (zamba2 12, cut 6,
-# a shared-attention site on each side; rwkv6 2, cut 1: its 24 layers
+# a shared-attention site on each side, so the tied weights take a
+# gradient through the cut; rwkv6 2, cut 1: its 24 layers
 # took 2.36-2.71 s a step mesh-less, host-bound, 6 at (2, 2) 31 s of
 # the phase and 4 21.8 s); whisper-tiny FULL, its
 # 6 heads split at 'model' 2 and whole at 4 (d_ff split); the vlm at
@@ -4205,7 +4217,7 @@ def _mesh_forward_f32(cfg, params, batch, dev):
 def trainmesh_phase(dev, card):
     """Phase 16: split training on a device mesh whose positions all share
     the one card. yi-6b at full width (d 4096, 32 heads, 4 KV heads, d_ff
-    11008, vocab 64000), depth cut to 4 layers (cut 2), batch 4 x seq 256,
+    11008, vocab 64000), depth cut to 2 layers (cut 1), batch 4 x seq 256,
     randtopk k 64 alpha 0.1, bf16, AdamW, remat, random weights from a
     seed, at mesh=None, (1, 1), (2, 4) and (2, 2, 2) ('pod', 'data',
     'model'); granite-moe-1b-a400m at full width, `TRAINMESH_MOE_LAYERS`
@@ -4333,17 +4345,42 @@ def _family_mesh_runs(arch, layers, smoke, meshes, dev, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 22: the training mesh across processes
+# phase 22: the training mesh and the decode mesh across processes
 # ---------------------------------------------------------------------------
 
-# (arch, depth, cut, mesh): yi-6b at full width, 2 of its 32 layers (cut
-# 1): the whole parameters and their f32 moments in each of the 4
-# processes that share the card (about 0.87 B parameters, some 13 GB a
-# process); granite-moe-1b-a400m at full width, 4 of its 24 layers (cut
-# 2), its 32 experts over 'model' 4
-PROCS_RUNS = (("yi-6b", 2, 1, (2, 2)), (FAM_TRAIN, 4, 2, (1, 4)))
-PROCS_WORLD = 4               # the processes, one set for both configs
-PROCS_STEPS = 3               # steps a process mesh; the median of 2-N
+# training: (arch, depth (None: the config's), cut (0: cut_for's), mesh,
+# SMOKE, steps). yi-6b at full width, 2 of its 32 layers (cut 1): the
+# whole parameters and their f32 moments in each of the 4 processes that
+# share the card (about 0.87 B parameters, some 17 GB a process);
+# granite-moe-1b-a400m at full width, 4 of its 24 layers (cut 2), its 32
+# experts over 'model' 4; zamba2-7b at full width, 6 of its 81 layers
+# (cut 3: its one shared-attention site of 6 layers, layer 5, above the
+# cut; 112 Mamba2 and 32 attention heads over 'model' 4; 0.903 B
+# parameters, yi's size); rwkv6-1.6b at full width, 2 of 24 (cut 1);
+# whisper-tiny FULL, frames from the seed; the vlm at SMOKE with patches
+# from the seed, every gate at 0.5 (each process holds the whole
+# parameters and f32 moments: its smallest full-width model with a
+# whole-group cut, 10 layers, is far beyond 80 GB across 4 processes).
+# The new configs run 2 steps: the checks need steps 1 and 2 only
+PROCS_RUNS = (("yi-6b", 2, 1, (2, 2), False, 3),
+              (FAM_TRAIN, 4, 2, (1, 4), False, 3),
+              ("zamba2-7b", 6, 3, (1, 4), False, 2),
+              ("rwkv6-1.6b", 2, 1, (2, 2), False, 2),
+              ("whisper-tiny", None, 0, (2, 2), False, 2),
+              ("llama-3.2-vision-90b", None, 0, (2, 2), True, 2))
+# decoding (`launch.steps.make_serve_step`, B `STEP_BATCH`, a ring of
+# `STEP_MAX_LEN` slots, `PROCS_TOKENS` greedy tokens from an empty cache,
+# flash decode): (arch, depth, mesh, SMOKE); whisper's (2, 1, 2) over
+# ('pod', 'data', 'model') carries its encoder output over the pod ring
+# as the caches are built, and `next_tokens`' inverse ring every token
+PROCS_DECODE = (("yi-6b", 4, (1, 4), False),
+                (FAM_TRAIN, 6, (2, 2), False),
+                ("zamba2-7b", 6, (1, 4), False),
+                ("rwkv6-1.6b", 2, (2, 2), False),
+                ("whisper-tiny", None, (2, 1, 2), False),
+                ("llama-3.2-vision-90b", None, (2, 2), True))
+PROCS_TOKENS = 8
+PROCS_WORLD = 4               # the processes, one set for every config
 PROCS_TIMEOUT_S = 600         # the processes' join
 # the grad norm of the processes' first step against the single
 # controller's: the processes add the bf16 gradients of the positions
@@ -4368,28 +4405,52 @@ PROCS_GRAD_RTOL = 5e-2
 PROCS_ULP_SHARE = 0.02
 
 
+def _procs_axes(shape):
+    return ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+
+
+def _procs_model(arch, layers, cut, smoke, dev):
+    """A config of the procs phase and its weights from seed 0 on the card
+    (the vlm's gates at 0.5, so its cross branch reaches the loss)."""
+    import torch
+    from repro_torch.models import transformer
+
+    cfg = _train_cfg("randtopk", layers=layers, cut=cut, arch=arch,
+                     smoke=smoke)
+    params = transformer.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    if cfg.family == "vlm":
+        _set_gates(params, 0.5)
+    return cfg, params
+
+
 def _procs_rank(rank, dev, single_paths):
     """One process of the procs phase: each of `PROCS_RUNS` in turn
-    (`_procs_run`), the card's memory freed between them. Returns each
-    run's results."""
+    (`_procs_run`), then each of `PROCS_DECODE` (`_procs_decode`), the
+    card's memory freed between them. Returns (the training runs'
+    results, the decode runs')."""
     import torch
 
-    out = []
+    train, decode = [], []
     for run, path in zip(PROCS_RUNS, single_paths):
-        out.append(_procs_run(rank, dev, *run, path))
+        train.append(_procs_run(rank, dev, *run, path))
         torch.cuda.empty_cache()
-    return out
+    for run in PROCS_DECODE:
+        decode.append(_procs_decode(dev, *run, procs=True))
+        torch.cuda.empty_cache()
+    return train, decode
 
 
-def _procs_run(rank, dev, arch, layers, cut, shape, single_path):
-    """One config of the procs phase in one process: its training at the
-    process's position of the process mesh, `PROCS_STEPS` steps from the
-    seeds the single controller used (launch counts zeroed just before).
-    Rank 0 holds its first step's updated weights and first moment
-    against the single controller's (`single_path`). Returns the metrics,
-    counted bytes, launches, step ms and each step's gradient sum ms
-    (synchronized around it), peak, set-up s and the digests of the
-    weights after step 2."""
+def _procs_run(rank, dev, arch, layers, cut, shape, smoke, n_steps,
+               single_path):
+    """One training config of the procs phase in one process: its
+    training at the process's position of the process mesh, `n_steps`
+    steps from the seeds the single controller used (launch counts zeroed
+    just before). Rank 0 holds its first step's updated weights and
+    first moment against the single controller's (`single_path`).
+    Returns the metrics, counted bytes, launches, step ms and each step's
+    gradient sum ms (synchronized around it), peak, set-up s and the
+    digests of the weights after step 2."""
     import hashlib
 
     import torch
@@ -4398,7 +4459,6 @@ def _procs_run(rank, dev, arch, layers, cut, shape, single_path):
     from repro_torch.kernels import _lib
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_process_mesh
-    from repro_torch.models import transformer
     from repro_torch.models.config import Runtime
     from repro_torch.obs.registry import MetricsRegistry
     from repro_torch.optim.adamw import adamw_init, tree_leaves
@@ -4406,12 +4466,10 @@ def _procs_run(rank, dev, arch, layers, cut, shape, single_path):
     t_enter = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = _train_cfg("randtopk", layers=layers, cut=cut, arch=arch)
-    mesh = make_process_mesh(shape, ("data", "model"), dev)
-    params = transformer.init_model(
-        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    mesh = make_process_mesh(shape, _procs_axes(shape), dev)
+    cfg, params = _procs_model(arch, layers, cut, smoke, dev)
     pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, device=str(dev))
-    batches = [pipe.next_batch(i) for i in range(PROCS_STEPS)]
+    batches = [pipe.next_batch(i) for i in range(n_steps)]
     reg = MetricsRegistry()
     step = steps.make_train_step(cfg, Runtime(mesh=mesh, training=True,
                                               registry=reg))
@@ -4434,7 +4492,7 @@ def _procs_run(rank, dev, arch, layers, cut, shape, single_path):
     torch.cuda.reset_peak_memory_stats(dev)
     _lib.reset_launch_counts()
     times = []
-    for i in range(PROCS_STEPS):
+    for i in range(n_steps):
         t0 = time.perf_counter()
         p, opt, m = step(p, opt, batches[i], gen)
         torch.cuda.synchronize()
@@ -4458,12 +4516,100 @@ def _procs_run(rank, dev, arch, layers, cut, shape, single_path):
     return out
 
 
+def _procs_decode(dev, arch, layers, shape, smoke, procs):
+    """One decode config of the procs phase: `PROCS_TOKENS` greedy tokens
+    of `make_serve_step` from an empty cache of `STEP_MAX_LEN` slots,
+    flash decode, on the process's position of a process mesh (`procs`)
+    or on the single controller's mesh of the same shape, weights,
+    prompts and side inputs from the seeds of `familystep_phase` (launch
+    counts zeroed just before the tokens). Returns the tokens (B,
+    PROCS_TOKENS), each token's per-position last logits (the process's
+    own on a process mesh, None elsewhere; on the host), the counted
+    bytes of the steps and of the cache's build, launches, each step's
+    ms, peak GiB."""
+    import torch
+    from repro_torch import mesh as mesh_mod
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.specs import decode_cache
+    from repro_torch.models import transformer
+    from repro_torch.models.config import Runtime
+    from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.split import model as split_model
+
+    mesh = (make_process_mesh(shape, _procs_axes(shape), dev) if procs
+            else _train_mesh(shape, dev))
+    base = held_gib(dev)
+    cfg, params = _procs_model(arch, layers, 0, smoke, dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab, (STEP_BATCH, 1), generator=g,
+                            device=dev)
+    side = None
+    if cfg.family in ("vlm", "audio"):
+        name = "patches" if cfg.family == "vlm" else "frames"
+        side = {name: (torch.randn(
+            (STEP_BATCH, transformer.cross_tokens(cfg), cfg.d_model),
+            generator=g, device=dev) * 0.02).to(cfg.adtype())}
+    reg, cache_reg = MetricsRegistry(), MetricsRegistry()
+    rt = Runtime(training=False, mesh=mesh, flash_decode=True, registry=reg)
+    cache = decode_cache(cfg, dataclasses.replace(rt, registry=cache_reg),
+                         params, STEP_BATCH, STEP_MAX_LEN, dev, side)
+    serve = steps.make_serve_step(cfg, rt)
+    decode_mesh, logits = split_model.decode_mesh, []
+
+    def recorded(*a, **kw):
+        out = decode_mesh(*a, **kw)
+        logits.append(mesh_mod.pmap(lambda _, lg: lg[:, -1].clone(),
+                                    out[1]))
+        return out
+
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    tok, toks, times = prompts, [], []
+    split_model.decode_mesh = recorded
+    try:
+        for _ in range(PROCS_TOKENS):
+            t0 = time.perf_counter()
+            tok, cache = serve(params, cache, tok)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok)
+    finally:
+        split_model.decode_mesh = decode_mesh
+    out = {"launches": _lib.launch_counts(),
+           "tokens": torch.cat(toks, 1).cpu(),
+           "logits": [[None if x is None else x.cpu() for x in lg]
+                      for lg in logits],
+           "bytes": {k: float(v) for k, v in
+                     mesh_mod.collective_bytes(reg.snapshot()).items()},
+           "built": {k: float(v) for k, v in
+                     mesh_mod.collective_bytes(cache_reg.snapshot())
+                     .items()},
+           "times": times, "peak_gib": peak_gib(dev, base)}
+    del cache, params
+    return out
+
+
+def _bf16_ulps(y):
+    """1 bf16 ulp of each |y| in [2^(e-1), 2^e): 2^(e-8)."""
+    import torch
+
+    return torch.ldexp(torch.ones_like(y), torch.frexp(y)[1] - 8)
+
+
 def _against_single(params, mu, path, dev):
     """Each updated weight and first moment against the single
     controller's, saved at `path`: (leaf, max |diff|, elements that
     differ, elements, elements off by more than 1 bf16 ulp of the single
-    controller's weight, by more than 2 lr + 1 ulp, the first moment's
-    2-norm of the difference over its own)."""
+    controller's weight y, elements off by more than 2 lr + the two
+    roundings (half an ulp of y and half an ulp of rank 0's weight x:
+    the most two first updates that differ in sign can part two
+    round-to-nearest bf16 weights, also where x and y lie on two sides of
+    a power of two), the first moment's 2-norm of the difference over its
+    own). The weight bound only says the update stayed an AdamW step: a
+    wrong gradient sum is caught by the first moment's 2-norm
+    (`PROCS_GRAD_RTOL`)."""
     import torch
     from repro_torch.optim.adamw import tree_leaves
 
@@ -4480,15 +4626,14 @@ def _against_single(params, mu, path, dev):
                               b.reshape(-1).split(1 << 26),
                               m.reshape(-1).split(1 << 26),
                               n.reshape(-1).split(1 << 26)):
-            y = y.to(dev).float()
-            diff = (x.float() - y).abs()
-            # 1 bf16 ulp of |y| in [2^(e-1), 2^e): 2^(e-8)
-            bf16_ulp = torch.ldexp(torch.ones_like(y),
-                                   torch.frexp(y)[1] - 8)
+            x, y = x.float(), y.to(dev).float()
+            diff = (x - y).abs()
+            ulp_y = _bf16_ulps(y)
             stats[0] = max(stats[0], float(diff.max()))
             stats[1] += int((diff > 0).sum())
-            stats[3] += int((diff > bf16_ulp).sum())
-            stats[4] += int((diff > 2 * lr + bf16_ulp).sum())
+            stats[3] += int((diff > ulp_y).sum())
+            stats[4] += int((diff > 2 * lr + (ulp_y + _bf16_ulps(x)) / 2)
+                            .sum())
             v = v.to(dev).double()
             sq[0] += float(torch.sum(torch.square(u.double() - v)))
             sq[1] += float(torch.sum(torch.square(v)))
@@ -4497,63 +4642,70 @@ def _against_single(params, mu, path, dev):
     return out
 
 
-def procs_phase(dev, card):
-    """Phase 22: the training mesh across processes (`launch.mesh.spawn`,
-    `mesh.ProcessMesh`): for each of `PROCS_RUNS` the single
-    controller's first step on the same mesh on the card; then
-    `PROCS_WORLD` processes, one a position, sharing the card over gloo
-    (each collective's tensors through host memory), run each config
-    `PROCS_STEPS` steps from the same seeds (`_procs_rank`). Fatal: a
-    process's failure, and `_procs_checks`. Returns the processes'
-    launches summed."""
-    import collections
-
+def _procs_single(arch, layers, cut, shape, smoke, n_steps, path, dev):
+    """The single controller's first training step of one config on the
+    same mesh, on the card: its metrics (fatal unless its counted bytes =
+    `training_collective_costs`, which it returns), its updated weights
+    and first moment saved at `path`."""
     import torch
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch import steps
-    from repro_torch.launch.mesh import make_mesh, spawn
     from repro_torch.mesh import collective_bytes
-    from repro_torch.models import transformer
     from repro_torch.models.config import Runtime
     from repro_torch.obs.registry import MetricsRegistry
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.roofline import analysis
 
+    cfg, params = _procs_model(arch, layers, cut, smoke, dev)
+    want = {k: float(v) for k, v in analysis.training_collective_costs(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, dict(zip(_procs_axes(shape), shape)),
+        act_bytes=cfg.adtype().itemsize,
+        param_bytes=cfg.pdtype().itemsize)[0].items()}
+    batch = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                          device=str(dev)).next_batch(0)
+    reg = MetricsRegistry()
+    p1, opt, m = steps.make_train_step(cfg, Runtime(
+        mesh=_train_mesh(shape, dev), training=True, registry=reg))(
+        params, adamw_init(params), batch,
+        torch.Generator(device=dev).manual_seed(1))
+    got = {k: float(v) for k, v in collective_bytes(reg.snapshot()).items()}
+    if got != want:
+        fail(f"procs {arch} {shape}: the single controller counted {got}, "
+             f"training_collective_costs {want}")
+    torch.save({"params": _to(p1, "cpu"), "mu": _to(opt["mu"], "cpu")},
+               path)
+    del params, p1, opt, batch
+    return {k: float(v) for k, v in m.items()}, want
+
+
+def procs_phase(dev, card):
+    """Phase 22: the training mesh and the decode mesh across processes
+    (`launch.mesh.spawn`, `mesh.ProcessMesh`): for each of `PROCS_RUNS`
+    the single controller's first training step on the same mesh on the
+    card, and for each of `PROCS_DECODE` its decode run; then
+    `PROCS_WORLD` processes, one a position, sharing the card over gloo
+    (each collective's tensors through host memory), run each training
+    config its steps from the same seeds and each decode config's tokens
+    (`_procs_rank`). Fatal: a process's failure, `_procs_checks` and
+    `_procs_decode_checks`. Returns the processes' launches summed."""
+    import collections
+
+    from repro_torch.launch.mesh import spawn
+
     t_phase = time.perf_counter()
     total = collections.Counter()
-    singles, wants = [], []
     with tempfile.TemporaryDirectory() as tmp:
         paths = [os.path.join(tmp, f"single{i}.pt")
                  for i in range(len(PROCS_RUNS))]
-        for (arch, layers, cut, shape), path in zip(PROCS_RUNS, paths):
-            cfg = _train_cfg("randtopk", layers=layers, cut=cut, arch=arch)
-            wants.append({k: float(v) for k, v in
-                          analysis.training_collective_costs(
-                              cfg, TRAIN_BATCH, TRAIN_SEQ,
-                              {"data": shape[0], "model": shape[1]},
-                              act_bytes=cfg.adtype().itemsize,
-                              param_bytes=cfg.pdtype().itemsize)[0].items()})
-            params = transformer.init_model(
-                cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-            batch = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ,
-                                  device=str(dev)).next_batch(0)
-            reg = MetricsRegistry()
-            p1, opt, m = steps.make_train_step(cfg, Runtime(
-                mesh=make_mesh(shape, ("data", "model"), devices=dev),
-                training=True, registry=reg))(
-                params, adamw_init(params), batch,
-                torch.Generator(device=dev).manual_seed(1))
-            singles.append({k: float(v) for k, v in m.items()})
-            got = {k: float(v) for k, v in
-                   collective_bytes(reg.snapshot()).items()}
-            if got != wants[-1]:
-                fail(f"procs {arch} {shape}: the single controller counted "
-                     f"{got}, training_collective_costs {wants[-1]}")
-            torch.save({"params": _to(p1, "cpu"),
-                        "mu": _to(opt["mu"], "cpu")}, path)
-            del params, p1, opt, m, batch
-        print(f"procs phase: this process holds {held_gib(dev):.2f} GiB of "
-              f"the card before the spawn; {card}")
+        t0 = time.perf_counter()
+        singles = [_procs_single(*run, path, dev)
+                   for run, path in zip(PROCS_RUNS, paths)]
+        single_decodes = [_procs_decode(dev, *run, procs=False)
+                          for run in PROCS_DECODE]
+        print(f"procs phase: the single controller's first steps and "
+              f"decode runs {time.perf_counter() - t0:.1f} s; this process "
+              f"holds {held_gib(dev):.2f} GiB of the card before the "
+              f"spawn; {card}")
         # each process's allocator grows its segments in place, so that
         # the four hold no reserved but unallocated blocks
         saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
@@ -4569,12 +4721,15 @@ def procs_phase(dev, card):
                 os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
         spawn_s = time.perf_counter() - t0
     failed = []
-    for j, (arch, layers, cut, shape) in enumerate(PROCS_RUNS):
+    checks = [(_procs_checks, (run, *singles[j], [r[0][j] for r in ranks]))
+              for j, run in enumerate(PROCS_RUNS)]
+    checks += [(_procs_decode_checks, (run, single_decodes[j],
+                                       [r[1][j] for r in ranks]))
+               for j, run in enumerate(PROCS_DECODE)]
+    for fn, args in checks:
         # every config's readings are printed before a failure ends the run
         try:
-            total.update(_procs_checks(arch, layers, shape, singles[j],
-                                       wants[j], [r[j] for r in ranks],
-                                       card))
+            total.update(fn(*args, card))
         except SystemExit as e:
             print(e)
             failed.append(str(e).removeprefix("chip_smoke: FAILED: "))
@@ -4585,22 +4740,24 @@ def procs_phase(dev, card):
     return total
 
 
-def _procs_checks(arch, layers, shape, single, want, ranks, card):
-    """The fatal checks of one config's processes against the single
-    controller's first step (`single`) and `training_collective_costs`
-    (`want`): the first step's loss and aux bit for bit, its grad norm
-    within `PROCS_GNORM_RTOL`, rank 0's summed gradient within
-    `PROCS_GRAD_RTOL` leaf by leaf, its updated weights within 2 lr + 1
-    bf16 ulp and at most `PROCS_ULP_SHARE` of them off by more than 1
-    ulp; the weights equal on every rank after step 2; the counted
-    bytes; the codec kernels (randtopk_mask, decode_rows, scatter_rows)
-    once a process a step (every position of a batch shard runs the
-    codec on equal rows); finite losses. Prints each rank's step ms.
-    Returns the launches summed over the processes."""
+def _procs_checks(run, single, want, ranks, card):
+    """The fatal checks of one training config's processes against the
+    single controller's first step (`single`) and
+    `training_collective_costs` (`want`): the first step's loss and aux
+    bit for bit, its grad norm within `PROCS_GNORM_RTOL`, rank 0's summed
+    gradient within `PROCS_GRAD_RTOL` leaf by leaf, its updated weights
+    within 2 lr + half a bf16 ulp of each side (`_against_single`) and
+    at most `PROCS_ULP_SHARE` of them off by more than 1 ulp; the weights equal on every rank after step 2; the
+    counted bytes; the codec kernels (randtopk_mask, decode_rows,
+    scatter_rows) once a process a step (every position of a batch shard
+    runs the codec on equal rows); finite losses. Prints each rank's
+    step ms. Returns the launches summed over the processes."""
     import collections
 
+    arch, layers, _, shape, smoke, n_steps = run
     total = collections.Counter()
-    label = f"procs {arch} {layers} layers {shape}"
+    label = (f"procs {arch}{' SMOKE' if smoke else ''} "
+             f"{layers or 'all'} layers {shape}")
     for r, got in enumerate(ranks):
         g = got["metrics"]
         if g["loss"] != single["loss"] or g["aux"] != single["aux"]:
@@ -4613,12 +4770,12 @@ def _procs_checks(arch, layers, shape, single, want, ranks, card):
                  f"single controller's {single['grad_norm']}")
         if ({k: float(v) for k, v in got["bytes1"].items()} != want
                 or {k: float(v) for k, v in got["bytes"].items()}
-                != {k: v * PROCS_STEPS for k, v in want.items()}):
+                != {k: v * n_steps for k, v in want.items()}):
             fail(f"{label} rank {r}: counted {got['bytes1']} in the first "
-                 f"step, {got['bytes']} in {PROCS_STEPS}; "
+                 f"step, {got['bytes']} in {n_steps}; "
                  f"training_collective_costs {want} a step")
         wrong = {n: got["launches"][n] for n in TRAIN_PATH_KERNELS["randtopk"]
-                 if got["launches"][n] != PROCS_STEPS}
+                 if got["launches"][n] != n_steps}
         if wrong:
             fail(f"{label} rank {r}: launches {wrong}, one a step of each "
                  f"expected")
@@ -4647,25 +4804,107 @@ def _procs_checks(arch, layers, shape, single, want, ranks, card):
           f"{max(v[1] for v in vs):.3g}; {sum(1 for v in vs if v[2])} of "
           f"{len(vs)} leaves), {share:.4%} by more than 1 ulp (limit "
           f"{PROCS_ULP_SHARE:.0%}), {sum(v[5] for v in vs)} by more than "
-          f"2 lr + 1 ulp; weights equal on every rank after step 2; "
+          f"2 lr + half an ulp of each side; weights equal on every rank "
+          f"after step 2; "
           f"collective bytes a step {want} on every rank; codec launches a "
-          f"process {PROCS_STEPS} of each in {PROCS_STEPS} steps")
+          f"process {n_steps} of each in {n_steps} steps")
     off = [v for v in vs if v[5] or v[6] > PROCS_GRAD_RTOL]
     if off:
         fail(f"{label}: rank 0's first step off the single controller's "
              f"(leaf, max |diff|, differing, elements, over 1 ulp, over 2 "
-             f"lr + 1 ulp, the first moment's relative 2-norm): {off}")
+             f"lr + half an ulp of each side, the first moment's relative "
+             f"2-norm): {off}")
     if share > PROCS_ULP_SHARE:
         fail(f"{label}: {share:.4%} of rank 0's first-step weights more "
              f"than 1 bf16 ulp off the single controller's")
     for r, got in enumerate(ranks):
         print(f"    rank {r}: losses {got['losses']}; step ms "
               f"{[round(t, 1) for t in got['times']]}, median of steps "
-              f"2-{PROCS_STEPS} {statistics.median(got['times'][1:]):.1f} "
+              f"2-{n_steps} {statistics.median(got['times'][1:]):.1f} "
               f"ms, of it the gradient sum "
               f"{[round(t, 1) for t in got['sum_ms']]} ms; peak "
               f"{got['peak_gib']:.2f} GiB; set-up (mesh, weights, batches) "
               f"{got['setup_s']:.1f} s; {card}")
+    return total
+
+
+def _procs_decode_checks(run, single, ranks, card):
+    """The fatal checks of one decode config's processes against the
+    single controller's decode mesh of the same shape (`single`): every
+    token equal, each rank's last logits equal the single controller's at
+    its position bit for bit, every token in the vocabulary, the counted
+    bytes of the steps = `decode_collective_costs` (the tokens' fetch is
+    not counted) and of the cache's build = `decode_cache_collective_
+    costs` on every rank and on the single controller, the cut's kernels
+    (topk_mask_threshold, decode_rows) once a process a token and no
+    other launch. Prints each rank's step ms and tokens/s. Returns the
+    launches summed over the processes."""
+    import collections
+
+    import torch
+    from repro_torch.roofline import analysis
+
+    arch, layers, shape, smoke = run
+    cfg = _train_cfg("randtopk", layers=layers, cut=0, arch=arch,
+                     smoke=smoke)
+    label = (f"procs decode {arch}{' SMOKE' if smoke else ''} "
+             f"{cfg.n_layers} layers (cut {cfg.split.cut_layer}) {shape}")
+    mesh_shape = dict(zip(_procs_axes(shape), shape))
+    per_tok = analysis.decode_collective_costs(
+        cfg, STEP_BATCH, STEP_MAX_LEN, mesh_shape, flash_decode=True,
+        act_bytes=cfg.adtype().itemsize)[0]
+    want = {k: v * PROCS_TOKENS for k, v in per_tok.items()}
+    built = analysis.decode_cache_collective_costs(
+        cfg, STEP_BATCH, mesh_shape, act_bytes=cfg.adtype().itemsize)[0]
+    total = collections.Counter()
+    toks = single["tokens"]
+    if toks.shape != (STEP_BATCH, PROCS_TOKENS) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.padded_vocab:
+        fail(f"{label}: the single controller's tokens "
+             f"{tuple(toks.shape)} out of shape or range")
+    for who, got in [("single controller", single)] + [
+            (f"rank {r}", g) for r, g in enumerate(ranks)]:
+        if got["bytes"] != want or got["built"] != built:
+            fail(f"{label} {who}: counted {got['bytes']} in "
+                 f"{PROCS_TOKENS} tokens, the cache {got['built']}; "
+                 f"decode_collective_costs {per_tok} a token, "
+                 f"decode_cache_collective_costs {built}")
+    for r, got in enumerate(ranks):
+        if not len(got["logits"]) == len(single["logits"]) == PROCS_TOKENS:
+            fail(f"{label} rank {r}: {len(got['logits'])} tokens' logits "
+                 f"recorded, the single controller {len(single['logits'])},"
+                 f" {PROCS_TOKENS} expected")
+        if not torch.equal(got["tokens"], toks):
+            fail(f"{label} rank {r}: tokens {got['tokens'].tolist()}, the "
+                 f"single controller's {toks.tolist()}")
+        for i, (a, b) in enumerate(zip(got["logits"], single["logits"])):
+            if not torch.equal(a[r], b[r]):
+                fail(f"{label} rank {r}: token {i}'s logits off the single "
+                     f"controller's by {max_diff(a[r], b[r]):.4g}")
+        expected = {n: PROCS_TOKENS if n in STEP_PATH else 0
+                    for n in got["launches"]}
+        if got["launches"] != expected:
+            fail(f"{label} rank {r}: launches {got['launches']}, "
+                 f"{expected} expected")
+        total.update({n: got["launches"][n] for n in STEP_PATH})
+    print(f"  {label}, {len(ranks)} processes: B {STEP_BATCH}, "
+          f"{PROCS_TOKENS} tokens over a {STEP_MAX_LEN}-slot ring, flash "
+          f"decode; tokens and each position's logits = the single "
+          f"controller's decode mesh bit for bit on every rank; collective "
+          f"bytes a token {per_tok} = decode_collective_costs"
+          + (f", the cache's {built} = decode_cache_collective_costs"
+             if built else "")
+          + f"; launches a process a token "
+          f"{ {n: ranks[0]['launches'][n] / PROCS_TOKENS for n in STEP_PATH} }"
+          f"; single controller step ms "
+          f"{[round(t, 1) for t in single['times']]}; {card}")
+    for r, got in enumerate(ranks):
+        t = got["times"]
+        print(f"    rank {r}: step ms {[round(x, 1) for x in t]}, median "
+              f"of tokens 2-{PROCS_TOKENS} {statistics.median(t[1:]):.1f} "
+              f"ms, {STEP_BATCH * (len(t) - 1) / sum(t[1:]) * 1e3:.1f} "
+              f"tokens/s (tokens 2-{PROCS_TOKENS}); peak "
+              f"{got['peak_gib']:.2f} GiB")
     return total
 
 
@@ -4675,10 +4914,11 @@ def _procs_checks(arch, layers, shape, single, want, ranks, card):
 
 STEP_BATCH, STEP_MAX_LEN = 8, 32  # rows, ring slots
 STEP_TOKENS = 48              # from an empty cache: the 32-slot ring wraps
-# the checked run's tokens and ring for yi-6b at 32 layers (tokens/s at
-# the model's depth) and granite-moe (24 tokens wrap its 16-slot ring,
+# the checked run's tokens and ring for yi-6b at `STEP_FULL_LAYERS`
+# (tokens/s at half the model's depth) and granite-moe (24 tokens wrap its 16-slot ring,
 # 4 slots a position at (1, 4)): the phase's time
 STEP_TOKENS_FULL = 16
+STEP_FULL_LAYERS = 16         # of 32 (cut 8), cut from 32 for the run's time
 STEP_MOE_TOKENS, STEP_MOE_MAX_LEN = 24, 16
 # granite-moe's depth, cut from 24 to 12 (cut 6) and then to 6 (cut 3)
 # to keep the whole run within its time: its (1, 4) run is host-bound
@@ -4686,8 +4926,9 @@ STEP_MOE_TOKENS, STEP_MOE_MAX_LEN = 24, 16
 STEP_MOE_LAYERS = 6
 STEP_TIMED, STEP_REPS = 16, 3  # tokens a timed run, runs (after the 48)
 STEP_TRACED = 4               # tokens of the device-only trace
-STEP_LAYERS = 4               # yi-6b's depth (cut 2), cut from 8 for the
-                              # run's time: its (2, 2, 2) run took 18.2 s
+STEP_LAYERS = 2               # yi-6b's depth (cut 1), cut from 8 to 4 and
+                              # then to 2 for the run's time: its (2, 2, 2)
+                              # run took 18.2 s at 8, 11.8 at 4
 # the cut at inference: the TopK mask, then the sparse payload's decode,
 # once a batch shard a token
 STEP_PATH = ("topk_mask_threshold", "decode_rows")
@@ -4932,8 +5173,9 @@ def servestep_phase(dev, card):
     width, `STEP_LAYERS` of its 32 layers (cut at half), at mesh=None
     with the kernels and with the plain versions (tokens and first
     logits bit for bit, the plain run launches nothing), then at each of
-    `STEP_MESHES`, every position on the one card; yi-6b at all 32
-    layers at mesh=None (`STEP_TOKENS_FULL` tokens); and
+    `STEP_MESHES`, every position on the one card; yi-6b at
+    `STEP_FULL_LAYERS` of its 32 layers at mesh=None (`STEP_TOKENS_FULL`
+    tokens); and
     granite-moe-1b-a400m (`STEP_MOE_LAYERS` of its 24 layers) at
     mesh=None and (1, 4) (`STEP_MOE_TOKENS` over a
     `STEP_MOE_MAX_LEN`-slot ring). Each mesh's
@@ -4973,7 +5215,7 @@ def servestep_phase(dev, card):
         _step_against_none(label, toks, gates[label], ref_toks, gates[None])
     del params, gates
     held_gib(dev)
-    full = _train_cfg("randtopk", layers=None, cut=0)
+    full = _train_cfg("randtopk", layers=STEP_FULL_LAYERS, cut=0)
     params = transformer.init_model(
         full, torch.Generator(device=dev).manual_seed(0), device=dev)
     _, counts, _ = _step_run(full, params, dev,
@@ -5041,14 +5283,15 @@ def _kernels_are_plain(cfg, params, dev, card, prompts, tokens, max_len,
 
 # (arch, layers (None: full), the decode meshes, with flash decode): each
 # at full width, its depth cut as the recurrent and multimodal phases cut
-# it (zamba2 81 -> 12, one shared-attention site each side of cut 6;
-# rwkv6 24 -> 6, cut 3; the vlm 100 -> 10, one cross layer each side of
-# cut 5; whisper FULL, cut 2)
+# it, rwkv6 then further for the run's time (zamba2 81 -> 12, one
+# shared-attention site each side of cut 6, so both sites' rings run;
+# rwkv6 24 -> 6 -> 2, cut 1; the vlm 100 -> 10, one cross layer each
+# side of cut 5; whisper FULL, cut 2)
 FAMSTEP_RUNS = (
     ("whisper-tiny", None, (("(1, 4) flash", (1, 4)),
                             ("(2, 2, 2) flash", (2, 2, 2)))),
     ("zamba2-7b", 12, (("(1, 4) flash", (1, 4)),)),
-    ("rwkv6-1.6b", 6, (("(1, 4) flash", (1, 4)),)),
+    ("rwkv6-1.6b", 2, (("(1, 4) flash", (1, 4)),)),
     ("llama-3.2-vision-90b", 10, (("(1, 4) flash", (1, 4)),)),
 )
 FAMSTEP_PLAIN = "whisper-tiny"     # the model whose plain versions run too
@@ -5648,9 +5891,13 @@ def main(argv=None) -> int:
     # four processes need some 70 GB of it
     if args.phase in ("all", "procs"):
         for n, c in procs_phase(dev, card).items():
-            add(n, c, "the procs phase's processes (yi-6b 2 layers at (2, "
-                      "2) and granite-moe 4 layers at (1, 4), one process "
-                      "a position)")
+            add(n, c, "the procs phase's processes (one a position: "
+                      "training yi-6b 2 layers at (2, 2), granite-moe 4 at "
+                      "(1, 4), zamba2 6 at (1, 4), rwkv6 2, whisper and "
+                      "the vlm SMOKE at (2, 2); decoding yi-6b 4 layers "
+                      "at (1, 4), granite-moe 6, rwkv6 2 and the vlm "
+                      "SMOKE at (2, 2), zamba2 6 at (1, 4), whisper at "
+                      "(2, 1, 2))")
     if args.phase in ("all", "serve"):
         t0 = time.perf_counter()
         counts = serve_phase(dev, args.layers)
@@ -5723,9 +5970,9 @@ def main(argv=None) -> int:
         for n in launches:
             if counts[n]:
                 add(n, counts[n], "the serve step phase's kernel runs "
-                                  "(yi-6b 4 layers at mesh=None, (1, 4) "
+                                  "(yi-6b 2 layers at mesh=None, (1, 4) "
                                   "flash and replicated, (2, 2, 2); yi-6b "
-                                  "32 layers; granite-moe at mesh=None "
+                                  "16 layers; granite-moe at mesh=None "
                                   "and (1, 4))")
     if args.phase in ("all", "familystep"):
         counts = familystep_phase(dev, card)

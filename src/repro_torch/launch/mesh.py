@@ -6,8 +6,9 @@ byte counter). By default every position lies on the resolved default
 device, the card, so one card hosts a (2, 2, 2) mesh; a `devices=` list
 places positions on several cards.
 
-The training mesh also runs with one process a position
-(`launch/train --procs`): `spawn` starts `mesh.size` processes, rank r
+The training mesh and the decode mesh also run with one process a
+position (`launch/train --procs`, `launch.steps.make_serve_step` on a
+`make_process_mesh`): `spawn` starts `mesh.size` processes, rank r
 driving position r, and each builds the same `make_process_mesh`. On
 the CPU, or with several processes sharing one card, they talk over
 gloo (a card's tensors staged through host memory); given one card a

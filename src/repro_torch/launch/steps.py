@@ -10,12 +10,12 @@ On a training mesh (`Runtime.mesh`) the parameters stay whole, one tensor
 a leaf, and each position takes its shard as a slice: autograd's
 accumulation into the leaf is the data-parallel gradient sum, so AdamW
 and the global grad norm are the mesh-less ones. On a process mesh
-(`mesh.ProcessMesh`, dense and moe) every process holds the whole
+(`mesh.ProcessMesh`, every family) every process holds the whole
 parameters and differentiates its own position's share of the loss
 (`_loss_procs`), then sums the gradients over the processes in position
 order, so every process applies the same update. The serve step
 (`make_serve_step`) is one greedy token of the whole batch with a KV
-cache, the reference's `make_serve_step`.
+cache, the reference's `make_serve_step`, on a process mesh too.
 """
 from __future__ import annotations
 
@@ -59,8 +59,13 @@ def _loss_procs(params, cfg: ArchConfig, rt: Runtime, batch, generator):
     shard count where the process is the shard's representative, and the
     layers' balance loss at position 0, where the single controller reads
     each; elsewhere the same terms times 0, so that every process runs
-    every backward collective. The processes' gradients of their
-    objectives sum to the single controller's gradient."""
+    every backward collective. The side inputs enter every process's
+    objective the same way: the vlm's patches (batch data, no gradient)
+    and whisper's encoder output, which reaches the loss through every
+    cross attention of the process's position, so each process runs the
+    backward of the encoder's collectives and of the pod ring's permute
+    of its output. The processes' gradients of their objectives sum to
+    the single controller's gradient."""
     mesh = rt.mesh
     lay, logits, aux, pen = split_model.forward_mesh(params, cfg, rt, batch,
                                                      generator)
@@ -161,7 +166,12 @@ def make_serve_step(cfg: ArchConfig, rt: Runtime) -> Callable:
     padded vocab. On a mesh (`rt.mesh`, every family, a cache of
     `split.model.init_decode_cache`) the argmax is the vocab-parallel one
     and the tokens come back in the batch's row order
-    (`split.model.next_tokens`)."""
+    (`split.model.next_tokens`). On a process mesh every process returns
+    every row's token: the shards' tokens are fetched by an all-gather
+    that is not counted into `rt.registry` (the output's fetch, not a
+    collective of the step), so the step's counted bytes are
+    `roofline.analysis.decode_collective_costs(argmax=True)` exactly, as
+    on the single controller."""
 
     def serve_step(params, cache, token):
         if rt.mesh is None:
@@ -170,8 +180,8 @@ def make_serve_step(cfg: ArchConfig, rt: Runtime) -> Callable:
             return torch.argmax(logits[:, -1], dim=-1, keepdim=True), cache
         lay, logits, origin = split_model.decode_mesh(params, cfg, rt,
                                                       token, cache)
-        toks = split_model.next_tokens(cfg, lay, [lg[:, -1] for lg in logits],
-                                       origin)
+        toks = split_model.next_tokens(
+            cfg, lay, mesh_mod.pmap(lambda _, lg: lg[:, -1], logits), origin)
         return toks[:, None], cache
 
     return serve_step

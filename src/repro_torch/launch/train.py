@@ -69,7 +69,7 @@ the reference takes it (`launch.mesh.make_mesh`): the batch splits over
 mix's ff columns, Mamba2's and RWKV6's heads, whisper's encoder over its
 frames) and the moe's expert parallelism (`models.tp`). Every position
 lies on the one device of `--device`; the parameters stay whole there.
-With `--procs` (the dense and moe families) one process drives each
+With `--procs` (every family) one process drives each
 position (`launch.mesh.spawn`, over gloo: several processes share the
 card, or the CPU with `--device cpu`), each holding the whole
 parameters; rank 0 prints and checkpoints, and the step is the single
@@ -134,7 +134,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default=None, help="e.g. 2,4 for (data,model)")
     ap.add_argument("--procs", action="store_true",
-                    help="one process a mesh position (dense and moe)")
+                    help="one process a mesh position")
     ap.add_argument("--devices", default=None,
                     help="with --procs: one card a position over NCCL, "
                          "e.g. cuda:0,cuda:1")

@@ -88,6 +88,12 @@ def pmap(fn, *lists):
             for p, items in enumerate(zip(*lists))]
 
 
+def unzip(outs, n: int):
+    """`pmap`'s per-position tuples of n entries as n per-position lists
+    (None where the position has none)."""
+    return tuple(pmap(lambda _, o, j=j: o[j], outs) for j in range(n))
+
+
 def _device(d) -> torch.device:
     """`d` as a torch.device, a card's with its index."""
     d = torch.device(d)

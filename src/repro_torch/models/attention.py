@@ -228,7 +228,11 @@ def cross_attention_mesh(p, cfg: ArchConfig, lay, xs, kv_tokens, *,
     `src/repro/models/attention.py:134-151`)."""
     ys = _attention_mesh(p, cfg, lay, xs, kv_tokens, causal=False,
                          rope=False)
-    return [common.tanh_gate(p, y) for y in ys] if gated else ys
+    return _gate(p, ys) if gated else ys
+
+
+def _gate(p, ys):
+    return mesh_mod.pmap(lambda _, y: common.tanh_gate(p, y), ys)
 
 
 def _attention_mesh(p, cfg: ArchConfig, lay, xs, kv_tokens, *, causal,
@@ -419,37 +423,42 @@ def decode_attention_mesh(p, cfg: ArchConfig, lay, xs, kvs, rings):
     also projects and attends only its q heads (k and v are projected
     whole: its ring holds every head)."""
     if lay.n_model == 1:
-        return [decode_attention(p, cfg, x, kv, r["pos"])
-                for x, kv, r in zip(xs, kvs, rings)]
+        return mesh_mod.pmap(lambda _, x, kv, r: decode_attention(
+            p, cfg, x, kv, r["pos"]), xs, kvs, rings)
     hq, hd = cfg.n_heads, cfg.hd
     split = lay.split(hq)
     hl = hq // lay.n_model if split else hq
-    flash = rings[0]["own"] is not None
-    outs = _flash_out(p, cfg, lay, xs, kvs, rings) if flash else []
-    hs = []
-    for i, x in enumerate(xs):
-        h0 = lay.rank(i) * hl if split else 0
-        if flash:
-            hs.append(outs[i][..., h0 * hd:(h0 + hl) * hd])
-            continue
-        hs.append(_replicated_out(p, cfg, x, kvs[i], rings[i], h0, hl))
+    if mesh_mod.first(rings)["own"] is not None:     # flash decode
+        hs = _own_heads(lay, _flash_out(p, cfg, lay, xs, kvs, rings), split,
+                        hl * hd)
+    else:
+        hs = mesh_mod.pmap(lambda i, x, kv, r: _replicated_out(
+            p, cfg, x, kv, r, lay.rank(i) * hl if split else 0, hl), xs,
+            kvs, rings)
     return tp.out_proj_rs(lay, hs, p["wo"], split=split)
+
+
+def _own_heads(lay, outs, split: bool, width: int):
+    """Each position's own q heads' columns, `width` of them at its
+    'model' rank, of a whole attention output (all of it without
+    `split`)."""
+    return mesh_mod.pmap(lambda i, o: o[..., lay.rank(i) * width:
+                                        (lay.rank(i) + 1) * width]
+                         if split else o, outs)
 
 
 def _flash_out(p, cfg: ArchConfig, lay, xs, kvs, rings):
     """Flash decode's attention output (B_loc, 1, Hq * hd) of every head,
     whole on each position (`decode_attention_mesh`)."""
-    qs, ks, vs, valids = [], [], [], []
-    for x, kv, r in zip(xs, kvs, rings):
+
+    def local(_, x, kv, r):
         q, k_new, v_new = project_qkv(p, cfg, x, None)
         q, k_new = (common.rotate(t, *r["rope"]) for t in (q, k_new))
         _store(kv, r["at"], (k_new[:, 0], v_new[:, 0]), r["own"])
-        k, v = _read(kv, x.dtype)
-        qs.append(q)
-        ks.append(k)
-        vs.append(v)
-        valids.append(r["valid"])
-    return _flash_combine(cfg, lay, qs, ks, vs, valids)
+        return (q, *_read(kv, x.dtype), r["valid"])
+
+    return _flash_combine(cfg, lay, *mesh_mod.unzip(
+        mesh_mod.pmap(local, xs, kvs, rings), 4))
 
 
 def _flash_combine(cfg: ArchConfig, lay, qs, ks, vs, valids=None):
@@ -460,29 +469,33 @@ def _flash_combine(cfg: ArchConfig, lay, qs, ks, vs, valids=None):
     position: the f32 max of the logits, the sum of exp(logit - max), and
     the weights normalized by it and rounded to v's dtype (as `sdpa`
     rounds its softmax) times v, each by an all-reduce."""
-    mesh, reg = lay.mesh, lay.registry
-    B, hq, hd = qs[0].shape[0], cfg.n_heads, cfg.hd
+    mesh, reg, pmap = lay.mesh, lay.registry, mesh_mod.pmap
+    B, hq, hd = mesh_mod.first(qs).shape[0], cfg.n_heads, cfg.hd
     g = hq // cfg.n_kv_heads
-    logits = []
-    for i, (q, k) in enumerate(zip(qs, ks)):
+
+    def logit(i, q, k):
         qg = q.reshape(B, 1, cfg.n_kv_heads, g, hd)
         lg = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) \
             / (hd ** 0.5)
         if valids is not None:
             lg = torch.where(valids[i][:, None, None, None, :], lg,
                              torch.full_like(lg, -1e30))
-        logits.append(lg)
-    top = mesh_mod.all_reduce(mesh, [lg.amax(dim=-1, keepdim=True)
-                                     for lg in logits], "model", "max",
-                              registry=reg)
-    es = [torch.exp(lg - m) for lg, m in zip(logits, top)]
-    tot = mesh_mod.all_reduce(mesh, [e.sum(dim=-1, keepdim=True)
-                                     for e in es], "model", "sum",
-                              registry=reg)
-    parts = [torch.einsum("bhgqk,bkhd->bqhgd", (e / s).to(v.dtype).float(),
-                          v.float()) for e, s, v in zip(es, tot, vs)]
+        return lg
+
+    logits = pmap(logit, qs, ks)
+    top = mesh_mod.all_reduce(
+        mesh, pmap(lambda _, lg: lg.amax(dim=-1, keepdim=True), logits),
+        "model", "max", registry=reg)
+    es = pmap(lambda _, lg, m: torch.exp(lg - m), logits, top)
+    tot = mesh_mod.all_reduce(
+        mesh, pmap(lambda _, e: e.sum(dim=-1, keepdim=True), es), "model",
+        "sum", registry=reg)
+    parts = pmap(lambda _, e, s, v: torch.einsum(
+        "bhgqk,bkhd->bqhgd", (e / s).to(v.dtype).float(), v.float()), es,
+        tot, vs)
     outs = mesh_mod.all_reduce(mesh, parts, "model", "sum", registry=reg)
-    return [o.reshape(B, 1, hq * hd).to(q.dtype) for o, q in zip(outs, qs)]
+    return pmap(lambda _, o, q: o.reshape(B, 1, hq * hd).to(q.dtype), outs,
+                qs)
 
 
 def _replicated_out(p, cfg: ArchConfig, x, kv, ring, h0: int, hl: int):
@@ -522,18 +535,18 @@ def cross_decode_mesh(p, cfg: ArchConfig, lay, xs, kvs, split_n: bool, *,
     split = lay.split(hq)
     hl = hq // lay.n_model if split else hq
     if split_n:
-        outs = _flash_combine(cfg, lay, [project_q(p, cfg, x) for x in xs],
-                              [k for k, _ in kvs], [v for _, v in kvs])
-    hs = []
-    for i, (x, (k, v)) in enumerate(zip(xs, kvs)):
-        h0 = lay.rank(i) * hl if split else 0
-        if split_n:
-            hs.append(outs[i][..., h0 * hd:(h0 + hl) * hd])
-            continue
-        q = project_q(p, cfg, x, heads=(h0, hl) if split else None)
-        k, v = _kv_heads(cfg, k, v, h0, hl)
-        mask = torch.ones((1, 1, k.shape[1]), dtype=torch.bool,
-                          device=x.device)
-        hs.append(sdpa(q, k, v, mask, cfg).reshape(x.shape[0], 1, hl * hd))
+        k, v = mesh_mod.unzip(kvs, 2)
+        hs = _own_heads(lay, _flash_combine(cfg, lay, mesh_mod.pmap(
+            lambda _, x: project_q(p, cfg, x), xs), k, v), split, hl * hd)
+    else:
+        def local(i, x, kv):
+            h0 = lay.rank(i) * hl if split else 0
+            q = project_q(p, cfg, x, heads=(h0, hl) if split else None)
+            k, v = _kv_heads(cfg, *kv, h0, hl)
+            mask = torch.ones((1, 1, k.shape[1]), dtype=torch.bool,
+                              device=x.device)
+            return sdpa(q, k, v, mask, cfg).reshape(x.shape[0], 1, hl * hd)
+
+        hs = mesh_mod.pmap(local, xs, kvs)
     ys = tp.out_proj_rs(lay, hs, p["wo"], split=split)
-    return [common.tanh_gate(p, y) for y in ys] if gated else ys
+    return _gate(p, ys) if gated else ys

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import mesh as mesh_mod
 from repro_torch.models import common, tp
 from repro_torch.models.config import ArchConfig, Runtime
 
@@ -204,8 +205,8 @@ def rwkv_time_mix_mesh(p, cfg: ArchConfig, lay, xs):
     the time mix whole and keeps its chunk."""
     split = lay.split(cfg.d_model // HD)
     hl = cfg.d_model // HD // lay.n_model
-    hs = [_time_mix(p, lay.rt, x, (lay.rank(i) * hl, hl) if split
-                    else None)[0] for i, x in enumerate(xs)]
+    hs = mesh_mod.pmap(lambda i, x: _time_mix(
+        p, lay.rt, x, (lay.rank(i) * hl, hl) if split else None)[0], xs)
     return tp.out_proj_rs(lay, hs, p["w_out"], split=split)
 
 
@@ -235,17 +236,18 @@ def rwkv_channel_mix_mesh(p, cfg: ArchConfig, lay, xs, x_prevs=None):
     chunk of the sequence only."""
     split = lay.split(cfg.d_ff)
     n = cfg.d_ff // lay.n_model
-    kks, rs = [], []
-    for i, x in enumerate(xs):
-        xk, xr = _channel_inputs(p, x, None if x_prevs is None
-                                 else x_prevs[i])
+
+    def inputs(i, x, x_prev):
+        xk, xr = _channel_inputs(p, x, x_prev)
         c = slice(lay.rank(i) * n, (lay.rank(i) + 1) * n) if split \
             else slice(None)
-        kks.append(torch.square(F.relu(xk @ p["w_k"][:, c].to(x.dtype))))
-        rs.append(torch.sigmoid(lay.local_seq(i, xr) @ p["w_r"].to(
-            x.dtype)))
+        return (torch.square(F.relu(xk @ p["w_k"][:, c].to(x.dtype))),
+                torch.sigmoid(lay.local_seq(i, xr) @ p["w_r"].to(x.dtype)))
+
+    kks, rs = mesh_mod.unzip(mesh_mod.pmap(
+        inputs, xs, x_prevs or [None] * len(xs)), 2)
     vvs = tp.out_proj_rs(lay, kks, p["w_v"], split=split)
-    return [r * vv for r, vv in zip(rs, vvs)]
+    return mesh_mod.pmap(lambda _, r, vv: r * vv, rs, vvs)
 
 
 def init_rwkv_cache(cfg: ArchConfig, rows: int, n_layers: int, device=None,
@@ -298,25 +300,28 @@ def rwkv_decode_mesh(p_time, p_chan, cfg: ArchConfig, lay, xs, Ss, x_tms,
     are whole. With a 'model' of 1 every position runs `rwkv_decode`.
     Returns (xs', S', x_tm', x_cm') a position."""
     if lay.n_model == 1:
-        outs = [rwkv_decode(p_time, p_chan, *a)
-                for a in zip(xs, Ss, x_tms, x_cms)]
-        return tuple(list(t) for t in zip(*outs))
+        return mesh_mod.unzip(mesh_mod.pmap(
+            lambda _, *a: rwkv_decode(p_time, p_chan, *a), xs, Ss, x_tms,
+            x_cms), 4)
     split = lay.split(cfg.d_model // HD)
     hl = cfg.d_model // HD // lay.n_model if split else cfg.d_model // HD
-    hs, S_new, ys = [], [], []
-    for i, (x, S, x_tm) in enumerate(zip(xs, Ss, x_tms)):
+
+    def time_mix(i, x, S, x_tm):
         h0 = lay.rank(i) * hl if split else 0
         h = common.rms_norm(x, p_time["norm"]["scale"])
         r, k, v, g, w = time_mix_inputs(p_time, h, x_tm, heads=(h0, hl))
         S1, out = wkv_step(S, r[:, 0], k[:, 0], v[:, 0], w[:, 0],
                            p_time["u"][h0:h0 + hl].float())
-        ys.append(_wkv_gated(p_time, out[:, None], g, x.dtype,
-                             slice(h0 * HD, (h0 + hl) * HD)))
-        hs.append(h)
-        S_new.append(S1)
-    x1s = [x + y for x, y in zip(xs, tp.out_proj_rs(lay, ys, p_time["w_out"],
-                                                    split=split))]
-    h2s = [common.rms_norm(x1, p_chan["norm"]["scale"]) for x1 in x1s]
+        return (_wkv_gated(p_time, out[:, None], g, x.dtype,
+                           slice(h0 * HD, (h0 + hl) * HD)), h, S1)
+
+    ys, hs, S_new = mesh_mod.unzip(mesh_mod.pmap(time_mix, xs, Ss, x_tms),
+                                   3)
+    x1s = mesh_mod.pmap(lambda _, x, y: x + y, xs, tp.out_proj_rs(
+        lay, ys, p_time["w_out"], split=split))
+    h2s = mesh_mod.pmap(
+        lambda _, x1: common.rms_norm(x1, p_chan["norm"]["scale"]), x1s)
     ys = rwkv_channel_mix_mesh(p_chan, cfg, lay, h2s, x_cms)
-    return ([x1 + y for x1, y in zip(x1s, ys)], S_new,
-            [h[:, -1] for h in hs], [h2[:, -1] for h2 in h2s])
+    return (mesh_mod.pmap(lambda _, x1, y: x1 + y, x1s, ys), S_new,
+            mesh_mod.pmap(lambda _, h: h[:, -1], hs),
+            mesh_mod.pmap(lambda _, h2: h2[:, -1], h2s))

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import mesh as mesh_mod
 from repro_torch.models import common, tp
 from repro_torch.models.config import ArchConfig, Runtime
 
@@ -187,13 +188,19 @@ def mamba_mesh(p, cfg: ArchConfig, lay, xs):
     rt, scale = lay.rt, p["norm_g"]["scale"]
     if not lay.split(cfg.ssm_heads):
         return tp.out_proj_rs(
-            lay, [common.rms_norm(_gated(p, cfg, rt, x), scale) for x in xs],
-            p["w_out"], split=False)
-    hl = cfg.ssm_heads // lay.n_model
-    heads = [(lay.rank(i) * hl, hl) for i in range(len(xs))]
-    gs = [_gated(p, cfg, rt, x, h) for x, h in zip(xs, heads)]
+            lay, mesh_mod.pmap(lambda _, x: common.rms_norm(
+                _gated(p, cfg, rt, x), scale), xs), p["w_out"], split=False)
+    heads = _heads(cfg, lay, xs)
+    gs = mesh_mod.pmap(lambda _, x, h: _gated(p, cfg, rt, x, h), xs, heads)
     return tp.out_proj_rs(lay, _split_norm(p, cfg, lay, gs, heads),
                           p["w_out"], split=True)
+
+
+def _heads(cfg: ArchConfig, lay, xs):
+    """Each position's heads (h0, hl) of the Mamba2 heads split over
+    'model'."""
+    hl = cfg.ssm_heads // lay.n_model
+    return mesh_mod.pmap(lambda i, _: (lay.rank(i) * hl, hl), xs)
 
 
 def _split_norm(p, cfg: ArchConfig, lay, gs, heads):
@@ -201,11 +208,12 @@ def _split_norm(p, cfg: ArchConfig, lay, gs, heads):
     S, hl * P): the mean square over the whole d_inner from the group's
     f32 sum of squares (`tp.sum_model`, (B_loc, S, 1) a position), then
     the heads' slice of `norm_g`."""
-    ssq = tp.sum_model(lay, [torch.sum(torch.square(g.float()), dim=-1,
-                                       keepdim=True) for g in gs])
-    return [(g.float() * torch.rsqrt(s / cfg.d_inner + 1e-6)
-             * p["norm_g"]["scale"][_channels(cfg, h)].float()).to(g.dtype)
-            for g, s, h in zip(gs, ssq, heads)]
+    ssq = tp.sum_model(lay, mesh_mod.pmap(lambda _, g: torch.sum(
+        torch.square(g.float()), dim=-1, keepdim=True), gs))
+    return mesh_mod.pmap(
+        lambda _, g, s, h: (g.float() * torch.rsqrt(s / cfg.d_inner + 1e-6)
+                            * p["norm_g"]["scale"][_channels(cfg, h)]
+                            .float()).to(g.dtype), gs, ssq, heads)
 
 
 def init_mamba_cache(cfg: ArchConfig, rows: int, n_layers: int,
@@ -280,13 +288,13 @@ def mamba_decode_mesh(p, cfg: ArchConfig, lay, xs, hs, convs):
     runs `mamba_decode` whole on whole state. Returns (each position's
     y (B_loc, 1, d), h', conv')."""
     if not lay.split(cfg.ssm_heads):
-        outs = [mamba_decode(p, cfg, x, h, c)
-                for x, h, c in zip(xs, hs, convs)]
-        return tuple(list(t) for t in zip(*outs))
-    hl = cfg.ssm_heads // lay.n_model
-    heads = [(lay.rank(i) * hl, hl) for i in range(len(xs))]
-    gs, h_new, c_new = zip(*[_decode_gated(p, cfg, x, h, c, hd) for
-                             x, h, c, hd in zip(xs, hs, convs, heads)])
+        return mesh_mod.unzip(mesh_mod.pmap(
+            lambda _, x, h, c: mamba_decode(p, cfg, x, h, c), xs, hs,
+            convs), 3)
+    heads = _heads(cfg, lay, xs)
+    gs, h_new, c_new = mesh_mod.unzip(mesh_mod.pmap(
+        lambda _, x, h, c, hd: _decode_gated(p, cfg, x, h, c, hd), xs, hs,
+        convs, heads), 3)
     ys = tp.out_proj_rs(lay, _split_norm(p, cfg, lay, gs, heads),
                         p["w_out"], split=True)
-    return ys, list(h_new), list(c_new)
+    return ys, h_new, c_new

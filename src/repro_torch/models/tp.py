@@ -38,14 +38,17 @@ data-parallel gradient sum, which moves no bytes between positions of
 one device and is not counted.
 
 On a process mesh (`mesh.ProcessMesh`, one process a position, the
-dense and moe training step) every process keeps the whole parameters
-and runs its own position; the lists hold a tensor at that position
-only. What runs once a batch shard on the single controller (the cut
-codec, the lm head and the loss, at `reps[b]`) runs at every position
-of the shard, on inputs equal to the representative's, so no row moves
-for it (`Layout.held`); `launch.steps` weighs the copies so that only
-the representative's reaches the gradient, and sums the processes'
-gradients (the data-parallel sum, not counted either).
+training step and the decode step of every family) every process keeps
+the whole parameters and runs its own position; the lists hold a tensor
+at that position only. What runs once a batch shard on the single
+controller (the cut codec, the lm head and the loss, at `reps[b]`) runs
+at every position of the shard, on inputs equal to the
+representative's, so no row moves for it (`Layout.held`);
+`launch.steps` weighs the copies so that only the representative's
+reaches the gradient, and sums the processes' gradients (the
+data-parallel sum, not counted either). A decode layout holds the same
+rows and state on a process mesh as on the single controller: a
+process builds its own position's cache only.
 """
 from __future__ import annotations
 
@@ -72,10 +75,6 @@ class Layout:
 
     def __init__(self, rt, batch: int, seq: int, *, decode: bool = False):
         mesh = rt.mesh
-        if mesh.procs and decode:
-            raise ValueError("the decode mesh runs under one controller; "
-                             "across processes it waits for ROADMAP item "
-                             "8c")
         if not mesh.procs and len(set(mesh.devices)) != 1:
             raise ValueError("the training mesh keeps whole parameters on "
                              "one device: every position must lie on it "
@@ -200,8 +199,9 @@ def out_proj_rs(lay: Layout, hs, w, *, split: bool,
                              hs)
     n = w.shape[0] // lay.n_model
     if lay.decode:
-        return sum_model(lay, [h @ w[lay.rank(p) * n:(lay.rank(p) + 1) * n]
-                               .to(h.dtype) for p, h in enumerate(hs)])
+        return sum_model(lay, mesh_mod.pmap(
+            lambda p, h: h @ w[lay.rank(p) * n:(lay.rank(p) + 1) * n]
+            .to(h.dtype), hs))
     return out_proj_rs_local(
         lay, hs, lay.mesh.each(
             lambda p: w[lay.rank(p) * n:(lay.rank(p) + 1) * n]),
@@ -256,15 +256,17 @@ def vocab_parallel_argmax(mesh, logits, axis_name: str = "model",
          the whole padded vocab.
 
     Returns int32 (rows,) per position, equal across each group."""
-    v_local = logits[0].shape[-1]
-    local_max = [x.amax(dim=-1).float() for x in logits]
+    v_local = mesh_mod.first(logits).shape[-1]
+    local_max = mesh_mod.pmap(lambda _, x: x.amax(dim=-1).float(), logits)
     global_max = mesh_mod.all_reduce(mesh, local_max, axis_name, "max",
                                      registry=registry)
-    proposals = []
-    for p, x in enumerate(logits):
+
+    def propose(p, x):
         base = mesh.coord(p, axis_name) * v_local
         idx = torch.argmax(x, dim=-1).to(torch.int32) + base
-        proposals.append(torch.where(local_max[p] == global_max[p], idx,
-                                     torch.full_like(idx, INT32_MAX)))
+        return torch.where(local_max[p] == global_max[p], idx,
+                           torch.full_like(idx, INT32_MAX))
+
+    proposals = mesh_mod.pmap(propose, logits)
     return mesh_mod.all_reduce(mesh, proposals, axis_name, "min",
                                registry=registry)

@@ -433,8 +433,8 @@ def run_encoder_mesh(params, cfg: ArchConfig, lay, shards):
     pos = common.sinusoidal_positions(n_frames, cfg.d_model,
                                       device=frames[0].device)
     pos = pos[None].to(frames[0].dtype)
-    xs = [enc.local_seq(p, frames[lay.shard_of[p]] + pos)
-          for p in range(lay.mesh.size)]
+    xs = lay.mesh.each(lambda p: enc.local_seq(
+        p, frames[lay.shard_of[p]] + pos))
     for i in range(cfg.n_enc_layers):
         xs = _remat(lay.rt, _enc_layer_fwd_mesh, params, i, cfg, enc, xs)
     return _normed(cfg, enc, xs, params["enc_norm"])
@@ -445,8 +445,8 @@ def make_extras_mesh(params, cfg: ArchConfig, lay, shards) -> dict:
     (vlm) or encoder output (audio, `run_encoder_mesh`), one entry a
     position."""
     if cfg.family == "vlm":
-        return {"patches": [shards[lay.shard_of[p]]["patches"]
-                            for p in range(lay.mesh.size)]}
+        return {"patches": lay.mesh.each(
+            lambda p: shards[lay.shard_of[p]]["patches"])}
     if cfg.family == "audio":
         return {"enc_out": run_encoder_mesh(params, cfg, lay, shards)}
     return {}
@@ -666,7 +666,9 @@ def init_cache_mesh(cfg: ArchConfig, lay, max_len: int, bits: int = 16, *,
                     params=None, extras=None, top_extras=None):
     """Each position's decode cache on a decode layout `lay`
     (`tp.Layout(decode=True)`), on its device, as `init_cache` lays it
-    out for the shard's B_loc rows, "size" the ring's slots (an int):
+    out for the shard's B_loc rows, "size" the ring's slots (an int); on
+    a process mesh the process's own position's only, None at the
+    others:
 
       * "kv": the rings of every attention layer or site (`init_cache`).
         With flash decode (`lay.ring_split(size)`) position r of a 'model'
@@ -693,8 +695,9 @@ def init_cache_mesh(cfg: ArchConfig, lay, max_len: int, bits: int = 16, *,
         else max_len
     slots = size // m if lay.ring_split(size) else size
     n_kv = _kv_rings(cfg)
-    out = []
-    for p, dev in enumerate(lay.mesh.devices):
+
+    def build(p):
+        dev = lay.mesh.devices[p]
         c = {"pos": torch.zeros((lay.b_loc,), dtype=torch.int64,
                                 device=dev), "size": size}
         if n_kv:
@@ -715,8 +718,9 @@ def init_cache_mesh(cfg: ArchConfig, lay, max_len: int, bits: int = 16, *,
             c["cross_kv"] = _cross_kv_cache(
                 params, cfg, lay.b_loc, _at(extras, p), dev,
                 _at(top_extras, p), slice(r * n, (r + 1) * n))
-        out.append(c)
-    return out
+        return c
+
+    return lay.mesh.each(build)
 
 
 def _at(extras, p: int):
@@ -739,25 +743,33 @@ def decode_layers_mesh(params, cfg: ArchConfig, lay, xs, caches, lo: int,
     row. With a 'model' of 1 every position computes what
     `decode_layers` computes on its rows."""
     check_decode_mesh(cfg)
-    rings = ([attention.decode_ring(cfg, lay, p, c["pos"], c["size"],
-                                    c["kv"]["k"].shape[3])
-              for p, c in enumerate(caches)] if "kv" in caches[0] else None)
+    pmap = mesh_mod.pmap
+    rings = (pmap(lambda p, c: attention.decode_ring(
+        cfg, lay, p, c["pos"], c["size"], c["kv"]["k"].shape[3]), caches)
+        if "kv" in mesh_mod.first(caches) else None)
     split_n = (cfg.family in ("vlm", "audio")
                and lay.ring_split(cross_tokens(cfg)))
     sites = attn_sites(cfg) if cfg.family == "hybrid" else None
 
     def normed(p):
-        return [_norm(cfg, x, p) for x in xs]
+        return pmap(lambda _, x: _norm(cfg, x, p), xs)
 
     def attend(pa, kv_index):
         return attention.decode_attention_mesh(
             pa, cfg, lay, normed(pa["norm"]),
-            [attention.layer_kv(c["kv"], kv_index) for c in caches], rings)
+            pmap(lambda _, c: attention.layer_kv(c["kv"], kv_index), caches),
+            rings)
 
     def cross(pa, site, gated=False):
         return attention.cross_decode_mesh(
             pa, cfg, lay, normed(pa["norm"]),
-            [_site_kv(c, site) for c in caches], split_n, gated=gated)
+            pmap(lambda _, c: _site_kv(c, site), caches), split_n,
+            gated=gated)
+
+    def write(states, name, layer, vals):
+        for st, val in zip(states, vals):
+            if st is not None:
+                _write_rows(st[name], layer, val, None)
 
     for kind, layer in blocks(cfg, lo, hi):
         if kind == "cross":
@@ -769,24 +781,22 @@ def decode_layers_mesh(params, cfg: ArchConfig, lay, xs, caches, lo: int,
             continue
         pl = layer_params(params, layer)
         if cfg.family == "ssm":
-            sts = [c["rwkv"] for c in caches]
+            sts = pmap(lambda _, c: c["rwkv"], caches)
             xs, *new = rwkv.rwkv_decode_mesh(
                 pl["time"], pl["chan"], cfg, lay, xs,
-                *([st[n][:, layer] for st in sts]
+                *(pmap(lambda _, st, n=n: st[n][:, layer], sts)
                   for n in ("S", "x_tm", "x_cm")))
             for name, vals in zip(("S", "x_tm", "x_cm"), new):
-                for st, val in zip(sts, vals):
-                    _write_rows(st[name], layer, val, None)
+                write(sts, name, layer, vals)
             continue
         if cfg.family == "hybrid":
-            mcs = [c["mamba"] for c in caches]
+            mcs = pmap(lambda _, c: c["mamba"], caches)
             ys, hs, convs = ssm.mamba_decode_mesh(
                 pl, cfg, lay, normed(pl["norm"]),
-                [mc["h"][:, layer] for mc in mcs],
-                [mc["conv"][:, layer] for mc in mcs])
-            for mc, h, conv in zip(mcs, hs, convs):
-                _write_rows(mc["h"], layer, h, None)
-                _write_rows(mc["conv"], layer, conv, None)
+                pmap(lambda _, mc: mc["h"][:, layer], mcs),
+                pmap(lambda _, mc: mc["conv"][:, layer], mcs))
+            write(mcs, "h", layer, hs)
+            write(mcs, "conv", layer, convs)
             xs = _plus(xs, ys)
             if sites[layer] >= 0:
                 xs = _plus(xs, attend(params["shared_attn"], sites[layer]))
@@ -814,9 +824,10 @@ def lm_head_decode_mesh(params, cfg: ArchConfig, lay, xs):
     logits."""
     V = cfg.padded_vocab
     c = V // lay.n_model if lay.split(V) else V
-    out = []
-    for p, x in enumerate(xs):
+
+    def head(p, x):
         r = lay.rank(p) if lay.split(V) else 0
         h = final_norm(params, cfg, x)
-        out.append(h @ params["unembed"][:, r * c:(r + 1) * c].to(h.dtype))
-    return out
+        return h @ params["unembed"][:, r * c:(r + 1) * c].to(h.dtype)
+
+    return mesh_mod.pmap(head, xs)

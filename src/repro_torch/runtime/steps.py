@@ -143,7 +143,8 @@ def _make_sharded_arena_step(cfg: ArchConfig, cut: int, mesh,
     device reads a copy made there once per params object."""
     if mesh.procs:
         raise ValueError("the sharded arena runs under one controller; "
-                         "across processes it waits for ROADMAP item 8c")
+                         "across processes it waits for ROADMAP item "
+                         "8c-iii")
     n = mesh.size
     n_model = mesh.shape["model"]
     n_pod = mesh.shape.get("pod", 1)

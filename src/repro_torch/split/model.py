@@ -62,10 +62,6 @@ def _cut(cfg: ArchConfig) -> int:
     return cut
 
 
-#: the families a process mesh trains (`forward_mesh`)
-PROCESS_FAMILIES = ("dense", "moe")
-
-
 def forward_mesh(params, cfg: ArchConfig, rt: Runtime, batch, generator):
     """`forward` on a mesh, its loss terms apart: (the layout, logits,
     aux, pen). logits: one entry a batch shard, the logits of its rows
@@ -73,10 +69,6 @@ def forward_mesh(params, cfg: ArchConfig, rt: Runtime, batch, generator):
     the layers' balance loss (every position holds the same); pen: the
     cut's L1 penalty, the mean over the shards the process runs
     (`protocol.cut_boundary_mesh`), or None without a cut."""
-    if rt.mesh.procs and cfg.family not in PROCESS_FAMILIES:
-        raise ValueError(f"a process mesh trains the {PROCESS_FAMILIES} "
-                         f"families; {cfg.family!r} across processes waits "
-                         f"for ROADMAP item 8c")
     lay = tp.Layout(rt, *batch["tokens"].shape)
     shards = lay.shard_batch(batch)
     extras = transformer.make_extras_mesh(params, cfg, lay, shards)
@@ -112,8 +104,8 @@ def _extras_of_rows(cfg: ArchConfig, lay, extras, shards, origin):
     if origin == list(range(len(origin))) or not extras:
         return extras
     if cfg.family == "vlm":
-        return {"patches": [shards[origin[lay.shard_of[p]]]["patches"]
-                            for p in range(lay.mesh.size)]}
+        return {"patches": lay.mesh.each(
+            lambda p: shards[origin[lay.shard_of[p]]]["patches"])}
     return {"enc_out": mesh_mod.permute(
         lay.mesh, extras["enc_out"], "pod",
         protocol.pod_ring_perm(lay.mesh.shape["pod"]),
@@ -134,10 +126,17 @@ def decode_step(params, cfg: ArchConfig, rt: Runtime, token, cache):
 
     On a mesh (`rt.mesh`, a cache of `init_decode_cache`) the logits are
     each batch shard's vocab shards put together in the batch's row
-    order, the caller's view of a vocab-sharded result (no collective);
+    order, the caller's view of a vocab-sharded result (no collective;
+    on a process mesh every process fetches every position's logits, an
+    all-gather that is not counted: the output's fetch, as a single
+    controller reads its positions' tensors);
     `launch.steps.make_serve_step` takes its tokens from the shards."""
     if rt.mesh is not None:
         lay, logits, origin = decode_mesh(params, cfg, rt, token, cache)
+        if lay.mesh.procs:
+            # the output's fetch: every position's logits, not counted
+            logits = mesh_mod.gather_values(lay.mesh,
+                                            mesh_mod.first(logits))
         split = lay.split(cfg.padded_vocab)
         rows = [None] * len(lay.groups)
         for b, group in enumerate(lay.groups):
@@ -207,8 +206,8 @@ def decode_mesh(params, cfg: ArchConfig, rt: Runtime, token, caches):
     origin[b] is the batch shard whose rows shard b's logits are)."""
     lay = decode_layout(cfg, rt, token.shape[0])
     shards = lay.shard_batch({"tokens": token})
-    xs = [transformer.embed(params, cfg, shards[lay.shard_of[p]]["tokens"])
-          for p in range(lay.mesh.size)]
+    xs = lay.mesh.each(lambda p: transformer.embed(
+        params, cfg, shards[lay.shard_of[p]]["tokens"]))
     origin = list(range(len(shards)))
     if cfg.split is None or cfg.split.cut_layer <= 0:
         xs = transformer.decode_layers_mesh(params, cfg, lay, xs, caches, 0,
@@ -221,7 +220,8 @@ def decode_mesh(params, cfg: ArchConfig, rt: Runtime, token, caches):
         xs = transformer.decode_layers_mesh(params, cfg, lay, xs, caches,
                                             cut, cfg.n_layers)
     for c in caches:
-        c["pos"] += 1
+        if c is not None:
+            c["pos"] += 1
     return lay, transformer.lm_head_decode_mesh(params, cfg, lay, xs), origin
 
 
@@ -232,15 +232,23 @@ def next_tokens(cfg: ArchConfig, lay, logits, origin):
     (`tp.vocab_parallel_argmax`: an f32 max and an s32 min all-reduce),
     then, where the pod ring moved the rows at the cut, each shard's
     tokens back to the shard whose rows they are (a collective-permute
-    along 'pod', the ring's inverse), so no row takes another's token."""
+    along 'pod', the ring's inverse, `protocol.ring_permute`), so no row
+    takes another's token. On a process mesh each process then fetches
+    every shard's tokens (an all-gather of (B_loc,) int32 a position
+    that is not counted: the output's fetch, which the single controller
+    makes by reading its positions' tensors), so every process returns
+    every row's token."""
     if lay.split(cfg.padded_vocab):
         toks = tp.vocab_parallel_argmax(lay.mesh, logits, "model",
                                         registry=lay.registry)
     else:
-        toks = [torch.argmax(lg, dim=-1).to(torch.int32) for lg in logits]
-    toks = [toks[r] for r in lay.reps]
+        toks = mesh_mod.pmap(
+            lambda _, lg: torch.argmax(lg, dim=-1).to(torch.int32), logits)
+    toks = [toks[p] for _, p in lay.held()]
     if origin != list(range(len(origin))):
-        toks = mesh_mod.permute(
-            lay.shards, toks, "pod", protocol.pod_ring_perm(
-                lay.mesh.shape["pod"], inverse=True), registry=lay.registry)
+        toks = protocol.ring_permute(lay, toks, protocol.pod_ring_perm(
+            lay.mesh.shape["pod"], inverse=True))
+    if lay.mesh.procs:
+        got = mesh_mod.gather_values(lay.mesh, toks[0])
+        toks = [got[r] for r in lay.reps]
     return (toks[0] if lay.whole else torch.cat(toks)).long()

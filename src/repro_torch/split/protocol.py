@@ -148,18 +148,18 @@ class _Transport(torch.autograd.Function):
         gws = [_grad_to_wire(ctx.kind, g, i, ctx.k)
                for g, i in zip(gs, idx_far)]
         if ctx.perm is not None:
-            gws = _ring_permute(ctx.lay, gws,
+            gws = ring_permute(ctx.lay, gws,
                                 [(dst, src) for src, dst in ctx.perm])
         return (None,) * 5 + tuple(
             _grad_from_wire(ctx.kind, gw, i, ctx.d, ctx.backend)
             for gw, i in zip(gws, idx_local))
 
 
-def _ring_permute(lay, ts, perm):
+def ring_permute(lay, ts, perm):
     """ts, one tensor a batch shard the process runs (`tp.Layout.held`),
     permuted over the shards along 'pod' by `perm`: over the shards mesh
     on the single controller; on a process mesh each position sends its
-    shard's copy to the position of the next pod with its other
+    shard's copy to the position of the pod `perm` names with its other
     coordinates (one collective-permute either way)."""
     if not lay.mesh.procs:
         return mesh_mod.permute(lay.shards, ts, "pod", perm,
@@ -176,7 +176,7 @@ def _pod_send(lay, ps, perm):
     if perm is None:
         return ps
     names = [n for n, _ in ps[0].wire_leaves()]
-    moved = {n: _ring_permute(lay, [dict(p.wire_leaves())[n] for p in ps],
+    moved = {n: ring_permute(lay, [dict(p.wire_leaves())[n] for p in ps],
                               perm)
              for n in names}
     return [p.with_leaves(**{n: moved[n][b] for n in names})

@@ -25,8 +25,14 @@ process group's time limit 60 s and the join's 240 s. In each:
     two steps; every rank counts the single controller's collective
     bytes.
 
-A family the process mesh does not train, and the decode mesh, raise a
-`ValueError` naming ROADMAP item 8c in the process, which fails
+`launch/train --procs` trains what `--mesh` trains, for yi-6b and for
+rwkv6-1.6b (SMOKE at (1, 2)): the same logged losses and checkpointed
+weights. The hybrid, ssm, vlm and audio families across processes:
+`tests/test_torch_mesh_procs_families.py`; the decode mesh:
+`tests/test_torch_decode_mesh_procs.py`.
+
+What a process mesh does not run yet, the sharded serving arena, raises
+a `ValueError` naming ROADMAP item 8c-iii in the process, which fails
 `spawn` with the process's traceback.
 """
 from __future__ import annotations
@@ -60,7 +66,7 @@ from repro_torch.models import convert
 from repro_torch.models.config import Runtime, SplitConfig
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.optim.adamw import adamw_init, tree_leaves
-from repro_torch.split import model as split_model
+from repro_torch.runtime import steps as runtime_steps
 
 ARCHS = ["yi-6b", "granite-moe-1b-a400m"]
 B, S, K, ALPHA, LR = 8, 16, 16, 0.3, 1e-3
@@ -312,13 +318,14 @@ def test_every_rank_counts_the_single_controllers_bytes(run, arch):
         assert got[arch]["bytes"] == want
 
 
+@pytest.mark.parametrize("arch", ["yi-6b", "rwkv6-1.6b"])
 def test_train_cli_procs_is_the_single_controller_run(capfd, monkeypatch,
-                                                      tmp_path):
+                                                      tmp_path, arch):
     """`launch/train --mesh 1,2 --procs` trains what `--mesh 1,2` trains:
     the same logged losses and, after two steps, checkpointed weights
     (rank 0's) within the weight rule above (the processes sum the
     gradients in another order)."""
-    argv = ["--arch", "yi-6b", "--smoke", "--device", "cpu", "--steps",
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--steps",
             "2", "--batch", "4", "--seq", "8", "--split", "randtopk", "--k",
             "16", "--mesh", "1,2", "--log-every", "1", "--ckpt-every", "2"]
     monkeypatch.setenv("OMP_NUM_THREADS", "1")   # the processes' threads
@@ -367,25 +374,15 @@ def test_train_cli_devices_refused(extra):
         train_cli.main(argv + extra)
 
 
-def _refused(rank, dev, what):
+def _refused(rank, dev):
     torch.set_num_threads(1)
     mesh = make_process_mesh((1, 2), AXES2, dev)
-    if what == "family":
-        cfg = configs.get("rwkv6-1.6b", smoke=True).with_(split=SplitConfig(
-            cut_layer=1, compressor="randtopk", k=K))
-        from repro_torch.models import transformer
-        params = transformer.init_model(cfg, torch.Generator().manual_seed(0),
-                                        device="cpu")
-        tok = torch.zeros((2, 4), dtype=torch.long)
-        steps.make_train_step(cfg, Runtime(mesh=mesh))(
-            params, adamw_init(params), {"tokens": tok, "labels": tok},
-            torch.Generator())
-    else:
-        split_model.decode_layout(_cfg("yi-6b"), Runtime(mesh=mesh), 2)
+    runtime_steps.make_arena_top_step(_cfg("yi-6b"), 1, mesh=mesh)
 
 
-@pytest.mark.parametrize("what", ["family", "decode"])
-def test_what_a_process_mesh_does_not_run_raises(tmp_path, what):
-    with pytest.raises(RuntimeError, match="ValueError.*ROADMAP item 8c"):
-        spawn(_refused, 2, (what,), device="cpu", timeout=JOIN_S,
+def test_what_a_process_mesh_does_not_run_raises(tmp_path):
+    """The sharded serving arena across processes (ROADMAP 8c-iii)."""
+    with pytest.raises(RuntimeError,
+                       match="ValueError.*ROADMAP item 8c-iii"):
+        spawn(_refused, 2, (), device="cpu", timeout=JOIN_S,
               store_dir=tmp_path)
