@@ -360,15 +360,18 @@ Phases, each fatal on failure:
      llama-3.2-vision-90b SMOKE (its patches) at (2, 2); batch 4 x seq
      256, randtopk k 64, AdamW, remat; one process a position, the four
      sharing the card over gloo (each collective's tensors through host
-     memory), after the single controller's first step on the same
-     mesh: the processes' first-step loss and aux bit for bit, grad norm
-     within 1e-3, rank 0's summed gradient (its first moment) within
-     5e-2 of the single controller's, leaf by leaf in the 2-norm, rank
-     0's updated weights within 2 lr + half a bf16 ulp of each side and
-     at most 2% of them off by more than 1 ulp; weights equal on every
-     rank after step 2; every rank's counted collective bytes =
-     `training_collective_costs`; the codec kernels once a process a
-     step; each rank's step ms, the gradient sum's ms and peak. Then the
+     memory), each holding its blocks of the params and AdamW moments
+     (the reference's sharding trees), after the single controller's
+     first step on the same mesh: the processes' first-step loss and aux
+     bit for bit, grad norm within 1e-3, every rank's first-moment blocks
+     (the summed gradient) within 5e-2 of the single controller's, leaf
+     by leaf in the 2-norm, every rank's updated weight blocks within 2
+     lr + half a bf16 ulp of each side and at most 2% of them off by
+     more than 1 ulp; after the last step the blocks two ranks hold equal
+     and the gathered weights equal on every rank; every rank's counted
+     collective bytes = `training_collective_costs`; the codec kernels
+     once a process a step; each rank's step ms, the gradient reduce's
+     and the parameter gather's ms, peak and at-rest GiB. Then the
      serve step of six families (yi-6b 4 layers and zamba2 6 at (1, 4),
      granite-moe 6, rwkv6 2 and the vlm SMOKE at (2, 2), whisper FULL at
      ('pod', 'data', 'model') (2, 1, 2)), B 8, 8 tokens over a 32-slot
@@ -4349,18 +4352,20 @@ def _family_mesh_runs(arch, layers, smoke, meshes, dev, card):
 # ---------------------------------------------------------------------------
 
 # training: (arch, depth (None: the config's), cut (0: cut_for's), mesh,
-# SMOKE, steps). yi-6b at full width, 2 of its 32 layers (cut 1): the
-# whole parameters and their f32 moments in each of the 4 processes that
-# share the card (about 0.87 B parameters, some 17 GB a process);
+# SMOKE, steps). Each of the 4 processes that share the card holds its
+# blocks of the parameters and f32 moments (`launch.specs.
+# param_shardings`) and gathers the whole parameters for its step.
+# yi-6b at full width, 2 of its 32 layers (cut 1; about 0.87 B
+# parameters);
 # granite-moe-1b-a400m at full width, 4 of its 24 layers (cut 2), its 32
 # experts over 'model' 4; zamba2-7b at full width, 6 of its 81 layers
 # (cut 3: its one shared-attention site of 6 layers, layer 5, above the
 # cut; 112 Mamba2 and 32 attention heads over 'model' 4; 0.903 B
 # parameters, yi's size); rwkv6-1.6b at full width, 2 of 24 (cut 1);
 # whisper-tiny FULL, frames from the seed; the vlm at SMOKE with patches
-# from the seed, every gate at 0.5 (each process holds the whole
-# parameters and f32 moments: its smallest full-width model with a
-# whole-group cut, 10 layers, is far beyond 80 GB across 4 processes).
+# from the seed, every gate at 0.5 (its smallest full-width model with a
+# whole-group cut, 10 layers, is 10.66 B parameters: gathered whole in
+# each of 4 processes it is far beyond 80 GB, blocks or not).
 # The new configs run 2 steps: the checks need steps 1 and 2 only
 PROCS_RUNS = (("yi-6b", 2, 1, (2, 2), False, 3),
               (FAM_TRAIN, 4, 2, (1, 4), False, 3),
@@ -4380,14 +4385,21 @@ PROCS_DECODE = (("yi-6b", 4, (1, 4), False),
                 ("whisper-tiny", None, (2, 1, 2), False),
                 ("llama-3.2-vision-90b", None, (2, 2), True))
 PROCS_TOKENS = 8
+# each training config's peak a process when every process held the
+# whole parameters and f32 moments (GiB, NVIDIA H100 80GB HBM3, 700 W),
+# printed beside the resident blocks' peak
+PROCS_WHOLE_PEAK_GIB = {"yi-6b": 16.78, FAM_TRAIN: 6.09, "zamba2-7b": 18.00,
+                        "rwkv6-1.6b": 7.74, "whisper-tiny": 1.50,
+                        "llama-3.2-vision-90b": 0.12}
 PROCS_WORLD = 4               # the processes, one set for every config
 PROCS_TIMEOUT_S = 600         # the processes' join
 # the grad norm of the processes' first step against the single
 # controller's: the processes add the bf16 gradients of the positions
 # in position order, the single controller's autograd in its own order
 PROCS_GNORM_RTOL = 1e-3
-# rank 0's summed gradient against the single controller's, each leaf's
-# 2-norm of the difference over its own: AdamW's first moment after step
+# the summed gradient against the single controller's, each leaf's
+# 2-norm of the difference over its own (over the ranks' blocks, each
+# distinct block once): AdamW's first moment after step
 # 1 is 0.1 g (clipped alike), so it carries the gradient itself, where
 # the first update is about lr sign(g) and hides a wrong sum. On the card
 # the two sides' bf16 gradients come out of kernels that reduce in other
@@ -4398,8 +4410,9 @@ PROCS_GNORM_RTOL = 1e-3
 # A sum that drops a position's term is off by 0.5 or more, a negated
 # or misplaced one by 1 or more.
 PROCS_GRAD_RTOL = 5e-2
-# the share of rank 0's updated weights more than 1 bf16 ulp off the
-# single controller's (0.151% yi, 0.660% moe measured, none over 1 ulp):
+# the share of the updated weights (the ranks' blocks, each distinct
+# block once) more than 1 bf16 ulp off the single controller's (0.151%
+# yi, 0.660% moe measured on rank 0's whole weights, none over 1 ulp):
 # where |w| < 2^-4 a negated gradient moves a weight by 2 lr, over 2 ulps,
 # a zeroed one by lr, over 1 ulp
 PROCS_ULP_SHARE = 0.02
@@ -4444,24 +4457,33 @@ def _procs_rank(rank, dev, single_paths):
 def _procs_run(rank, dev, arch, layers, cut, shape, smoke, n_steps,
                single_path):
     """One training config of the procs phase in one process: its
-    training at the process's position of the process mesh, `n_steps`
-    steps from the seeds the single controller used (launch counts zeroed
-    just before). Rank 0 holds its first step's updated weights and
-    first moment against the single controller's (`single_path`).
-    Returns the metrics, counted bytes, launches, step ms and each step's
-    gradient sum ms (synchronized around it), peak, set-up s and the
-    digests of the weights after step 2."""
+    training at the process's position of the process mesh, holding its
+    blocks of the parameters and AdamW moments (`launch.specs.
+    param_shardings`), `n_steps` steps from the seeds the single
+    controller used (launch counts zeroed just before). Every rank holds
+    its first step's weight and first-moment blocks against the same
+    blocks of the single controller's (`single_path`). Returns the
+    metrics, counted bytes, launches, step ms, each step's gradient
+    reduce ms and parameter gather ms (each call synchronized around
+    it), peak and at-rest GiB, set-up s, the block of each leaf it holds
+    and the digests of its blocks and of the gathered weights after step
+    2."""
     import hashlib
 
     import torch
     from repro_torch import mesh as mesh_mod
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import _lib
-    from repro_torch.launch import steps
+    from repro_torch.launch import specs, steps
     from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.models.config import Runtime
     from repro_torch.obs.registry import MetricsRegistry
     from repro_torch.optim.adamw import adamw_init, tree_leaves
+
+    def digests(ts):
+        return [hashlib.sha256(t.detach().cpu().contiguous().view(-1)
+                               .view(torch.uint8).numpy().tobytes())
+                .hexdigest() for t in ts]
 
     t_enter = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4471,48 +4493,72 @@ def _procs_run(rank, dev, arch, layers, cut, shape, smoke, n_steps,
     pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, device=str(dev))
     batches = [pipe.next_batch(i) for i in range(n_steps)]
     reg = MetricsRegistry()
-    step = steps.make_train_step(cfg, Runtime(mesh=mesh, training=True,
-                                              registry=reg))
+    rt = Runtime(mesh=mesh, training=True, registry=reg)
+    step = steps.make_train_step(cfg, rt)
+    whole = specs.abstract_params(cfg)
+    layouts = specs.param_shardings(cfg, rt, whole)
+    p = specs.shard_tree(mesh, params, layouts)
+    del params
+    opt = adamw_init(p)
     gen = torch.Generator(device=dev).manual_seed(1)
-    p, opt = params, adamw_init(params)
-    out = {"sum_ms": []}
-    summed = mesh_mod.sum_processes
+    out = {"reduce_ms": [], "gather_ms": [],
+           "rest_gib": sum(t.numel() * t.element_size() for t in
+                           tree_leaves(p) + tree_leaves(opt["mu"])
+                           + tree_leaves(opt["nu"])) / 2**30,
+           "blocks": [mesh_mod.block_of(mesh, rank, lay)
+                      for lay in tree_leaves(layouts)]}
+    moves = {"reduce_ms": mesh_mod.reduce_to_block,
+             "gather_ms": mesh_mod.gather}
+    acc = dict.fromkeys(moves, 0.0)
 
-    def timed_sum(mesh_, ts):
-        # each step's gradient sum, timed where the step calls it
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        summed(mesh_, ts)
-        torch.cuda.synchronize()
-        out["sum_ms"].append((time.perf_counter() - t0) * 1e3)
+    def timed(key):
+        # the step's gradient reduces and parameter gathers, each timed
+        # where the step calls it, summed over a step
+        fn = moves[key]
 
-    mesh_mod.sum_processes = timed_sum
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc[key] += (time.perf_counter() - t0) * 1e3
+            return got
+        return run
+
+    mesh_mod.reduce_to_block = timed("reduce_ms")
+    mesh_mod.gather = timed("gather_ms")
     torch.cuda.synchronize()
     out["setup_s"] = time.perf_counter() - t_enter
     torch.cuda.reset_peak_memory_stats(dev)
     _lib.reset_launch_counts()
     times = []
-    for i in range(n_steps):
-        t0 = time.perf_counter()
-        p, opt, m = step(p, opt, batches[i], gen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        if i == 0:
-            out["metrics"] = {k: float(v) for k, v in m.items()}
-            out["bytes1"] = mesh_mod.collective_bytes(reg.snapshot())
-            if rank == 0:
-                out["vs_single"] = _against_single(p, opt["mu"],
-                                                   single_path, dev)
-        if i == 1:
-            out["digests"] = [hashlib.sha256(
-                t.detach().cpu().contiguous().view(-1).view(torch.uint8)
-                .numpy().tobytes()).hexdigest() for t in tree_leaves(p)]
-        out.setdefault("losses", []).append(float(m["loss"]))
-    out["launches"] = _lib.launch_counts()
+    try:
+        for i in range(n_steps):
+            acc.update(dict.fromkeys(moves, 0.0))
+            t0 = time.perf_counter()
+            p, opt, m = step(p, opt, batches[i], gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            for key in moves:
+                out[key].append(acc[key])
+            if i == 0:
+                out["metrics"] = {k: float(v) for k, v in m.items()}
+                out["bytes1"] = mesh_mod.collective_bytes(reg.snapshot())
+                out["vs_single"] = _against_single(
+                    p, opt["mu"], single_path, dev, mesh, layouts)
+            out.setdefault("losses", []).append(float(m["loss"]))
+        out["launches"] = _lib.launch_counts()
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    finally:
+        mesh_mod.reduce_to_block, mesh_mod.gather = moves.values()
     out["bytes"] = mesh_mod.collective_bytes(reg.snapshot())
     out["times"] = times
-    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-    mesh_mod.sum_processes = summed
+    # after the last step: this rank's blocks, and the weights gathered
+    out["digests"] = digests(tree_leaves(p))
+    out["gathered"] = [digests([mesh_mod.gather(mesh, b, lay, w.shape)])[0]
+                       for b, lay, w in zip(tree_leaves(p),
+                                            tree_leaves(layouts),
+                                            tree_leaves(whole))]
     return out
 
 
@@ -4598,27 +4644,34 @@ def _bf16_ulps(y):
     return torch.ldexp(torch.ones_like(y), torch.frexp(y)[1] - 8)
 
 
-def _against_single(params, mu, path, dev):
-    """Each updated weight and first moment against the single
-    controller's, saved at `path`: (leaf, max |diff|, elements that
-    differ, elements, elements off by more than 1 bf16 ulp of the single
-    controller's weight y, elements off by more than 2 lr + the two
-    roundings (half an ulp of y and half an ulp of rank 0's weight x:
-    the most two first updates that differ in sign can part two
-    round-to-nearest bf16 weights, also where x and y lie on two sides of
-    a power of two), the first moment's 2-norm of the difference over its
-    own). The weight bound only says the update stayed an AdamW step: a
-    wrong gradient sum is caught by the first moment's 2-norm
-    (`PROCS_GRAD_RTOL`)."""
+def _against_single(params, mu, path, dev, mesh, layouts):
+    """This process's blocks of each updated weight and first moment
+    against the same blocks of the single controller's, saved whole at
+    `path` (`layouts`: the blocks' on `mesh`): (leaf, max |diff|,
+    elements that differ, elements, elements off by more than 1 bf16 ulp
+    of the single controller's weight y, elements off by more than 2 lr
+    + the two roundings (half an ulp of y and half an ulp of this rank's
+    weight x: the most two first updates that differ in sign can part
+    two round-to-nearest bf16 weights, also where x and y lie on two
+    sides of a power of two), the first moment's sum of squares of the
+    difference and its own, in f64). The weight bound only says the
+    update stayed an AdamW step: a wrong gradient sum is caught by the
+    first moment's 2-norm of the difference over its own, leaf by leaf
+    over the ranks' blocks (`PROCS_GRAD_RTOL`)."""
     import torch
+    from repro_torch import mesh as mesh_mod
     from repro_torch.optim.adamw import tree_leaves
 
     lr = 3e-4                  # make_train_step's default
     ref = torch.load(path, map_location="cpu", mmap=True)
+    (pos,) = mesh.local
     out = []
-    for name, a, b, m, n in zip(_leaf_names(params), tree_leaves(params),
-                                tree_leaves(ref["params"]), tree_leaves(mu),
-                                tree_leaves(ref["mu"])):
+    for name, a, b, m, n, lay in zip(
+            _leaf_names(params), tree_leaves(params),
+            tree_leaves(ref["params"]), tree_leaves(mu),
+            tree_leaves(ref["mu"]), tree_leaves(layouts)):
+        cut = mesh_mod.block_slices(mesh, pos, lay, b.shape)
+        b, n = b[cut], n[cut]
         stats = [0.0, 0, a.numel(), 0, 0]
         sq = [0.0, 0.0]        # sum (m - n)^2, sum n^2, in f64
         # 2^26 elements at a time: the f32 temporaries stay small
@@ -4637,9 +4690,36 @@ def _against_single(params, mu, path, dev):
             v = v.to(dev).double()
             sq[0] += float(torch.sum(torch.square(u.double() - v)))
             sq[1] += float(torch.sum(torch.square(v)))
-        out.append((name, *stats, math.sqrt(sq[0] / sq[1]) if sq[1]
-                    else math.sqrt(sq[0])))
+        out.append((name, *stats, *sq))
     return out
+
+
+def _leafwise(ranks):
+    """Each leaf's readings over the distinct blocks the ranks hold (the
+    first holder of each; `_against_single`'s per rank): (leaf, max
+    |diff|, differing, elements, over 1 ulp, over the bound, the first
+    moment's relative 2-norm of the difference). Fatal where two ranks
+    holding one block read it differently."""
+    leaves = []
+    for i, first in enumerate(ranks[0]["vs_single"]):
+        seen, stats, sq = {}, [0.0, 0, 0, 0, 0], [0.0, 0.0]
+        for r, got in enumerate(ranks):
+            v = got["vs_single"][i]
+            blk = got["blocks"][i]
+            if blk in seen:
+                if v != seen[blk]:
+                    fail(f"{first[0]}: ranks holding block {blk} read "
+                         f"{seen[blk]} and {v}")
+                continue
+            seen[blk] = v
+            stats[0] = max(stats[0], v[1])
+            for j in range(1, 5):
+                stats[j] += v[j + 1]
+            sq[0] += v[6]
+            sq[1] += v[7]
+        leaves.append((first[0], *stats, math.sqrt(sq[0] / sq[1]) if sq[1]
+                       else math.sqrt(sq[0])))
+    return leaves
 
 
 def _procs_single(arch, layers, cut, shape, smoke, n_steps, path, dev):
@@ -4744,20 +4824,25 @@ def _procs_checks(run, single, want, ranks, card):
     """The fatal checks of one training config's processes against the
     single controller's first step (`single`) and
     `training_collective_costs` (`want`): the first step's loss and aux
-    bit for bit, its grad norm within `PROCS_GNORM_RTOL`, rank 0's summed
-    gradient within `PROCS_GRAD_RTOL` leaf by leaf, its updated weights
-    within 2 lr + half a bf16 ulp of each side (`_against_single`) and
-    at most `PROCS_ULP_SHARE` of them off by more than 1 ulp; the weights equal on every rank after step 2; the
-    counted bytes; the codec kernels (randtopk_mask, decode_rows,
-    scatter_rows) once a process a step (every position of a batch shard
-    runs the codec on equal rows); finite losses. Prints each rank's
-    step ms. Returns the launches summed over the processes."""
+    bit for bit, its grad norm within `PROCS_GNORM_RTOL`, the first
+    moment's blocks of every rank within `PROCS_GRAD_RTOL` leaf by leaf
+    (the summed gradient), every rank's updated weight blocks within 2 lr
+    + half a bf16 ulp of each side (`_against_single`, `_leafwise`) and
+    at most `PROCS_ULP_SHARE` of them off by more than 1 ulp; after the
+    last step the blocks two ranks hold equal and the gathered weights
+    equal on every rank; the counted bytes; the codec kernels
+    (randtopk_mask, decode_rows, scatter_rows) once a process a step
+    (every position of a batch shard runs the codec on equal rows);
+    finite losses. Prints each rank's step, gradient reduce and
+    parameter gather ms, peak and at-rest GiB. Returns the launches
+    summed over the processes."""
     import collections
 
     arch, layers, _, shape, smoke, n_steps = run
     total = collections.Counter()
     label = (f"procs {arch}{' SMOKE' if smoke else ''} "
              f"{layers or 'all'} layers {shape}")
+    held = {}
     for r, got in enumerate(ranks):
         g = got["metrics"]
         if g["loss"] != single["loss"] or g["aux"] != single["aux"]:
@@ -4779,52 +4864,62 @@ def _procs_checks(run, single, want, ranks, card):
         if wrong:
             fail(f"{label} rank {r}: launches {wrong}, one a step of each "
                  f"expected")
-        if got["digests"] != ranks[0]["digests"]:
-            fail(f"{label}: rank {r}'s weights after step 2 differ from "
-                 f"rank 0's")
+        if got["gathered"] != ranks[0]["gathered"]:
+            fail(f"{label}: the weights rank {r} gathers after step "
+                 f"{n_steps} differ from rank 0's")
+        for i, (blk, digest) in enumerate(zip(got["blocks"],
+                                              got["digests"])):
+            if held.setdefault((i, blk), digest) != digest:
+                fail(f"{label}: rank {r}'s block {blk} of leaf {i} after "
+                     f"step {n_steps} differs from another rank's")
         if not all(math.isfinite(v) for v in got["losses"]):
             fail(f"{label} rank {r}: losses {got['losses']}")
         total.update({n: got["launches"][n]
                       for n in TRAIN_PATH_KERNELS["randtopk"]})
-    vs = ranks[0]["vs_single"]
+    vs = _leafwise(ranks)
     n_el = sum(v[3] for v in vs)
     share = sum(v[4] for v in vs) / n_el
     worst = max(vs, key=lambda v: v[6])
-    print(f"  {label}, {len(ranks)} processes sharing the card over gloo: "
-          f"first step loss {single['loss']} aux {single['aux']} = the "
-          f"single controller's bit for bit on every rank; grad norm "
+    print(f"  {label}, {len(ranks)} processes sharing the card over gloo, "
+          f"each holding its blocks of the params and moments: first step "
+          f"loss {single['loss']} aux {single['aux']} = the single "
+          f"controller's bit for bit on every rank; grad norm "
           f"{[g['metrics']['grad_norm'] for g in ranks]} (single "
-          f"{single['grad_norm']}); rank 0's summed gradient (first "
-          f"moment) off the single controller's by {worst[6]:.3g} at most "
-          f"({worst[0]}; 2-norm of the difference over its own, limit "
-          f"{PROCS_GRAD_RTOL}), median leaf "
-          f"{statistics.median(v[6] for v in vs):.3g}; rank 0's updated "
-          f"weights: {sum(v[2] for v in vs)} of {n_el} elements differ "
-          f"({sum(v[2] for v in vs) / n_el:.4%}; max |diff| "
+          f"{single['grad_norm']}); the ranks' first-moment blocks (the "
+          f"summed gradient) off the single controller's by "
+          f"{worst[6]:.3g} at most ({worst[0]}; 2-norm of the difference "
+          f"over its own, limit {PROCS_GRAD_RTOL}), median leaf "
+          f"{statistics.median(v[6] for v in vs):.3g}; the ranks' updated "
+          f"weight blocks: {sum(v[2] for v in vs)} of {n_el} elements "
+          f"differ ({sum(v[2] for v in vs) / n_el:.4%}; max |diff| "
           f"{max(v[1] for v in vs):.3g}; {sum(1 for v in vs if v[2])} of "
           f"{len(vs)} leaves), {share:.4%} by more than 1 ulp (limit "
           f"{PROCS_ULP_SHARE:.0%}), {sum(v[5] for v in vs)} by more than "
-          f"2 lr + half an ulp of each side; weights equal on every rank "
-          f"after step 2; "
+          f"2 lr + half an ulp of each side; after step {n_steps} shared "
+          f"blocks equal and the gathered weights equal on every rank; "
           f"collective bytes a step {want} on every rank; codec launches a "
           f"process {n_steps} of each in {n_steps} steps")
     off = [v for v in vs if v[5] or v[6] > PROCS_GRAD_RTOL]
     if off:
-        fail(f"{label}: rank 0's first step off the single controller's "
+        fail(f"{label}: the ranks' first step off the single controller's "
              f"(leaf, max |diff|, differing, elements, over 1 ulp, over 2 "
              f"lr + half an ulp of each side, the first moment's relative "
              f"2-norm): {off}")
     if share > PROCS_ULP_SHARE:
-        fail(f"{label}: {share:.4%} of rank 0's first-step weights more "
+        fail(f"{label}: {share:.4%} of the ranks' first-step weights more "
              f"than 1 bf16 ulp off the single controller's")
     for r, got in enumerate(ranks):
         print(f"    rank {r}: losses {got['losses']}; step ms "
               f"{[round(t, 1) for t in got['times']]}, median of steps "
               f"2-{n_steps} {statistics.median(got['times'][1:]):.1f} "
-              f"ms, of it the gradient sum "
-              f"{[round(t, 1) for t in got['sum_ms']]} ms; peak "
-              f"{got['peak_gib']:.2f} GiB; set-up (mesh, weights, batches) "
-              f"{got['setup_s']:.1f} s; {card}")
+              f"ms, of it the gradient reduce "
+              f"{[round(t, 1) for t in got['reduce_ms']]} ms and the "
+              f"parameter gather {[round(t, 1) for t in got['gather_ms']]}"
+              f" ms; peak {got['peak_gib']:.2f} GiB (whole parameters "
+              f"and moments: {PROCS_WHOLE_PEAK_GIB[arch]:.2f}), at rest "
+              f"(param and moment blocks) {got['rest_gib']:.2f} GiB; "
+              f"set-up (mesh, weights, batches) {got['setup_s']:.1f} s; "
+              f"{card}")
     return total
 
 

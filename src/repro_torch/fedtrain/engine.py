@@ -188,6 +188,9 @@ def run_fedtrain(spec: tabular.SplitSpec, dataset, *, n_clients: int = 1,
         t.join(timeout=reply_timeout + 300)
     server.shutdown()
     train_thread.join(timeout=120)
+    # no reader may outlive the run: a daemon thread still inside torch
+    # when the interpreter exits aborts it
+    readers = server.join_readers(timeout=30)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -198,7 +201,7 @@ def run_fedtrain(spec: tabular.SplitSpec, dataset, *, n_clients: int = 1,
     errs = [(c.id, c.error) for c in clients if c.error is not None]
     if errs:
         raise RuntimeError(f"training clients failed: {errs}") from errs[0][1]
-    stuck = [t for t in threads + [train_thread] if t.is_alive()]
+    stuck = [t for t in threads + [train_thread] + readers if t.is_alive()]
     if stuck:
         raise RuntimeError(f"{len(stuck)} fedtrain threads did not finish")
 

@@ -48,6 +48,7 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.steps import make_serve_step, make_train_step
 from repro_torch.models.config import Runtime, SplitConfig
 from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.optim.adamw import adamw_init
 from repro_torch.roofline import analysis
 from repro_torch.roofline.program import (CollectiveStats, ProgramCounts,
                                           collective_stats, count_program)
@@ -125,6 +126,25 @@ def count_one(cfg, shape, mesh,
     with count_program(rt.registry) as counts:
         run()
     return Counted(counts, _storage_bytes(args), collective_stats(cache_reg))
+
+
+def device_args_bytes(cfg, mesh, kind: str) -> int:
+    """One device's argument bytes on `mesh`: the bytes of its blocks of
+    the parameters (`specs.param_shardings`) and, for a train step, of
+    both AdamW moments (`specs.opt_shardings`), the layouts a process
+    mesh holds. The counterpart of the reference's
+    `memory_analysis().argument_size_in_bytes`, less the batch's and the
+    decode cache's shards and the step counter."""
+    rt = Runtime(mesh=mesh)
+    params = specs_mod.abstract_params(cfg)
+    lay = specs_mod.param_shardings(cfg, rt, params)
+    total = specs_mod.block_bytes(params, lay, mesh.shape)
+    if kind == "train":
+        opt = adamw_init(params)
+        olay = specs_mod.opt_shardings(cfg, rt, params)
+        total += sum(specs_mod.block_bytes(opt[k], olay[k], mesh.shape)
+                     for k in ("mu", "nu"))
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -379,11 +399,14 @@ def run_combo(arch: str, shape_name: str, *, multi_pod=False, split=None,
         got.counts, arch=arch, shape=shape_name,
         mesh_desc="x".join(map(str, mesh.shape.values())), chips=chips,
         model_flops=mf, args_bytes=got.args_bytes)
+    per_device = device_args_bytes(cfg, mesh, shape.kind)
     print(f"== {arch} x {shape_name} mesh={roof.mesh} "
           f"(count {dt:.1f}s) ==")
-    print(f"  memory: args={got.args_bytes / 1e9:.2f}GB "
+    print(f"  memory: args/device={per_device / 1e9:.2f}GB (the blocks "
+          f"of the params{' and moments' if shape.kind == 'train' else ''}"
+          f", per device) args={got.args_bytes / 1e9:.2f}GB "
           f"peak={roof.peak_memory / 1e9:.2f}GB (one device holding "
-          f"every position: no per-chip figure)")
+          f"every position: no per-chip peak)")
     r = roof.row()
     print(f"  cost: flops={r['hlo_flops']:.3e} "
           f"model_flops={r['model_flops']:.3e} "

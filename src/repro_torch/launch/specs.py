@@ -5,24 +5,34 @@ Nothing here allocates: parameters, optimizer state, caches and batches
 are tensors on the `meta` device (the reference's `jax.eval_shape` and
 `ShapeDtypeStruct`s), of the reference's shapes and dtypes.
 
-The reference's sharding trees have no counterpart. The port's parameters
-stay whole, one tensor a leaf, and `models.tp.Layout` shards inside the
-step, so `spec_to_shardings`, `opt_shardings` and `batch_shardings` go
-away; `dp_only_spec` is `Runtime.dp_only`; and `_sanitize_spec`'s rule,
-that a mesh axis which does not divide a dimension leaves it whole, is
-`tp.Layout.whole` (a batch the batch axes do not divide) and
-`tp.flash_split` (a KV ring or cross KV that 'model' does not divide).
+The reference's sharding trees drive the process mesh. Every parameter
+leaf has a logical layout (`models.transformer.param_spec`, the
+reference's `PartitionSpec`s as plain tuples); `param_shardings` resolves
+it on a mesh as the reference's `spec_to_shardings` and
+`sanitize_shardings` do (`dp_only_spec` under `Runtime.dp_only`,
+`sanitize_spec`), and `opt_shardings` gives the AdamW moments the same
+layouts. On a `mesh.ProcessMesh` each process keeps only its block of
+every parameter and moment (`mesh.shard`), and the train step gathers,
+differentiates and reduces them (`launch.steps`); the dry run sums the
+blocks' bytes into its per-device argument bytes (`launch.dryrun`). On
+the single controller the parameters stay whole, one tensor a leaf, and
+`models.tp.Layout` shards inside the step; a batch the batch axes do not
+divide stays whole (`tp.Layout.whole`), and so does a KV ring or cross
+KV that 'model' does not divide (`tp.flash_split`), the counterparts of
+`batch_shardings` and the cache's trees.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import math
+from typing import Dict, Mapping
 
 import torch
 
+from repro_torch import mesh as mesh_mod
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig, Runtime
-from repro_torch.optim.adamw import adamw_init
+from repro_torch.optim.adamw import adamw_init, tree_leaves, tree_map
 from repro_torch.split import model as split_model
 
 META = torch.device("meta")
@@ -53,6 +63,103 @@ def adapt_config(cfg: ArchConfig, shape: ShapeSpec) -> ArchConfig:
     if shape.name == "long_500k" and cfg.family != "ssm":
         return cfg.with_(sliding_window=LONG_CTX_WINDOW)
     return cfg
+
+
+def dp_only_spec(spec: tuple) -> tuple:
+    """The ZeRO-3 layout: no tensor parallelism ('model' -> whole) and the
+    'data' dimension over ('data', 'model'), so a parameter splits over
+    the whole mesh and is gathered for its use."""
+    return tuple(None if e == "model" else ("data", "model") if e == "data"
+                 else e for e in spec)
+
+
+def _entry_axes(entry) -> tuple:
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def sanitize_spec(spec: tuple, shape, mesh_shape: Mapping[str, int]
+                  ) -> tuple:
+    """`spec` with every entry whose mesh axes do not divide its
+    dimension made whole (the reference's `_sanitize_spec`: a 4-way GQA
+    projection on a 16-way 'model' axis, a vocab the axes do not divide).
+    `mesh_shape` maps each axis to its size. An axis the mesh does not
+    have, or one named twice, raises: no mesh takes that layout."""
+    out, used = [], []
+    for i, entry in enumerate(spec):
+        if entry is None or i >= len(shape):
+            out.append(entry)
+            continue
+        axes = _entry_axes(entry)
+        missing = [a for a in axes if a not in mesh_shape]
+        if missing or any(a in used for a in axes):
+            raise ValueError(f"layout {spec} names "
+                             f"{missing or axes}: not the axes of a mesh "
+                             f"{dict(mesh_shape)}")
+        used.extend(axes)
+        n = math.prod(mesh_shape[a] for a in axes)
+        out.append(entry if shape[i] % n == 0 else None)
+    return tuple(out)
+
+
+def param_shardings(cfg: ArchConfig, rt: Runtime, params):
+    """Each leaf of `params` (whole tensors, or any tree of them with
+    `init_model`'s shape, `meta` ones included) as its layout on
+    `rt.mesh`: `transformer.param_spec`, `dp_only_spec` under
+    `rt.dp_only`, then `sanitize_spec` against the leaf's shape."""
+    mesh_shape = rt.mesh.shape
+
+    def resolve(spec, leaf):
+        if rt.dp_only:
+            spec = dp_only_spec(spec)
+        return sanitize_spec(spec, tuple(leaf.shape), mesh_shape)
+
+    return tree_map(resolve, _matched(transformer.param_spec(cfg), params),
+                    params)
+
+
+def _matched(spec, params):
+    """`spec` restricted to, and checked against, the tree of `params`."""
+    if not isinstance(params, dict):
+        if isinstance(spec, dict):
+            raise ValueError(f"a layout tree {spec} where a leaf is")
+        return spec
+    if not isinstance(spec, dict) or set(spec) != set(params):
+        raise ValueError(f"the layouts {spec} and the parameters "
+                         f"{sorted(params)} differ")
+    return {k: _matched(spec[k], v) for k, v in params.items()}
+
+
+def opt_shardings(cfg: ArchConfig, rt: Runtime, params):
+    """The AdamW state's layouts: the moments take the parameters'
+    (`param_shardings`), `step` is replicated."""
+    lay = param_shardings(cfg, rt, params)
+    return {"mu": lay, "nu": lay, "step": ()}
+
+
+def shard_tree(mesh, tree, layouts):
+    """This process's block of every whole leaf of `tree` (`mesh.shard`)."""
+    return tree_map(lambda t, lay: mesh_mod.shard(mesh, t, lay), tree,
+                    layouts)
+
+
+def gather_tree(mesh, blocks, layouts, like):
+    """The whole leaves of `blocks`, each of the shape of its leaf of
+    `like` (whole tensors, `meta` ones included), from every process's
+    blocks (`mesh.gather`, a collective: every process calls it)."""
+    return tree_map(lambda b, lay, w: mesh_mod.gather(mesh, b, lay,
+                                                      w.shape),
+                    blocks, layouts, like)
+
+
+def block_bytes(tree, layouts, mesh_shape: Mapping[str, int]) -> int:
+    """The bytes of one position's blocks of every leaf of `tree` under
+    `layouts` (each dimension divided by the mesh axes of its entry)."""
+    total = 0
+    for t, lay in zip(tree_leaves(tree), tree_leaves(layouts)):
+        n = math.prod(mesh_shape[a] for e in lay if e is not None
+                      for a in _entry_axes(e))
+        total += t.numel() // n * t.element_size()
+    return total
 
 
 def abstract_params(cfg: ArchConfig):

@@ -10,10 +10,14 @@ On a training mesh (`Runtime.mesh`) the parameters stay whole, one tensor
 a leaf, and each position takes its shard as a slice: autograd's
 accumulation into the leaf is the data-parallel gradient sum, so AdamW
 and the global grad norm are the mesh-less ones. On a process mesh
-(`mesh.ProcessMesh`, every family) every process holds the whole
-parameters and differentiates its own position's share of the loss
-(`_loss_procs`), then sums the gradients over the processes in position
-order, so every process applies the same update. The serve step
+(`mesh.ProcessMesh`, every family) every process holds only its block of
+each parameter and AdamW moment, laid out by the reference's sharding
+trees (`launch.specs.param_shardings`): the step gathers the whole
+parameters, differentiates its own position's share of the loss
+(`_loss_procs`), reduces each gradient to its block, adding the
+processes' gradients in position order, and updates its blocks; the
+loss is the single controller's, bit for bit. Decoding on a process
+mesh takes whole parameters. The serve step
 (`make_serve_step`) is one greedy token of the whole batch with a KV
 cache, the reference's `make_serve_step`, on a process mesh too.
 """
@@ -24,6 +28,7 @@ from typing import Callable
 import torch
 
 from repro_torch import mesh as mesh_mod
+from repro_torch.launch import specs
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig, Runtime
 from repro_torch.optim.adamw import adamw_update, tree_leaves, tree_map
@@ -101,36 +106,24 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, *, lr=3e-4,
     metrics): one AdamW step on the split model; `generator` feeds the
     cut's RandTopK draws. A parameter group the loss cannot reach
     (`_unreached_groups`) takes a zero gradient, as `jax.grad` gives; any
-    other leaf the loss does not reach raises (a wiring fault). On a
-    process mesh each process differentiates its share of the loss
-    (`_loss_procs`) and the gradients are summed over the processes in
-    position order (`mesh.sum_processes`) before AdamW."""
+    other leaf the loss does not reach raises (a wiring fault).
+
+    On a process mesh the params and moments are this process's blocks
+    (`launch.specs.param_shardings`, `opt_shardings`; `specs.shard_tree`
+    makes them) and so are the returned ones. The step gathers every
+    leaf (`mesh.gather`), differentiates this process's share of the loss
+    (`_loss_procs`), reduces each gradient to this process's block in
+    position order (`mesh.reduce_to_block`), each whole gradient freed
+    as its block is made, forms the global grad norm from the blocks
+    (`_block_norm`) and applies AdamW to the blocks."""
     unreached = _unreached_groups(cfg)
-    procs = rt.mesh is not None and rt.mesh.procs
+    if rt.mesh is not None and rt.mesh.procs:
+        return _procs_train_step(cfg, rt, unreached, lr, weight_decay)
 
     def step(params, opt_state, batch, generator):
         params = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        if procs:
-            objective, total, ce, aux = _loss_procs(params, cfg, rt, batch,
-                                                    generator)
-        else:
-            total, (ce, aux) = loss_fn(params, cfg, rt, batch, generator)
-            objective = total
-        leaves = tree_leaves(params)
-        grads = torch.autograd.grad(objective, leaves, allow_unused=True)
-        it = iter(grads)
-        grads = {name: tree_map(lambda p, name=name: _grad_of(
-            next(it), p, name, unreached), sub)
-            for name, sub in params.items()}
-        if procs:
-            # summed in place a leaf at a time, so that each process's own
-            # gradient is freed as its sum is made
-            del it
-            flat = tree_leaves(grads)
-            del grads
-            mesh_mod.sum_processes(rt.mesh, flat)
-            it = iter(flat)
-            grads = tree_map(lambda _: next(it), params)
+        total, (ce, aux) = loss_fn(params, cfg, rt, batch, generator)
+        grads = _grads(total, params, unreached)
         new_params, new_opt, gnorm = adamw_update(
             params, grads, opt_state, lr=lr, weight_decay=weight_decay)
         metrics = {"loss": total.detach(), "ce": ce.detach(),
@@ -138,6 +131,73 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, *, lr=3e-4,
         return new_params, new_opt, metrics
 
     return step
+
+
+def _grads(objective, params, unreached):
+    """d objective / d params as a tree like `params`."""
+    grads = torch.autograd.grad(objective, tree_leaves(params),
+                                allow_unused=True)
+    it = iter(grads)
+    return {name: tree_map(lambda p, name=name: _grad_of(
+        next(it), p, name, unreached), sub)
+        for name, sub in params.items()}
+
+
+def _procs_train_step(cfg, rt, unreached, lr, weight_decay):
+    """`make_train_step` on a process mesh: block trees in and out."""
+    mesh = rt.mesh
+    whole = specs.abstract_params(cfg)
+    layouts = specs.param_shardings(cfg, rt, whole)
+
+    def owners(lay):
+        """The positions whose block of a leaf under `lay` is counted
+        into the norm: the first holder of each distinct block."""
+        first = {}
+        for p in range(mesh.size):
+            first.setdefault(mesh_mod.block_of(mesh, p, lay), p)
+        return sorted(first.values())
+
+    owned = tree_map(owners, layouts)
+
+    def step(blocks, opt_state, batch, generator):
+        params = tree_map(lambda b, lay, w: mesh_mod.gather(
+            mesh, b, lay, w.shape).detach().requires_grad_(True),
+            blocks, layouts, whole)
+        objective, total, ce, aux = _loss_procs(params, cfg, rt, batch,
+                                                generator)
+        flat = tree_leaves(_grads(objective, params, unreached))
+        del objective, params     # the graph and the whole parameters
+        # the leaves in the order of `blocks`, as `flat` holds them
+        lays = tree_leaves(tree_map(lambda _, lay: lay, blocks, layouts))
+        for i, lay in enumerate(lays):
+            flat[i] = mesh_mod.reduce_to_block(mesh, flat[i], lay)
+        gnorm = _block_norm(mesh, flat, tree_leaves(
+            tree_map(lambda _, own: own, blocks, owned)))
+        it = iter(flat)
+        grads = tree_map(lambda _: next(it), blocks)
+        del flat, it
+        new_blocks, new_opt, gnorm = adamw_update(
+            blocks, grads, opt_state, lr=lr, weight_decay=weight_decay,
+            gnorm=gnorm)
+        metrics = {"loss": total.detach(), "ce": ce.detach(),
+                   "aux": aux.detach(), "grad_norm": gnorm}
+        return new_blocks, new_opt, metrics
+
+    return step
+
+
+def _block_norm(mesh, blocks, owners):
+    """The global grad norm from the gradient blocks: each block's f32 sum
+    of squares, fetched from every process (`mesh.gather_values`, not
+    counted) and added leaf by leaf in position order, a block that
+    several positions hold counted once (`owners`)."""
+    sq = torch.stack([torch.sum(torch.square(g.float())) for g in blocks])
+    vals = mesh_mod.gather_values(mesh, sq)
+    acc = None
+    for i, own in enumerate(owners):
+        for p in own:
+            acc = vals[p][i] if acc is None else acc + vals[p][i]
+    return torch.sqrt(acc)
 
 
 def _unreached_groups(cfg: ArchConfig) -> frozenset:

@@ -71,10 +71,16 @@ frames) and the moe's expert parallelism (`models.tp`). Every position
 lies on the one device of `--device`; the parameters stay whole there.
 With `--procs` (every family) one process drives each
 position (`launch.mesh.spawn`, over gloo: several processes share the
-card, or the CPU with `--device cpu`), each holding the whole
-parameters; rank 0 prints and checkpoints, and the step is the single
-controller's (`launch.steps`). `--devices` gives one card a process
-over NCCL instead (not yet run: it needs as many cards as positions).
+card, or the CPU with `--device cpu`). Each draws the whole model from
+`--seed` and keeps only its block of every parameter and AdamW moment,
+laid out by the reference's sharding trees (`launch.specs.
+param_shardings`); the step gathers the parameters and reduces the
+gradients to the blocks, and its loss is the single controller's
+(`launch.steps`). Every rank gathers the blocks to checkpoint and rank 0
+writes the single controller's files; at resume each rank reads the
+whole files and keeps its blocks. Rank 0 prints. `--devices` gives one
+card a process over NCCL instead (not yet run: it needs as many cards
+as positions).
 """
 from __future__ import annotations
 
@@ -86,13 +92,15 @@ import time
 import torch
 
 from repro_torch import configs
+from repro_torch import mesh as mesh_mod
 from repro_torch.checkpoint import store
 from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch import specs
 from repro_torch.launch.mesh import make_mesh, make_process_mesh, spawn
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import common, transformer
 from repro_torch.models.config import Runtime, SplitConfig
-from repro_torch.optim.adamw import adamw_init
+from repro_torch.optim.adamw import adamw_init, tree_map
 from repro_torch.runtime.engine import resolve_device
 from repro_torch.split import protocol
 
@@ -176,10 +184,18 @@ def _train(args, dev, mesh, lead=True):
     rt = Runtime(mesh=mesh, training=True)
     params = transformer.init_model(
         cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
-    opt = adamw_init(params)
     write(f"arch={cfg.name} layers={cfg.n_layers} "
           f"params={common.count_params(params):,} "
           f"device={dev} mesh={mesh} split={cfg.split}")
+    sharded = None
+    if mesh is not None and mesh.procs:
+        # (layouts, whole shapes on `meta`) of the params and of the
+        # AdamW state: each process keeps its blocks
+        whole = specs.abstract_params(cfg)
+        sharded = ((specs.param_shardings(cfg, rt, whole), whole),
+                   (specs.opt_shardings(cfg, rt, whole), adamw_init(whole)))
+        params = specs.shard_tree(mesh, params, sharded[0][0])
+    opt = adamw_init(params)
     if cfg.split:
         analytic = protocol.wire_bytes_per_step(cfg, args.batch, args.seq,
                                                 training=True)
@@ -198,8 +214,13 @@ def _train(args, dev, mesh, lead=True):
         rng_dir = os.path.join(args.ckpt_dir, "rng")
         last = store.latest_step(args.ckpt_dir)
         if last >= 0:
-            params = store.restore(args.ckpt_dir, last, params)
-            opt = store.restore(opt_dir, last, opt)
+            if sharded is None:
+                params = store.restore(args.ckpt_dir, last, params)
+                opt = store.restore(opt_dir, last, opt)
+            else:
+                params = _restore_blocks(mesh, args.ckpt_dir, last,
+                                         *sharded[0], dev)
+                opt = _restore_blocks(mesh, opt_dir, last, *sharded[1], dev)
             gen.set_state(store.restore(rng_dir, last,
                                         {"gen": gen.get_state()})["gen"])
             start = last
@@ -213,14 +234,29 @@ def _train(args, dev, mesh, lead=True):
             write(f"step {step:5d} loss={m['loss']:.4f} ce={m['ce']:.4f} "
                   f"aux={m['aux']:.4f} gnorm={m['grad_norm']:.2f} "
                   f"({time.perf_counter() - t0:.1f}s)")
-        if lead and args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            store.save(args.ckpt_dir, step + 1, params)
-            store.save(opt_dir, step + 1, opt)
-            store.save(rng_dir, step + 1, {"gen": gen.get_state()})
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            saved_p, saved_o = params, opt
+            if sharded is not None:    # every rank gathers, rank 0 writes
+                saved_p = specs.gather_tree(mesh, params, *sharded[0])
+                saved_o = specs.gather_tree(mesh, opt, *sharded[1])
+            if lead:
+                store.save(args.ckpt_dir, step + 1, saved_p)
+                store.save(opt_dir, step + 1, saved_o)
+                store.save(rng_dir, step + 1, {"gen": gen.get_state()})
+            del saved_p, saved_o
     if dev.type == "cuda":
         write(f"peak device memory: "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return params
+
+
+def _restore_blocks(mesh, ckpt_dir, step, layouts, whole, dev):
+    """A checkpoint of whole tensors (shaped as `whole`, on `meta`) read
+    on the host, this process's block of each leaf kept on `dev`."""
+    host = store.restore(ckpt_dir, step, tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype), whole))
+    return tree_map(lambda t, lay: mesh_mod.shard(mesh, t, lay).to(dev),
+                    host, layouts)
 
 
 if __name__ == "__main__":

@@ -47,6 +47,20 @@ the single controller does. Under gloo (the CPU, or several processes
 sharing one card) the tensors cross as bytes through host memory; under
 NCCL (one card a process) they cross on the cards. Neither the staging
 nor a gather that stands in for a reduction is counted.
+
+Blocks. A layout (`launch.specs.param_shardings`, the reference's
+`PartitionSpec` as a tuple) splits a tensor's leading dimensions over
+mesh axes; `block_of` and `block_slices` give a position's block.
+`shard` keeps a process's block of a whole tensor, `gather` rebuilds the
+whole from the blocks (an all-gather over the axes the layout splits
+over) and `reduce_to_block` sums every process's whole tensor into each
+process's block (an all-to-all of blocks, added in position order, so a
+block is `sum_processes`' slice bit for bit; a layout that splits
+nothing goes through `sum_processes`). These are the process mesh's
+resident parameters and moments, moved around the step; none of them is
+counted, so a train step's counted bytes stay
+`roofline.analysis.training_collective_costs` exactly, as on the single
+controller.
 """
 from __future__ import annotations
 
@@ -278,6 +292,104 @@ def sum_processes(mesh: ProcessMesh, ts: list) -> None:
 
 def _axes(axis):
     return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+# ---------------------------------------------------------------------------
+# Blocks: each process's share of a tensor under a layout
+# ---------------------------------------------------------------------------
+
+def _split_axes(mesh: Mesh, layout) -> tuple:
+    """The axes of more than one position that `layout` splits over, in
+    the mesh's order."""
+    named = {a for e in layout if e is not None for a in _axes(e)}
+    return tuple(a for a in mesh.axis_names
+                 if a in named and mesh.shape[a] > 1)
+
+
+def block_of(mesh: Mesh, pos: int, layout) -> tuple:
+    """Position `pos`'s block under `layout` (a tuple with an entry per
+    leading dimension: None, an axis name or a tuple of names, the
+    reference's `PartitionSpec`): for each dimension (index, pieces), the
+    first named axis the most significant."""
+    out = []
+    for e in layout:
+        i, n = 0, 1
+        for a in (() if e is None else _axes(e)):
+            i, n = i * mesh.shape[a] + mesh.coord(pos, a), n * mesh.shape[a]
+        out.append((i, n))
+    return tuple(out)
+
+
+def block_slices(mesh: Mesh, pos: int, layout, shape) -> tuple:
+    """Position `pos`'s block of a whole tensor of `shape` under `layout`:
+    a slice for each dimension the layout names (raises where its axes do
+    not divide the dimension)."""
+    out = []
+    for d, (i, n) in enumerate(block_of(mesh, pos, layout)):
+        if shape[d] % n:
+            raise ValueError(f"layout {layout} splits dimension {d} of "
+                             f"{tuple(shape)} into {n}")
+        c = shape[d] // n
+        out.append(slice(i * c, (i + 1) * c))
+    return tuple(out)
+
+
+def shard(mesh: ProcessMesh, t, layout):
+    """This process's block of the whole tensor `t` under `layout`, a copy
+    (the whole tensor can be freed)."""
+    (pos,) = mesh.local
+    return t[block_slices(mesh, pos, layout, t.shape)].clone()
+
+
+def gather(mesh: ProcessMesh, block, layout, shape):
+    """The whole tensor of `shape` from every position's block under
+    `layout` (this process's is `block`): an all-gather over the
+    positions that differ along the axes the layout splits over (not
+    counted)."""
+    axes = _split_axes(mesh, layout)
+    if not axes:
+        return block
+    (pos,) = mesh.local
+    group = _group_of(mesh, axes, pos)
+    whole = block.new_empty(shape)
+    for q, b in zip(group, _fetch(mesh, group, block)):
+        whole[block_slices(mesh, q, layout, shape)] = b
+    return whole
+
+
+def reduce_to_block(mesh: ProcessMesh, g, layout):
+    """This process's block under `layout` of the sum of every process's
+    whole tensor like `g` (its gradient), added in position order as
+    `sum_processes` adds, so each block is that sum's slice bit for bit
+    (not counted). An all-to-all of blocks: rank r receives every
+    position's r-th block and adds them in order. A layout that splits
+    nothing goes through `sum_processes` (every process keeps the whole
+    sum). Where k > 1 positions hold each block (a layout that splits
+    over fewer positions than the world), every process sends k times
+    the tensor's bytes, against (world - 1) / world for `sum_processes`'
+    reduce-scatter: the all-to-all stays, since the configs have few such
+    leaves."""
+    if not _split_axes(mesh, layout):
+        ts = [g]
+        sum_processes(mesh, ts)
+        return ts[0]
+    world = mesh.size
+    src = torch.cat([g.detach()[block_slices(mesh, q, layout, g.shape)]
+                     .reshape(-1) for q in range(world)])
+    wire = _wire(mesh, src)
+    got = torch.empty_like(wire)
+    dist.all_to_all_single(got, wire,
+                           group=mesh.process_groups[tuple(range(world))])
+    del src, wire
+    (pos,) = mesh.local
+    shape = [s.stop - s.start
+             for s in block_slices(mesh, pos, layout, g.shape)]
+    shape += list(g.shape[len(shape):])
+    mine = None
+    for piece in got.chunk(world):     # position q's block of mine
+        piece = _unwire(piece, g.dtype, shape, g.device)
+        mine = piece if mine is None else mine + piece
+    return mine
 
 
 class _Collective(torch.autograd.Function):

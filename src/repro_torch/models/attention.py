@@ -55,6 +55,24 @@ def init_attention(generator, cfg: ArchConfig, n_layers: int, device=None,
     return p
 
 
+def attention_spec(cfg: ArchConfig, *, gated=False):
+    """One layer's layouts (`common.norm_spec`), the reference's
+    `attention_spec`: the projections over ('data', 'model')."""
+    p = {
+        "norm": common.norm_spec(cfg.norm),
+        "wq": ("data", "model"),
+        "wk": ("data", "model"),
+        "wv": ("data", "model"),
+        "wo": ("model", "data"),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": ()}
+        p["k_norm"] = {"scale": ()}
+    if gated:
+        p["gate"] = ()
+    return p
+
+
 def init_kv_cache(cfg: ArchConfig, rows: int, n_layers: int, max_len: int,
                   device=None, *, bits: int = 16):
     """Rolling cache of `n_layers` attention layers (or sites): k/v (rows,

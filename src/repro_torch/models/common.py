@@ -29,6 +29,24 @@ def init_norm(d, dtype, device=None, kind="rms", lead=()):
     return p
 
 
+def norm_spec(kind="rms"):
+    """A norm's layout: replicated (the reference's `common.norm_spec`).
+    A layout, the reference's `PartitionSpec` as a plain tuple: one entry
+    per leading dimension, None (whole), a mesh axis name or a tuple of
+    names; dimensions past its length are whole."""
+    if kind == "layer":
+        return {"scale": (), "bias": ()}
+    return {"scale": ()}
+
+
+def stacked_spec(spec, n_prefix=1):
+    """`spec` (a tree of layouts) with `n_prefix` whole leading dimensions
+    in front of every leaf: the layer stacking."""
+    if isinstance(spec, dict):
+        return {k: stacked_spec(v, n_prefix) for k, v in spec.items()}
+    return (None,) * n_prefix + tuple(spec)
+
+
 def rms_norm(x, scale, eps=1e-6):
     """RMS norm computed in f32, returned in x's dtype."""
     xf = x.float()

@@ -30,6 +30,20 @@ def init_mlp(generator, cfg: ArchConfig, n_layers: int, device=None, *,
     return p
 
 
+def mlp_spec(cfg: ArchConfig, *, gated=False):
+    """One layer's layouts (`common.norm_spec`), the reference's
+    `mlp_spec`."""
+    p = {
+        "norm": common.norm_spec(cfg.norm),
+        "w_gate": ("data", "model"),
+        "w_up": ("data", "model"),
+        "w_down": ("model", "data"),
+    }
+    if gated:
+        p["gate"] = ()
+    return p
+
+
 def mlp(p, x, *, gated=False):
     """silu(x Wg) * (x Wu) Wd — the reference's `tp.out_proj_rs` without a
     mesh is the plain `h @ w_down`; `gated` scales it by tanh(p["gate"])."""

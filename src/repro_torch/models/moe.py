@@ -55,6 +55,18 @@ def init_moe(generator, cfg: ArchConfig, n_layers: int, device=None):
     }
 
 
+def moe_spec(cfg: ArchConfig):
+    """One layer's layouts (`common.norm_spec`), the reference's
+    `moe_spec`: the experts over 'model'."""
+    return {
+        "norm": common.norm_spec(cfg.norm),
+        "router": (None, None),
+        "w_gate": ("model", "data", None),
+        "w_up": ("model", "data", None),
+        "w_down": ("model", None, "data"),
+    }
+
+
 def _capacity(t_local: int, cfg: ArchConfig, factor: float) -> int:
     c = math.ceil(t_local * cfg.topk_experts / cfg.n_experts * factor)
     return min(t_local, max(4, c))  # decode floor of 4, never above T_local

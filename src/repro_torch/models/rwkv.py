@@ -56,6 +56,23 @@ def init_rwkv_time(generator, cfg: ArchConfig, n_layers: int, device=None):
     }
 
 
+def rwkv_time_spec(cfg: ArchConfig):
+    """One layer's time-mix layouts (`common.norm_spec`), the reference's
+    `rwkv_time_spec`."""
+    return {
+        "norm": common.norm_spec(cfg.norm),
+        "mu": (None, None),
+        "w_r": ("data", "model"),
+        "w_k": ("data", "model"),
+        "w_v": ("data", "model"),
+        "w_g": ("data", "model"),
+        "w0": (None,), "w1": ("data", None), "w2": (None, None),
+        "u": (None, None),
+        "ln_x": {"scale": (None,)},
+        "w_out": ("model", "data"),
+    }
+
+
 def init_rwkv_channel(generator, cfg: ArchConfig, n_layers: int,
                       device=None):
     """Stacked (n_layers, ...) channel-mix weights."""
@@ -71,6 +88,18 @@ def init_rwkv_channel(generator, cfg: ArchConfig, n_layers: int,
         "w_k": w((d, ff)),
         "w_v": w((ff, d), 0.02 / max(1, cfg.n_layers) ** 0.5),
         "w_r": w((d, d)),
+    }
+
+
+def rwkv_channel_spec(cfg: ArchConfig):
+    """One layer's channel-mix layouts (`common.norm_spec`), the
+    reference's `rwkv_channel_spec`."""
+    return {
+        "norm": common.norm_spec(cfg.norm),
+        "mu": (None, None),
+        "w_k": ("data", "model"),
+        "w_v": ("model", "data"),
+        "w_r": ("data", None),
     }
 
 

@@ -66,6 +66,25 @@ def init_mamba(generator, cfg: ArchConfig, n_layers: int, device=None):
     }
 
 
+def mamba_spec(cfg: ArchConfig):
+    """One layer's layouts (`common.norm_spec`), the reference's
+    `mamba_spec`."""
+    return {
+        "norm": common.norm_spec(cfg.norm),
+        "w_xz": ("data", "model"),
+        "w_bc": ("data", None),
+        "w_dt": ("data", None),
+        "conv_x": (None, "model"),
+        "conv_b": (None, None),
+        "conv_c": (None, None),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "norm_g": {"scale": ("model",)},
+        "w_out": ("model", "data"),
+    }
+
+
 def softplus(x):
     """log(1 + exp(x)) as `jax.nn.softplus` computes it (logaddexp(x, 0))."""
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))

@@ -120,6 +120,51 @@ def init_model(cfg: ArchConfig, generator: torch.Generator, device=None):
     return params
 
 
+def _layer_spec(cfg: ArchConfig):
+    p = {"attn": attention.attention_spec(cfg)}
+    if cfg.family == "moe":
+        p["moe"] = moe.moe_spec(cfg)
+    else:
+        p["mlp"] = mlp.mlp_spec(cfg)
+    return p
+
+
+def param_spec(cfg: ArchConfig):
+    """The logical layout of every parameter leaf, a tree shaped like
+    `init_model`'s (the reference's `transformer.param_spec`); the
+    stacked layers lead with a whole layer dimension.
+    `launch.specs.param_shardings` resolves it on a mesh."""
+    check_family(cfg)
+    spec = {
+        "embed": ("model", "data"),
+        "final_norm": common.norm_spec(cfg.norm),
+        "unembed": ("data", "model"),
+    }
+    st = common.stacked_spec
+    if cfg.family in ("dense", "moe"):
+        spec["layers"] = st(_layer_spec(cfg))
+    elif cfg.family == "hybrid":
+        spec["layers"] = st(ssm.mamba_spec(cfg))
+        spec["shared_attn"] = attention.attention_spec(cfg)
+        spec["shared_mlp"] = mlp.mlp_spec(cfg)
+    elif cfg.family == "ssm":
+        spec["layers"] = st({"time": rwkv.rwkv_time_spec(cfg),
+                             "chan": rwkv.rwkv_channel_spec(cfg)})
+    elif cfg.family == "vlm":
+        spec["layers"] = st(_layer_spec(cfg))
+        spec["cross_layers"] = st({
+            "attn": attention.attention_spec(cfg, gated=True),
+            "mlp": mlp.mlp_spec(cfg, gated=True)})
+    elif cfg.family == "audio":
+        spec["enc_layers"] = st({"attn": attention.attention_spec(cfg),
+                                 "mlp": mlp.mlp_spec(cfg)})
+        spec["enc_norm"] = common.norm_spec(cfg.norm)
+        spec["layers"] = st({"attn": attention.attention_spec(cfg),
+                             "cross": attention.attention_spec(cfg),
+                             "mlp": mlp.mlp_spec(cfg)})
+    return spec
+
+
 def _unstack(tree):
     """A stack of one layer -> that layer's weights."""
     return {k: _unstack(v) if isinstance(v, dict) else v[0]

@@ -42,12 +42,15 @@ def global_norm(grads) -> torch.Tensor:
 
 
 def adamw_update(params, grads, opt_state, *, lr, b1=0.9, b2=0.95, eps=1e-8,
-                 weight_decay=0.0, grad_clip=1.0):
+                 weight_decay=0.0, grad_clip=1.0, gnorm=None):
     """One AdamW step. Returns (new params, new state, grad norm): the norm
-    before clipping when `grad_clip`, else 0."""
+    before clipping when `grad_clip`, else 0. `gnorm`: the global grad
+    norm to clip by, where `grads` are blocks of the gradients (a process
+    mesh's, `launch.steps`); None: `global_norm(grads)`."""
     step = opt_state["step"] + 1
     if grad_clip:
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
     else:
         gnorm = torch.zeros((), dtype=torch.float32, device=step.device)

@@ -107,7 +107,10 @@ def from_program(counts, *, arch: str, shape: str, mesh_desc: str,
     whole program's (the single controller runs every position), the
     collective bytes are per device. `peak_memory` is `args_bytes` plus
     the counted peak: ONE device holding every position, not a per-chip
-    figure, which waits for positions on several cards (ROADMAP 8c)."""
+    figure, which waits for positions on several cards (ROADMAP 8c). The
+    per-device argument bytes, one position's blocks of the params and
+    moments, are `launch.dryrun.device_args_bytes`'s; the dry run prints
+    both."""
     return Roofline(
         arch=arch, shape=shape, mesh=mesh_desc, chips=chips,
         hlo_flops=float(counts.flops), hlo_bytes=float(counts.bytes),

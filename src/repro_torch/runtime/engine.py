@@ -172,6 +172,9 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
     server.shutdown()
     serve_thread.join(timeout=60)
     wall = time.perf_counter() - t0
+    # no reader may outlive the run: a daemon thread still inside torch
+    # when the interpreter exits aborts it
+    readers = server.join_readers(timeout=30)
 
     if server.errors:
         raise RuntimeError(f"server reader threads failed: "
@@ -181,6 +184,9 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
         raise RuntimeError(f"client sessions failed: {errs}") from errs[0][1]
     if serve_thread.is_alive():
         raise RuntimeError("serve loop did not drain")
+    if readers:
+        raise RuntimeError(f"{len(readers)} server reader threads did not "
+                           f"finish")
 
     tokens = np.asarray([c.generated for c in clients], np.int32)
     return {

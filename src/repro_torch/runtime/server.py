@@ -95,6 +95,7 @@ class FrameServerBase:
         # session close and after every flush
         self._slot_cv = threading.Condition(self._lock)
         self._readers: List[threading.Thread] = []
+        self._endpoints: List = []      # the attached channels' ends
         self._open_readers = 0
         self.errors: List[BaseException] = []   # reader-thread failures
         self.faults_detected = 0    # malformed frames rejected
@@ -185,6 +186,7 @@ class FrameServerBase:
         (once per client, and again for each reconnect)."""
         with self._lock:
             self._open_readers += 1
+            self._endpoints.append(endpoint)
         t = threading.Thread(target=self._read_loop, args=(endpoint,),
                              daemon=True)
         self._readers.append(t)
@@ -192,10 +194,22 @@ class FrameServerBase:
         return t
 
     def shutdown(self) -> None:
-        """Close the admission queue; the processing loop drains, then
-        exits. The engine's backstop after every client finished, even if
-        a CLOSE frame was lost to injected faults."""
+        """Close the admission queue and every attached channel: the
+        processing loop drains, then exits, and each reader returns once
+        no frame is waiting on its channel. The engine's backstop after
+        every client finished, even if a CLOSE frame was lost to injected
+        faults (its reader would wait for it for good)."""
         self.queue.close()
+        with self._lock:
+            for endpoint in self._endpoints:
+                endpoint.close()
+
+    def join_readers(self, timeout: float) -> List[threading.Thread]:
+        """Join every reader thread, each within `timeout` seconds, after
+        `shutdown`; returns those still alive."""
+        for t in self._readers:
+            t.join(timeout=timeout)
+        return [t for t in self._readers if t.is_alive()]
 
     def _reject(self, endpoint, sid_seen, exc: wire.WireError) -> None:
         """Name the defect in an error frame and retire the connection,
@@ -235,6 +249,8 @@ class FrameServerBase:
                     self._reject(endpoint, sid_seen, e)
                     return
                 if frame is None:
+                    if endpoint.closed:
+                        return          # shut down
                     continue
                 if frame.kind == wire.FRAME_CLOSE:
                     self._close_session(frame.session)

@@ -40,6 +40,12 @@ class Endpoint:
         self._in = in_pipe
         self._reader = wire.FrameReader()
         self._pending: list = []
+        self.closed = False
+
+    def close(self) -> None:
+        """Mark this end closed: a reader that finds no frame waiting
+        stops (`recv_frame` returns None from then on without waiting)."""
+        self.closed = True
 
     def send(self, frame_bytes: bytes) -> int:
         return self._out.send(frame_bytes)
@@ -57,7 +63,7 @@ class Endpoint:
         endpoint (and may resume its sessions over a fresh one).
         """
         while not self._pending:
-            chunk = self.recv_chunk(timeout=timeout)
+            chunk = self.recv_chunk(timeout=0.0 if self.closed else timeout)
             if chunk is None:
                 return None
             self._reader.feed(chunk)

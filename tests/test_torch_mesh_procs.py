@@ -21,13 +21,31 @@ process group's time limit 60 s and the join's 240 s. In each:
     mean over the batch shards of each shard's, as
     tests/test_torch_train_mesh_parity.py computes it); the gradients
     summed over the processes lie within rtol 1e-5, atol 1e-6 of the
-    single controller's; the parameters are equal on every rank after
-    two steps; every rank counts the single controller's collective
-    bytes.
+    single controller's; every rank counts the single controller's
+    collective bytes;
+  * the sharded step (each process holds its block of every parameter
+    and AdamW moment, `launch.specs.param_shardings`): each gradient
+    block AdamW takes is its slice of the whole sum of
+    `mesh.sum_processes` bit for bit (the same adds in the same order),
+    the grad norm lies within rtol 1e-6 of that sum's (another order of
+    the squares' sum), the blocks that two ranks hold are equal and the
+    gathered weights are equal on every rank after two steps, each
+    block's weights after one step and after two lie within the weight
+    rule below of the single controller's, its first moment after one
+    step within rtol 2e-5, atol 1e-7 (0.1 of the clipped gradient: the
+    gradients' rtol 1e-5 twice, through the gradient and the clip scale,
+    and 0.1 of their atol), and each rank's resident bytes are its
+    blocks' (params and both moments); yi-6b also under `dp_only` (the
+    ZeRO-3 layout: every 'data' dimension over ('data', 'model')) against
+    the single controller's `dp_only` step.
 
 `launch/train --procs` trains what `--mesh` trains, for yi-6b and for
-rwkv6-1.6b (SMOKE at (1, 2)): the same logged losses and checkpointed
-weights. The hybrid, ssm, vlm and audio families across processes:
+rwkv6-1.6b (SMOKE at (1, 2)): the same logged losses and checkpoint files
+(the same arrays under the same keys: the processes' weights within the
+weight rule of the single controller's, the processes summing the
+gradients in another order), and resumed from its first step's
+checkpoint it writes what the uninterrupted run writes, array for
+array. The hybrid, ssm, vlm and audio families across processes:
 `tests/test_torch_mesh_procs_families.py`; the decode mesh:
 `tests/test_torch_decode_mesh_procs.py`.
 
@@ -39,6 +57,8 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import math
+import shutil
 import tempfile
 
 import jax
@@ -58,17 +78,21 @@ from repro_torch import configs
 from repro_torch import mesh as mesh_mod
 from repro_torch.checkpoint import store
 from repro_torch.core import selection
-from repro_torch.launch import steps
+from repro_torch.launch import specs, steps
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import (backend_for, make_mesh,
                                      make_process_mesh, spawn)
 from repro_torch.models import convert
 from repro_torch.models.config import Runtime, SplitConfig
 from repro_torch.obs.registry import MetricsRegistry
-from repro_torch.optim.adamw import adamw_init, tree_leaves
+from repro_torch.optim.adamw import adamw_init, global_norm, tree_leaves
 from repro_torch.runtime import steps as runtime_steps
 
 ARCHS = ["yi-6b", "granite-moe-1b-a400m"]
+# the trained runs: (arch, dp_only)
+RUNS = {"yi-6b": ("yi-6b", False),
+        "granite-moe-1b-a400m": ("granite-moe-1b-a400m", False),
+        "yi-6b-dp_only": ("yi-6b", True)}
 B, S, K, ALPHA, LR = 8, 16, 16, 0.3, 1e-3
 AXES2, AXES3 = ("data", "model"), ("pod", "data", "model")
 MESHES = {"2x2": ((2, 2), AXES2), "1x2": ((1, 2), AXES2),
@@ -198,23 +222,60 @@ def _grads(cfg, params, rt, batch, procs):
     return list(torch.autograd.grad(total, leaves))
 
 
-def _train(cfg, params, mesh, batch, draws, procs):
+@contextlib.contextmanager
+def _recorded(seen):
+    """The gradients AdamW takes in the first step, recorded in `seen`."""
+    update = steps.adamw_update
+
+    def recorded(params_, grads, *a, **kw):
+        if not seen:
+            seen.append([g.clone() for g in tree_leaves(grads)])
+        return update(params_, grads, *a, **kw)
+
+    steps.adamw_update = recorded
+    try:
+        yield
+    finally:
+        steps.adamw_update = update
+
+
+def _nbytes(tree):
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _train(cfg, params, mesh, batch, draws, procs, dp_only=False):
     """The gradients, then two training steps: (grads, first step's
-    metrics, its collective bytes, the parameters after each step)."""
+    metrics, its collective bytes, the parameters and first moment after
+    each step (blocks on a process mesh), AdamW's first gradients); on a
+    process mesh also the weights gathered after two steps and the
+    resident bytes of the blocks after the first."""
     with _draws(draws):
-        grads = _grads(cfg, params, Runtime(mesh=mesh, moe_capacity=8.0),
-                       batch, procs)
+        grads = _grads(cfg, params, Runtime(mesh=mesh, moe_capacity=8.0,
+                                            dp_only=dp_only), batch, procs)
         reg = MetricsRegistry()
-        step = steps.make_train_step(cfg, Runtime(
-            mesh=mesh, moe_capacity=8.0, registry=reg), lr=LR)
-        p, o, m = step(copy.deepcopy(params), adamw_init(params), batch,
-                       torch.Generator())
-        first = {k: float(v) for k, v in m.items()}
-        counted = mesh_mod.collective_bytes(reg.snapshot())
-        p1 = [t.detach().clone() for t in tree_leaves(p)]
-        p, _, _ = step(p, o, batch, torch.Generator())
-    return {"grads": grads, "metrics": first, "bytes": counted,
-            "step1": p1, "step2": [t.detach() for t in tree_leaves(p)]}
+        rt = Runtime(mesh=mesh, moe_capacity=8.0, registry=reg,
+                     dp_only=dp_only)
+        step = steps.make_train_step(cfg, rt, lr=LR)
+        p = copy.deepcopy(params)
+        if procs:
+            layouts = specs.param_shardings(cfg, rt, params)
+            p = specs.shard_tree(mesh, p, layouts)
+        seen = []
+        with _recorded(seen):
+            p, o, m = step(p, adamw_init(p), batch, torch.Generator())
+        out = {"grads": grads, "metrics": {k: float(v) for k, v in
+                                          m.items()},
+               "bytes": mesh_mod.collective_bytes(reg.snapshot()),
+               "adamw_grads": seen[0],
+               "step1": [t.detach().clone() for t in tree_leaves(p)],
+               "mu1": [t.clone() for t in tree_leaves(o["mu"])],
+               "resident": _nbytes(p) + _nbytes(o["mu"]) + _nbytes(o["nu"])}
+        p, o, _ = step(p, o, batch, torch.Generator())
+    out["step2"] = [t.detach() for t in tree_leaves(p)]
+    if procs:
+        out["gathered2"] = tree_leaves(specs.gather_tree(mesh, p, layouts,
+                                                         params))
+    return out
 
 
 def _rank(rank, dev, shape, axes, refs):
@@ -222,11 +283,12 @@ def _rank(rank, dev, shape, axes, refs):
     mesh = make_process_mesh(shape, axes, dev)
     out = {"collectives": _collectives(mesh, mesh.each(
         lambda p: _xs(mesh.size)[p]))}
-    for arch, ref in refs.items():
-        out[arch] = _train(_cfg(arch), ref["params"], mesh, ref["batch"],
-                           ref["draws"], procs=True)
+    for name, (arch, dp_only) in RUNS.items():
+        ref = refs[arch]
+        out[name] = _train(_cfg(arch), ref["params"], mesh, ref["batch"],
+                           ref["draws"], procs=True, dp_only=dp_only)
         if rank:   # every rank's sum is the same: rank 0 carries it
-            out[arch]["grads"] = None
+            out[name]["grads"] = None
     return out
 
 
@@ -244,11 +306,38 @@ def run(request, refs, tmp_path_factory):
         store_dir=tmp_path_factory.mktemp("store"))
     mesh = make_mesh(shape, axes, devices="cpu")
     single = {"collectives": _collectives(mesh, _xs(mesh.size))}
-    for arch, r in refs.items():
-        single[arch] = _train(_cfg(arch), r["params"], mesh, r["batch"],
-                              r["draws"], procs=False)
+    for name, (arch, dp_only) in RUNS.items():
+        r = refs[arch]
+        single[name] = _train(_cfg(arch), r["params"], mesh, r["batch"],
+                              r["draws"], procs=False, dp_only=dp_only)
     return {"id": request.param, "ranks": ranks, "single": single,
-            "shards": shape[0] * (shape[1] if len(shape) == 3 else 1)}
+            "mesh": mesh, "shards": {
+                dp_only: math.prod(shape[:-1]) * (shape[-1] if dp_only
+                                                  else 1)
+                for dp_only in (False, True)}}
+
+
+def _layouts(run, name, refs):
+    arch, dp_only = RUNS[name]
+    return tree_leaves(specs.param_shardings(_cfg(arch), Runtime(
+        mesh=run["mesh"], dp_only=dp_only), refs[arch]["params"]))
+
+
+def _blocks(run, name, refs, rank, whole):
+    """Rank `rank`'s blocks of the whole tensors `whole`, the run's
+    leaves in order."""
+    return [w[mesh_mod.block_slices(run["mesh"], rank, lay, w.shape)]
+            for w, lay in zip(whole, _layouts(run, name, refs))]
+
+
+def _weight_rule(a, b, bound):
+    """The weights `a` against `b`: no element off by more than `bound`,
+    all but 1e-4 of them within 1e-5 |b| + 1e-2 lr (the rule of
+    tests/test_torch_train_mesh_parity.py)."""
+    diff = (a - b).abs()
+    assert float(diff.max()) <= bound
+    close = diff <= 1e-5 * b.abs() + 1e-2 * LR
+    assert float(close.float().mean()) >= 1 - 1e-4
 
 
 @pytest.mark.parametrize("op", OPS)
@@ -268,7 +357,7 @@ def test_collectives_match_the_single_controller(run, op):
     assert seen
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", list(RUNS))
 def test_first_step_loss_equals_the_single_controller(run, arch):
     want = run["single"][arch]["metrics"]
     for got in run["ranks"]:
@@ -277,17 +366,20 @@ def test_first_step_loss_equals_the_single_controller(run, arch):
         assert m["ce"] == want["ce"] and m["aux"] == want["aux"]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", list(RUNS))
 def test_first_step_loss_is_the_reference_mesh_less_loss(run, refs, arch):
+    name, (arch, dp_only) = arch, RUNS[arch]
     ref = refs[arch]
-    want = ref["ce"] + steps.AUX_WEIGHT * ref["aux"][run["shards"]]
+    want = ref["ce"] + steps.AUX_WEIGHT * (
+        ref["aux"][run["shards"][dp_only]] if _cfg(arch).family == "moe"
+        else 0.0)
     for got in run["ranks"]:
-        m = got[arch]["metrics"]
+        m = got[name]["metrics"]
         assert abs(m["ce"] - ref["ce"]) <= 2e-4
         assert abs(m["loss"] - want) <= 2e-4
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", list(RUNS))
 def test_gradients_match_the_single_controller(run, arch):
     got, want = run["ranks"][0][arch]["grads"], run["single"][arch]["grads"]
     assert len(got) == len(want)
@@ -296,24 +388,86 @@ def test_gradients_match_the_single_controller(run, arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_parameters_are_equal_across_ranks(run, arch):
-    first = run["ranks"][0][arch]
-    for got in run["ranks"][1:]:
-        for a, b in zip(got[arch]["step2"], first["step2"]):
+def test_parameters_are_equal_across_ranks(run, refs, arch):
+    """The weights gathered after two steps are equal on every rank, and
+    so are the blocks that two ranks both hold; each rank's blocks after
+    one step and after two lie within the weight rule of the single
+    controller's (two steps: twice the bound)."""
+    ranks = run["ranks"]
+    lays = _layouts(run, arch, refs)
+    for got in ranks[1:]:
+        for a, b in zip(got[arch]["gathered2"], ranks[0][arch]["gathered2"]):
             assert torch.equal(a, b)
-    # one step's weights against the single controller's, by the rule of
-    # tests/test_torch_train_mesh_parity.py
-    for a, b in zip(first["step1"], run["single"][arch]["step1"]):
-        diff = (a - b).abs()
-        assert float(diff.max()) <= 2 * LR
-        close = diff <= 1e-5 * b.abs() + 1e-2 * LR
-        assert float(close.float().mean()) >= 1 - 1e-4
+    held = {}
+    for r, got in enumerate(ranks):
+        for i, (blk, lay) in enumerate(zip(got[arch]["step2"], lays)):
+            key = (i, mesh_mod.block_of(run["mesh"], r, lay))
+            assert torch.equal(held.setdefault(key, blk), blk)
+    single = run["single"][arch]
+    for r, got in enumerate(ranks):
+        for n, bound in (("step1", 2 * LR), ("step2", 2 * 2 * LR)):
+            for a, b in zip(got[arch][n],
+                            _blocks(run, arch, refs, r, single[n])):
+                _weight_rule(a, b, bound)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", list(RUNS))
+def test_gradient_blocks_are_slices_of_the_ordered_sum(run, refs, arch):
+    """Each gradient block AdamW takes is its slice of the whole sum in
+    position order (`mesh.sum_processes`), bit for bit."""
+    whole = run["ranks"][0][arch]["grads"]
+    for r, got in enumerate(run["ranks"]):
+        blocks = got[arch]["adamw_grads"]
+        assert len(blocks) == len(whole)
+        for g, w in zip(blocks, _blocks(run, arch, refs, r, whole)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("arch", list(RUNS))
+def test_grad_norm_is_the_whole_sums(run, arch):
+    """The norm formed from the blocks is the whole sum's (the
+    whole-parameter step's) within rtol 1e-6: the squares add in another
+    order."""
+    whole = run["ranks"][0][arch]["grads"]
+    want = float(global_norm(dict(enumerate(whole))))
+    for got in run["ranks"]:
+        assert abs(got[arch]["metrics"]["grad_norm"] - want) <= 1e-6 * want
+
+
+@pytest.mark.parametrize("arch", list(RUNS))
+def test_first_moment_blocks_match_the_single_controller(run, refs, arch):
+    single = run["single"][arch]["mu1"]
+    for r, got in enumerate(run["ranks"]):
+        for a, b in zip(got[arch]["mu1"], _blocks(run, arch, refs, r,
+                                                  single)):
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("arch", list(RUNS))
+def test_each_rank_holds_only_its_blocks(run, refs, arch):
+    """A rank's parameters and moments are its blocks of each leaf, of
+    the shapes the layouts give, and their bytes are the blocks' (params
+    in their dtype, the two moments in f32)."""
+    whole = tree_leaves(refs[RUNS[arch][0]]["params"])
+    lays = _layouts(run, arch, refs)
+    split = [math.prod(n for _, n in mesh_mod.block_of(run["mesh"], 0, lay))
+             for lay in lays]
+    want = sum(w.numel() // n * (w.element_size() + 8)
+               for w, n in zip(whole, split))
+    assert want < sum(w.numel() * (w.element_size() + 8) for w in whole)
+    for r, got in enumerate(run["ranks"]):
+        assert got[arch]["resident"] == want
+        for b, w in zip(got[arch]["step1"], _blocks(run, arch, refs, r,
+                                                    whole)):
+            assert b.shape == w.shape
+
+
+@pytest.mark.parametrize("arch", list(RUNS))
 def test_every_rank_counts_the_single_controllers_bytes(run, arch):
     want = run["single"][arch]["bytes"]
-    assert want
+    # dp_only has no tensor parallelism: without a pod ring it moves
+    # nothing that is counted
+    assert want or RUNS[arch][1]
     for got in run["ranks"]:
         assert got[arch]["bytes"] == want
 
@@ -322,18 +476,23 @@ def test_every_rank_counts_the_single_controllers_bytes(run, arch):
 def test_train_cli_procs_is_the_single_controller_run(capfd, monkeypatch,
                                                       tmp_path, arch):
     """`launch/train --mesh 1,2 --procs` trains what `--mesh 1,2` trains:
-    the same logged losses and, after two steps, checkpointed weights
-    (rank 0's) within the weight rule above (the processes sum the
-    gradients in another order)."""
+    the same logged losses and, after two steps, the same checkpoint
+    files (rank 0's, of the gathered blocks): the same arrays under the
+    same keys, the weights within the weight rule above (the processes
+    sum the gradients in another order). Resumed from its first step's
+    checkpoint, the process run writes the uninterrupted run's files,
+    array for array."""
     argv = ["--arch", arch, "--smoke", "--device", "cpu", "--steps",
             "2", "--batch", "4", "--seq", "8", "--split", "randtopk", "--k",
-            "16", "--mesh", "1,2", "--log-every", "1", "--ckpt-every", "2"]
+            "16", "--mesh", "1,2", "--log-every", "1"]
     monkeypatch.setenv("OMP_NUM_THREADS", "1")   # the processes' threads
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))  # the store
-    single = train_cli.main(argv + ["--ckpt-dir", str(tmp_path / "one")])
+    single = train_cli.main(argv + ["--ckpt-every", "2", "--ckpt-dir",
+                                    str(tmp_path / "one")])
     single_log = capfd.readouterr().out
-    assert train_cli.main(argv + ["--procs", "--ckpt-dir",
-                                  str(tmp_path / "procs")]) is None
+    assert train_cli.main(argv + ["--procs", "--ckpt-every", "1",
+                                  "--ckpt-dir", str(tmp_path / "procs")]) \
+        is None
     procs_log = capfd.readouterr().out
 
     def losses(log):
@@ -343,10 +502,35 @@ def test_train_cli_procs_is_the_single_controller_run(capfd, monkeypatch,
     assert len(losses(single_log)) == 2
     assert losses(procs_log) == losses(single_log)
     assert "ProcessMesh" in procs_log
+    files = {sub: _arrays(tmp_path / "procs" / sub, 2)
+             for sub in ("", "opt", "rng")}
+    for sub, arrays in files.items():
+        want = _arrays(tmp_path / "one" / sub, 2)
+        assert {k: (a.shape, a.dtype) for k, a in arrays.items()} == \
+            {k: (a.shape, a.dtype) for k, a in want.items()}
     procs = store.restore(str(tmp_path / "procs"), 2, single)
     for a, b in zip(tree_leaves(procs), tree_leaves(single)):
         diff = (a - b.detach()).abs()
         assert float(diff.max()) <= 2 * 2 * 3e-4
+    # resumed from step 1
+    resumed = tmp_path / "resumed"
+    shutil.copytree(tmp_path / "procs", resumed)
+    for sub in ("", "opt", "rng"):
+        (resumed / sub / "step_00000002.npz").unlink()
+    assert train_cli.main(argv + ["--procs", "--ckpt-every", "1",
+                                  "--ckpt-dir", str(resumed)]) is None
+    assert "restored step 1" in capfd.readouterr().out
+    for sub, arrays in files.items():
+        again = _arrays(resumed / sub, 2)
+        assert again.keys() == arrays.keys()
+        for k, a in arrays.items():
+            assert again[k].dtype == a.dtype
+            assert np.array_equal(again[k], a), (sub, k)
+
+
+def _arrays(ckpt_dir, step):
+    with np.load(ckpt_dir / f"step_{step:08d}.npz") as data:
+        return dict(data)
 
 
 def test_backend_choice():

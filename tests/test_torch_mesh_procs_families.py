@@ -16,13 +16,16 @@ process on one torch thread. In each:
   * the first step's loss equals the single controller's on the same
     mesh bit for bit, and lies within 2e-4 of the reference's mesh-less
     loss (tests/test_distributed.py:52);
-  * the gradients summed over the processes (AdamW's input) lie within
-    rtol 1e-5, atol 1e-6 of the single controller's; rwkv6's within
-    atol 1e-3 of each tensor's largest magnitude, by
-    `test_torch_train_mesh_families.py`'s `GRAD_ATOL` rule (its f32
-    gradient moves by 2.3e-4 of that scale under a 1e-7 relative weight
-    perturbation, and the processes sum in another order);
-  * the parameters are equal on every rank after two steps;
+  * the gradient blocks each process hands AdamW (each process holds its
+    block of every parameter and moment, `launch.specs.param_shardings`)
+    lie within rtol 1e-5, atol 1e-6 of the same slices of the single
+    controller's gradients; rwkv6's within atol 1e-3 of each whole
+    tensor's largest magnitude, by `test_torch_train_mesh_families.py`'s
+    `GRAD_ATOL` rule (its f32 gradient moves by 2.3e-4 of that scale
+    under a 1e-7 relative weight perturbation, and the processes sum in
+    another order);
+  * after two steps the gathered weights are equal on every rank, and so
+    are the blocks that two ranks both hold;
   * every rank counts the single controller's collective bytes.
 """
 from __future__ import annotations
@@ -43,7 +46,7 @@ from test_torch_mesh_procs import _draws
 from test_torch_multimodal import set_gates
 from test_torch_train_mesh_families import GRAD_ATOL, _batch, _config
 from repro_torch import mesh as mesh_mod
-from repro_torch.launch import steps
+from repro_torch.launch import specs, steps
 from repro_torch.launch.mesh import make_mesh, make_process_mesh, spawn
 from repro_torch.models import convert
 from repro_torch.models.config import Runtime
@@ -101,32 +104,35 @@ def _train(arch, ref, mesh, steps_n):
         return update(params_, grads, *a, **kw)
 
     reg = MetricsRegistry()
-    step = steps.make_train_step(cfg, Runtime(mesh=mesh, registry=reg),
-                                 lr=LR)
+    rt = Runtime(mesh=mesh, registry=reg)
+    step = steps.make_train_step(cfg, rt, lr=LR)
+    p = copy.deepcopy(params)
+    if mesh.procs:
+        layouts = specs.param_shardings(cfg, rt, params)
+        p = specs.shard_tree(mesh, p, layouts)
     steps.adamw_update = recorded
     try:
         with _draws(ref["draws"]):
-            p, o, m = step(copy.deepcopy(params), adamw_init(params),
-                           ref["batch"], torch.Generator())
+            p, o, m = step(p, adamw_init(p), ref["batch"],
+                           torch.Generator())
             first = {k: float(v) for k, v in m.items()}
             counted = mesh_mod.collective_bytes(reg.snapshot())
             for _ in range(steps_n - 1):
                 p, o, _ = step(p, o, ref["batch"], torch.Generator())
     finally:
         steps.adamw_update = update
-    return {"metrics": first, "grads": seen[0], "bytes": counted,
-            "weights": [t.detach() for t in tree_leaves(p)]}
+    out = {"metrics": first, "grads": seen[0], "bytes": counted,
+           "weights": [t.detach() for t in tree_leaves(p)]}
+    if mesh.procs:
+        out["gathered"] = tree_leaves(specs.gather_tree(mesh, p, layouts,
+                                                        params))
+    return out
 
 
 def _rank(rank, dev, shape, axes, refs):
     torch.set_num_threads(1)
     mesh = make_process_mesh(shape, axes, dev)
-    out = {}
-    for arch, ref in refs.items():
-        out[arch] = _train(arch, ref, mesh, 2)
-        if rank:   # every rank's sum is the same: rank 0 carries it
-            out[arch]["grads"] = None
-    return out
+    return {arch: _train(arch, ref, mesh, 2) for arch, ref in refs.items()}
 
 
 @pytest.fixture(scope="module")
@@ -142,8 +148,11 @@ def run(request, refs, tmp_path_factory):
         for a, r in refs.items()}), device="cpu", timeout=JOIN_S,
         store_dir=tmp_path_factory.mktemp("store"))
     mesh = make_mesh(shape, axes, devices="cpu")
-    return {"ranks": ranks, "single": {
-        arch: _train(arch, r, mesh, 1) for arch, r in refs.items()}}
+    return {"ranks": ranks, "mesh": mesh, "single": {
+        arch: _train(arch, r, mesh, 1) for arch, r in refs.items()},
+        "layouts": {arch: tree_leaves(specs.param_shardings(
+            _config(arch)[1], Runtime(mesh=mesh), r["params"]))
+            for arch, r in refs.items()}}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -165,22 +174,32 @@ def test_first_step_loss_is_the_reference_mesh_less_loss(run, refs, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_gradients_match_the_single_controller(run, arch):
     family = _config(arch)[1].family
-    got, want = run["ranks"][0][arch]["grads"], run["single"][arch]["grads"]
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        if family in GRAD_ATOL:
-            atol = GRAD_ATOL[family] * float(w.abs().max())
-            torch.testing.assert_close(g, w, rtol=1e-5, atol=atol)
-        else:
-            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    want, mesh = run["single"][arch]["grads"], run["mesh"]
+    for r, got in enumerate(run["ranks"]):
+        got = got[arch]["grads"]
+        assert len(got) == len(want)
+        for g, w, lay in zip(got, want, run["layouts"][arch]):
+            blk = w[mesh_mod.block_slices(mesh, r, lay, w.shape)]
+            if family in GRAD_ATOL:
+                atol = GRAD_ATOL[family] * float(w.abs().max())
+                torch.testing.assert_close(g, blk, rtol=1e-5, atol=atol)
+            else:
+                torch.testing.assert_close(g, blk, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_parameters_are_equal_across_ranks(run, arch):
-    first = run["ranks"][0][arch]["weights"]
-    for got in run["ranks"][1:]:
-        for a, b in zip(got[arch]["weights"], first):
+    ranks = run["ranks"]
+    first = ranks[0][arch]["gathered"]
+    for got in ranks[1:]:
+        for a, b in zip(got[arch]["gathered"], first):
             assert torch.equal(a, b)
+    held = {}
+    for r, got in enumerate(ranks):
+        for i, (blk, lay) in enumerate(zip(got[arch]["weights"],
+                                           run["layouts"][arch])):
+            key = (i, mesh_mod.block_of(run["mesh"], r, lay))
+            assert torch.equal(held.setdefault(key, blk), blk)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
