@@ -29,9 +29,10 @@
                                               # examples on the card
     python3 chip_smoke.py --phase experiments # kernel checks + the
                                               # paper's experiments, short
-    python3 chip_smoke.py --phase procs       # kernel checks + yi-6b and
-                                              # granite-moe trained with
-                                              # one process a position
+    python3 chip_smoke.py --phase procs       # kernel checks + every
+                                              # family trained and decoded
+                                              # and yi-6b served with one
+                                              # process a position
     python3 chip_smoke.py --phase probe       # build + `probe_kernels`
     python3 chip_smoke.py --phase ab --parent DIR   # probes, P C C P
     python3 chip_smoke.py --phase predict     # CPU: phase 11's reports
@@ -199,7 +200,7 @@ Phases, each fatal on failure:
      k 64: serve zamba2-7b (depth cut from 81 to 12 Mamba2 layers, d
      3584, a shared attention block after every 6th: cut 6, 1 site
      below it and 1 above) and
-     rwkv6-1.6b (depth cut from 24 to 12 layers, d 2048, cut 6) through
+     rwkv6-1.6b (depth cut from 24 to 6 layers, d 2048, cut 3) through
      `run_streaming` with
      2 clients x (4 + 8) tokens, with the kernels and with the plain
      versions: equal tokens, 352 and 344 payload B a token, one fused
@@ -286,7 +287,7 @@ Phases, each fatal on failure:
      the plain run launches nothing), at (1, 4) with flash decode (each
      'model' position holds 8 of the ring's slots) and without (the
      ring replicated), and at (2, 2, 2) (the pod ring at the cut); yi-6b
-     at 16 of its 32 layers at mesh=None (16 tokens); granite-moe-1b-a400m
+     at 8 of its 32 layers at mesh=None (16 tokens); granite-moe-1b-a400m
      at full width, depth cut from 24 to 6 layers (cut 3), at mesh=None
      and (1, 4) (its 32 experts over 'model'; 24 tokens over a 16-slot
      ring); every position on the one card.
@@ -379,7 +380,19 @@ Phases, each fatal on failure:
      the single controller's decode mesh bit for bit, counted bytes =
      `decode_collective_costs` (whisper's cache =
      `decode_cache_collective_costs`), the cut's kernels once a process
-     a token; each rank's step ms and tokens/s.
+     a token; each rank's step ms and tokens/s. Then the sharded serving
+     arena (`run_streaming` on the process mesh, `PROCS_SERVES`): yi-6b
+     at full width, 4 of its 32 layers (cut 2), 4 clients x (4 + 4)
+     tokens, randtopk k 64, at (2, 2), (2, 1, 2) over the pod ring, (2,
+     2) at capacity 2 and (2, 1, 2) with the plain versions; rank 0
+     serves, the others follow its flushes: rank 0's tokens = the single
+     controller's sharded arena at the same shape bit for bit, plain =
+     kernels, the capacity-2 run's evictions and re-admissions (one or
+     more) and the uncontended tokens; every rank's counted bytes =
+     `serving_collective_costs` a step over rank 0's flushes and warm-up
+     steps, which the other ranks take too; rank 0 launches one fused
+     encode a client token and one flush decode a flush group, the other
+     ranks neither; tokens/s, ms a flush and each process's peak.
 
 Prints the card's name and power limit, a `kernels` JSON line (each
 kernel's launches on its path's randtopk run, for the serve's two kernels
@@ -3289,10 +3302,10 @@ def families_phase(dev, card):
 # the recurrent families: (arch, d, payload B a token at randtopk k 64,
 # serving depth (None: full)). zamba2's depth is cut from 81 to 12 at full
 # width (cut 6: a shared-attention site after layer 5 below the cut, one
-# after layer 11 above it) and rwkv6's from 24 to 12 (cut 6) to keep the
-# whole run inside its time
+# after layer 11 above it) and rwkv6's from 24 to 12 (cut 6) and then to
+# 6 (cut 3) to keep the whole run inside its time
 REC_SERVES = (("zamba2-7b", D_ZAMBA, 352, 12),
-              ("rwkv6-1.6b", D_RWKV, 344, 12))
+              ("rwkv6-1.6b", D_RWKV, 344, 6))
 # (arch, layers (None: full depth), cut): zamba2's 81 layers hold 13.5 GB
 # of bf16 weights, and with f32 AdamW moments leave no room for the
 # activations at batch 4 x seq 256, so its training depth is cut to 12;
@@ -3443,8 +3456,8 @@ def _train_through_codec(dev, arch, layers, cut, card, smoke=False,
 def recurrent_phase(dev, card):
     """Phase 13: the recurrent families and the int8 KV arena at full
     width, random bf16 weights from a seed, randtopk k 64 at the cut. Serve
-    zamba2-7b (depth cut to 12 layers, d 3584, cut 6) and rwkv6-1.6b (12,
-    d 2048, cut 6) through `run_streaming`, 2 clients x (4 + 8) tokens,
+    zamba2-7b (depth cut to 12 layers, d 3584, cut 6) and rwkv6-1.6b (6,
+    d 2048, cut 3) through `run_streaming`, 2 clients x (4 + 8) tokens,
     with the kernels and with the plain versions (equal tokens, 352 and 344 payload
     B a token, one fused encode per served token and one flush decode per
     flush group), and a traced third run for the busy share; rwkv6 again
@@ -4385,6 +4398,18 @@ PROCS_DECODE = (("yi-6b", 4, (1, 4), False),
                 ("whisper-tiny", None, (2, 1, 2), False),
                 ("llama-3.2-vision-90b", None, (2, 2), True))
 PROCS_TOKENS = 8
+# serving (`run_streaming`, the sharded arena) with one process a
+# position, as the mesh phase serves on the single controller: yi-6b at
+# full width, `MESH_LAYERS` of its 32 (cut 2), `N_CLIENTS` clients x
+# (`PROMPT_LEN` + `MESH_GEN`) tokens, randtopk k 64; (label, mesh,
+# capacity, backend): 'data' x 'model' (2, 2), 'pod' x 'data' x 'model'
+# (2, 1, 2) over the pod ring, (2, 2) at capacity 2 (evictions and
+# re-admissions whose rows cross between processes) and (2, 1, 2) with
+# the plain versions
+PROCS_SERVES = (("(2, 2)", (2, 2), None, None),
+                ("(2, 1, 2)", (2, 1, 2), None, None),
+                ("(2, 2) at capacity 2", (2, 2), 2, None),
+                ("(2, 1, 2) plain", (2, 1, 2), None, "torch"))
 # each training config's peak a process when every process held the
 # whole parameters and f32 moments (GiB, NVIDIA H100 80GB HBM3, 700 W),
 # printed beside the resident blocks' peak
@@ -4439,19 +4464,78 @@ def _procs_model(arch, layers, cut, smoke, dev):
 
 def _procs_rank(rank, dev, single_paths):
     """One process of the procs phase: each of `PROCS_RUNS` in turn
-    (`_procs_run`), then each of `PROCS_DECODE` (`_procs_decode`), the
-    card's memory freed between them. Returns (the training runs'
-    results, the decode runs')."""
+    (`_procs_run`), then each of `PROCS_DECODE` (`_procs_decode`), then
+    each of `PROCS_SERVES` (`_procs_serve`), the card's memory freed
+    between them. Returns (the training runs' results, the decode runs',
+    the serving runs')."""
     import torch
 
-    train, decode = [], []
+    train, decode, served = [], [], []
     for run, path in zip(PROCS_RUNS, single_paths):
         train.append(_procs_run(rank, dev, *run, path))
         torch.cuda.empty_cache()
     for run in PROCS_DECODE:
         decode.append(_procs_decode(dev, *run, procs=True))
         torch.cuda.empty_cache()
-    return train, decode
+    for run in PROCS_SERVES:
+        served.append(_procs_serve(rank, dev, *run))
+        torch.cuda.empty_cache()
+    return train, decode, served
+
+
+def _serve_cfg(backend=None):
+    """The mesh phase's yi-6b at full width, `MESH_LAYERS` of 32, cut at
+    half, randtopk k 64 (`backend`: None the kernels, "torch" the plain
+    versions)."""
+    from repro_torch import configs
+    from repro_torch.models.config import SplitConfig
+
+    cfg = configs.with_layers(configs.get(MESH_ARCH), MESH_LAYERS)
+    return cfg.with_(split=SplitConfig(cut_layer=cfg.n_layers // 2,
+                                       compressor="randtopk", k=K,
+                                       backend=backend))
+
+
+def _procs_serve(rank, dev, _label, shape, capacity, backend):
+    """One serving config of the procs phase in one process: every rank
+    calls `run_streaming` on its process mesh (weights from seed 0, the
+    engine's prompts), launch counts zeroed just before; rank 0 serves,
+    the others follow it. Returns the launches, the call's s, peak GiB,
+    the counted bytes and, on rank 0, the tokens, flushes, client tokens,
+    payload B a token, slot counters, tokens/s and the serving wall; on
+    the others the steps taken."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.mesh import collective_bytes
+    from repro_torch.runtime import engine
+
+    mesh = make_process_mesh(shape, _procs_axes(shape), dev)
+    base = held_gib(dev)
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.run_streaming(
+        _serve_cfg(backend), n_clients=N_CLIENTS, prompt_len=PROMPT_LEN,
+        gen=MESH_GEN, device=dev, capacity=capacity, mesh=mesh, seed=0)
+    torch.cuda.synchronize()
+    out = {"launches": _lib.launch_counts(),
+           "call_s": time.perf_counter() - t0,
+           "peak_gib": peak_gib(dev, base),
+           "bytes": {k: float(v) for k, v in
+                     collective_bytes(res["metrics"]).items()}}
+    if rank != 0:
+        return dict(out, steps=res["steps"])
+    stats = res["client_stats"] + res["server_stats"]
+    return dict(out, tokens=res["tokens"], flushes=res["flushes"],
+                frames=sum(s["frames_up"] for s in res["client_stats"]),
+                n_comps=len(set(res["compressor_objs"])),
+                max_batch=res["max_batch"],
+                payload_b={s["payload_bytes_up"] / s["frames_up"]
+                           for s in stats},
+                counters=[_metric(res, name) for name in (
+                    "slot_evictions_total", "slot_readmissions_total")],
+                tokens_per_s=res["tokens_per_s"], wall_s=res["wall_s"])
 
 
 def _procs_run(rank, dev, arch, layers, cut, shape, smoke, n_steps,
@@ -4758,16 +4842,49 @@ def _procs_single(arch, layers, cut, shape, smoke, n_steps, path, dev):
     return {k: float(v) for k, v in m.items()}, want
 
 
+def _procs_single_serves(dev):
+    """The single controller's sharded arena on the card for each kernel
+    config of `PROCS_SERVES` (`serve`, the same weights, prompts and
+    mesh shape): its tokens, flushes, slot counters, tokens/s and wall;
+    None for the plain run, which is held to the processes' kernel run."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import transformer
+
+    cfg = _serve_cfg()
+    params = transformer.init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    out = []
+    for _, shape, capacity, backend in PROCS_SERVES:
+        if backend is not None:
+            out.append(None)
+            continue
+        mesh = make_serving_mesh(4, model=shape[-1],
+                                 pod=shape[0] if len(shape) == 3 else 1)
+        res, _, _ = serve(cfg, params, "randtopk", gen=MESH_GEN,
+                          capacity=capacity, mesh=mesh)
+        out.append({"tokens": res["tokens"], "flushes": res["flushes"],
+                    "counters": [_metric(res, name) for name in (
+                        "slot_evictions_total",
+                        "slot_readmissions_total")],
+                    "tokens_per_s": res["tokens_per_s"],
+                    "wall_s": res["wall_s"]})
+    del params
+    return out
+
+
 def procs_phase(dev, card):
-    """Phase 22: the training mesh and the decode mesh across processes
-    (`launch.mesh.spawn`, `mesh.ProcessMesh`): for each of `PROCS_RUNS`
-    the single controller's first training step on the same mesh on the
-    card, and for each of `PROCS_DECODE` its decode run; then
-    `PROCS_WORLD` processes, one a position, sharing the card over gloo
-    (each collective's tensors through host memory), run each training
-    config its steps from the same seeds and each decode config's tokens
-    (`_procs_rank`). Fatal: a process's failure, `_procs_checks` and
-    `_procs_decode_checks`. Returns the processes' launches summed."""
+    """Phase 22: the training mesh, the decode mesh and the serving arena
+    across processes (`launch.mesh.spawn`, `mesh.ProcessMesh`): for each
+    of `PROCS_RUNS` the single controller's first training step on the
+    same mesh on the card, for each of `PROCS_DECODE` its decode run and
+    for each of `PROCS_SERVES` its serve; then `PROCS_WORLD` processes,
+    one a position, sharing the card over gloo (each collective's tensors
+    through host memory), run each training config its steps from the
+    same seeds, each decode config's tokens and each serving config
+    (`_procs_rank`). Fatal: a process's failure, `_procs_checks`,
+    `_procs_decode_checks` and `_procs_serve_checks`. Returns the
+    processes' launches summed."""
     import collections
 
     from repro_torch.launch.mesh import spawn
@@ -4782,8 +4899,10 @@ def procs_phase(dev, card):
                    for run, path in zip(PROCS_RUNS, paths)]
         single_decodes = [_procs_decode(dev, *run, procs=False)
                           for run in PROCS_DECODE]
-        print(f"procs phase: the single controller's first steps and "
-              f"decode runs {time.perf_counter() - t0:.1f} s; this process "
+        single_serves = _procs_single_serves(dev)
+        print(f"procs phase: the single controller's first steps, decode "
+              f"runs and serves {time.perf_counter() - t0:.1f} s; this "
+              f"process "
               f"holds {held_gib(dev):.2f} GiB of the card before the "
               f"spawn; {card}")
         # each process's allocator grows its segments in place, so that
@@ -4806,6 +4925,8 @@ def procs_phase(dev, card):
     checks += [(_procs_decode_checks, (run, single_decodes[j],
                                        [r[1][j] for r in ranks]))
                for j, run in enumerate(PROCS_DECODE)]
+    checks += [(_procs_serve_checks, (single_serves,
+                                      [r[2] for r in ranks]))]
     for fn, args in checks:
         # every config's readings are printed before a failure ends the run
         try:
@@ -4923,6 +5044,108 @@ def _procs_checks(run, single, want, ranks, card):
     return total
 
 
+def _procs_serve_checks(singles, ranks, card):
+    """The fatal checks of the serving configs' processes (`ranks[r][j]`:
+    rank r's run of `PROCS_SERVES[j]`): rank 0's tokens equal the single
+    controller's at the same mesh shape (`singles[j]`) bit for bit, the
+    plain versions' tokens the kernels', the capacity-2 run's the
+    uncontended (2, 2) run's, with evictions and re-admissions (at least
+    one each, as on the single controller, whose counts follow the
+    threads' timing as the processes' do); every token in the
+    vocabulary; payload B a token = the codec's; every rank's counted
+    bytes = `serving_collective_costs` a step over rank 0's flushes and
+    the warm-up's steps, which every other rank takes too; rank 0
+    launches one fused encode a client token (and one a compressor in
+    the warm-up) and one flush decode a flush group (and two a flush
+    bucket in the warm-up), the plain run none, the other ranks none.
+    Prints tokens/s, ms a flush and each process's peak GiB beside the
+    single controller's. Returns the launches summed over the
+    processes."""
+    import collections
+
+    from repro_torch.roofline import analysis
+
+    cfg = _serve_cfg()
+    total = collections.Counter()
+    kernel_toks = {}
+    for j, (label, shape, capacity, backend) in enumerate(PROCS_SERVES):
+        what = f"procs serve {MESH_ARCH} {cfg.n_layers} layers {label}"
+        runs = [r[j] for r in ranks]
+        lead, single = runs[0], singles[j]
+        toks = lead["tokens"]
+        if toks.shape != (N_CLIENTS, MESH_GEN) or int(toks.min()) < 0 \
+                or int(toks.max()) >= cfg.vocab:
+            fail(f"{what}: tokens {toks.shape} out of shape or range")
+        if lead["payload_b"] != {MESH_NB}:
+            fail(f"{what}: payload B a token {lead['payload_b']}, "
+                 f"{MESH_NB} expected")
+        if backend is None:
+            kernel_toks[shape, capacity] = toks
+            if not (toks == single["tokens"]).all():
+                fail(f"{what}: tokens {toks.tolist()}, the single "
+                     f"controller's {single['tokens'].tolist()}")
+        elif not (toks == kernel_toks[shape, None]).all():
+            fail(f"{what}: plain tokens {toks.tolist()} != the kernels' "
+                 f"{kernel_toks[shape, None].tolist()}")
+        if capacity is not None:
+            uncontended = kernel_toks[shape, None]
+            if min(lead["counters"]) < 1 or min(single["counters"]) < 1 \
+                    or not (toks == uncontended).all():
+                fail(f"{what}: evictions and re-admissions "
+                     f"{lead['counters']} (single controller "
+                     f"{single['counters']}), tokens {toks.tolist()} "
+                     f"against the uncontended {uncontended.tolist()}")
+        buckets = len({1 << i for i in range(lead["max_batch"].bit_length())
+                       if (1 << i) <= lead["max_batch"]}
+                      | {lead["max_batch"]})
+        n_steps = lead["flushes"] + buckets * lead["n_comps"] + 1
+        rows = -(-(capacity or N_CLIENTS) // PROCS_WORLD) * PROCS_WORLD
+        per_step = analysis.serving_collective_costs(
+            cfg, rows, dict(zip(_procs_axes(shape), shape)),
+            dtype_bytes=cfg.adtype().itemsize)[0]
+        want = {k: v * n_steps for k, v in per_step.items()}
+        for r, got in enumerate(runs):
+            if got["bytes"] != want or (r and got["steps"] != n_steps):
+                fail(f"{what} rank {r}: counted {got['bytes']} in "
+                     f"{got.get('steps', n_steps)} steps; "
+                     f"serving_collective_costs {per_step} a step over "
+                     f"{n_steps}")
+        path = {"encode_sections": lead["frames"] + lead["n_comps"],
+                "decode_to_slots": lead["flushes"]
+                + _warm_decodes(lead["max_batch"], lead["n_comps"])}
+        for r, got in enumerate(runs):
+            want_l = {n: path.get(n, 0) if r == 0 and backend is None
+                      else 0 for n in got["launches"]}
+            if got["launches"] != want_l:
+                fail(f"{what} rank {r}: launches {got['launches']}, "
+                     f"{want_l} expected")
+            total.update({n: got["launches"][n] for n in path})
+        ms = lead["wall_s"] / lead["flushes"] * 1e3
+        line = (f"  {what}, {len(runs)} processes sharing the card over "
+                f"gloo, rank 0 serving: {lead['tokens_per_s']:.3f} "
+                f"tokens/s, {ms:.1f} ms a flush ({lead['flushes']} flushes,"
+                f" wall {lead['wall_s']:.3f} s)")
+        if single is not None:
+            line += (f"; single controller {single['tokens_per_s']:.3f} "
+                     f"tokens/s, {single['wall_s'] / single['flushes'] * 1e3:.1f}"
+                     f" ms a flush; tokens = the single controller's bit "
+                     f"for bit")
+        else:
+            line += "; plain versions: tokens = the kernels'"
+        if capacity is not None:
+            line += (f"; {lead['counters'][0]} evictions, "
+                     f"{lead['counters'][1]} re-admissions (single "
+                     f"controller {single['counters'][0]}, "
+                     f"{single['counters'][1]}), the uncontended tokens")
+        print(line + f"; collective bytes a step {per_step} = "
+              f"serving_collective_costs on every rank over {n_steps} "
+              f"steps; rank 0 launches {path if backend is None else {}}, "
+              f"the other ranks none; peak GiB "
+              f"{[round(g['peak_gib'], 2) for g in runs]}, the call's s "
+              f"{[round(g['call_s'], 1) for g in runs]}; {card}")
+    return total
+
+
 def _procs_decode_checks(run, single, ranks, card):
     """The fatal checks of one decode config's processes against the
     single controller's decode mesh of the same shape (`single`): every
@@ -5013,7 +5236,8 @@ STEP_TOKENS = 48              # from an empty cache: the 32-slot ring wraps
 # (tokens/s at half the model's depth) and granite-moe (24 tokens wrap its 16-slot ring,
 # 4 slots a position at (1, 4)): the phase's time
 STEP_TOKENS_FULL = 16
-STEP_FULL_LAYERS = 16         # of 32 (cut 8), cut from 32 for the run's time
+STEP_FULL_LAYERS = 8          # of 32 (cut 4), cut from 32 to 16 and then
+                              # to 8 for the run's time
 STEP_MOE_TOKENS, STEP_MOE_MAX_LEN = 24, 16
 # granite-moe's depth, cut from 24 to 12 (cut 6) and then to 6 (cut 3)
 # to keep the whole run within its time: its (1, 4) run is host-bound
@@ -5992,7 +6216,8 @@ def main(argv=None) -> int:
                       "the vlm SMOKE at (2, 2); decoding yi-6b 4 layers "
                       "at (1, 4), granite-moe 6, rwkv6 2 and the vlm "
                       "SMOKE at (2, 2), zamba2 6 at (1, 4), whisper at "
-                      "(2, 1, 2))")
+                      "(2, 1, 2); serving yi-6b 4 layers on rank 0 at "
+                      "(2, 2), (2, 1, 2) and (2, 2) at capacity 2)")
     if args.phase in ("all", "serve"):
         t0 = time.perf_counter()
         counts = serve_phase(dev, args.layers)
@@ -6067,7 +6292,7 @@ def main(argv=None) -> int:
                 add(n, counts[n], "the serve step phase's kernel runs "
                                   "(yi-6b 2 layers at mesh=None, (1, 4) "
                                   "flash and replicated, (2, 2, 2); yi-6b "
-                                  "16 layers; granite-moe at mesh=None "
+                                  "8 layers; granite-moe at mesh=None "
                                   "and (1, 4))")
     if args.phase in ("all", "familystep"):
         counts = familystep_phase(dev, card)

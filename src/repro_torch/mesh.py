@@ -48,6 +48,18 @@ sharing one card) the tensors cross as bytes through host memory; under
 NCCL (one card a process) they cross on the cards. Neither the staging
 nor a gather that stands in for a reduction is counted.
 
+The serving arena's control plane on a process mesh (position 0 runs
+the server, every other process follows it): `broadcast_record` hands
+each flush's control record from position 0 to every process,
+`scatter_rows` each position its block of the flush's activation rows,
+`gather_rows` every position's block of tokens back to position 0, and
+`send_to` / `recv_from` move one arena row's state between position 0
+and the row's owner, for an eviction or a re-admission. None of these is
+counted: the reference's `xbuf` is replicated (`P()`), its tokens leave
+by the host's read and its row ops are host copies, so its program has
+no collective there (the rule under which `split.model.next_tokens`
+fetches the tokens uncounted).
+
 Blocks. A layout (`launch.specs.param_shardings`, the reference's
 `PartitionSpec` as a tuple) splits a tensor's leading dimensions over
 mesh axes; `block_of` and `block_slices` give a position's block.
@@ -218,6 +230,15 @@ def _wire(mesh: ProcessMesh, x):
         else wire
 
 
+def _empty_wire(mesh: ProcessMesh, shape, dtype):
+    """A receive buffer for a tensor of `shape` and `dtype` as the backend
+    moves it (`_wire`)."""
+    if mesh.backend == "gloo":
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        return torch.empty(n, dtype=torch.uint8)
+    return torch.empty(shape, dtype=dtype, device=mesh.device)
+
+
 def _unwire(w, dtype, shape, device):
     """A received wire buffer as a tensor of `dtype` and `shape` on
     `device`."""
@@ -288,6 +309,59 @@ def sum_processes(mesh: ProcessMesh, ts: list) -> None:
                         group=group)
         ts[i] = _unwire(sums, t.dtype, (c * world,), t.device)[:n] \
             .reshape(t.shape)
+
+
+def broadcast_record(mesh: ProcessMesh, record=None):
+    """Position 0's `record` (a small picklable object) on every process;
+    the others pass None. Not counted."""
+    box = [record]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def scatter_rows(mesh: ProcessMesh, pieces, out):
+    """Position 0's `pieces` (one tensor a position, all alike) scattered
+    over the processes: position 0 passes them and gets its own back;
+    every other process passes None and receives its piece into `out` (a
+    tensor like it), which it returns. Not counted."""
+    if mesh.rank == 0:
+        wires = [_wire(mesh, p.detach().contiguous()) for p in pieces]
+        dist.scatter(torch.empty_like(wires[0]), wires, src=0)
+        return pieces[0]
+    buf = _empty_wire(mesh, out.shape, out.dtype)
+    dist.scatter(buf, None, src=0)
+    out.copy_(_unwire(buf, out.dtype, out.shape, out.device))
+    return out
+
+
+def gather_rows(mesh: ProcessMesh, t):
+    """Every position's tensor like `t` at position 0, in position order
+    (None on the other processes). Not counted."""
+    x = t.detach().contiguous()
+    wire = _wire(mesh, x)
+    bufs = ([torch.empty_like(wire) for _ in range(mesh.size)]
+            if mesh.rank == 0 else None)
+    dist.gather(wire, bufs, dst=0)
+    if bufs is None:
+        return None
+    return [_unwire(b, x.dtype, x.shape, x.device) for b in bufs]
+
+
+def send_to(mesh: ProcessMesh, t, dst: int) -> None:
+    """Send `t` (on the host or the process's device) to position `dst`,
+    point to point. Not counted."""
+    x = t.detach().contiguous()
+    if mesh.backend != "gloo":
+        x = x.to(mesh.device)
+    dist.send(_wire(mesh, x), dst)
+
+
+def recv_from(mesh: ProcessMesh, shape, dtype, src: int, device):
+    """A tensor of `shape` and `dtype` on `device` from position `src`
+    (`send_to`'s other end). Not counted."""
+    buf = _empty_wire(mesh, shape, dtype)
+    dist.recv(buf, src)
+    return _unwire(buf, dtype, shape, device)
 
 
 def _axes(axis):

@@ -26,7 +26,7 @@ from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.runtime import steps
 from repro_torch.runtime.client import StreamingClient
-from repro_torch.runtime.server import StreamingServer
+from repro_torch.runtime.server import StreamingServer, serve_follower
 from repro_torch.runtime.transport import channel_pair
 from repro_torch.split import protocol
 
@@ -89,7 +89,14 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
     type, e.g. `launch.mesh.make_serving_mesh`) shards the server's arena
     and runs the sharded top step (docs/sharding.md), whose collective
     bytes land in `metrics` (`repro_torch.mesh.collective_bytes`); the
-    clients are unchanged.
+    clients are unchanged. A `repro_torch.mesh.ProcessMesh` (one process
+    a position, `launch.mesh.spawn`; every process calls `run_streaming`
+    alike) serves from position 0's process: the server, the sessions,
+    the clients, their prompts and compressors live there, and every
+    other process holds the same params and its own arena block and
+    follows the server's flushes (`server.serve_follower`), returning
+    `{"rank", "steps", "metrics"}` (its steps and its registry's
+    snapshot).
 
     Returns the generated tokens `(n_clients, gen)`, per-session client
     and server stats, the compressors, the flush fill history, wall-clock
@@ -97,9 +104,9 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
     `metrics` snapshot of the run's own `MetricsRegistry`.
     """
     dev = resolve_device(device)
-    if mesh is not None and mesh.devices[0].type != dev.type:
-        raise ValueError(f"the mesh lies on {mesh.devices[0]}, the run on "
-                         f"{dev}")
+    if mesh is not None and mesh.devices[mesh.local[0]].type != dev.type:
+        raise ValueError(f"the mesh lies on {mesh.devices[mesh.local[0]]}, "
+                         f"the run on {dev}")
     cut = (cfg.split.cut_layer if cfg.split and cfg.split.cut_layer > 0
            else max(1, cfg.n_layers // 2))
     assert 0 < cut < cfg.n_layers
@@ -107,8 +114,14 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
     if params is None:
         gen_ = torch.Generator(device=dev).manual_seed(seed)
         params = transformer.init_model(cfg, gen_, device=dev)
-    max_batch = max_batch or min(8, n_clients)
     max_len = prompt_len + gen
+    if mesh is not None and mesh.procs and mesh.rank != 0:
+        _, make_top_cache = cache_makers(cfg, max_len, dev, params)
+        return serve_follower(params, cfg, cut, mesh, make_top_cache,
+                              capacity=capacity or n_clients,
+                              x_shape=(1, 1, cfg.d_model),
+                              dtype=cfg.adtype(), device=dev)
+    max_batch = max_batch or min(8, n_clients)
     comps = _client_compressors(cfg, n_clients, compressor_mix)
     if prompts is None:
         prompts = np.random.default_rng(seed + 1).integers(
@@ -148,30 +161,37 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
             max_retries=max_retries, reconnect=lambda cid=cid: _connect(cid),
             tracer=tracer, registry=registry, device_encode=device_encode))
 
-    # warm every hot-loop path before the serving clock starts: one bottom
-    # step per compressor (on a throwaway cache), then the server's decode
-    # and step per (meta, bucket)
-    tok0 = np.zeros((1, 1), np.int32)
-    examples = []
-    for step in bottom_steps.values():
-        out = step(params, make_cache(), tok0)
-        examples.append(to_host(out[0] if device_encode else out))
-    server.warm(examples)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-    t0 = time.perf_counter()
     serve_thread = threading.Thread(target=server.serve_loop, daemon=True)
-    serve_thread.start()
-    threads = [threading.Thread(target=c.run, daemon=True) for c in clients]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
-    # guaranteed stop even if a CLOSE frame was lost to injected faults
-    server.shutdown()
-    serve_thread.join(timeout=60)
-    wall = time.perf_counter() - t0
+    try:
+        # warm every hot-loop path before the serving clock starts: one
+        # bottom step per compressor (on a throwaway cache), then the
+        # server's decode and step per (meta, bucket)
+        tok0 = np.zeros((1, 1), np.int32)
+        examples = []
+        for step in bottom_steps.values():
+            out = step(params, make_cache(), tok0)
+            examples.append(to_host(out[0] if device_encode else out))
+        server.warm(examples)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+        t0 = time.perf_counter()
+        serve_thread.start()
+        threads = [threading.Thread(target=c.run, daemon=True)
+                   for c in clients]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        # guaranteed stop even if a CLOSE frame was lost to injected faults
+        server.shutdown()
+        serve_thread.join(timeout=60)
+        wall = time.perf_counter() - t0
+    finally:
+        # a process mesh's followers stop with the serve loop; where the
+        # loop never ran (a failed warm-up), here
+        if not serve_thread.is_alive():
+            server.stop_followers()
     # no reader may outlive the run: a daemon thread still inside torch
     # when the interpreter exits aborts it
     readers = server.join_readers(timeout=30)

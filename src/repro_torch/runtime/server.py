@@ -33,6 +33,18 @@ real threads or the load generator's virtual clock. The registry counters
 and tracer spans and instants are the reference's; on the card a span
 measures host time (`obs.trace`).
 
+On a process mesh (`repro_torch.mesh.ProcessMesh`) the server runs in
+position 0's process and every other process runs `serve_follower`:
+before each flush's row ops the serve loop broadcasts a control record
+(the flush's row ops as (kind, slot) in FIFO order, and the active mask
+of the step it runs, or none), each follower runs its side of the ops on
+the rows it owns (`SlotArena.follow`) and its position's part of the
+step, in lockstep with position 0; the warm-up's steps go the same way.
+When the serve loop ends, however it ends, it sends the stop record
+(`stop_followers`), and every follower returns. All of position 0's
+control records and collectives leave from one thread at a time, in one
+order: the warm-up's from the caller's, then the serve loop's.
+
 Fault tolerance: a malformed frame (a typed `wire.WireError`) makes the
 reader reply with an `error` frame and retire the connection; the session
 survives, and the client reconnects and replays from its last
@@ -50,6 +62,7 @@ from typing import Callable, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import mesh as mesh_mod
 from repro_torch.core import wire
 from repro_torch.core.payload import Payload, device_leaf
 from repro_torch.obs.registry import MetricsRegistry
@@ -70,6 +83,10 @@ from repro_torch.testing.clock import Clock, SYSTEM_CLOCK
 #: window re-admits the session; the FIFO arena-op queue runs the fetch
 #: before the restore, so the restore always writes real host state.
 _EVICTING = object()
+
+#: the control record's ops: a flush's row ops and step, its row ops only,
+#: the end of the run
+_STEP, _OPS, _STOP = "step", "ops", "stop"
 
 
 class FrameServerBase:
@@ -369,6 +386,11 @@ class StreamingServer(FrameServerBase):
         self._make_cache = make_cache
         self._capacity = capacity or max_batch
         self._mesh = mesh
+        self._procs = mesh is not None and mesh.procs
+        self._stopped = False
+        if self._procs and x_shape is None:
+            raise ValueError("a process mesh's arena is built with the "
+                             "server: pass x_shape")
         self.evict_idle = evict_idle
         self.admit_timeout = admit_timeout
         if x_shape is not None:
@@ -509,20 +531,41 @@ class StreamingServer(FrameServerBase):
     # -- serving --------------------------------------------------------------
 
     def serve_loop(self) -> None:
-        """Flush/process until every connection has closed and drained."""
-        while True:
-            batch = self.queue.get_batch(idle_timeout=0.05)
-            if batch:
-                self._process(batch)
-            elif self.queue.drained:
-                return
+        """Flush/process until every connection has closed and drained;
+        then, or on a failure, stop the followers of a process mesh."""
+        try:
+            while True:
+                batch = self.queue.get_batch(idle_timeout=0.05)
+                if batch:
+                    self._process(batch)
+                elif self.queue.drained:
+                    return
+        finally:
+            self.stop_followers()
+
+    def _send_record(self, ops, active) -> None:
+        """On a process mesh: the control record of the row ops `ops` and
+        of the step over the `active` mask (None: no step) to every
+        follower (`serve_follower`)."""
+        if self._procs:
+            mesh_mod.broadcast_record(self._mesh, (
+                _OPS if active is None else _STEP,
+                [(kind, slot) for kind, _, slot in ops], active))
+
+    def stop_followers(self) -> None:
+        """On a process mesh: send the stop record, once (the serve loop's
+        end, or the engine's backstop when the loop never ran)."""
+        if self._procs and not self._stopped:
+            self._stopped = True
+            mesh_mod.broadcast_record(self._mesh, (_STOP, [], None))
 
     def warm(self, example_payloads) -> None:
         """Run every hot-loop path once before the serving clock starts
         (kernel library build, allocator and library handles): for each
         example payload and flush bucket, the decode into the scratch row
         and the fused step with every slot inactive (no session state
-        changes), then one plain arena step for the mixed-meta path."""
+        changes), then one plain arena step for the mixed-meta path. On a
+        process mesh each of these steps is the followers' too."""
         for p in example_payloads:
             self._ensure_arena(p.meta.d)
             inactive = np.zeros(self.arena.capacity, bool)
@@ -531,13 +574,15 @@ class StreamingServer(FrameServerBase):
                 stacked, dslots = self._stack_group(p.meta, [p] * size,
                                                     slots, size)
                 self._decode(stacked, dslots)
+                self._send_record([], inactive)
                 self._fused_step(self.params, self.arena.xbuf, stacked,
                                  dslots, self.arena.cache, inactive)
         if self.arena is None:
             return
+        inactive = np.zeros(self.arena.capacity, bool)
+        self._send_record([], inactive)
         tokens = self.top_step(self.params, self.arena.xbuf,
-                               self.arena.cache,
-                               np.zeros(self.arena.capacity, bool))
+                               self.arena.cache, inactive)
         tokens.cpu()
         self.host_bytes = {"staged": 0, "wire": 0}   # warm traffic is free
 
@@ -634,8 +679,14 @@ class StreamingServer(FrameServerBase):
             # session's slot at any moment); a frame of a session with no
             # row left (closed) is dropped
             items = [(s, f, s.slot) for s, f in items if s.slot >= 0]
+        active = None
         if items:
             self._ensure_arena(items[0][1].payload.meta.d)
+            active = np.zeros(self.arena.capacity, bool)
+            for _, _, slot in items:
+                active[slot] = True
+        if ops or items:
+            self._send_record(ops, active)
         self._apply_arena_ops(ops)      # serialized with the step here
         if not items:
             return
@@ -647,9 +698,6 @@ class StreamingServer(FrameServerBase):
         by_meta: Dict = {}
         for i, (_, frame, _slot) in enumerate(items):
             by_meta.setdefault(frame.payload.meta, []).append(i)
-        active = np.zeros(self.arena.capacity, bool)
-        for _, _, slot in items:
-            active[slot] = True
         if len(by_meta) == 1:
             [(meta, idxs)] = by_meta.items()
             stacked, slots = self._group(meta, idxs, items)
@@ -688,3 +736,32 @@ class StreamingServer(FrameServerBase):
             self.tracer.complete(SPAN_DECODE, ts0, ts1, tid=SERVE_TID, n=n)
             self.tracer.complete(SPAN_STEP, ts1, ts2, tid=SERVE_TID, n=n)
             self.tracer.complete(SPAN_REPLY, ts2, ts3, tid=SERVE_TID, n=n)
+
+
+def serve_follower(params, cfg, cut: int, mesh, make_cache: Callable, *,
+                   capacity: int, x_shape, dtype, device,
+                   registry: Optional[MetricsRegistry] = None) -> dict:
+    """A process other than position 0's on a process mesh, while
+    position 0 serves (`StreamingServer` with the same mesh): its own
+    arena block (`SlotArena` of `capacity` requested rows, cut
+    activations of `x_shape` and `dtype`) and, record by record from
+    position 0, its side of each row op and its position's part of each
+    step (`steps.make_arena_top_step`, counting into `registry`), until
+    the stop record. Returns {"rank", "steps", "metrics"}: the steps
+    taken and the registry's snapshot."""
+    registry = registry if registry is not None else MetricsRegistry()
+    arena = SlotArena(make_cache, capacity, x_shape, dtype, device,
+                      mesh=mesh)
+    step = steps.make_arena_top_step(cfg, cut, mesh=mesh, registry=registry)
+    n_steps = 0
+    while True:
+        kind, ops, active = mesh_mod.broadcast_record(mesh)
+        if kind == _STOP:
+            break
+        for op, slot in ops:
+            arena.follow(op, slot)
+        if kind == _STEP:
+            step(params, arena.xbuf, arena.cache, active)
+            n_steps += 1
+    return {"rank": mesh.rank, "steps": n_steps,
+            "metrics": registry.snapshot()}

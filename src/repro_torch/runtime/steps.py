@@ -22,7 +22,9 @@ layers [cut, L) — each party touches only its own range, in place.
 
 With a mesh (`repro_torch.mesh.Mesh`) the arena top step is the sharded
 one (`_make_sharded_arena_step`, docs/sharding.md): rows over every mesh
-position, a vocab-parallel head, and a pod ring.
+position, a vocab-parallel head, and a pod ring; on a process mesh every
+process runs its position's part of it (`server.serve_follower` drives
+the processes other than position 0's).
 """
 from __future__ import annotations
 
@@ -98,8 +100,9 @@ def make_arena_top_step(cfg: ArchConfig, cut: int, mesh=None,
     bool) -> tokens (C,) int32 on the device. Inactive slots compute and
     discard: their state and position are never written. With `mesh` the
     sharded step: `cache` is the arena's list of per-position blocks, the
-    tokens come back in wire-row order (`SlotArena.wire_row`), and the
-    collectives count their bytes into `registry` when given."""
+    tokens come back in wire-row order (`SlotArena.wire_row`; on a process
+    mesh to position 0 only, None elsewhere), and the collectives count
+    their bytes into `registry` when given."""
     if mesh is not None:
         return _make_sharded_arena_step(cfg, cut, mesh, registry)
 
@@ -140,11 +143,17 @@ def _make_sharded_arena_step(cfg: ArchConfig, cut: int, mesh,
 
     Positions on the device the params lie on read them in place (the
     column slices are views of the one `unembed`); a position on another
-    device reads a copy made there once per params object."""
-    if mesh.procs:
-        raise ValueError("the sharded arena runs under one controller; "
-                         "across processes it waits for ROADMAP item "
-                         "8c-iii")
+    device reads a copy made there once per params object.
+
+    On a process mesh every process calls the step with the same
+    `active` mask, its own arena block (`SlotArena.cache`) and its
+    `xbuf`: position 0's whole one, whose blocks it scatters, and the
+    other processes' rows, which receive them (`mesh.scatter_rows`).
+    Position 0 gets every position's own block of tokens back
+    (`mesh.gather_rows`) and returns them in wire-row order; the other
+    processes return None. Neither move is counted, so every process
+    counts `roofline.analysis.serving_collective_costs` a step, as the
+    single controller does."""
     n = mesh.size
     n_model = mesh.shape["model"]
     n_pod = mesh.shape.get("pod", 1)
@@ -162,6 +171,16 @@ def _make_sharded_arena_step(cfg: ArchConfig, cut: int, mesh,
             copies[dev] = (params, _to(params, dev))
         return copies[dev][1]
 
+    def stage(xbuf, r):
+        """Each position's block of `xbuf`, (r, 1, d) on its device."""
+        if not mesh.procs:
+            return [xbuf[p * r:(p + 1) * r].reshape(r, 1, cfg.d_model)
+                    .to(dev) for p, dev in enumerate(mesh.devices)]
+        mine = mesh_mod.scatter_rows(
+            mesh, [xbuf[p * r:(p + 1) * r] for p in range(n)]
+            if mesh.rank == 0 else None, xbuf)
+        return mesh.each(lambda p: mine.reshape(r, 1, cfg.d_model))
+
     def arena_step(params, xbuf, blocks, active):
         C = active.shape[0]
         if C % n:
@@ -169,33 +188,41 @@ def _make_sharded_arena_step(cfg: ArchConfig, cut: int, mesh,
                              f"{n}-position row sharding (SlotArena pads "
                              f"for this)")
         r = C // n
-        x = [xbuf[p * r:(p + 1) * r].reshape(r, 1, cfg.d_model).to(dev)
-             for p, dev in enumerate(mesh.devices)]
+        x = stage(xbuf, r)
         if n_pod > 1:
             x = mesh_mod.permute(mesh, x, "pod",
                                  protocol.pod_ring_perm(n_pod), registry)
-        h = []
-        for p, dev in enumerate(mesh.devices):
-            prm, cache = on(params, dev), blocks[p]
+
+        def hidden(p, xp):
+            prm, cache = on(params, mesh.devices[p]), blocks[p]
             rows = torch.as_tensor(
-                np.flatnonzero(active[p * r:(p + 1) * r]), device=dev)
-            h.append(top_hidden(prm, cfg, cut, x[p], cache, rows))
+                np.flatnonzero(active[p * r:(p + 1) * r]), device=xp.device)
+            h = top_hidden(prm, cfg, cut, xp, cache, rows)
             cache["pos"][rows] += 1
-        h = tp.gather_seq_local(mesh, h, registry=registry)
-        logits = []
-        for p, dev in enumerate(mesh.devices):
-            w = on(params, dev)["unembed"][
+            return h
+
+        h = tp.gather_seq_local(mesh, mesh_mod.pmap(hidden, x),
+                                registry=registry)
+
+        def head(p, hp):
+            w = on(params, mesh.devices[p])["unembed"][
                 :, ranks[p] * v_local:(ranks[p] + 1) * v_local]
-            logits.append((h[p] @ w.to(h[p].dtype))[:, -1, :])
-        tok = tp.vocab_parallel_argmax(mesh, logits, registry=registry)
+            return (hp @ w.to(hp.dtype))[:, -1, :]
+
+        tok = tp.vocab_parallel_argmax(mesh, mesh_mod.pmap(head, h),
+                                       registry=registry)
         if n_pod > 1:
             tok = mesh_mod.permute(
                 mesh, tok, "pod", protocol.pod_ring_perm(n_pod, inverse=True),
                 registry)
         # each position's own rows: its rank's block of the group's tokens
+        own = mesh_mod.pmap(
+            lambda p, t: t[ranks[p] * r:(ranks[p] + 1) * r], tok)
+        if mesh.procs:
+            got = mesh_mod.gather_rows(mesh, mesh_mod.first(own))
+            return None if got is None else torch.cat(got)
         dev0 = mesh.devices[0]
-        return torch.cat([tok[p][ranks[p] * r:(ranks[p] + 1) * r].to(dev0)
-                          for p in range(n)])
+        return torch.cat([t.to(dev0) for t in own])
 
     return arena_step
 

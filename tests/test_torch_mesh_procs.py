@@ -47,11 +47,8 @@ gradients in another order), and resumed from its first step's
 checkpoint it writes what the uninterrupted run writes, array for
 array. The hybrid, ssm, vlm and audio families across processes:
 `tests/test_torch_mesh_procs_families.py`; the decode mesh:
-`tests/test_torch_decode_mesh_procs.py`.
-
-What a process mesh does not run yet, the sharded serving arena, raises
-a `ValueError` naming ROADMAP item 8c-iii in the process, which fails
-`spawn` with the process's traceback.
+`tests/test_torch_decode_mesh_procs.py`; the sharded serving arena:
+`tests/test_torch_arena_procs.py`.
 """
 from __future__ import annotations
 
@@ -86,7 +83,6 @@ from repro_torch.models import convert
 from repro_torch.models.config import Runtime, SplitConfig
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.optim.adamw import adamw_init, global_norm, tree_leaves
-from repro_torch.runtime import steps as runtime_steps
 
 ARCHS = ["yi-6b", "granite-moe-1b-a400m"]
 # the trained runs: (arch, dp_only)
@@ -556,17 +552,3 @@ def test_train_cli_devices_refused(extra):
     with pytest.raises((ValueError, SystemExit), match="distinct cards|"
                        "needs --procs"):
         train_cli.main(argv + extra)
-
-
-def _refused(rank, dev):
-    torch.set_num_threads(1)
-    mesh = make_process_mesh((1, 2), AXES2, dev)
-    runtime_steps.make_arena_top_step(_cfg("yi-6b"), 1, mesh=mesh)
-
-
-def test_what_a_process_mesh_does_not_run_raises(tmp_path):
-    """The sharded serving arena across processes (ROADMAP 8c-iii)."""
-    with pytest.raises(RuntimeError,
-                       match="ValueError.*ROADMAP item 8c-iii"):
-        spawn(_refused, 2, (), device="cpu", timeout=JOIN_S,
-              store_dir=tmp_path)
