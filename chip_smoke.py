@@ -362,7 +362,10 @@ Phases, each fatal on failure:
      256, randtopk k 64, AdamW, remat; one process a position, the four
      sharing the card over gloo (each collective's tensors through host
      memory), each holding its blocks of the params and AdamW moments
-     (the reference's sharding trees), after the single controller's
+     at rest (the reference's sharding trees) and, while a step runs,
+     its use blocks (`launch.specs.use_layouts`: the 'model' block of
+     each leaf its position reads as one, gathered over the data axes
+     only; every other leaf whole), after the single controller's
      first step on the same mesh: the processes' first-step loss and aux
      bit for bit, grad norm within 1e-3, every rank's first-moment blocks
      (the summed gradient) within 5e-2 of the single controller's, leaf
@@ -370,18 +373,30 @@ Phases, each fatal on failure:
      lr + half a bf16 ulp of each side and at most 2% of them off by
      more than 1 ulp; after the last step the blocks two ranks hold equal
      and the gathered weights equal on every rank; every rank's counted
-     collective bytes = `training_collective_costs`; the codec kernels
-     once a process a step; each rank's step ms, the gradient reduce's
-     and the parameter gather's ms, peak and at-rest GiB. Then the
+     collective bytes = `training_collective_costs`; every rank's held
+     parameter bytes in every step = `specs.block_bytes` of its use
+     layouts (a shape check: it fails where a step holds more or less
+     than `use_layouts` says, not where `use_layouts` keeps a leaf whole
+     that the path reads only as a block; the CPU test
+     `test_torch_tp_blocks.py::test_held_leaves_are_pinned` pins which
+     leaves are blocks); the codec kernels once a process a step; each rank's step
+     ms, the gradient reduce's and the parameter gather's ms and bytes
+     sent, peak (beside the peaks of whole parameters and moments and of
+     blocks at rest with whole parameters in a step) and at-rest GiB.
+     Then the
      serve step of six families (yi-6b 4 layers and zamba2 6 at (1, 4),
      granite-moe 6, rwkv6 2 and the vlm SMOKE at (2, 2), whisper FULL at
      ('pod', 'data', 'model') (2, 1, 2)), B 8, 8 tokens over a 32-slot
-     ring, flash decode: every token and each position's logits equal
+     ring, flash decode, each process decoding on its use blocks
+     (`use_layouts(..., "decode")`, their bytes held to `block_bytes`):
+     every token and each position's logits equal
      the single controller's decode mesh bit for bit, counted bytes =
      `decode_collective_costs` (whisper's cache =
      `decode_cache_collective_costs`), the cut's kernels once a process
-     a token; each rank's step ms and tokens/s. Then the sharded serving
-     arena (`run_streaming` on the process mesh, `PROCS_SERVES`): yi-6b
+     a token; each rank's step ms, tokens/s and peak. Then the sharded
+     serving arena (`run_streaming` on the process mesh, `PROCS_SERVES`,
+     every rank holding `unembed` as its 'model' columns, the params'
+     bytes held to `block_bytes` of `use_layouts(..., "arena")`): yi-6b
      at full width, 4 of its 32 layers (cut 2), 4 clients x (4 + 4)
      tokens, randtopk k 64, at (2, 2), (2, 1, 2) over the pod ring, (2,
      2) at capacity 2 and (2, 1, 2) with the plain versions; rank 0
@@ -4416,6 +4431,12 @@ PROCS_SERVES = (("(2, 2)", (2, 2), None, None),
 PROCS_WHOLE_PEAK_GIB = {"yi-6b": 16.78, FAM_TRAIN: 6.09, "zamba2-7b": 18.00,
                         "rwkv6-1.6b": 7.74, "whisper-tiny": 1.50,
                         "llama-3.2-vision-90b": 0.12}
+# ... and when every process held its param and moment blocks at rest
+# but gathered the whole parameters for a step (PERF.md section 5, the
+# same card), printed beside the use blocks' peak
+PROCS_BLOCK_PEAK_GIB = {"yi-6b": 5.34, FAM_TRAIN: 2.33, "zamba2-7b": 6.02,
+                        "rwkv6-1.6b": 2.37, "whisper-tiny": 0.84,
+                        "llama-3.2-vision-90b": 0.10}
 PROCS_WORLD = 4               # the processes, one set for every config
 PROCS_TIMEOUT_S = 600         # the processes' join
 # the grad norm of the processes' first step against the single
@@ -4503,25 +4524,34 @@ def _procs_serve(rank, dev, _label, shape, capacity, backend):
     the others follow it. Returns the launches, the call's s, peak GiB,
     the counted bytes and, on rank 0, the tokens, flushes, client tokens,
     payload B a token, slot counters, tokens/s and the serving wall; on
-    the others the steps taken."""
+    the others the steps taken; every rank also the bytes of the params
+    it served with and of its use blocks (`launch.specs.use_layouts(...,
+    "arena")`, `specs.block_bytes`)."""
     import torch
     from repro_torch.kernels import _lib
+    from repro_torch.launch import specs
     from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.mesh import collective_bytes
+    from repro_torch.models.config import Runtime
     from repro_torch.runtime import engine
 
     mesh = make_process_mesh(shape, _procs_axes(shape), dev)
+    cfg = _serve_cfg(backend)
+    whole = specs.abstract_params(cfg)
+    use_bytes = specs.block_bytes(whole, specs.use_layouts(
+        cfg, Runtime(mesh=mesh), "arena", whole), mesh.shape)
     base = held_gib(dev)
     torch.cuda.synchronize()
     _lib.reset_launch_counts()
     t0 = time.perf_counter()
     res = engine.run_streaming(
-        _serve_cfg(backend), n_clients=N_CLIENTS, prompt_len=PROMPT_LEN,
+        cfg, n_clients=N_CLIENTS, prompt_len=PROMPT_LEN,
         gen=MESH_GEN, device=dev, capacity=capacity, mesh=mesh, seed=0)
     torch.cuda.synchronize()
     out = {"launches": _lib.launch_counts(),
            "call_s": time.perf_counter() - t0,
            "peak_gib": peak_gib(dev, base),
+           "param_bytes": res["param_bytes"], "use_bytes": use_bytes,
            "bytes": {k: float(v) for k, v in
                      collective_bytes(res["metrics"]).items()}}
     if rank != 0:
@@ -4549,8 +4579,10 @@ def _procs_run(rank, dev, arch, layers, cut, shape, smoke, n_steps,
     blocks of the single controller's (`single_path`). Returns the
     metrics, counted bytes, launches, step ms, each step's gradient
     reduce ms and parameter gather ms (each call synchronized around
-    it), peak and at-rest GiB, set-up s, the block of each leaf it holds
-    and the digests of its blocks and of the gathered weights after step
+    it), held parameter bytes and the two moves' bytes sent, the use
+    blocks' bytes (`specs.block_bytes` of `use_layouts(..., "train")`),
+    peak and at-rest GiB, set-up s, the block of each leaf it holds and
+    the digests of its blocks and of the gathered weights after step
     2."""
     import hashlib
 
@@ -4585,7 +4617,10 @@ def _procs_run(rank, dev, arch, layers, cut, shape, smoke, n_steps,
     del params
     opt = adamw_init(p)
     gen = torch.Generator(device=dev).manual_seed(1)
-    out = {"reduce_ms": [], "gather_ms": [],
+    out = {"reduce_ms": [], "gather_ms": [], "param_bytes": [],
+           "gather_sent": [], "reduce_sent": [],
+           "use_bytes": specs.block_bytes(whole, specs.use_layouts(
+               cfg, rt, "train", whole, seq=TRAIN_SEQ), mesh.shape),
            "rest_gib": sum(t.numel() * t.element_size() for t in
                            tree_leaves(p) + tree_leaves(opt["mu"])
                            + tree_leaves(opt["nu"])) / 2**30,
@@ -4625,6 +4660,8 @@ def _procs_run(rank, dev, arch, layers, cut, shape, smoke, n_steps,
             times.append((time.perf_counter() - t0) * 1e3)
             for key in moves:
                 out[key].append(acc[key])
+            for key in ("param_bytes", "gather_sent", "reduce_sent"):
+                out[key].append(int(m[key]))
             if i == 0:
                 out["metrics"] = {k: float(v) for k, v in m.items()}
                 out["bytes1"] = mesh_mod.collective_bytes(reg.snapshot())
@@ -4656,16 +4693,19 @@ def _procs_decode(dev, arch, layers, shape, smoke, procs):
     PROCS_TOKENS), each token's per-position last logits (the process's
     own on a process mesh, None elsewhere; on the host), the counted
     bytes of the steps and of the cache's build, launches, each step's
-    ms, peak GiB."""
+    ms, peak GiB, the bytes of the params decoded with (on a process
+    mesh its use blocks, `use_layouts(..., "decode")`, made before the
+    cache) and of those use blocks by `specs.block_bytes`."""
     import torch
     from repro_torch import mesh as mesh_mod
     from repro_torch.kernels import _lib
-    from repro_torch.launch import steps
+    from repro_torch.launch import specs, steps
     from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.launch.specs import decode_cache
     from repro_torch.models import transformer
     from repro_torch.models.config import Runtime
     from repro_torch.obs.registry import MetricsRegistry
+    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.split import model as split_model
 
     mesh = (make_process_mesh(shape, _procs_axes(shape), dev) if procs
@@ -4683,6 +4723,15 @@ def _procs_decode(dev, arch, layers, shape, smoke, procs):
             generator=g, device=dev) * 0.02).to(cfg.adtype())}
     reg, cache_reg = MetricsRegistry(), MetricsRegistry()
     rt = Runtime(training=False, mesh=mesh, flash_decode=True, registry=reg)
+    uses = specs.use_layouts(cfg, rt, "decode", params)
+    use_bytes = specs.block_bytes(params, uses, mesh.shape)
+    if procs:
+        params = specs.shard_tree(mesh, params, uses)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    # the peak from here: the params decoded with, the cache, the steps
+    held_gib(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     cache = decode_cache(cfg, dataclasses.replace(rt, registry=cache_reg),
                          params, STEP_BATCH, STEP_MAX_LEN, dev, side)
     serve = steps.make_serve_step(cfg, rt)
@@ -4716,7 +4765,8 @@ def _procs_decode(dev, arch, layers, shape, smoke, procs):
            "built": {k: float(v) for k, v in
                      mesh_mod.collective_bytes(cache_reg.snapshot())
                      .items()},
-           "times": times, "peak_gib": peak_gib(dev, base)}
+           "times": times, "peak_gib": peak_gib(dev, base),
+           "param_bytes": param_bytes, "use_bytes": use_bytes}
     del cache, params
     return out
 
@@ -4954,9 +5004,10 @@ def _procs_checks(run, single, want, ranks, card):
     equal on every rank; the counted bytes; the codec kernels
     (randtopk_mask, decode_rows, scatter_rows) once a process a step
     (every position of a batch shard runs the codec on equal rows);
-    finite losses. Prints each rank's step, gradient reduce and
-    parameter gather ms, peak and at-rest GiB. Returns the launches
-    summed over the processes."""
+    finite losses; every step's held parameter bytes = the use blocks'.
+    Prints each rank's step, gradient reduce and parameter gather ms,
+    the two moves' bytes sent, peak and at-rest GiB. Returns the
+    launches summed over the processes."""
     import collections
 
     arch, layers, _, shape, smoke, n_steps = run
@@ -4995,6 +5046,11 @@ def _procs_checks(run, single, want, ranks, card):
                      f"step {n_steps} differs from another rank's")
         if not all(math.isfinite(v) for v in got["losses"]):
             fail(f"{label} rank {r}: losses {got['losses']}")
+        # a shape check: what the steps held against `use_layouts`'
+        # blocks, not `use_layouts` against what the model reads
+        if set(got["param_bytes"]) != {got["use_bytes"]}:
+            fail(f"{label} rank {r}: the steps held {got['param_bytes']} "
+                 f"B of parameters, the use blocks' {got['use_bytes']}")
         total.update({n: got["launches"][n]
                       for n in TRAIN_PATH_KERNELS["randtopk"]})
     vs = _leafwise(ranks)
@@ -5018,7 +5074,9 @@ def _procs_checks(run, single, want, ranks, card):
           f"{PROCS_ULP_SHARE:.0%}), {sum(v[5] for v in vs)} by more than "
           f"2 lr + half an ulp of each side; after step {n_steps} shared "
           f"blocks equal and the gathered weights equal on every rank; "
-          f"collective bytes a step {want} on every rank; codec launches a "
+          f"collective bytes a step {want} on every rank; held parameter "
+          f"bytes = the use blocks' ({ranks[0]['use_bytes']} B rank 0) "
+          f"on every rank in every step; codec launches a "
           f"process {n_steps} of each in {n_steps} steps")
     off = [v for v in vs if v[5] or v[6] > PROCS_GRAD_RTOL]
     if off:
@@ -5036,9 +5094,15 @@ def _procs_checks(run, single, want, ranks, card):
               f"ms, of it the gradient reduce "
               f"{[round(t, 1) for t in got['reduce_ms']]} ms and the "
               f"parameter gather {[round(t, 1) for t in got['gather_ms']]}"
-              f" ms; peak {got['peak_gib']:.2f} GiB (whole parameters "
-              f"and moments: {PROCS_WHOLE_PEAK_GIB[arch]:.2f}), at rest "
-              f"(param and moment blocks) {got['rest_gib']:.2f} GiB; "
+              f" ms, sending {got['reduce_sent'][0] / 1e9:.3f} GB and "
+              f"{got['gather_sent'][0] / 1e9:.3f} GB a step to the "
+              f"others; parameters held in a step "
+              f"{got['use_bytes'] / 2**30:.3f} GiB (the use blocks); peak "
+              f"{got['peak_gib']:.2f} GiB (whole parameters and moments: "
+              f"{PROCS_WHOLE_PEAK_GIB[arch]:.2f}; blocks at rest, whole "
+              f"parameters in a step: {PROCS_BLOCK_PEAK_GIB[arch]:.2f}), "
+              f"at rest (param and moment blocks) {got['rest_gib']:.2f} "
+              f"GiB; "
               f"set-up (mesh, weights, batches) {got['setup_s']:.1f} s; "
               f"{card}")
     return total
@@ -5057,10 +5121,10 @@ def _procs_serve_checks(singles, ranks, card):
     the warm-up's steps, which every other rank takes too; rank 0
     launches one fused encode a client token (and one a compressor in
     the warm-up) and one flush decode a flush group (and two a flush
-    bucket in the warm-up), the plain run none, the other ranks none.
-    Prints tokens/s, ms a flush and each process's peak GiB beside the
-    single controller's. Returns the launches summed over the
-    processes."""
+    bucket in the warm-up), the plain run none, the other ranks none;
+    every rank's params its use blocks' bytes. Prints tokens/s, ms a
+    flush and each process's peak GiB beside the single controller's.
+    Returns the launches summed over the processes."""
     import collections
 
     from repro_torch.roofline import analysis
@@ -5105,6 +5169,10 @@ def _procs_serve_checks(singles, ranks, card):
             dtype_bytes=cfg.adtype().itemsize)[0]
         want = {k: v * n_steps for k, v in per_step.items()}
         for r, got in enumerate(runs):
+            # a shape check, as in training
+            if got["param_bytes"] != got["use_bytes"]:
+                fail(f"{what} rank {r}: served on {got['param_bytes']} B of "
+                     f"parameters, the use blocks' {got['use_bytes']}")
             if got["bytes"] != want or (r and got["steps"] != n_steps):
                 fail(f"{what} rank {r}: counted {got['bytes']} in "
                      f"{got.get('steps', n_steps)} steps; "
@@ -5140,8 +5208,11 @@ def _procs_serve_checks(singles, ranks, card):
         print(line + f"; collective bytes a step {per_step} = "
               f"serving_collective_costs on every rank over {n_steps} "
               f"steps; rank 0 launches {path if backend is None else {}}, "
-              f"the other ranks none; peak GiB "
-              f"{[round(g['peak_gib'], 2) for g in runs]}, the call's s "
+              f"the other ranks none; every rank on its use blocks "
+              f"({runs[0]['use_bytes'] / 2**30:.3f} GiB: unembed's 'model' "
+              f"columns, the rest whole); peak GiB (the whole draw "
+              f"included) {[round(g['peak_gib'], 2) for g in runs]}, the "
+              f"call's s "
               f"{[round(g['call_s'], 1) for g in runs]}; {card}")
     return total
 
@@ -5155,8 +5226,9 @@ def _procs_decode_checks(run, single, ranks, card):
     not counted) and of the cache's build = `decode_cache_collective_
     costs` on every rank and on the single controller, the cut's kernels
     (topk_mask_threshold, decode_rows) once a process a token and no
-    other launch. Prints each rank's step ms and tokens/s. Returns the
-    launches summed over the processes."""
+    other launch; every rank's params its use blocks' bytes. Prints each
+    rank's step ms, tokens/s and peak GiB. Returns the launches summed
+    over the processes."""
     import collections
 
     import torch
@@ -5204,6 +5276,10 @@ def _procs_decode_checks(run, single, ranks, card):
         if got["launches"] != expected:
             fail(f"{label} rank {r}: launches {got['launches']}, "
                  f"{expected} expected")
+        # a shape check, as in training
+        if got["param_bytes"] != got["use_bytes"]:
+            fail(f"{label} rank {r}: decoded on {got['param_bytes']} B of "
+                 f"parameters, the use blocks' {got['use_bytes']}")
         total.update({n: got["launches"][n] for n in STEP_PATH})
     print(f"  {label}, {len(ranks)} processes: B {STEP_BATCH}, "
           f"{PROCS_TOKENS} tokens over a {STEP_MAX_LEN}-slot ring, flash "
@@ -5214,7 +5290,9 @@ def _procs_decode_checks(run, single, ranks, card):
              if built else "")
           + f"; launches a process a token "
           f"{ {n: ranks[0]['launches'][n] / PROCS_TOKENS for n in STEP_PATH} }"
-          f"; single controller step ms "
+          f"; each rank on its use blocks, "
+          f"{ranks[0]['use_bytes'] / 2**30:.3f} GiB of the whole "
+          f"{single['param_bytes'] / 2**30:.3f}; single controller step ms "
           f"{[round(t, 1) for t in single['times']]}; {card}")
     for r, got in enumerate(ranks):
         t = got["times"]
@@ -5222,7 +5300,8 @@ def _procs_decode_checks(run, single, ranks, card):
               f"of tokens 2-{PROCS_TOKENS} {statistics.median(t[1:]):.1f} "
               f"ms, {STEP_BATCH * (len(t) - 1) / sum(t[1:]) * 1e3:.1f} "
               f"tokens/s (tokens 2-{PROCS_TOKENS}); peak "
-              f"{got['peak_gib']:.2f} GiB")
+              f"{got['peak_gib']:.2f} GiB (single controller "
+              f"{single['peak_gib']:.2f})")
     return total
 
 

@@ -49,6 +49,7 @@ from repro_torch.launch.steps import make_serve_step, make_train_step
 from repro_torch.models.config import Runtime, SplitConfig
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.optim.adamw import adamw_init
+from repro_torch.optim.adamw import tree_leaves as param_leaves
 from repro_torch.roofline import analysis
 from repro_torch.roofline.program import (CollectiveStats, ProgramCounts,
                                           collective_stats, count_program)
@@ -145,6 +146,69 @@ def device_args_bytes(cfg, mesh, kind: str) -> int:
         total += sum(specs_mod.block_bytes(opt[k], olay[k], mesh.shape)
                      for k in ("mu", "nu"))
     return total
+
+
+def device_use_bytes(cfg, mesh, kind: str) -> int:
+    """One device's bytes of the parameters while a step of `kind` runs
+    on `mesh`: its blocks under `specs.use_layouts` ("train" for a train
+    or prefill step, "decode" for a decode step), what a process mesh's
+    step holds: the 'model' block of each leaf its position reads as one,
+    the whole of every other."""
+    rt = Runtime(mesh=mesh, seq_shard=(kind != "decode"))
+    params = specs_mod.abstract_params(cfg)
+    uses = specs_mod.use_layouts(
+        cfg, rt, "decode" if kind == "decode" else "train", params)
+    return specs_mod.block_bytes(params, uses, mesh.shape)
+
+
+def procs_step_bytes(cfg, mesh, seq: int = None) -> Dict[str, int]:
+    """What one process of a process mesh of `mesh`'s shape holds and
+    sends in a train step at sequence length `seq` (`launch.steps`, the
+    moves of `mesh.gather` and `mesh.reduce_to_block`), worked out from
+    the layouts, nothing run: "rest" (its parameter blocks at rest),
+    "held" (its use blocks, `specs.use_layouts(..., "train")`),
+    "gather_sent" and "reduce_sent" (the bytes it sends to the other
+    processes in the two moves), and "whole_held", "whole_gather_sent",
+    "whole_reduce_sent": the same for a step that gathers every leaf
+    whole and reduces each whole gradient over every process; and
+    "decode_held" (`device_use_bytes`) and "arena_held": its use blocks
+    while decoding and in the serving arena."""
+    rt = Runtime(mesh=mesh)
+    params = specs_mod.abstract_params(cfg)
+    rests = specs_mod.param_shardings(cfg, rt, params)
+    uses = specs_mod.use_layouts(cfg, rt, "train", params, seq=seq)
+    out = dict.fromkeys(("rest", "held", "gather_sent", "reduce_sent",
+                         "whole_held", "whole_gather_sent",
+                         "whole_reduce_sent"), 0)
+    for t, rest, use in zip(*map(param_leaves, (params, rests, uses))):
+        out["rest"] += specs_mod.block_bytes(t, rest, mesh.shape)
+        for pre, u in (("", use), ("whole_", ())):
+            held, gather, reduce = _moves(mesh, t, rest, u)
+            out[pre + "held"] += held
+            out[pre + "gather_sent"] += gather
+            out[pre + "reduce_sent"] += reduce
+    out["decode_held"] = device_use_bytes(cfg, mesh, "decode")
+    out["arena_held"] = specs_mod.block_bytes(
+        params, specs_mod.use_layouts(cfg, rt, "arena", params), mesh.shape)
+    return out
+
+
+def _moves(mesh, t, rest, use) -> Tuple[int, int, int]:
+    """(use block bytes, gather's bytes sent, reduce's bytes sent) of one
+    leaf `t` at rest under `rest`, used under `use`: the gather sends the
+    rest block to each other holder of the use block whose rest block
+    differs; the reduce's k holders of one use block exchange their
+    pieces of each rest block (an all-to-all), or, where the rest block
+    is the use block, sum it (twice (k - 1) / k of it, padded to k
+    chunks)."""
+    whole = t.numel() * t.element_size()
+    rest_b, held = (specs_mod.block_bytes(t, lay, mesh.shape)
+                    for lay in (rest, use))
+    k = mesh.size * held // whole
+    if rest_b == held:
+        return held, 0, 2 * (k - 1) * -(-held // t.element_size() // k) \
+            * t.element_size()
+    return held, held - rest_b, (k - 1) * rest_b
 
 
 # --------------------------------------------------------------------------
@@ -400,11 +464,13 @@ def run_combo(arch: str, shape_name: str, *, multi_pod=False, split=None,
         mesh_desc="x".join(map(str, mesh.shape.values())), chips=chips,
         model_flops=mf, args_bytes=got.args_bytes)
     per_device = device_args_bytes(cfg, mesh, shape.kind)
+    in_use = device_use_bytes(cfg, mesh, shape.kind)
     print(f"== {arch} x {shape_name} mesh={roof.mesh} "
           f"(count {dt:.1f}s) ==")
     print(f"  memory: args/device={per_device / 1e9:.2f}GB (the blocks "
           f"of the params{' and moments' if shape.kind == 'train' else ''}"
-          f", per device) args={got.args_bytes / 1e9:.2f}GB "
+          f", per device) params/device in a step={in_use / 1e9:.2f}GB "
+          f"(their use blocks) args={got.args_bytes / 1e9:.2f}GB "
           f"peak={roof.peak_memory / 1e9:.2f}GB (one device holding "
           f"every position: no per-chip peak)")
     r = roof.row()

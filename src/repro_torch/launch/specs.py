@@ -12,14 +12,21 @@ it on a mesh as the reference's `spec_to_shardings` and
 `sanitize_shardings` do (`dp_only_spec` under `Runtime.dp_only`,
 `sanitize_spec`), and `opt_shardings` gives the AdamW moments the same
 layouts. On a `mesh.ProcessMesh` each process keeps only its block of
-every parameter and moment (`mesh.shard`), and the train step gathers,
-differentiates and reduces them (`launch.steps`); the dry run sums the
-blocks' bytes into its per-device argument bytes (`launch.dryrun`). On
-the single controller the parameters stay whole, one tensor a leaf, and
-`models.tp.Layout` shards inside the step; a batch the batch axes do not
-divide stays whole (`tp.Layout.whole`), and so does a KV ring or cross
-KV that 'model' does not divide (`tp.flash_split`), the counterparts of
-`batch_shardings` and the cache's trees.
+every parameter and moment at rest (`mesh.shard`). While a step runs it
+holds each leaf under `use_layouts`: its 'model' block where its
+position reads exactly that block (the reference's tensor-parallel
+matmuls read only theirs), else the whole leaf. The train step gathers
+the rest blocks to the use blocks over the data axes only, and reduces
+the gradients back among the positions that hold each use block
+(`launch.steps`); decoding and the serving arena hold their use blocks,
+made once. The dry run sums the blocks' bytes into its per-device
+argument bytes and the use blocks' into a step's parameter bytes
+(`launch.dryrun`). On the single controller the parameters stay whole,
+one tensor a leaf, and `models.tp.Layout` shards inside the step
+(`models.tp.take`); a batch the batch axes do not divide stays whole
+(`tp.Layout.whole`), and so does a KV ring or cross KV that 'model' does
+not divide (`tp.flash_split`), the counterparts of `batch_shardings` and
+the cache's trees.
 """
 from __future__ import annotations
 
@@ -30,9 +37,10 @@ from typing import Dict, Mapping
 import torch
 
 from repro_torch import mesh as mesh_mod
-from repro_torch.models import transformer
+from repro_torch.models import tp, transformer
 from repro_torch.models.config import ArchConfig, Runtime
 from repro_torch.optim.adamw import adamw_init, tree_leaves, tree_map
+from repro_torch.runtime import steps as runtime_steps
 from repro_torch.split import model as split_model
 
 META = torch.device("meta")
@@ -136,8 +144,55 @@ def opt_shardings(cfg: ArchConfig, rt: Runtime, params):
     return {"mu": lay, "nu": lay, "step": ()}
 
 
+USE_PATHS = ("train", "decode", "arena")
+
+
+def use_layouts(cfg: ArchConfig, rt: Runtime, path: str, params=None, *,
+                seq: int = None):
+    """Each parameter leaf's layout while `path`'s step runs on `rt.mesh`
+    ("train": `launch.steps.make_train_step`; "decode": the serve step and
+    `split.model.decode_mesh`, with the decode cache they build; "arena":
+    the sharded serving arena, `runtime.steps`): its `param_shardings`
+    layout with every axis but 'model' dropped where every position reads
+    exactly its 'model' block of the leaf on that path, else whole (every
+    entry None). Which leaves those are, the model code says beside each
+    layout (`transformer.param_reads` on the path's `tp.Layout`: each
+    module's `*_reads` beside its `*_spec`; `runtime.steps.arena_reads`).
+    Under `rt.dp_only`, or on a mesh without a 'model' axis of more than
+    one position, every leaf is whole. `params`: whole tensors (`meta`
+    ones do) shaped as the model's, default `abstract_params(cfg)`.
+    `seq`: the training batch's sequence length (default: one that
+    'model' divides), which decides whether the layers split
+    (`tp.Layout.seq`). A tree shaped like `param_spec`."""
+    if path not in USE_PATHS:
+        raise ValueError(f"use layouts of {path!r}: one of {USE_PATHS}")
+    params = abstract_params(cfg) if params is None else params
+    store = param_shardings(cfg, rt, params)
+    m = rt.mesh.shape.get("model", 1)
+    if rt.dp_only or m == 1:
+        return tree_map(lambda lay: (None,) * len(lay), store)
+    groups = rt.mesh.size // m
+    if path == "arena":
+        reads = runtime_steps.arena_reads(cfg)
+    elif path == "train":
+        reads = transformer.param_reads(
+            cfg, tp.Layout(rt, groups, m if seq is None else seq))
+    else:
+        reads = transformer.param_reads(
+            cfg, split_model.decode_layout(cfg, rt, groups))
+
+    def use(lay, block):
+        if not block:
+            return (None,) * len(lay)
+        return tuple("model" if e is not None and "model" in _entry_axes(e)
+                     else None for e in lay)
+
+    return tree_map(use, store, _matched(reads, store))
+
+
 def shard_tree(mesh, tree, layouts):
-    """This process's block of every whole leaf of `tree` (`mesh.shard`)."""
+    """This process's block of every whole leaf of `tree` (`mesh.shard`:
+    a leaf the layout keeps whole is `tree`'s own tensor, not a copy)."""
     return tree_map(lambda t, lay: mesh_mod.shard(mesh, t, lay), tree,
                     layouts)
 

@@ -11,15 +11,19 @@ a leaf, and each position takes its shard as a slice: autograd's
 accumulation into the leaf is the data-parallel gradient sum, so AdamW
 and the global grad norm are the mesh-less ones. On a process mesh
 (`mesh.ProcessMesh`, every family) every process holds only its block of
-each parameter and AdamW moment, laid out by the reference's sharding
-trees (`launch.specs.param_shardings`): the step gathers the whole
-parameters, differentiates its own position's share of the loss
-(`_loss_procs`), reduces each gradient to its block, adding the
-processes' gradients in position order, and updates its blocks; the
-loss is the single controller's, bit for bit. Decoding on a process
-mesh takes whole parameters. The serve step
-(`make_serve_step`) is one greedy token of the whole batch with a KV
-cache, the reference's `make_serve_step`, on a process mesh too.
+each parameter and AdamW moment at rest, laid out by the reference's
+sharding trees (`launch.specs.param_shardings`): the step gathers each
+leaf to the block its position reads (`launch.specs.use_layouts(...,
+"train")`: the 'model' block, gathered over the data axes only, or the
+whole leaf), differentiates its own position's share of the loss
+(`_loss_procs`), reduces each gradient to its block at rest, adding the
+gradients of the processes that hold the same use block in position
+order, and updates its blocks; the loss is the single controller's, bit
+for bit. The serve step (`make_serve_step`) is one greedy token of the
+whole batch with a KV cache, the reference's `make_serve_step`; on a
+process mesh it takes each process's blocks under
+`use_layouts(..., "decode")` (`specs.shard_tree`, made once; whole
+parameters are sliced alike), and gathers no weight.
 """
 from __future__ import annotations
 
@@ -111,11 +115,16 @@ def make_train_step(cfg: ArchConfig, rt: Runtime, *, lr=3e-4,
     On a process mesh the params and moments are this process's blocks
     (`launch.specs.param_shardings`, `opt_shardings`; `specs.shard_tree`
     makes them) and so are the returned ones. The step gathers every
-    leaf (`mesh.gather`), differentiates this process's share of the loss
-    (`_loss_procs`), reduces each gradient to this process's block in
-    position order (`mesh.reduce_to_block`), each whole gradient freed
+    leaf to its use block (`specs.use_layouts(..., "train")` at the
+    batch's sequence length, `mesh.gather`), differentiates this
+    process's share of the loss (`_loss_procs`), reduces each gradient to
+    this process's block in position order among the processes that hold
+    its use block (`mesh.reduce_to_block`), each use-block gradient freed
     as its block is made, forms the global grad norm from the blocks
-    (`_block_norm`) and applies AdamW to the blocks."""
+    (`_block_norm`) and applies AdamW to the blocks. Its metrics then
+    hold `param_bytes`, the bytes of the parameters the step held, and
+    `gather_sent` and `reduce_sent`, the bytes this process sent to the
+    others in the two moves (`ProcessMesh.sent`)."""
     unreached = _unreached_groups(cfg)
     if rt.mesh is not None and rt.mesh.procs:
         return _procs_train_step(cfg, rt, unreached, lr, weight_decay)
@@ -159,18 +168,27 @@ def _procs_train_step(cfg, rt, unreached, lr, weight_decay):
 
     owned = tree_map(owners, layouts)
 
+    uses = {}                     # sequence length -> use layouts
+
     def step(blocks, opt_state, batch, generator):
-        params = tree_map(lambda b, lay, w: mesh_mod.gather(
-            mesh, b, lay, w.shape).detach().requires_grad_(True),
-            blocks, layouts, whole)
+        seq = batch["tokens"].shape[1]
+        if seq not in uses:
+            uses[seq] = specs.use_layouts(cfg, rt, "train", whole, seq=seq)
+        use = uses[seq]
+        sent = dict(mesh.sent)
+        params = tree_map(lambda b, lay, u, w: mesh_mod.gather(
+            mesh, b, lay, w.shape, u).detach().requires_grad_(True),
+            blocks, layouts, use, whole)
+        held = sum(t.numel() * t.element_size() for t in tree_leaves(params))
         objective, total, ce, aux = _loss_procs(params, cfg, rt, batch,
                                                 generator)
         flat = tree_leaves(_grads(objective, params, unreached))
-        del objective, params     # the graph and the whole parameters
+        del objective, params     # the graph and the use blocks
         # the leaves in the order of `blocks`, as `flat` holds them
-        lays = tree_leaves(tree_map(lambda _, lay: lay, blocks, layouts))
-        for i, lay in enumerate(lays):
-            flat[i] = mesh_mod.reduce_to_block(mesh, flat[i], lay)
+        lays = tree_leaves(tree_map(lambda _, lay, u: (lay, u), blocks,
+                                    layouts, use))
+        for i, (lay, u) in enumerate(lays):
+            flat[i] = mesh_mod.reduce_to_block(mesh, flat[i], lay, u)
         gnorm = _block_norm(mesh, flat, tree_leaves(
             tree_map(lambda _, own: own, blocks, owned)))
         it = iter(flat)
@@ -180,7 +198,10 @@ def _procs_train_step(cfg, rt, unreached, lr, weight_decay):
             blocks, grads, opt_state, lr=lr, weight_decay=weight_decay,
             gnorm=gnorm)
         metrics = {"loss": total.detach(), "ce": ce.detach(),
-                   "aux": aux.detach(), "grad_norm": gnorm}
+                   "aux": aux.detach(), "grad_norm": gnorm,
+                   "param_bytes": held,
+                   **{f"{k}_sent": mesh.sent[k] - sent.get(k, 0)
+                      for k in ("gather", "reduce")}}
         return new_blocks, new_opt, metrics
 
     return step

@@ -74,9 +74,10 @@ position (`launch.mesh.spawn`, over gloo: several processes share the
 card, or the CPU with `--device cpu`). Each draws the whole model from
 `--seed` and keeps only its block of every parameter and AdamW moment,
 laid out by the reference's sharding trees (`launch.specs.
-param_shardings`); the step gathers the parameters and reduces the
-gradients to the blocks, and its loss is the single controller's
-(`launch.steps`). Every rank gathers the blocks to checkpoint and rank 0
+param_shardings`); the step gathers each leaf to the block its
+position reads (`launch.specs.use_layouts`: a 'model' block over the
+data axes only, or the whole leaf) and reduces the gradients to the
+blocks, and its loss is the single controller's (`launch.steps`). Every rank gathers the blocks to checkpoint and rank 0
 writes the single controller's files; at resume each rank reads the
 whole files and keeps its blocks. Rank 0 prints. `--devices` gives one
 card a process over NCCL instead (not yet run: it needs as many cards

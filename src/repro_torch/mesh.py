@@ -63,19 +63,28 @@ fetches the tokens uncounted).
 Blocks. A layout (`launch.specs.param_shardings`, the reference's
 `PartitionSpec` as a tuple) splits a tensor's leading dimensions over
 mesh axes; `block_of` and `block_slices` give a position's block.
-`shard` keeps a process's block of a whole tensor, `gather` rebuilds the
-whole from the blocks (an all-gather over the axes the layout splits
-over) and `reduce_to_block` sums every process's whole tensor into each
-process's block (an all-to-all of blocks, added in position order, so a
-block is `sum_processes`' slice bit for bit; a layout that splits
-nothing goes through `sum_processes`). These are the process mesh's
-resident parameters and moments, moved around the step; none of them is
-counted, so a train step's counted bytes stay
-`roofline.analysis.training_collective_costs` exactly, as on the single
-controller.
+`shard` keeps a process's block of a whole tensor. `gather` makes a
+process's block under a use layout (`launch.specs.use_layouts`: the
+'model' block its position reads, or the whole) from the blocks at rest,
+an all-gather over the axes the rest layout splits over and the use
+layout does not (the data axes for a 'model' block, all of them for the
+whole). `reduce_to_block` sums the tensors that the processes holding
+one use block hold (their gradients of it) into each one's block at
+rest, added in position order: an all-to-all of blocks among those
+processes, or, where their blocks at rest are that use block, a sum
+(`sum_processes`' reduce-scatter and all-gather) among them. A position
+with another 'model' block adds exact zeros to the whole sum, so each
+block is the slice of the whole sum in position order (a -0.0 may come
+out +0.0). These are the process mesh's resident parameters and moments,
+moved around the step; none of them is counted, so a train step's
+counted bytes stay `roofline.analysis.training_collective_costs`
+exactly, as on the single controller. Each adds the bytes the process
+sends to the other processes to `ProcessMesh.sent` ("gather" and
+"reduce").
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import math
 from typing import Dict, List, Sequence
@@ -193,7 +202,9 @@ class ProcessMesh(Mesh):
     (`local`) on `devices[r]`. Every rank makes the mesh alike, in the
     same order as its other process meshes: the mesh makes a process
     group for every group of positions along every set of axes.
-    `staged`: under gloo a card's tensors cross through host memory."""
+    `staged`: under gloo a card's tensors cross through host memory.
+    `sent`: the bytes the block moves (`gather`, `reduce_to_block`) sent
+    to other processes, by move."""
 
     procs = True
 
@@ -210,6 +221,7 @@ class ProcessMesh(Mesh):
         self.device = self.devices[self.rank]
         self.backend = dist.get_backend()
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
+        self.sent = collections.Counter()
         self.process_groups: Dict[tuple, object] = {}
         names = self.axis_names
         for n in range(1, len(names) + 1):
@@ -283,32 +295,39 @@ def sum_processes(mesh: ProcessMesh, ts: list) -> None:
     """Each tensor of the list `ts` replaced by its sum over the processes
     in position order, the same sum on every rank (the data-parallel
     gradient sum that a single controller's autograd makes in the leaf;
-    not counted). A reduce-scatter and an all-gather: rank r receives
-    every process's r-th of the flattened tensor (an all-to-all), adds
-    them in position order, and the sums are all-gathered, so each rank
-    receives twice (world - 1) / world of the tensor where an all-gather
-    of the whole would move world - 1 times it. One tensor at a time, the
-    tensor it replaces dropped from the list."""
-    world = mesh.size
-    if world == 1:
-        return
-    group = mesh.process_groups[tuple(range(world))]
+    not counted). A reduce-scatter and an all-gather (`_sum_group`). One
+    tensor at a time, the tensor it replaces dropped from the list."""
     for i, t in enumerate(ts):
-        flat = t.detach().reshape(-1)
-        n = flat.numel()
-        c = -(-n // world)
-        wire = _wire(mesh, torch.nn.functional.pad(flat, (0, c * world - n)))
-        got = torch.empty_like(wire)
-        dist.all_to_all_single(got, wire, group=group)
-        mine = None
-        for piece in got.chunk(world):     # position q's r-th, in order
-            piece = _unwire(piece, t.dtype, (c,), t.device)
-            mine = piece if mine is None else mine + piece
-        sums = torch.empty_like(wire)
-        dist.all_gather(list(sums.chunk(world)), _wire(mesh, mine),
-                        group=group)
-        ts[i] = _unwire(sums, t.dtype, (c * world,), t.device)[:n] \
-            .reshape(t.shape)
+        ts[i] = _sum_group(mesh, list(range(mesh.size)), t)[0]
+
+
+def _sum_group(mesh: ProcessMesh, group, t):
+    """The sum of the tensors like `t` that the processes of `group`
+    (ascending, this process's among them) hold, in position order, on
+    each of them: rank r of the group receives every member's r-th of the
+    flattened tensor (an all-to-all), adds them in order, and the sums
+    are all-gathered, so each process sends and receives twice (k - 1) /
+    k of the tensor (k members) where an all-gather of the whole would
+    move k - 1 times it. Returns the bytes sent too."""
+    k = len(group)
+    if k == 1:
+        return t.detach(), 0
+    pg = mesh.process_groups[tuple(group)]
+    flat = t.detach().reshape(-1)
+    n = flat.numel()
+    c = -(-n // k)
+    wire = _wire(mesh, torch.nn.functional.pad(flat, (0, c * k - n)))
+    got = torch.empty_like(wire)
+    dist.all_to_all_single(got, wire, group=pg)
+    mine = None
+    for piece in got.chunk(k):             # member q's r-th, in order
+        piece = _unwire(piece, t.dtype, (c,), t.device)
+        mine = piece if mine is None else mine + piece
+    sums = torch.empty_like(wire)
+    dist.all_gather(list(sums.chunk(k)), _wire(mesh, mine), group=pg)
+    sent = 2 * (k - 1) * c * t.element_size()
+    return _unwire(sums, t.dtype, (c * k,), t.device)[:n].reshape(
+        t.shape), sent
 
 
 def broadcast_record(mesh: ProcessMesh, record=None):
@@ -410,60 +429,97 @@ def block_slices(mesh: Mesh, pos: int, layout, shape) -> tuple:
 
 def shard(mesh: ProcessMesh, t, layout):
     """This process's block of the whole tensor `t` under `layout`, a copy
-    (the whole tensor can be freed)."""
+    (the whole tensor can be freed); `t` itself, not a copy, where the
+    layout splits nothing on `mesh` (a leaf held whole costs no second
+    copy). The result may so alias `t`: a caller that updates it in place
+    (AdamW's parameters and moments) and goes on using `t` shards a copy
+    of `t`."""
+    if not _split_axes(mesh, layout):
+        return t
     (pos,) = mesh.local
     return t[block_slices(mesh, pos, layout, t.shape)].clone()
 
 
-def gather(mesh: ProcessMesh, block, layout, shape):
-    """The whole tensor of `shape` from every position's block under
+def _within(inner, outer, shape) -> tuple:
+    """The slices `inner` of a tensor of `shape` relative to the block
+    `outer` (slices of the same tensor) that holds them; raises where it
+    does not."""
+    out = []
+    for d, s in enumerate(inner):
+        o = outer[d] if d < len(outer) else slice(0, shape[d])
+        if s.start < o.start or s.stop > o.stop:
+            raise ValueError(f"block {inner} of {tuple(shape)} is not inside "
+                             f"{outer}")
+        out.append(slice(s.start - o.start, s.stop - o.start))
+    return tuple(out)
+
+
+def _block_shape(slices, shape) -> list:
+    return [s.stop - s.start for s in slices] + list(shape[len(slices):])
+
+
+def gather(mesh: ProcessMesh, block, layout, shape, use=()):
+    """This process's block under the layout `use` (default: the whole
+    tensor) of the tensor of `shape`, from every position's block under
     `layout` (this process's is `block`): an all-gather over the
-    positions that differ along the axes the layout splits over (not
-    counted)."""
-    axes = _split_axes(mesh, layout)
+    positions that differ along the axes `layout` splits over and `use`
+    does not (not counted). `use` splits over none that `layout` does
+    not: each block at rest lies inside a use block."""
+    keep = _split_axes(mesh, use)
+    axes = tuple(a for a in _split_axes(mesh, layout) if a not in keep)
     if not axes:
         return block
     (pos,) = mesh.local
     group = _group_of(mesh, axes, pos)
-    whole = block.new_empty(shape)
+    mine = block_slices(mesh, pos, use, shape)
+    out = block.new_empty(_block_shape(mine, shape))
     for q, b in zip(group, _fetch(mesh, group, block)):
-        whole[block_slices(mesh, q, layout, shape)] = b
-    return whole
+        out[_within(block_slices(mesh, q, layout, shape), mine, shape)] = b
+    mesh.sent["gather"] += (len(group) - 1) * block.numel() \
+        * block.element_size()
+    return out
 
 
-def reduce_to_block(mesh: ProcessMesh, g, layout):
-    """This process's block under `layout` of the sum of every process's
-    whole tensor like `g` (its gradient), added in position order as
-    `sum_processes` adds, so each block is that sum's slice bit for bit
-    (not counted). An all-to-all of blocks: rank r receives every
-    position's r-th block and adds them in order. A layout that splits
-    nothing goes through `sum_processes` (every process keeps the whole
-    sum). Where k > 1 positions hold each block (a layout that splits
-    over fewer positions than the world), every process sends k times
-    the tensor's bytes, against (world - 1) / world for `sum_processes`'
-    reduce-scatter: the all-to-all stays, since the configs have few such
-    leaves."""
-    if not _split_axes(mesh, layout):
-        ts = [g]
-        sum_processes(mesh, ts)
-        return ts[0]
-    world = mesh.size
-    src = torch.cat([g.detach()[block_slices(mesh, q, layout, g.shape)]
-                     .reshape(-1) for q in range(world)])
+def reduce_to_block(mesh: ProcessMesh, g, layout, use=()):
+    """This process's block under `layout` of the sum of the tensors like
+    `g` that the positions holding this process's block under `use`
+    (default: the whole tensor, every position) hold, `g` this
+    process's: each its gradient of that block. Added in position order
+    as `sum_processes` adds, so each block is that sum's slice bit for bit
+    (not counted). Among those positions, an all-to-all of blocks: each
+    receives every holder's piece at its block and adds them in order.
+    Where every holder's block under `layout` is the use block (a layout
+    that splits nothing more), the holders sum the tensor through
+    `_sum_group` instead. Where k > 1 holders hold each block at rest,
+    every process sends k times the block's bytes: the all-to-all stays,
+    since the configs have few such leaves."""
+    (pos,) = mesh.local
+    keep = _split_axes(mesh, use)
+    holders = _group_of(mesh, tuple(a for a in mesh.axis_names
+                                    if a not in keep), pos)
+    shape = [s * n for s, (_, n) in zip(g.shape, block_of(mesh, pos, use))]
+    shape += list(g.shape[len(shape):])
+    if not [a for a in _split_axes(mesh, layout) if a not in keep]:
+        out, sent = _sum_group(mesh, holders, g)
+        mesh.sent["reduce"] += sent
+        return out
+    mine = block_slices(mesh, pos, use, shape)
+    pieces = [_within(block_slices(mesh, q, layout, shape), mine, shape)
+              for q in holders]
+    src = torch.cat([g.detach()[c].reshape(-1) for c in pieces])
     wire = _wire(mesh, src)
     got = torch.empty_like(wire)
     dist.all_to_all_single(got, wire,
-                           group=mesh.process_groups[tuple(range(world))])
+                           group=mesh.process_groups[tuple(holders)])
+    k = len(holders)                        # each sends k - 1 of its k pieces
+    mesh.sent["reduce"] += src.numel() // k * (k - 1) * g.element_size()
     del src, wire
-    (pos,) = mesh.local
-    shape = [s.stop - s.start
-             for s in block_slices(mesh, pos, layout, g.shape)]
-    shape += list(g.shape[len(shape):])
-    mine = None
-    for piece in got.chunk(world):     # position q's block of mine
-        piece = _unwire(piece, g.dtype, shape, g.device)
-        mine = piece if mine is None else mine + piece
-    return mine
+    out_shape = _block_shape(block_slices(mesh, pos, layout, shape), shape)
+    acc = None
+    for piece in got.chunk(k):              # holder q's piece, in order
+        piece = _unwire(piece, g.dtype, out_shape, g.device)
+        acc = piece if acc is None else acc + piece
+    return acc
 
 
 class _Collective(torch.autograd.Function):

@@ -73,6 +73,30 @@ def attention_spec(cfg: ArchConfig, *, gated=False):
     return p
 
 
+def attention_reads(cfg: ArchConfig, lay, *, gated=False, flash=False):
+    """`attention_spec`'s leaves a position of `lay` (a `tp.Layout`) reads
+    as exactly its 'model' block (`common.block_reads`). Where 'model'
+    splits the q heads (`lay.split`): wo's rows (`tp.out_proj_rs`); in
+    training wq's columns and, where 'model' divides the k/v heads
+    (`_kv_blocks`), wk's and wv's (`_read_qkv`; else a position reads
+    whole k/v heads); in decode wq's unless `flash` (the position attends
+    with every head over its share of the ring's slots or the cross
+    tokens: `_flash_out`, `cross_decode_mesh`), and never wk or wv (a
+    decode position projects every k/v head, `_decode_qkv`, and the
+    cross KV cache is built from every head)."""
+    split = lay.split(cfg.n_heads)
+    kv = split and not lay.decode and _kv_blocks(cfg, lay)
+    return common.block_reads(attention_spec(cfg, gated=gated),
+                              wq=split and not (lay.decode and flash),
+                              wk=kv, wv=kv, wo=split)
+
+
+def _kv_blocks(cfg: ArchConfig, lay) -> bool:
+    """Whether 'model' divides the k/v heads, so that a position's q heads
+    read exactly its 'model' block of them."""
+    return cfg.n_kv_heads % lay.n_model == 0
+
+
 def init_kv_cache(cfg: ArchConfig, rows: int, n_layers: int, max_len: int,
                   device=None, *, bits: int = 16):
     """Rolling cache of `n_layers` attention layers (or sites): k/v (rows,
@@ -141,45 +165,44 @@ def _causal_mask(q_pos, kv_pos, window: int):
     return m
 
 
-def project_q(p, cfg: ArchConfig, x, heads=None):
-    """q (B, S, Hq, hd) of x (B, S, d), qk-normed, without RoPE; with
-    `heads` = (h0, hl) only q heads [h0, h0 + hl), from their columns of
-    `wq`."""
+def project_q(p, cfg: ArchConfig, x, wq=None):
+    """q (B, S, Hq, hd) of x (B, S, d), qk-normed, without RoPE; with `wq`
+    (columns of p["wq"], a mesh position's `_read_qkv`) only the heads
+    whose columns it holds."""
     B, S, _ = x.shape
-    h0, hl = heads or (0, cfg.n_heads)
-    wq = p["wq"] if heads is None else p["wq"][:, h0 * cfg.hd:
-                                                (h0 + hl) * cfg.hd]
-    q = (x @ wq.to(x.dtype)).reshape(B, S, hl, cfg.hd)
+    wq = p["wq"] if wq is None else wq
+    q = (x @ wq.to(x.dtype)).reshape(B, S, -1, cfg.hd)
     if cfg.qk_norm:
         q = common.rms_norm(q, p["q_norm"]["scale"])
     return q
 
 
-def cross_kv(p, cfg: ArchConfig, kv_tokens, heads=None):
+def cross_kv(p, cfg: ArchConfig, kv_tokens, w=None):
     """k, v (B, N, Hkv, hd) of kv_tokens (B, N, d), qk-normed, without
     RoPE: the cross-attention cache of the encoder's or the image's
-    tokens; with `heads` = (h0, hl) only k and v heads [h0, h0 + hl),
-    from their columns of `wk` and `wv`."""
+    tokens; with `w` = (wk, wv) (columns of p["wk"] and p["wv"], a mesh
+    position's `_read_qkv`) only the k and v heads whose columns they
+    hold."""
     B, N, _ = kv_tokens.shape
-    h0, hl = heads or (0, cfg.n_kv_heads)
-    c = slice(h0 * cfg.hd, (h0 + hl) * cfg.hd)
+    wk, wv = (p["wk"], p["wv"]) if w is None else w
     dt = kv_tokens.dtype
-    k = (kv_tokens @ p["wk"][:, c].to(dt)).reshape(B, N, hl, cfg.hd)
-    v = (kv_tokens @ p["wv"][:, c].to(dt)).reshape(B, N, hl, cfg.hd)
+    k = (kv_tokens @ wk.to(dt)).reshape(B, N, -1, cfg.hd)
+    v = (kv_tokens @ wv.to(dt)).reshape(B, N, -1, cfg.hd)
     if cfg.qk_norm:
         k = common.rms_norm(k, p["k_norm"]["scale"])
     return k, v
 
 
-def project_qkv(p, cfg: ArchConfig, x, positions, heads=None):
+def project_qkv(p, cfg: ArchConfig, x, positions, w=None):
     """q (B, S, Hq, hd), k and v (B, S, Hkv, hd) of x (B, S, d) at
     `positions` (B or 1, S), qk-normed (`cfg.qk_norm`) and with RoPE
     applied to q and k (none when `positions` is None): exactly the
     operands `full_attention` attends with, and the decode's new token
-    (the reference's `_project_qkv`). `heads`: q's head range
-    (`project_q`); k and v stay whole."""
-    q = project_q(p, cfg, x, heads)
-    k, v = cross_kv(p, cfg, x)
+    (the reference's `_project_qkv`). `w`: (wq, wk, wv) to project with
+    (`project_q`, `cross_kv`), p's without it."""
+    wq, *wkv = w or (None, None, None)
+    q = project_q(p, cfg, x, wq)
+    k, v = cross_kv(p, cfg, x, None if w is None else wkv)
     if positions is not None:
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
@@ -256,28 +279,48 @@ def _gate(p, ys):
 def _attention_mesh(p, cfg: ArchConfig, lay, xs, kv_tokens, *, causal,
                     rope):
     split = lay.split(cfg.n_heads)
-    hl = cfg.n_heads // lay.n_model if split else cfg.n_heads
     kvs = kv_tokens or [None] * len(xs)
     return tp.out_proj_rs(
         lay, mesh_mod.pmap(lambda i, x, kv: _heads_out(
-            p, cfg, lay.rt, x, lay.rank(i) * hl if split else 0, hl,
+            p, cfg, lay.rt, x, _read_qkv(p, cfg, lay, i, split),
             kv_tokens=kv, causal=causal, rope=rope), xs, kvs), p["wo"],
         split=split)
 
 
-def _heads_out(p, cfg: ArchConfig, rt: Runtime, x, h0: int, hl: int, *,
-               kv_tokens=None, causal=True, rope=True):
+def _read_qkv(p, cfg: ArchConfig, lay, i: int, split: bool):
+    """What position `i` of `lay` reads of the projections: (h0, hl, its
+    q heads [h0, h0 + hl) (every head without `split`), a, the first of
+    the k/v heads [a, b) those read, wq's columns of its q heads, wk's
+    and wv's of those k/v heads). wq's are the position's 'model' block
+    (`tp.take`); so are wk's and wv's where 'model' divides the k/v heads,
+    else (fewer k/v heads than 'model' positions: a position reads whole
+    k/v heads, not a block) they are sliced from the whole leaves."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hl = hq // lay.n_model if split else hq
+    h0 = lay.rank(i) * hl if split else 0
+    g = hq // hkv
+    a, b = h0 // g, (h0 + hl - 1) // g + 1     # the k/v heads read
+    wq = tp.take(lay, i, p["wq"], 1, hl * hd)
+    if split and _kv_blocks(cfg, lay):
+        wkv = tuple(tp.take(lay, i, p[n], 1, (b - a) * hd)
+                    for n in ("wk", "wv"))
+    else:
+        wkv = tuple(tp.take(lay, i, p[n], 1, hkv * hd)[:, a * hd:b * hd]
+                    for n in ("wk", "wv"))
+    return h0, hl, a, wq, wkv
+
+
+def _heads_out(p, cfg: ArchConfig, rt: Runtime, x, read, *, kv_tokens=None,
+               causal=True, rope=True):
     """The attention output (B, S, hl * hd) of q heads [h0, h0 + hl) over
     x (B, S, d), before the output projection, with the k and v heads
-    those q heads read, projected from x (self attention: causal or not,
-    with RoPE or not) or from `kv_tokens` (cross attention: every key
-    visible, no RoPE)."""
+    those q heads read (`read`: `_read_qkv`'s), projected from x (self
+    attention: causal or not, with RoPE or not) or from `kv_tokens`
+    (cross attention: every key visible, no RoPE)."""
     B, S, _ = x.shape
-    g = cfg.n_heads // cfg.n_kv_heads
-    a, b = h0 // g, (h0 + hl - 1) // g + 1     # the k/v heads read
-    q = project_q(p, cfg, x, heads=(h0, hl))
-    k, v = cross_kv(p, cfg, x if kv_tokens is None else kv_tokens,
-                    heads=(a, b - a))
+    h0, hl, a, wq, wkv = read
+    q = project_q(p, cfg, x, wq)
+    k, v = cross_kv(p, cfg, x if kv_tokens is None else kv_tokens, wkv)
     k, v = _kv_heads(cfg, k, v, h0, hl, first=a)
     if kv_tokens is not None:
         mask = torch.ones((1, S, k.shape[1]), dtype=torch.bool,
@@ -451,9 +494,21 @@ def decode_attention_mesh(p, cfg: ArchConfig, lay, xs, kvs, rings):
                         hl * hd)
     else:
         hs = mesh_mod.pmap(lambda i, x, kv, r: _replicated_out(
-            p, cfg, x, kv, r, lay.rank(i) * hl if split else 0, hl), xs,
-            kvs, rings)
+            p, cfg, x, kv, r, lay.rank(i) * hl if split else 0, hl,
+            _decode_qkv(p, cfg, lay, i, hl)), xs, kvs, rings)
     return tp.out_proj_rs(lay, hs, p["wo"], split=split)
+
+
+def _decode_qkv(p, cfg: ArchConfig, lay, i: int, hl: int):
+    """Position `i`'s (wq, wk, wv) in decode: wq's columns of its `hl` q
+    heads at its 'model' rank (its block; every column where `hl` is
+    every head) and the whole wk and wv (a decode position projects every
+    k/v head: its ring, or its share of the ring's slots, holds every
+    head), each read through `tp.take`."""
+    hd = cfg.hd
+    return (tp.take(lay, i, p["wq"], 1, hl * hd),
+            *(tp.take(lay, i, p[n], 1, cfg.n_kv_heads * hd)
+              for n in ("wk", "wv")))
 
 
 def _own_heads(lay, outs, split: bool, width: int):
@@ -469,8 +524,9 @@ def _flash_out(p, cfg: ArchConfig, lay, xs, kvs, rings):
     """Flash decode's attention output (B_loc, 1, Hq * hd) of every head,
     whole on each position (`decode_attention_mesh`)."""
 
-    def local(_, x, kv, r):
-        q, k_new, v_new = project_qkv(p, cfg, x, None)
+    def local(i, x, kv, r):
+        q, k_new, v_new = project_qkv(p, cfg, x, None, _decode_qkv(
+            p, cfg, lay, i, cfg.n_heads))
         q, k_new = (common.rotate(t, *r["rope"]) for t in (q, k_new))
         _store(kv, r["at"], (k_new[:, 0], v_new[:, 0]), r["own"])
         return (q, *_read(kv, x.dtype), r["valid"])
@@ -516,12 +572,13 @@ def _flash_combine(cfg: ArchConfig, lay, qs, ks, vs, valids=None):
                 qs)
 
 
-def _replicated_out(p, cfg: ArchConfig, x, kv, ring, h0: int, hl: int):
+def _replicated_out(p, cfg: ArchConfig, x, kv, ring, h0: int, hl: int, w):
     """The attention output (B, 1, hl * hd) of q heads [h0, h0 + hl) over
-    a whole ring, the new token's k and v (every head) written first."""
+    a whole ring, the new token's k and v (every head) written first; `w`:
+    the position's (wq, wk, wv), `_decode_qkv`'s."""
     B, hd = x.shape[0], cfg.hd
-    q = common.rotate(project_q(p, cfg, x, heads=(h0, hl)), *ring["rope"])
-    k_new, v_new = cross_kv(p, cfg, x)
+    q = common.rotate(project_q(p, cfg, x, w[0]), *ring["rope"])
+    k_new, v_new = cross_kv(p, cfg, x, w[1:])
     k_new = common.rotate(k_new, *ring["rope"])
     _store(kv, ring["at"], (k_new[:, 0], v_new[:, 0]))
     k, v = _kv_heads(cfg, *_read(kv, x.dtype), h0, hl)
@@ -555,11 +612,13 @@ def cross_decode_mesh(p, cfg: ArchConfig, lay, xs, kvs, split_n: bool, *,
     if split_n:
         k, v = mesh_mod.unzip(kvs, 2)
         hs = _own_heads(lay, _flash_combine(cfg, lay, mesh_mod.pmap(
-            lambda _, x: project_q(p, cfg, x), xs), k, v), split, hl * hd)
+            lambda i, x: project_q(p, cfg, x, tp.take(lay, i, p["wq"], 1,
+                                                      hq * hd)), xs), k, v),
+            split, hl * hd)
     else:
         def local(i, x, kv):
             h0 = lay.rank(i) * hl if split else 0
-            q = project_q(p, cfg, x, heads=(h0, hl) if split else None)
+            q = project_q(p, cfg, x, tp.take(lay, i, p["wq"], 1, hl * hd))
             k, v = _kv_heads(cfg, *kv, h0, hl)
             mask = torch.ones((1, 1, k.shape[1]), dtype=torch.bool,
                               device=x.device)

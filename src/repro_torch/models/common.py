@@ -47,6 +47,23 @@ def stacked_spec(spec, n_prefix=1):
     return (None,) * n_prefix + tuple(spec)
 
 
+def block_reads(spec, **blocks):
+    """`spec` (a tree of layouts) as a tree of bools: True at every leaf
+    under a key named True in `blocks`, False elsewhere. A module's
+    `*_reads` beside its `*_spec` builds with it the leaves each position
+    reads as exactly its 'model' block (`launch.specs.use_layouts`)."""
+    unknown = set(blocks) - set(spec)
+    if unknown:
+        raise ValueError(f"{sorted(unknown)} are not leaves of {spec}")
+
+    def fill(tree, flag):
+        if isinstance(tree, dict):
+            return {k: fill(v, flag) for k, v in tree.items()}
+        return flag
+
+    return {k: fill(v, bool(blocks.get(k, False))) for k, v in spec.items()}
+
+
 def rms_norm(x, scale, eps=1e-6):
     """RMS norm computed in f32, returned in x's dtype."""
     xf = x.float()

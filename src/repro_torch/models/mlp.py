@@ -44,6 +44,15 @@ def mlp_spec(cfg: ArchConfig, *, gated=False):
     return p
 
 
+def mlp_reads(cfg: ArchConfig, lay, *, gated=False):
+    """`mlp_spec`'s leaves a position of `lay` reads as exactly its
+    'model' block (`common.block_reads`): w_gate's and w_up's columns and
+    w_down's rows where 'model' splits d_ff (`mlp_mesh`)."""
+    split = lay.split(cfg.d_ff)
+    return common.block_reads(mlp_spec(cfg, gated=gated), w_gate=split,
+                              w_up=split, w_down=split)
+
+
 def mlp(p, x, *, gated=False):
     """silu(x Wg) * (x Wu) Wd — the reference's `tp.out_proj_rs` without a
     mesh is the plain `h @ w_down`; `gated` scales it by tanh(p["gate"])."""
@@ -58,19 +67,20 @@ def mlp_mesh(p, cfg: ArchConfig, lay, xs, *, gated=False):
     d) input gathered to full S: with ff split over 'model'
     (`lay.split(d_ff)`) a position takes its ff/model columns of w_gate
     and w_up and `tp.out_proj_rs` reduce-scatters its partial w_down
-    product along the sequence (`src/repro/models/mlp.py:40-47`; on a
-    decode layout it sums them over 'model'); else
-    every position computes the MLP whole and keeps its chunk. `gated`
+    product (its rows) along the sequence (`src/repro/models/mlp.py:40-47`;
+    on a decode layout it sums them over 'model'), each read through
+    `tp.take` (the whole leaf sliced, or the 'model' block a process
+    holds); else every position computes the MLP whole and keeps its
+    chunk. `gated`
     (the vlm's cross MLP) scales each position's chunk by the scalar
     tanh(p["gate"])."""
     split = lay.split(cfg.d_ff)
     n = cfg.d_ff // lay.n_model if split else cfg.d_ff
 
     def hidden(i, x):
-        c = slice(lay.rank(i) * n, (lay.rank(i) + 1) * n) if split \
-            else slice(None)
-        return torch.nn.functional.silu(x @ p["w_gate"][:, c].to(
-            x.dtype)) * (x @ p["w_up"][:, c].to(x.dtype))
+        wg, wu = (tp.take(lay, i, p[k], 1, n) for k in ("w_gate", "w_up"))
+        return torch.nn.functional.silu(x @ wg.to(x.dtype)) \
+            * (x @ wu.to(x.dtype))
 
     ys = tp.out_proj_rs(lay, mesh_mod.pmap(hidden, xs), p["w_down"],
                         split=split)

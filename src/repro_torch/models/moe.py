@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import mesh as mesh_mod
-from repro_torch.models import common
+from repro_torch.models import common, tp
 from repro_torch.models.config import ArchConfig, Runtime
 
 
@@ -65,6 +65,15 @@ def moe_spec(cfg: ArchConfig):
         "w_up": ("model", "data", None),
         "w_down": ("model", None, "data"),
     }
+
+
+def moe_reads(cfg: ArchConfig, lay):
+    """`moe_spec`'s leaves a position of `lay` reads as exactly its
+    'model' block (`common.block_reads`): its E/model experts wherever
+    'model' has more than one position (`moe_mesh`)."""
+    split = lay.n_model > 1
+    return common.block_reads(moe_spec(cfg), w_gate=split, w_up=split,
+                              w_down=split)
 
 
 def _capacity(t_local: int, cfg: ArchConfig, factor: float) -> int:
@@ -213,7 +222,9 @@ def moe_mesh(p, cfg: ArchConfig, lay, xs):
     holds each position's normed (B_loc, S, d) input gathered to full S.
     A position routes its batch shard's B_loc*S tokens as one group over
     all E experts (capacity from those local tokens), runs its E/model
-    experts from `e_offset = rank * E/model` with their 'data' shards
+    experts from `e_offset = rank * E/model` (`tp.take`: the whole
+    leaves sliced, or the 'model' block a process holds) with their
+    'data' shards
     all-gathered over 'data', and combines the experts' partial outputs
     with a reduce-scatter along the sequence under sequence parallelism,
     else a psum; the balance loss is averaged over the batch axes. Without
@@ -235,9 +246,9 @@ def moe_mesh(p, cfg: ArchConfig, lay, xs):
     B, S, d = mesh_mod.first(xs).shape
     G = B * S if lay.decode else 1
     C = _capacity(B * S // G, cfg, lay.rt.moe_capacity)
-    ws = mesh_mod.pmap(lambda i, _: [
-        p[n][lay.rank(i) * e_loc:(lay.rank(i) + 1) * e_loc]
-        for n in ("w_gate", "w_up", "w_down")], xs)
+    ws = mesh_mod.pmap(lambda i, _: [tp.take(lay, i, p[n], 0, e_loc)
+                                     for n in ("w_gate", "w_up", "w_down")],
+                       xs)
     n_data = mesh.shape.get("data", 1)
     if (lay.n_model > 1 and n_data > 1 and d % n_data == 0
             and not lay.decode):

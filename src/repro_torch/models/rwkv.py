@@ -29,6 +29,7 @@ from repro_torch.models import common, tp
 from repro_torch.models.config import ArchConfig, Runtime
 
 HD = 64                                 # the WKV head width
+PROJ = ("w_r", "w_k", "w_v", "w_g")     # the time mix's head projections
 
 
 def init_rwkv_time(generator, cfg: ArchConfig, n_layers: int, device=None):
@@ -73,6 +74,16 @@ def rwkv_time_spec(cfg: ArchConfig):
     }
 
 
+def rwkv_time_reads(cfg: ArchConfig, lay):
+    """`rwkv_time_spec`'s leaves a position of `lay` reads as exactly its
+    'model' block (`common.block_reads`) where 'model' splits the heads
+    (`rwkv_time_mix_mesh`, `rwkv_decode_mesh`): its heads' columns of the
+    `PROJ` projections (`_read_proj`) and rows of w_out."""
+    split = lay.split(cfg.d_model // HD)
+    return common.block_reads(rwkv_time_spec(cfg), w_out=split,
+                              **dict.fromkeys(PROJ, split))
+
+
 def init_rwkv_channel(generator, cfg: ArchConfig, n_layers: int,
                       device=None):
     """Stacked (n_layers, ...) channel-mix weights."""
@@ -103,6 +114,14 @@ def rwkv_channel_spec(cfg: ArchConfig):
     }
 
 
+def rwkv_channel_reads(cfg: ArchConfig, lay):
+    """`rwkv_channel_spec`'s leaves a position of `lay` reads as exactly
+    its 'model' block (`common.block_reads`): w_k's columns and w_v's rows
+    where 'model' splits d_ff (`rwkv_channel_mix_mesh`)."""
+    split = lay.split(cfg.d_ff)
+    return common.block_reads(rwkv_channel_spec(cfg), w_k=split, w_v=split)
+
+
 def token_shift(x, x_prev=None):
     """x (B, S, d) shifted right by one token; the first slot is x_prev
     (B, d), or zeros without one."""
@@ -114,13 +133,18 @@ def token_shift(x, x_prev=None):
     return shifted
 
 
-def time_mix_inputs(p, x, x_prev=None, heads=None):
+def time_mix_inputs(p, x, x_prev=None, heads=None, ws=None):
     """r, k, v (B, S, H, 64) and g (B, S, H * 64) in x's dtype, and the
     decay w (B, S, H, 64) in f32, of the heads (h0, H) (every head without
     `heads`): the token shift and the mixing LoRA's first matrix run
     whole, the projections and the decay's second matrix take the heads'
-    columns."""
+    columns. `ws`: the heads' columns of the `PROJ` projections by name,
+    as a mesh position reads them (`_read_proj`), the only route for a
+    subset of heads; without it p's are read whole."""
     B, S, d = x.shape
+    if heads is not None and ws is None:
+        raise ValueError("a subset of heads reads its projections through "
+                         "ws (`_read_proj`)")
     h0, H = heads or (0, d // HD)
     c = slice(h0 * HD, (h0 + H) * HD)
     xp = token_shift(x, x_prev)
@@ -128,7 +152,7 @@ def time_mix_inputs(p, x, x_prev=None, heads=None):
     mix = [x + mu[i] * (xp - x) for i in range(5)]
 
     def proj(i, name):
-        return mix[i] @ p[name][:, c].to(x.dtype)
+        return mix[i] @ (p[name] if ws is None else ws[name]).to(x.dtype)
 
     r = proj(0, "w_r").reshape(B, S, H, HD)
     k = proj(1, "w_k").reshape(B, S, H, HD)
@@ -185,13 +209,14 @@ def _wkv_gated(p, y, g, dtype, c=slice(None)):
     return y.to(dtype) * F.silu(g)
 
 
-def _time_mix(p, rt: Runtime, x, heads=None):
+def _time_mix(p, rt: Runtime, x, heads=None, ws=None):
     """WKV6 over the normed x (B, S, d) from a zero state, for the heads
-    (h0, H) (all without `heads`). Returns (the output projection's input
-    (B, S, H * 64), the final state (B, H, 64, 64) f32)."""
+    (h0, H) (all without `heads`; `ws` as in `time_mix_inputs`). Returns
+    (the output projection's input (B, S, H * 64), the final state (B, H,
+    64, 64) f32)."""
     B, S, d = x.shape
     h0, H = heads or (0, d // HD)
-    r, k, v, g, w = time_mix_inputs(p, x, heads=heads)
+    r, k, v, g, w = time_mix_inputs(p, x, heads=heads, ws=ws)
     u = p["u"][h0:h0 + H].float()
     cl = min(rt.rwkv_chunk, S)
     if S % cl:
@@ -233,10 +258,18 @@ def rwkv_time_mix_mesh(p, cfg: ArchConfig, lay, xs):
     reduce-scatters its `w_out` rows' product; else every position runs
     the time mix whole and keeps its chunk."""
     split = lay.split(cfg.d_model // HD)
-    hl = cfg.d_model // HD // lay.n_model
+    hl = cfg.d_model // HD // lay.n_model if split else cfg.d_model // HD
     hs = mesh_mod.pmap(lambda i, x: _time_mix(
-        p, lay.rt, x, (lay.rank(i) * hl, hl) if split else None)[0], xs)
+        p, lay.rt, x, (lay.rank(i) * hl, hl) if split else None,
+        _read_proj(p, lay, i, hl))[0], xs)
     return tp.out_proj_rs(lay, hs, p["w_out"], split=split)
+
+
+def _read_proj(p, lay, i: int, hl: int):
+    """Position `i`'s columns of the `PROJ` projections for its `hl` heads
+    at its 'model' rank (every head where `hl` is all of them), through
+    `tp.take`."""
+    return {n: tp.take(lay, i, p[n], 1, hl * HD) for n in PROJ}
 
 
 def _channel_inputs(p, x, x_prev=None):
@@ -268,9 +301,8 @@ def rwkv_channel_mix_mesh(p, cfg: ArchConfig, lay, xs, x_prevs=None):
 
     def inputs(i, x, x_prev):
         xk, xr = _channel_inputs(p, x, x_prev)
-        c = slice(lay.rank(i) * n, (lay.rank(i) + 1) * n) if split \
-            else slice(None)
-        return (torch.square(F.relu(xk @ p["w_k"][:, c].to(x.dtype))),
+        w_k = tp.take(lay, i, p["w_k"], 1, n if split else cfg.d_ff)
+        return (torch.square(F.relu(xk @ w_k.to(x.dtype))),
                 torch.sigmoid(lay.local_seq(i, xr) @ p["w_r"].to(x.dtype)))
 
     kks, rs = mesh_mod.unzip(mesh_mod.pmap(
@@ -338,7 +370,8 @@ def rwkv_decode_mesh(p_time, p_chan, cfg: ArchConfig, lay, xs, Ss, x_tms,
     def time_mix(i, x, S, x_tm):
         h0 = lay.rank(i) * hl if split else 0
         h = common.rms_norm(x, p_time["norm"]["scale"])
-        r, k, v, g, w = time_mix_inputs(p_time, h, x_tm, heads=(h0, hl))
+        r, k, v, g, w = time_mix_inputs(p_time, h, x_tm, heads=(h0, hl),
+                                        ws=_read_proj(p_time, lay, i, hl))
         S1, out = wkv_step(S, r[:, 0], k[:, 0], v[:, 0], w[:, 0],
                            p_time["u"][h0:h0 + hl].float())
         return (_wkv_gated(p_time, out[:, None], g, x.dtype,

@@ -85,6 +85,18 @@ def mamba_spec(cfg: ArchConfig):
     }
 
 
+def mamba_reads(cfg: ArchConfig, lay):
+    """`mamba_spec`'s leaves a position of `lay` reads as exactly its
+    'model' block (`common.block_reads`) where 'model' splits the heads
+    (`mamba_mesh`, `mamba_decode_mesh`): its heads' columns of conv_x
+    (`_read_conv`), channels of norm_g (`_read_norm`) and rows of w_out.
+    w_xz stays whole: a position reads its heads' x columns and their z
+    columns, two strips (`project`)."""
+    split = lay.split(cfg.ssm_heads)
+    return common.block_reads(mamba_spec(cfg), conv_x=split, norm_g=split,
+                              w_out=split)
+
+
 def softplus(x):
     """log(1 + exp(x)) as `jax.nn.softplus` computes it (logaddexp(x, 0))."""
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
@@ -154,16 +166,24 @@ def ssd_chunk(h, xs, b, cm, dt, la):
     return h_new, y1 + y2
 
 
-def _gated(p, cfg: ArchConfig, rt: Runtime, x, heads=None):
+def _check_conv(heads, conv_x):
+    if heads is not None and conv_x is None:
+        raise ValueError("a subset of heads reads conv_x through conv_x= "
+                         "(`_read_conv`)")
+
+
+def _gated(p, cfg: ArchConfig, rt: Runtime, x, heads=None, conv_x=None):
     """The SSD mixer over the normed x (B, S, d) for heads (h0, hl) (all
     without `heads`): y * silu(z) (B, S, hl * P) in x's dtype, the gated
-    norm's input."""
+    norm's input. `conv_x`: the heads' columns of p["conv_x"] (a mesh
+    position's, `_read_conv`), the only route for a subset of heads;
+    without it p["conv_x"] is read whole."""
+    _check_conv(heads, conv_x)
     B, S, _ = x.shape
     N, Pd = cfg.ssm_state, cfg.ssm_head_dim
     h0, H = heads or (0, cfg.ssm_heads)
-    c = _channels(cfg, (h0, H))
     xs, z, b, cm, dt = project(p, cfg, x, heads)
-    xs = causal_conv(xs, p["conv_x"][:, c])
+    xs = causal_conv(xs, p["conv_x"] if conv_x is None else conv_x)
     b = causal_conv(b, p["conv_b"])
     cm = causal_conv(cm, p["conv_c"])
 
@@ -210,7 +230,8 @@ def mamba_mesh(p, cfg: ArchConfig, lay, xs):
             lay, mesh_mod.pmap(lambda _, x: common.rms_norm(
                 _gated(p, cfg, rt, x), scale), xs), p["w_out"], split=False)
     heads = _heads(cfg, lay, xs)
-    gs = mesh_mod.pmap(lambda _, x, h: _gated(p, cfg, rt, x, h), xs, heads)
+    gs = mesh_mod.pmap(lambda i, x, h: _gated(
+        p, cfg, rt, x, h, _read_conv(p, cfg, lay, i, h[1])), xs, heads)
     return tp.out_proj_rs(lay, _split_norm(p, cfg, lay, gs, heads),
                           p["w_out"], split=True)
 
@@ -222,17 +243,29 @@ def _heads(cfg: ArchConfig, lay, xs):
     return mesh_mod.pmap(lambda i, _: (lay.rank(i) * hl, hl), xs)
 
 
+def _read_conv(p, cfg: ArchConfig, lay, i: int, hl: int):
+    """Position `i`'s columns of `conv_x` for its `hl` heads at its 'model'
+    rank, through `tp.take`."""
+    return tp.take(lay, i, p["conv_x"], 1, hl * cfg.ssm_head_dim)
+
+
+def _read_norm(p, cfg: ArchConfig, lay, i: int, hl: int):
+    """Position `i`'s channels of `norm_g` for its `hl` heads, through
+    `tp.take`."""
+    return tp.take(lay, i, p["norm_g"]["scale"], 0, hl * cfg.ssm_head_dim)
+
+
 def _split_norm(p, cfg: ArchConfig, lay, gs, heads):
     """The gated RMS norm of each position's heads' channels gs (B_loc,
     S, hl * P): the mean square over the whole d_inner from the group's
     f32 sum of squares (`tp.sum_model`, (B_loc, S, 1) a position), then
-    the heads' slice of `norm_g`."""
+    the heads' channels of `norm_g` (`_read_norm`)."""
     ssq = tp.sum_model(lay, mesh_mod.pmap(lambda _, g: torch.sum(
         torch.square(g.float()), dim=-1, keepdim=True), gs))
     return mesh_mod.pmap(
-        lambda _, g, s, h: (g.float() * torch.rsqrt(s / cfg.d_inner + 1e-6)
-                            * p["norm_g"]["scale"][_channels(cfg, h)]
-                            .float()).to(g.dtype), gs, ssq, heads)
+        lambda i, g, s, h: (g.float() * torch.rsqrt(s / cfg.d_inner + 1e-6)
+                            * _read_norm(p, cfg, lay, i, h[1]).float())
+        .to(g.dtype), gs, ssq, heads)
 
 
 def init_mamba_cache(cfg: ArchConfig, rows: int, n_layers: int,
@@ -253,20 +286,22 @@ def init_mamba_cache(cfg: ArchConfig, rows: int, n_layers: int,
     }
 
 
-def _decode_gated(p, cfg: ArchConfig, x_tok, h, conv, heads=None):
+def _decode_gated(p, cfg: ArchConfig, x_tok, h, conv, heads=None,
+                  conv_x=None):
     """The one-step recurrence of heads (h0, hl) (all without `heads`)
     against their state h (B, hl, P, N) and conv history (B, K - 1,
     hl * P + 2N). Returns (y * silu(z) (B, 1, hl * P) in x_tok's dtype,
-    the gated norm's input; h'; conv')."""
+    the gated norm's input; h'; conv'). `conv_x` as in `_gated`."""
+    _check_conv(heads, conv_x)
     B = x_tok.shape[0]
     N, Pd = cfg.ssm_state, cfg.ssm_head_dim
     h0, H = heads or (0, cfg.ssm_heads)
-    c = _channels(cfg, (h0, H))
     di = H * Pd
     xs, z, b, cm, dt = project(p, cfg, x_tok, heads)
     u = torch.cat([xs, b, cm], dim=-1)                     # (B, 1, di+2N)
     hist = torch.cat([conv, u], dim=1)                     # (B, K, di+2N)
-    w = torch.cat([p["conv_x"][:, c], p["conv_b"], p["conv_c"]], dim=-1)
+    w = torch.cat([p["conv_x"] if conv_x is None else conv_x,
+                   p["conv_b"], p["conv_c"]], dim=-1)
     conv_out = F.silu(torch.einsum("bkc,kc->bc", hist.float(), w.float()))
     xs1, b1, c1 = conv_out[:, :di], conv_out[:, di:di + N], \
         conv_out[:, di + N:]
@@ -312,7 +347,8 @@ def mamba_decode_mesh(p, cfg: ArchConfig, lay, xs, hs, convs):
             convs), 3)
     heads = _heads(cfg, lay, xs)
     gs, h_new, c_new = mesh_mod.unzip(mesh_mod.pmap(
-        lambda _, x, h, c, hd: _decode_gated(p, cfg, x, h, c, hd), xs, hs,
+        lambda i, x, h, c, hd: _decode_gated(
+            p, cfg, x, h, c, hd, _read_conv(p, cfg, lay, i, hd[1])), xs, hs,
         convs, heads), 3)
     ys = tp.out_proj_rs(lay, _split_norm(p, cfg, lay, gs, heads),
                         p["w_out"], split=True)

@@ -32,23 +32,28 @@ with `sum_model` instead of a reduce-scatter; no weight is gathered over
 With `Runtime.flash_decode` each 'model' position of a shard holds a
 contiguous 1/model of every KV ring's slots and of every cross KV's N
 tokens, where 'model' divides them (`flash_split`, `Layout.ring_split`).
-The parameters stay whole, one tensor a leaf: a position's shard is a
-slice of it, so autograd's accumulation into the leaf is the
-data-parallel gradient sum, which moves no bytes between positions of
-one device and is not counted.
+On the single controller the parameters stay whole, one tensor a leaf:
+a position's shard is a slice of it (`take`), so autograd's
+accumulation into the leaf is the data-parallel gradient sum, which
+moves no bytes between positions of one device and is not counted.
 
 On a process mesh (`mesh.ProcessMesh`, one process a position, the
-training step and the decode step of every family) every process keeps
-the whole parameters and runs its own position; the lists hold a tensor
-at that position only. What runs once a batch shard on the single
-controller (the cut codec, the lm head and the loss, at `reps[b]`) runs
-at every position of the shard, on inputs equal to the
-representative's, so no row moves for it (`Layout.held`);
-`launch.steps` weighs the copies so that only the representative's
-reaches the gradient, and sums the processes' gradients (the
-data-parallel sum, not counted either). A decode layout holds the same
-rows and state on a process mesh as on the single controller: a
-process builds its own position's cache only.
+training step and the decode step of every family) every process runs
+its own position; the lists hold a tensor at that position only. It
+holds each parameter leaf under its path's use layout
+(`launch.specs.use_layouts`): its 'model' block where the position reads
+exactly that block, else the whole leaf. Every read of a leaf that may
+be a block goes through `take`, which slices a whole leaf (the single
+controller, a leaf held whole) and passes a held block as it is. What
+runs once a batch shard on the single controller (the cut codec, the lm
+head and the loss, at `reps[b]`) runs at every position of the shard,
+on inputs equal to the representative's, so no row moves for it
+(`Layout.held`); `launch.steps` weighs the copies so that only the
+representative's reaches the gradient, and sums the gradients of the
+processes that hold each block (the data-parallel sum, not counted
+either). A decode layout holds the same rows and state on a process
+mesh as on the single controller: a process builds its own position's
+cache only.
 """
 from __future__ import annotations
 
@@ -68,10 +73,10 @@ class Layout:
     the one position under `dp_only` or without a 'model' axis), shards in
     the batch's row order; `reps[b]` is the shard's first position, where
     a computation that runs once a shard (the cut codec, the lm head and
-    the loss) runs. Every position must lie on one device: the
-    parameters stay whole there. `decode`: one token a row (see the
-    module docstring); `whole` then says whether every shard holds the
-    whole batch."""
+    the loss) runs. On the single controller every position must lie on
+    one device: the parameters stay whole there. `decode`: one token a
+    row (see the module docstring); `whole` then says whether every shard
+    holds the whole batch."""
 
     def __init__(self, rt, batch: int, seq: int, *, decode: bool = False):
         mesh = rt.mesh
@@ -154,6 +159,33 @@ class Layout:
         return y[:, self.rank(p) * c:(self.rank(p) + 1) * c]
 
 
+def take(lay, p: int, w, dim: int, n: int):
+    """Position `p`'s `n` entries of the parameter `w` along `dim`, where
+    the position reads its 'model' block of them (n = the whole size / the
+    'model' positions), or all of them (n = the whole size): `w` narrowed
+    to the block at the position's 'model' rank where `w` holds the 'model'
+    positions' n each (the whole leaf: the single controller, or a leaf a
+    process holds whole), `w` itself where it holds n (the block a process
+    holds, or a whole leaf read whole). `lay`: a `Layout`, or a serving
+    `Mesh` (its 'model' axis). Any other size raises: a leaf held as a
+    block where the path reads more than the block
+    (`launch.specs.use_layouts` wrong) fails instead of computing
+    something else."""
+    if isinstance(lay, Mesh):
+        m = lay.shape.get("model", 1)
+        rank = lay.coord(p, "model") if m > 1 else 0
+    else:
+        m, rank = lay.n_model, lay.rank(p)
+    size = w.shape[dim]
+    if size == n * m:
+        return w.narrow(dim, rank * n, n)
+    if size == n:
+        return w
+    raise ValueError(f"a parameter of {tuple(w.shape)} read as {n} of "
+                     f"dimension {dim} at position {p} ('model' "
+                     f"{m}): neither the whole leaf nor its block")
+
+
 def flash_split(flash: bool, n_model: int, size: int) -> bool:
     """The flash-decode rule, one for the cache, the step and
     `roofline.analysis.decode_collective_costs`: a decode KV of `size`
@@ -189,23 +221,23 @@ def gather_seq(lay: Layout, ys):
 def out_proj_rs(lay: Layout, hs, w, *, split: bool,
                 w_spec=("model", "data")):
     """hs: per position (B_loc, S, n) with n the local shard of w's rows
-    when `split`, else all of them; w: the whole (N, d) weight. Returns
-    per position (B_loc, S/model, d): the partial products over the local
-    shard reduce-scattered along the sequence (`out_proj_rs_local`), or,
+    when `split`, else all of them; w: the (N, d) weight, whole or the
+    position's 'model' block of its rows (`take`). Returns per position
+    (B_loc, S/model, d): the partial products over the local shard
+    reduce-scattered along the sequence (`out_proj_rs_local`), or,
     without `split`, the whole product's chunk of the sequence. In
     decode the partial products are summed over 'model' (`sum_model`)."""
+    def rows(p, h):
+        return take(lay, p, w, 0, h.shape[-1])
+
     if not split:
-        return mesh_mod.pmap(lambda p, h: lay.local_seq(p, h @ w.to(h.dtype)),
-                             hs)
-    n = w.shape[0] // lay.n_model
+        return mesh_mod.pmap(lambda p, h: lay.local_seq(
+            p, h @ rows(p, h).to(h.dtype)), hs)
     if lay.decode:
         return sum_model(lay, mesh_mod.pmap(
-            lambda p, h: h @ w[lay.rank(p) * n:(lay.rank(p) + 1) * n]
-            .to(h.dtype), hs))
-    return out_proj_rs_local(
-        lay, hs, lay.mesh.each(
-            lambda p: w[lay.rank(p) * n:(lay.rank(p) + 1) * n]),
-        w_spec=w_spec)
+            lambda p, h: h @ rows(p, h).to(h.dtype), hs))
+    return out_proj_rs_local(lay, hs, mesh_mod.pmap(rows, hs),
+                             w_spec=w_spec)
 
 
 def out_proj_rs_local(lay: Layout, hs, ws, *, w_spec=("model", "data")):

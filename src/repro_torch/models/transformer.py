@@ -165,6 +165,62 @@ def param_spec(cfg: ArchConfig):
     return spec
 
 
+def _layer_reads(cfg: ArchConfig, lay):
+    p = {"attn": attention.attention_reads(cfg, lay, flash=lay.flash)}
+    if cfg.family == "moe":
+        p["moe"] = moe.moe_reads(cfg, lay)
+    else:
+        p["mlp"] = mlp.mlp_reads(cfg, lay)
+    return p
+
+
+def param_reads(cfg: ArchConfig, lay):
+    """`param_spec`'s tree with True at each leaf every position of `lay`
+    (a training or decode `tp.Layout`) reads as exactly its 'model' block,
+    False where a position reads more: each module's `*_reads` beside
+    its `*_spec`. `embed` is read whole (`embed_mesh`: every row);
+    `unembed` by its 'model' columns in decode where 'model' divides the
+    vocab (`lm_head_decode_mesh`), whole in training (`lm_head_mesh`:
+    every column once a batch shard). Self attention in decode keeps wq
+    whole wherever flash decode is on (`lay.flash`: whether a ring splits
+    depends on its size, `tp.Layout.ring_split`); cross attention where
+    the cross tokens split (`cross_split`). Whisper's encoder reads on its
+    own layout (`encoder_layout`). `launch.specs.use_layouts` walks it."""
+    check_family(cfg)
+    block = common.block_reads
+    reads = block({"embed": (), "final_norm": common.norm_spec(cfg.norm),
+                   "unembed": ()},
+                  unembed=lay.decode and lay.split(cfg.padded_vocab))
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        reads["layers"] = _layer_reads(cfg, lay)
+    elif fam == "hybrid":
+        reads["layers"] = ssm.mamba_reads(cfg, lay)
+        reads["shared_attn"] = attention.attention_reads(cfg, lay,
+                                                         flash=lay.flash)
+        reads["shared_mlp"] = mlp.mlp_reads(cfg, lay)
+    elif fam == "ssm":
+        reads["layers"] = {"time": rwkv.rwkv_time_reads(cfg, lay),
+                           "chan": rwkv.rwkv_channel_reads(cfg, lay)}
+    elif fam == "vlm":
+        reads["layers"] = _layer_reads(cfg, lay)
+        reads["cross_layers"] = {
+            "attn": attention.attention_reads(
+                cfg, lay, gated=True, flash=cross_split(cfg, lay)),
+            "mlp": mlp.mlp_reads(cfg, lay, gated=True)}
+    elif fam == "audio":
+        enc = encoder_layout(lay, cfg.n_frames)
+        reads["enc_layers"] = {"attn": attention.attention_reads(cfg, enc),
+                               "mlp": mlp.mlp_reads(cfg, enc)}
+        reads["enc_norm"] = block(common.norm_spec(cfg.norm))
+        reads["layers"] = {
+            "attn": attention.attention_reads(cfg, lay, flash=lay.flash),
+            "cross": attention.attention_reads(
+                cfg, lay, flash=cross_split(cfg, lay)),
+            "mlp": mlp.mlp_reads(cfg, lay)}
+    return reads
+
+
 def _unstack(tree):
     """A stack of one layer -> that layer's weights."""
     return {k: _unstack(v) if isinstance(v, dict) else v[0]
@@ -360,9 +416,12 @@ def forward(params, cfg: ArchConfig, rt: Runtime, batch):
 
 def embed_mesh(params, cfg: ArchConfig, lay, shards):
     """Each position's embedded tokens: its batch shard's rows (`shards`,
-    one batch dict a shard), its chunk of the sequence."""
-    return lay.mesh.each(lambda p: embed(params, cfg, lay.local_seq(
-        p, shards[lay.shard_of[p]]["tokens"])))
+    one batch dict a shard), its chunk of the sequence. The lookup reads
+    every row of `embed`: a position holds it whole (`tp.take` of every
+    row)."""
+    return lay.mesh.each(lambda p: embed(
+        {"embed": tp.take(lay, p, params["embed"], 0, cfg.padded_vocab)},
+        cfg, lay.local_seq(p, shards[lay.shard_of[p]]["tokens"])))
 
 
 def _normed(cfg: ArchConfig, lay, xs, p):
@@ -474,7 +533,7 @@ def run_encoder_mesh(params, cfg: ArchConfig, lay, shards):
     decoder's cross attention. Returns each position's (B_loc, F, d)."""
     frames = [s["frames"] for s in shards]
     n_frames = frames[0].shape[1]
-    enc = tp.Layout(lay.rt, lay.b_loc * len(shards), n_frames)
+    enc = encoder_layout(lay, n_frames)
     pos = common.sinusoidal_positions(n_frames, cfg.d_model,
                                       device=frames[0].device)
     pos = pos[None].to(frames[0].dtype)
@@ -483,6 +542,13 @@ def run_encoder_mesh(params, cfg: ArchConfig, lay, shards):
     for i in range(cfg.n_enc_layers):
         xs = _remat(lay.rt, _enc_layer_fwd_mesh, params, i, cfg, enc, xs)
     return _normed(cfg, enc, xs, params["enc_norm"])
+
+
+def encoder_layout(lay, n_frames: int):
+    """The encoder's layout of `n_frames` frames on the path's layout
+    `lay` (its runtime: no sequence parallelism while decoding, so
+    nothing of the encoder splits there)."""
+    return tp.Layout(lay.rt, lay.b_loc * len(lay.groups), n_frames)
 
 
 def make_extras_mesh(params, cfg: ArchConfig, lay, shards) -> dict:
@@ -504,7 +570,10 @@ def lm_head_mesh(params, cfg: ArchConfig, lay, xs):
     Returns one (B_loc, S, V) logits tensor a shard of `lay.held()`."""
     h = tp.gather_seq(lay, mesh_mod.pmap(
         lambda _, x: final_norm(params, cfg, x), xs))
-    return [h[p] @ params["unembed"].to(h[p].dtype) for _, p in lay.held()]
+    # every column once a batch shard: `unembed` is held whole
+    return [h[p] @ tp.take(lay, p, params["unembed"], 1,
+                           cfg.padded_vocab).to(h[p].dtype)
+            for _, p in lay.held()]
 
 
 def cross_entropy(logits, labels):
@@ -773,6 +842,13 @@ def _at(extras, p: int):
     return extras and {k: v[p] for k, v in extras.items()}
 
 
+def cross_split(cfg: ArchConfig, lay) -> bool:
+    """Whether a decode layout's cross KV splits its N tokens over
+    'model' (flash decode, `tp.Layout.ring_split`)."""
+    return (cfg.family in ("vlm", "audio")
+            and lay.ring_split(cross_tokens(cfg)))
+
+
 def decode_layers_mesh(params, cfg: ArchConfig, lay, xs, caches, lo: int,
                        hi: int):
     """`decode_layers` on a decode mesh: xs holds each position's (B_loc,
@@ -792,8 +868,7 @@ def decode_layers_mesh(params, cfg: ArchConfig, lay, xs, caches, lo: int,
     rings = (pmap(lambda p, c: attention.decode_ring(
         cfg, lay, p, c["pos"], c["size"], c["kv"]["k"].shape[3]), caches)
         if "kv" in mesh_mod.first(caches) else None)
-    split_n = (cfg.family in ("vlm", "audio")
-               and lay.ring_split(cross_tokens(cfg)))
+    split_n = cross_split(cfg, lay)
     sites = attn_sites(cfg) if cfg.family == "hybrid" else None
 
     def normed(p):
@@ -871,8 +946,7 @@ def lm_head_decode_mesh(params, cfg: ArchConfig, lay, xs):
     c = V // lay.n_model if lay.split(V) else V
 
     def head(p, x):
-        r = lay.rank(p) if lay.split(V) else 0
         h = final_norm(params, cfg, x)
-        return h @ params["unembed"][:, r * c:(r + 1) * c].to(h.dtype)
+        return h @ tp.take(lay, p, params["unembed"], 1, c).to(h.dtype)
 
     return mesh_mod.pmap(head, xs)

@@ -20,10 +20,12 @@ import torch
 
 from repro_torch.core import compressors
 from repro_torch.core.payload import to_host
+from repro_torch.launch import specs
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig, Runtime
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.optim.adamw import tree_leaves
 from repro_torch.runtime import steps
 from repro_torch.runtime.client import StreamingClient
 from repro_torch.runtime.server import StreamingServer, serve_follower
@@ -93,10 +95,13 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
     a position, `launch.mesh.spawn`; every process calls `run_streaming`
     alike) serves from position 0's process: the server, the sessions,
     the clients, their prompts and compressors live there, and every
-    other process holds the same params and its own arena block and
-    follows the server's flushes (`server.serve_follower`), returning
-    `{"rank", "steps", "metrics"}` (its steps and its registry's
-    snapshot).
+    other process holds its own arena block and follows the server's
+    flushes (`server.serve_follower`), returning `{"rank", "steps",
+    "metrics", "param_bytes"}` (its steps, its registry's snapshot and
+    the bytes of the params it holds). Every process holds the params
+    under `launch.specs.use_layouts(..., "arena")`: `unembed` as its
+    'model' columns, the block its head reads, every other leaf whole
+    (what the clients and the mesh-less top layers read).
 
     Returns the generated tokens `(n_clients, gen)`, per-session client
     and server stats, the compressors, the flush fill history, wall-clock
@@ -115,12 +120,18 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
         gen_ = torch.Generator(device=dev).manual_seed(seed)
         params = transformer.init_model(cfg, gen_, device=dev)
     max_len = prompt_len + gen
+    if mesh is not None and mesh.procs:
+        params = specs.shard_tree(mesh, params, specs.use_layouts(
+            cfg, Runtime(mesh=mesh), "arena", params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
     if mesh is not None and mesh.procs and mesh.rank != 0:
         _, make_top_cache = cache_makers(cfg, max_len, dev, params)
-        return serve_follower(params, cfg, cut, mesh, make_top_cache,
-                              capacity=capacity or n_clients,
-                              x_shape=(1, 1, cfg.d_model),
-                              dtype=cfg.adtype(), device=dev)
+        return dict(serve_follower(params, cfg, cut, mesh, make_top_cache,
+                                   capacity=capacity or n_clients,
+                                   x_shape=(1, 1, cfg.d_model),
+                                   dtype=cfg.adtype(), device=dev),
+                    param_bytes=param_bytes)
     max_batch = max_batch or min(8, n_clients)
     comps = _client_compressors(cfg, n_clients, compressor_mix)
     if prompts is None:
@@ -229,6 +240,7 @@ def run_streaming(cfg: ArchConfig, *, n_clients: int = 8,
         "max_batch": max_batch,
         "cut_layer": cut,
         "device": str(dev),
+        "param_bytes": param_bytes,
     }
 
 

@@ -35,7 +35,7 @@ import torch
 
 from repro_torch import mesh as mesh_mod
 from repro_torch.core import compressors
-from repro_torch.models import tp, transformer
+from repro_torch.models import common, tp, transformer
 from repro_torch.models.config import ArchConfig
 from repro_torch.split import protocol
 
@@ -121,6 +121,15 @@ def _to(tree, dev):
             for k, v in tree.items()}
 
 
+def arena_reads(cfg: ArchConfig):
+    """`transformer.param_spec`'s tree with True at each leaf every
+    position of the sharded arena reads as exactly its 'model' block:
+    `unembed`'s columns, which the head reads (`_make_sharded_arena_step`
+    refuses a vocab 'model' does not divide). Every other leaf is read
+    whole: each row's layers run mesh-less (`top_hidden`)."""
+    return common.block_reads(transformer.param_spec(cfg), unembed=True)
+
+
 def _make_sharded_arena_step(cfg: ArchConfig, cut: int, mesh,
                              registry) -> Callable:
     """The reference's `_make_sharded_arena_step`, one program per mesh
@@ -138,17 +147,21 @@ def _make_sharded_arena_step(cfg: ArchConfig, cut: int, mesh,
         the tokens return on the inverse ring;
       * the lm head is vocab-parallel over 'model': the model group's row
         gather (`tp.gather_seq_local`, after the norm), each rank's
-        product with its column slice of `unembed` (an output-dim split;
-        no contraction is split) and `tp.vocab_parallel_argmax`.
+        product with its 'model' columns of `unembed` (an output-dim
+        split; no contraction is split; `tp.take`) and
+        `tp.vocab_parallel_argmax`.
 
     Positions on the device the params lie on read them in place (the
     column slices are views of the one `unembed`); a position on another
     device reads a copy made there once per params object.
 
     On a process mesh every process calls the step with the same
-    `active` mask, its own arena block (`SlotArena.cache`) and its
-    `xbuf`: position 0's whole one, whose blocks it scatters, and the
-    other processes' rows, which receive them (`mesh.scatter_rows`).
+    `active` mask, its own arena block (`SlotArena.cache`), its params
+    (`unembed` held as its 'model' columns on every rank,
+    `launch.specs.use_layouts(..., "arena")`; `run_streaming` makes them,
+    and a whole `unembed` is sliced) and its `xbuf`: position 0's whole
+    one, whose blocks it scatters, and the other processes' rows, which
+    receive them (`mesh.scatter_rows`).
     Position 0 gets every position's own block of tokens back
     (`mesh.gather_rows`) and returns them in wire-row order; the other
     processes return None. Neither move is counted, so every process
@@ -165,7 +178,7 @@ def _make_sharded_arena_step(cfg: ArchConfig, cut: int, mesh,
     copies: dict = {}               # device -> (params, their copy there)
 
     def on(params, dev):
-        if params["unembed"].device == dev:
+        if params["embed"].device == dev:
             return params
         if dev not in copies or copies[dev][0] is not params:
             copies[dev] = (params, _to(params, dev))
@@ -205,8 +218,8 @@ def _make_sharded_arena_step(cfg: ArchConfig, cut: int, mesh,
                                 registry=registry)
 
         def head(p, hp):
-            w = on(params, mesh.devices[p])["unembed"][
-                :, ranks[p] * v_local:(ranks[p] + 1) * v_local]
+            w = tp.take(mesh, p, on(params, mesh.devices[p])["unembed"], 1,
+                        v_local)
             return (hp @ w.to(hp.dtype))[:, -1, :]
 
         tok = tp.vocab_parallel_argmax(mesh, mesh_mod.pmap(head, h),

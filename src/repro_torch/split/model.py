@@ -206,8 +206,7 @@ def decode_mesh(params, cfg: ArchConfig, rt: Runtime, token, caches):
     origin[b] is the batch shard whose rows shard b's logits are)."""
     lay = decode_layout(cfg, rt, token.shape[0])
     shards = lay.shard_batch({"tokens": token})
-    xs = lay.mesh.each(lambda p: transformer.embed(
-        params, cfg, shards[lay.shard_of[p]]["tokens"]))
+    xs = transformer.embed_mesh(params, cfg, lay, shards)
     origin = list(range(len(shards)))
     if cfg.split is None or cfg.split.cut_layer <= 0:
         xs = transformer.decode_layers_mesh(params, cfg, lay, xs, caches, 0,

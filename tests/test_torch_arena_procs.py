@@ -28,7 +28,12 @@ that one spawn. Position 0's process serves; the others follow it.
   * row ops across processes (at (2, 2), both models): a row fetched from
     another process's block, reset there and restored into a third's
     arrives bit for bit, as on the single controller;
-  * an arena capacity the positions do not divide raises on every rank.
+  * an arena capacity the positions do not divide raises on every rank;
+  * every rank serves on its use blocks (`launch.specs.use_layouts(...,
+    "arena")`: `unembed` as its 'model' columns, the rest whole;
+    `run_streaming` makes them, the direct drive through
+    `specs.shard_tree`): their bytes are `specs.block_bytes` of the use
+    layouts, below the whole parameters' where 'model' splits.
 
 At capacity 2 the eviction counters are held to at least one eviction
 and one re-admission each, not to the single controller's counts: which
@@ -48,11 +53,13 @@ from repro.models.config import SplitConfig as JSplit
 from repro.runtime import engine as jengine
 from repro_torch import configs
 from repro_torch import mesh as mesh_mod
+from repro_torch.launch import specs
 from repro_torch.launch.mesh import make_mesh, make_process_mesh, spawn
 from repro_torch.models import transformer
-from repro_torch.models.config import SplitConfig
+from repro_torch.models.config import Runtime, SplitConfig
 from repro_torch.models.convert import params_from_jax
 from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.optim.adamw import tree_leaves
 from repro_torch.roofline import analysis
 from repro_torch.runtime import engine, steps
 from repro_torch.runtime.arena import SlotArena
@@ -132,7 +139,8 @@ def _serve(case, cfgs, params, prompts, mesh):
         cfgs[arch], params=params[arch], prompts=prompts[arch],
         device="cpu", mesh=mesh, capacity=cap,
         compressor_mix=[spec] if spec else None, **SERVE)
-    got = {"bytes": mesh_mod.collective_bytes(out["metrics"])}
+    got = {"bytes": mesh_mod.collective_bytes(out["metrics"]),
+           "param_bytes": out["param_bytes"]}
     if "tokens" not in out:
         return dict(got, steps=out["steps"])
     counters = {name: out["metrics"].get(name, {"series": [{"value": 0}]})
@@ -175,6 +183,8 @@ def _drive(cfg, params, mesh, row_ops):
     registry = MetricsRegistry()
     step = steps.make_arena_top_step(cfg, CUT, mesh=mesh, registry=registry)
     perm = np.asarray([arena.wire_row(s) for s in range(CAP)])
+    if mesh.procs:
+        params = specs.shard_tree(mesh, params, _uses(cfg, mesh, params))
     leader = not mesh.procs or mesh.rank == 0
     toks, blocks, fetched = [], [], []
 
@@ -202,6 +212,10 @@ def _drive(cfg, params, mesh, row_ops):
         snap()
     return (toks, blocks, tuple(arena.xbuf.shape),
             mesh_mod.collective_bytes(registry.snapshot()), fetched)
+
+
+def _uses(cfg, mesh, params):
+    return specs.use_layouts(cfg, Runtime(mesh=mesh), "arena", params)
 
 
 def _raises_on_indivisible(cfg, params, mesh):
@@ -373,6 +387,23 @@ def test_row_ops_cross_processes_bit_for_bit(run, arch):
         mine = got["drive"][arch][1][2][rank]
         for leaf, t in mine.items():
             assert torch.equal(t, after[rank][leaf]), (rank, leaf)
+
+
+@pytest.mark.parametrize("run,case", PAIRS, ids=IDS, indirect=["run"])
+def test_each_rank_serves_on_its_use_blocks(run, models, case):
+    """`unembed` held as its 'model' columns on every rank (rank 0's
+    clients never read it), every other leaf whole; the single
+    controller keeps the whole parameters."""
+    arch = CASES[case][0]
+    cfg, params = models[arch][2:]
+    mesh = make_mesh(tuple(run["shape"].values()), tuple(run["shape"]),
+                     devices="meta")
+    want = specs.block_bytes(params, _uses(cfg, mesh, params), mesh.shape)
+    whole = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    assert (want < whole) == (mesh.shape["model"] > 1)
+    assert run["single"]["serve"][case]["param_bytes"] == whole
+    for got in run["ranks"]:
+        assert got["serve"][case]["param_bytes"] == want
 
 
 @pytest.mark.parametrize("run", list(MESHES), indirect=True)

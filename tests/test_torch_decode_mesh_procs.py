@@ -30,7 +30,12 @@ every process on one torch thread. On every rank:
     conditioning both packages share) of the JAX package's mesh-less
     `repro.split.model.decode_step` fed the same tokens, and their
     greedy tokens are equal (as `test_torch_decode_mesh_families.py`
-    holds the single controller).
+    holds the single controller);
+  * each rank decodes on its use blocks (`launch.specs.use_layouts(...,
+    "decode")`, made once before the first token with
+    `specs.shard_tree`, its cache's cross KV read from them): their
+    bytes are `specs.block_bytes` of the use layouts, below the whole
+    parameters'.
 """
 from __future__ import annotations
 
@@ -48,12 +53,13 @@ from repro.split import model as jsplit_model
 from test_torch_multimodal import set_gates
 from repro_torch import configs
 from repro_torch import mesh as mesh_mod
-from repro_torch.launch import steps
+from repro_torch.launch import specs, steps
 from repro_torch.launch.mesh import make_mesh, make_process_mesh, spawn
 from repro_torch.mesh import collective_bytes
 from repro_torch.models.config import Runtime, SplitConfig
 from repro_torch.models.convert import params_from_jax
 from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.optim.adamw import tree_leaves
 from repro_torch.roofline import analysis
 from repro_torch.split import model as split_model
 
@@ -103,12 +109,16 @@ def _serve(arch, params, mesh, batch=B):
     tokens (B, STEPS), each serve step's per-position last logits (None
     where the process has none), `decode_step`'s logits (B, 1, V) a
     step, the serve chain's counted bytes a step, the decode chain's,
-    one cache's build)."""
+    one cache's build, the bytes of the params decoded with: on a
+    process mesh the process's use blocks)."""
     cfg, side = _cfg(arch), _side(_cfg(arch), batch)
     side = side and {k: torch.from_numpy(v) for k, v in side.items()}
     regs = [MetricsRegistry() for _ in range(3)]
     rts = [Runtime(training=False, mesh=mesh, registry=reg,
                    flash_decode=True, moe_capacity=8.0) for reg in regs]
+    if mesh.procs:
+        params = specs.shard_tree(mesh, params, specs.use_layouts(
+            cfg, rts[0], "decode", params))
     lay = split_model.decode_layout(cfg, rts[2], batch)
     caches = [split_model.init_decode_cache(params, cfg, lay, MAX_LEN,
                                             side=side) for _ in range(2)]
@@ -137,7 +147,11 @@ def _serve(arch, params, mesh, batch=B):
     built = {k: v / 2 for k, v in collective_bytes(
         regs[2].snapshot()).items()}
     return (torch.cat(toks[1:], 1), shards, logits, serve_bytes,
-            decode_bytes, built)
+            decode_bytes, built, _nbytes(params))
+
+
+def _nbytes(tree):
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
 def _runs(weights, mesh):
@@ -262,3 +276,19 @@ def test_first_steps_match_the_reference_decode_step(run, weights, arch):
             np.testing.assert_allclose(lg, want, rtol=0, atol=atol)
             np.testing.assert_array_equal(np.argmax(lg[:, -1], -1),
                                           np.argmax(want[:, -1], -1))
+
+
+@pytest.mark.parametrize("key", KEYS, ids=IDS)
+def test_each_rank_decodes_on_its_use_blocks(run, weights, key):
+    _, arch = _batch_of(key)
+    cfg, params = _cfg(arch), weights[arch][2]
+    mesh = make_mesh(tuple(run["shape"].values()), tuple(run["shape"]),
+                     devices="meta")
+    want = specs.block_bytes(params, specs.use_layouts(
+        cfg, Runtime(training=False, mesh=mesh), "decode", params),
+        mesh.shape)
+    whole = _nbytes(params)
+    assert want < whole
+    assert run["single"][key][6] == whole
+    for got in run["ranks"]:
+        assert got[key][6] == want

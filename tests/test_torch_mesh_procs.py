@@ -37,7 +37,14 @@ process group's time limit 60 s and the join's 240 s. In each:
     and 0.1 of their atol), and each rank's resident bytes are its
     blocks' (params and both moments); yi-6b also under `dp_only` (the
     ZeRO-3 layout: every 'data' dimension over ('data', 'model')) against
-    the single controller's `dp_only` step.
+    the single controller's `dp_only` step. While a step runs each
+    rank holds its use blocks (`launch.specs.use_layouts(..., "train")`:
+    the 'model' block of each leaf its position reads as one, else the
+    whole leaf), below the whole parameters' bytes wherever 'model'
+    splits; the gather sends each rank's rest blocks to the holders of
+    the same use block only (its bytes: the use blocks' less the rest
+    blocks'), and the reduce sends among those holders only, less than
+    the whole-world all-to-all of every rest block sends.
 
 `launch/train --procs` trains what `--mesh` trains, for yi-6b and for
 rwkv6-1.6b (SMOKE at (1, 2)): the same logged losses and checkpoint files
@@ -75,7 +82,7 @@ from repro_torch import configs
 from repro_torch import mesh as mesh_mod
 from repro_torch.checkpoint import store
 from repro_torch.core import selection
-from repro_torch.launch import specs, steps
+from repro_torch.launch import dryrun, specs, steps
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import (backend_for, make_mesh,
                                      make_process_mesh, spawn)
@@ -456,6 +463,81 @@ def test_each_rank_holds_only_its_blocks(run, refs, arch):
         for b, w in zip(got[arch]["step1"], _blocks(run, arch, refs, r,
                                                     whole)):
             assert b.shape == w.shape
+
+
+def _use_blocks(run, name, refs):
+    """(whole, rest layouts, use layouts) of a run's leaves, in order."""
+    arch, dp_only = RUNS[name]
+    rt = Runtime(mesh=run["mesh"], dp_only=dp_only)
+    params = refs[arch]["params"]
+    return (tree_leaves(params),
+            tree_leaves(specs.param_shardings(_cfg(arch), rt, params)),
+            tree_leaves(specs.use_layouts(_cfg(arch), rt, "train", params,
+                                          seq=S)))
+
+
+def _split(mesh, lay):
+    return math.prod(n for _, n in mesh_mod.block_of(mesh, 0, lay))
+
+
+@pytest.mark.parametrize("arch", list(RUNS))
+def test_each_rank_holds_its_use_blocks_in_a_step(run, refs, arch):
+    """The parameters a step holds are the use blocks, their bytes
+    `specs.block_bytes` of the use layouts: below the whole parameters'
+    where a leaf is held as its 'model' block (not under dp_only, which
+    holds every leaf whole)."""
+    mesh = run["mesh"]
+    whole, _, uses = _use_blocks(run, arch, refs)
+    want = sum(w.numel() // _split(mesh, u) * w.element_size()
+               for w, u in zip(whole, uses))
+    arch_, dp_only = RUNS[arch]
+    assert want == specs.block_bytes(refs[arch_]["params"], specs.use_layouts(
+        _cfg(arch_), Runtime(mesh=mesh, dp_only=dp_only), "train", seq=S),
+        mesh.shape)
+    full = sum(w.numel() * w.element_size() for w in whole)
+    held_as_blocks = any("model" in u for u in uses)
+    assert held_as_blocks == (not RUNS[arch][1] and mesh.shape["model"] > 1)
+    assert (want < full) == held_as_blocks
+    for got in run["ranks"]:
+        assert got[arch]["metrics"]["param_bytes"] == want
+
+
+@pytest.mark.parametrize("arch", list(RUNS))
+def test_the_moves_send_only_among_holders_of_a_use_block(run, refs, arch):
+    """A rank's gather sends its rest block of a leaf to the other
+    positions of its use block only: the use blocks' bytes less the rest
+    blocks'. Its reduce sends among the positions that hold its use block
+    only: to each other holder its piece of the rest block (an all-to-all
+    of the k holders), or, where its rest block is the use block, twice
+    (k - 1) / k of it (the holders' sum); less than the all-to-all of
+    every rest block over the whole world where a leaf is held as a
+    'model' block."""
+    mesh = run["mesh"]
+    world = mesh.size
+    gather = reduce = everyone = 0
+    for w, lay, use in zip(*_use_blocks(run, arch, refs)):
+        el = w.element_size()
+        rest, held = (w.numel() // _split(mesh, lay_) * el
+                      for lay_ in (lay, use))
+        gather += held - rest
+        k = world // _split(mesh, use)
+        if rest == held:
+            reduce += 2 * (k - 1) * -(-w.numel() // _split(mesh, use)
+                                      // k) * el
+        else:
+            reduce += (k - 1) * rest
+        everyone += ((world - 1) * rest if rest < w.numel() * el
+                     else 2 * (world - 1) * -(-w.numel() // world) * el)
+    for got in run["ranks"]:
+        m = got[arch]["metrics"]
+        assert m["gather_sent"] == gather
+        assert m["reduce_sent"] == reduce
+    if any("model" in u for u in _use_blocks(run, arch, refs)[2]):
+        assert reduce < everyone
+    if not RUNS[arch][1]:       # the dry run's reckoning of the same
+        want = dryrun.procs_step_bytes(_cfg(RUNS[arch][0]), mesh, S)
+        assert (want["gather_sent"], want["reduce_sent"]) == (gather, reduce)
+        assert want["whole_reduce_sent"] == everyone
 
 
 @pytest.mark.parametrize("arch", list(RUNS))

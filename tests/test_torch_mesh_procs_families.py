@@ -26,7 +26,10 @@ process on one torch thread. In each:
     another order);
   * after two steps the gathered weights are equal on every rank, and so
     are the blocks that two ranks both hold;
-  * every rank counts the single controller's collective bytes.
+  * every rank counts the single controller's collective bytes;
+  * while a step runs each rank holds its use blocks
+    (`launch.specs.use_layouts(..., "train")`), below the whole
+    parameters' bytes.
 """
 from __future__ import annotations
 
@@ -208,3 +211,17 @@ def test_every_rank_counts_the_single_controllers_bytes(run, arch):
     assert want
     for got in run["ranks"]:
         assert got[arch]["bytes"] == want
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_each_rank_holds_its_use_blocks_in_a_step(run, refs, arch):
+    cfg = _config(arch)[1]
+    params = refs[arch]["params"]
+    mesh = run["mesh"]
+    uses = specs.use_layouts(cfg, Runtime(mesh=mesh), "train", params,
+                             seq=S)
+    want = specs.block_bytes(params, uses, mesh.shape)
+    assert want < sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    for got in run["ranks"]:
+        assert got[arch]["metrics"]["param_bytes"] == want
